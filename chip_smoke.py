@@ -1,0 +1,399 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure propagates and the script exits non-zero):
+
+1. device — the card's name and power limit (``nvidia-smi``) and
+   ``torch.cuda.get_device_name``;
+2. kernel — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` from
+   the checkout and holds the kernel against its plain PyTorch version
+   (``chunk_attention``) on the card, O and lse, at the serving shape and at
+   edge shapes; times kernel, plain version and
+   ``F.scaled_dot_product_attention`` (the yardstick only: the port never
+   calls it) with CUDA events;
+3. slice — an LM serving replica at the width of the repo's chip LM
+   configuration (vocab 32000, d_model 1024, 8 layers, 8 heads, bf16, 2048
+   tokens), random weights from the seed in the JAX package's bundle layout:
+   ``export_bundle`` → ``serving_loop`` over the node's ``DataFeed`` with
+   three request batches (the last one partial), a ping and a reload; checks
+   the ordered, exactly-count results, their finiteness, the kernel's launch
+   count and the logits against the same bundle with plain attention.
+
+The line before the last is the ``kernels`` JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+with 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK_DIR = os.path.join(ROOT, "chip_smoke_work")  # bundle files, removed at exit
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16/fp16 tensor-core rate
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
+# O: P is rounded to bf16/fp16 for the P·V product on the tensor cores and O
+# is stored in bf16/fp16, while the plain version runs softmax and P·V in f32.
+O_TOL = dict(atol=2e-2, rtol=2e-2)
+# lse: the plain version's logits are a bf16/fp16 einsum (rounded before
+# the f32 softmax), the kernel's are accumulated in f32.
+LSE_TOL = dict(atol=1e-2, rtol=1e-2)
+# slice logits, served (kernel attention) vs plain attention: bf16 compute
+# rounds at different places over 8 layers; held to 5% of the largest logit
+LOGIT_REL_TOL = 0.05
+
+LM_CONFIG = {"model": "transformer", "vocab_size": 32000, "d_model": 1024,
+             "n_layers": 8, "n_heads": 8, "bf16": True, "attn_impl": "auto"}
+SEQ_LEN = 2048
+MAX_BATCH = 4
+BATCH_ROWS = (4, 4, 3)  # three request batches; the last one is partial
+
+# (name, B, Sq, Sk, H, D, causal, kv_offset, dtype name)
+KERNEL_CASES = [
+    ("serving_shape", 4, 2048, 2048, 8, 128, True, 0, "bfloat16"),
+    ("ragged_20_52_noncausal", 2, 20, 52, 8, 128, False, 0, "bfloat16"),
+    ("ragged_20_52_causal_fp16_d64", 2, 20, 52, 8, 64, True, 0, "float16"),
+    ("kv_offset_masked_rows", 1, 100, 70, 8, 128, True, 37, "bfloat16"),
+    ("kv_offset_negative", 1, 64, 192, 4, 128, True, -64, "bfloat16"),
+    ("head_dim_64", 4, 2048, 2048, 16, 64, True, 0, "bfloat16"),
+]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median device time of one ``fn()`` call, from CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def live_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
+    """(query, key) pairs the mask keeps: the work this input needs."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i - kv_offset + 1)) for i in range(sq))
+
+
+def attention_bound(b, sq, sk, h, d, causal, kv_offset, itemsize):
+    """(bound_ms, bound_by): the larger of the tensor-core time of the two
+    products over the live pairs and the time to move q, k, v, O and lse."""
+    flops = 4 * d * b * h * live_pairs(sq, sk, causal, kv_offset)
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * itemsize + b * sq * h * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_device():
+    import torch
+
+    from tensorflowonspark_torch.gpu_info import nvidia_smi_name_power
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_name_power()
+    if not smi:
+        raise RuntimeError("nvidia-smi reported no card")
+    log(smi[0])  # name and power limit, as nvidia-smi prints them
+    log(f"[device] torch: {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    return smi[0]
+
+
+def phase_kernel(seed: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.load_libraries("flash_attn_fwd")
+    log(f"[kernel] built flash_attn_fwd in {time.perf_counter() - t0:.1f} s")
+    for line in cuda_build.build_log("flash_attn_fwd").splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log(f"[kernel] ptxas: {line.strip()}")
+    log(f"[kernel] tolerance O {O_TOL}, lse {LSE_TOL} (kernel vs plain "
+        "chunk_attention on the same inputs; bf16/fp16 P and O on the kernel side)")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    record = None
+    for name, b, sq, sk, h, d, causal, off, dtype_name in KERNEL_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+                   for s in (sq, sk, sk))
+        o, lse = att.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
+        po, plse = att.chunk_attention(q, k, v, causal=causal, kv_offset=off)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o.float(), po.float(), **O_TOL)
+        torch.testing.assert_close(lse, plse, **LSE_TOL)
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"{name}: non-finite output")
+        masked = plse <= att.NEG_INF / 2
+        if masked.any():  # fully masked rows: exactly O = 0, lse = NEG_INF
+            if not (lse[masked] == att.NEG_INF).all() or not (o[masked] == 0).all():
+                raise AssertionError(f"{name}: fully masked rows not 0 / NEG_INF")
+        err = max((o.float() - po.float()).abs().max().item(),
+                  (lse - plse).abs().max().item())
+        ms = time_ms(lambda: att.flash_attn_fwd_cuda(q, k, v, causal=causal,
+                                                     kv_offset=off))
+        bound_ms, bound_by = attention_bound(b, sq, sk, h, d, causal, off,
+                                             q.element_size())
+        log(f"[kernel] {name}: ok, max_abs_err {err:.3e}, masked rows "
+            f"{int(masked.sum())}, {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by})")
+        if name == "serving_shape":
+            plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=causal))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            record = {"name": "flash_attn_fwd", "ok": True, "route": "cuda",
+                      "source": "tensorflowonspark_torch/csrc/flash_attn_fwd.cu",
+                      "replaces": "tensorflowonspark_tpu/ops/attention.py:173",
+                      "launches": None, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms,
+                      "shape": f"B={b} S={sq} H={h} D={d} causal {dtype_name}"}
+            log(f"[kernel] serving_shape: plain {plain_ms:.4f} ms, "
+                f"F.scaled_dot_product_attention {library_ms:.4f} ms")
+        del q, k, v, o, lse, po, plse
+    torch.cuda.empty_cache()
+    return record
+
+
+def make_lm_params(cfg: dict, seed: int) -> dict:
+    """Random f32 weights in the JAX package's bundle layout (flax names),
+    normal with std 1/sqrt(fan_in); norm scales 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v, d, h = cfg["vocab_size"], cfg["d_model"], cfg["n_heads"]
+    dh, f = d // h, 4 * d
+
+    def w(shape, fan_in):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(fan_in ** -0.5)
+
+    ones = lambda: np.ones((d,), np.float32)  # noqa: E731
+    params = {"embed": {"embedding": w((v, d), d)},
+              "final_norm": {"scale": ones()},
+              "lm_head": {"kernel": w((d, v), d)}}
+    for i in range(cfg["n_layers"]):
+        params[f"block_{i}"] = {
+            "attn_norm": {"scale": ones()},
+            "mlp_norm": {"scale": ones()},
+            "attn": {**{n: {"kernel": w((d, h, dh), d)}
+                        for n in ("q_proj", "k_proj", "v_proj")},
+                     "o_proj": {"kernel": w((h, dh, d), d)}},
+            "mlp": {"gate_proj": {"kernel": w((d, f), d)},
+                    "up_proj": {"kernel": w((d, f), d)},
+                    "down_proj": {"kernel": w((f, d), f)}},
+        }
+    return params
+
+
+def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
+    """Drive the replica on ``device``; returns the kernel's launches in
+    that run."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import telemetry
+    from tensorflowonspark_torch.checkpoint import export_bundle, invalidate_bundle
+    from tensorflowonspark_torch.feeding import DataFeed, FeedQueues
+    from tensorflowonspark_torch.marker import EndOfFeed, EndPartition, ResultChunk
+    from tensorflowonspark_torch.models.registry import build_apply
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.serving.batcher import CTL_KEY
+    from tensorflowonspark_torch.serving.loop import serving_loop
+
+    t0 = time.perf_counter()
+    params = make_lm_params(LM_CONFIG, seed)
+    n_params = sum(a.size for blk in params.values() for a in _leaves(blk))
+    export = os.path.join(WORK_DIR, "lm_bundle")
+    export_bundle(export, params, LM_CONFIG)
+    del params
+    log(f"[slice] exported {n_params / 1e6:.1f} M f32 params in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(seed + 1)
+    batches = [[rng.integers(0, LM_CONFIG["vocab_size"], SEQ_LEN, dtype=np.int32)
+                for _ in range(n)] for n in BATCH_ROWS]
+    queues = FeedQueues(capacity=1024)
+    q = queues.get_queue("input")
+    for rows in batches:
+        for r in rows:
+            q.put(r)
+        q.put(EndPartition())
+    for ctl in ({CTL_KEY: "ping", "nonce": seed}, {CTL_KEY: "reload"}):
+        q.put(ctl)
+        q.put(EndPartition())
+    q.put(EndOfFeed())
+
+    round_secs: list[float] = []
+
+    class TimedFeed(DataFeed):
+        """Host clock from a batch handed to the loop to its results (which
+        follow the copy of the logits to the host)."""
+
+        def next_batch(self, n):
+            out = super().next_batch(n)
+            self._t = time.perf_counter()
+            return out
+
+        def batch_results(self, results, chunk=False):
+            round_secs.append(time.perf_counter() - self._t)
+            super().batch_results(results, chunk)
+
+    class Ctx:
+        metrics = telemetry.get_registry()
+
+        def get_data_feed(self, train_mode=True):
+            return TimedFeed(queues, train_mode=train_mode, poll_interval=0.05)
+
+    invalidate_bundle()
+    att.flash_attn_fwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    serving_loop({"export_dir": export, "max_batch": MAX_BATCH, "device": device},
+                 Ctx())
+    wall = time.perf_counter() - t0
+    launches = att.flash_attn_fwd_cuda.launches
+    log(f"[slice] serving_loop finished in {wall:.1f} s; flash_attn_fwd "
+        f"launches {launches}")
+
+    out = []
+    oq = queues.get_queue("output")
+    while not oq.empty():
+        got = oq.get()
+        out.extend(got.items if isinstance(got, ResultChunk) else [got])
+    n_rows = sum(BATCH_ROWS)
+    if len(out) != n_rows + 2:
+        raise AssertionError(f"expected {n_rows} results + 2 acks, got {len(out)}")
+    served, acks = out[:n_rows], out[n_rows:]
+    if acks[0] != {CTL_KEY: "pong", "nonce": seed} or acks[1].get(CTL_KEY) != "reloaded":
+        raise AssertionError(f"bad control acks: {acks}")
+    want = LM_CONFIG["n_layers"] * len(BATCH_ROWS)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != n_layers x scored "
+                             f"batches = {want}")
+    for r in served:
+        if r.shape != (SEQ_LEN, LM_CONFIG["vocab_size"]) or r.dtype != np.float32 \
+                or not np.isfinite(r).all():
+            raise AssertionError("served logits not finite f32 [S, V]")
+
+    # the same bundle with plain (blockwise) attention on the card, per batch:
+    # agreement row by row also proves the results came back in order
+    from tensorflowonspark_torch.checkpoint import load_bundle
+
+    ref_params, _ = load_bundle(export)
+    ref_apply = build_apply({**LM_CONFIG, "attn_impl": "xla"}, device=device)
+    start = 0
+    worst = 0.0
+    agree = []
+    for rows in batches:
+        padded = rows + [rows[-1]] * (MAX_BATCH - len(rows))
+        ref = ref_apply(ref_params, np.stack(padded))[:len(rows)]
+        got = torch.from_numpy(np.stack(served[start:start + len(rows)])).to(device)
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        worst = max(worst, err / scale)
+        agree.append((got.argmax(-1) == ref.argmax(-1)).float().mean().item())
+        if err > LOGIT_REL_TOL * scale:
+            raise AssertionError(f"served logits differ from plain attention by "
+                                 f"{err:.4f} > {LOGIT_REL_TOL} x {scale:.3f}")
+        start += len(rows)
+    if att.flash_attn_fwd_cuda.launches != launches:
+        raise AssertionError("the plain-attention reference launched the kernel")
+    log(f"[slice] logits vs plain attention: worst max_abs_err/max|logit| "
+        f"{worst:.4f} (limit {LOGIT_REL_TOL}), argmax agreement "
+        f"{', '.join(f'{a:.4f}' for a in agree)}")
+    for i, (secs, rows) in enumerate(zip(round_secs, BATCH_ROWS)):
+        log(f"[slice] batch {i}: {rows} rows x {SEQ_LEN} tokens, "
+            f"{secs * 1e3:.1f} ms, {rows * SEQ_LEN / secs:.0f} tokens/s "
+            f"({smi})")
+    if device == "cuda":
+        log_breakdown(export, batches[0], device, smi)
+    return launches
+
+
+def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
+    """Where a served batch's time goes: the forward on the card (CUDA
+    events) and the copy of its f32 logits to the host (host clock).  Runs
+    after the launch count was read."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.checkpoint import load_bundle_cached
+    from tensorflowonspark_torch.inference import to_host
+    from tensorflowonspark_torch.models.registry import build_apply
+
+    variables, _, apply_fn = load_bundle_cached(
+        export, functools.partial(build_apply, device=device))
+    x = np.stack(rows)
+    fwd_ms = time_ms(lambda: apply_fn(variables, x), iters=5, warmup=1)
+    out = apply_fn(variables, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    to_host(out)
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[slice] breakdown, {len(rows)} rows: forward {fwd_ms:.2f} ms on the "
+        f"card, logits to host {copy_ms:.1f} ms "
+        f"({out.numel() * out.element_size() / 1e9:.2f} GB) ({smi})")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import tensorflowonspark_torch  # noqa: F401 - fails outside a checkout
+
+    try:
+        smi = phase_device()
+        record = phase_kernel(args.seed)
+        record["launches"] = phase_slice(args.seed, smi)
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

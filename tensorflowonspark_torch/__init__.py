@@ -1,0 +1,26 @@
+"""tensorflowonspark_torch — the PyTorch / CUDA (H100) port of
+``tensorflowonspark_tpu``.
+
+The JAX package stays in the repository as the reference; this package
+mirrors its module names and imports none of it.  Ported so far: the LM
+serving replica — the node's feed (``feeding``), the bundle format
+(``checkpoint``), the model registry and the decoder-only ``Transformer``
+(``models``), the flash-attention forward as a hand-written Hopper kernel
+(``ops.attention``, ``csrc/flash_attn_fwd.cu``) and the replica loop
+(``serving.serving_loop``).  Entry points run on the CUDA card unless the
+caller passes ``device="cpu"``; without a card they raise.
+"""
+
+__version__ = "0.1.0"
+
+from tensorflowonspark_torch import telemetry  # noqa: F401 - metrics/span API
+from tensorflowonspark_torch.checkpoint import (  # noqa: F401
+    export_bundle,
+    load_bundle,
+    load_bundle_cached,
+)
+from tensorflowonspark_torch.feeding import DataFeed, FeedQueues  # noqa: F401
+from tensorflowonspark_torch.inference import bundle_inference_loop  # noqa: F401
+from tensorflowonspark_torch.marker import EndOfFeed, EndPartition  # noqa: F401
+from tensorflowonspark_torch.models.registry import build, build_apply  # noqa: F401
+from tensorflowonspark_torch.serving.loop import serving_loop  # noqa: F401

@@ -1,0 +1,11 @@
+"""Custom ops: hand-written Hopper kernels for the hot paths, beside their
+plain PyTorch versions."""
+
+from tensorflowonspark_torch.ops.attention import (  # noqa: F401
+    blockwise_attention,
+    chunk_attention,
+    flash_attention,
+    flash_attention_fwd,
+    merge_attention,
+    mha_reference,
+)

@@ -1,0 +1,233 @@
+"""Attention ops: a hand-written Hopper flash-attention forward, and the
+plain PyTorch versions it is held against.
+
+Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
+(``[batch, seq, heads, head_dim]``) and the same constants:
+
+- ``mha_reference`` — dense O(S²) attention, the spec;
+- ``chunk_attention`` / ``merge_attention`` — the ``(out, lse)`` chunk
+  compute and its online-softmax merge, the primitives ring attention
+  composes; ``chunk_attention`` is also the plain version of the kernel;
+- ``blockwise_attention`` — online softmax as a loop over key blocks;
+- ``flash_attention`` / ``flash_attention_fwd`` — the public entry.  A CUDA
+  tensor goes to the kernel (``csrc/flash_attn_fwd.cu``, through
+  ``flash_attn_fwd_cuda``), a CPU tensor to the plain version.  A CUDA
+  tensor whose kernel fails to build or launch raises: nothing falls back.
+
+All softmax accumulation is float32 whatever the input type.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+NEG_INF = -1e30  # finite stand-in for -inf: keeps exp() exactly 0 without nan
+
+
+def _causal_keep(sq: int, sk: int, kv_offset: int, device) -> torch.Tensor:
+    """``[sq, sk]`` bool: key ``j`` (global position ``kv_offset + j``) is
+    visible from query ``i``."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = kv_offset + torch.arange(sk, device=device)[None, :]
+    return kpos <= qpos
+
+
+def _logits(q, k, scale):
+    return torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+
+
+# ---------------------------------------------------------------------------
+# Plain versions.
+# ---------------------------------------------------------------------------
+
+def mha_reference(q, k, v, *, causal: bool = True, sm_scale: float | None = None,
+                  kv_offset: int = 0):
+    """Dense O(S²) attention.  ``kv_offset`` is the global position of
+    ``k[:, 0]`` relative to ``q[:, 0]``."""
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = _logits(q, k, scale)
+    if causal:
+        keep = _causal_keep(q.shape[1], k.shape[1], kv_offset, q.device)
+        logits = torch.where(keep, logits, NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v.float()).to(q.dtype)
+
+
+def chunk_attention(q, k, v, *, causal: bool = True,
+                    sm_scale: float | None = None, kv_offset: int = 0):
+    """Attend q over one KV chunk; return ``(out, lse)``.
+
+    ``out`` is the softmax-normalised output for this chunk alone and
+    ``lse`` its log-sum-exp (``[B, Sq, H]``, float32).  A row with every
+    position masked gives ``out = 0`` and ``lse = NEG_INF``.
+    """
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = _logits(q, k, scale)
+    if causal:
+        keep = _causal_keep(q.shape[1], k.shape[1], kv_offset, q.device)
+        logits = torch.where(keep, logits, NEG_INF)
+    m = logits.amax(dim=-1)                                        # [B,H,Sq]
+    # guard the max so exp(NEG_INF - NEG_INF) of a fully masked row isn't 1
+    m_safe = torch.clamp(m, min=NEG_INF / 2)
+    p = torch.exp(logits - m_safe[..., None])
+    p = torch.where(logits <= NEG_INF / 2, 0.0, p)
+    l = p.sum(dim=-1)                                              # [B,H,Sq]
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    l_safe = torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0.0, m_safe + torch.log(l_safe), NEG_INF)
+    o = o / l_safe.transpose(1, 2)[..., None]
+    return o.to(q.dtype), lse.transpose(1, 2).contiguous()         # [B,Sq,H]
+
+
+def merge_attention(o1, lse1, o2, lse2):
+    """Merge two chunk results (online-softmax combine); fully masked chunks
+    (``lse == NEG_INF``) drop out exactly."""
+    lse = torch.clamp(torch.logaddexp(lse1, lse2), min=NEG_INF)
+    w1 = torch.exp(lse1 - lse)[..., None]
+    w2 = torch.exp(lse2 - lse)[..., None]
+    o = o1.float() * w1 + o2.float() * w2
+    return o.to(o1.dtype), lse
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        sm_scale: float | None = None, block_k: int = 512,
+                        kv_offset: int = 0):
+    """Online-softmax attention as a loop over key blocks: memory stays
+    O(Sq·block_k) instead of O(Sq·Sk)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    o = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    for start in range(0, sk, block_k):
+        kc, vc = k[:, start:start + block_k], v[:, start:start + block_k]
+        logits = _logits(q, kc, scale)
+        if causal:
+            kpos = kv_offset + start + torch.arange(kc.shape[1], device=q.device)
+            logits = torch.where(kpos[None, :] <= qpos, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        m_safe = torch.clamp(m_new, min=NEG_INF / 2)
+        p = torch.exp(logits - m_safe[..., None])
+        p = torch.where(logits <= NEG_INF / 2, 0.0, p)
+        alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+        l = l * alpha + p.sum(dim=-1)
+        o = (o * alpha.transpose(1, 2)[..., None]
+             + torch.einsum("bhqk,bkhd->bqhd", p, vc.float()))
+        m = m_new
+    o = o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The kernel: csrc/flash_attn_fwd.cu, bound through ctypes.
+# ---------------------------------------------------------------------------
+
+KERNEL_HEAD_DIMS = (64, 128)
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
+_LIB = None
+
+
+def _kernel_lib():
+    global _LIB
+    if _LIB is None:
+        from tensorflowonspark_torch.ops.cuda_build import load_library
+
+        lib = load_library("flash_attn_fwd")
+        fn = lib.tos_flash_attn_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when the kernel can read it in place (unit head_dim
+    stride, 16-byte rows, 16-byte aligned base), else a contiguous copy."""
+    if (x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:-1])
+            and x.data_ptr() % 16 == 0):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
+                        sm_scale: float | None = None, kv_offset: int = 0):
+    """Launch the Hopper kernel; returns ``(out, lse)``.  Inputs are CUDA
+    tensors of one type, bf16 or fp16, with head_dim 64 or 128; anything
+    else raises.  ``flash_attn_fwd_cuda.launches`` counts the launches."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attn_fwd_cuda needs CUDA tensors; the plain "
+                         "version (chunk_attention) is the CPU path")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: {q.device}, "
+                         f"{k.device}, {v.device}")
+    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"kernel takes bf16 or fp16 q/k/v of one type, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q [B,Sq,H,D] and k, v [B,Sk,H,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel head_dim must be one of {KERNEL_HEAD_DIMS}, "
+                         f"got {d}")
+    sk = k.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 12)(
+        *(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    fn = _kernel_lib().tos_flash_attn_fwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), b, sq, sk, h, d, ctypes.cast(strides, ctypes.c_void_p),
+                 int(bool(causal)), int(kv_offset), float(scale),
+                 _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error {err}")
+    flash_attn_fwd_cuda.launches += 1
+    return out, lse
+
+
+flash_attn_fwd_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Public entry.
+# ---------------------------------------------------------------------------
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        sm_scale: float | None = None, kv_offset: int = 0,
+                        impl: str | None = None):
+    """Attention forward returning ``(out, lse)``.
+
+    ``impl=None`` picks by device: the kernel for a CUDA tensor, the plain
+    version (``chunk_attention``) for a CPU tensor.  ``impl="kernel"``
+    forces the kernel, which raises on a CPU tensor.
+    """
+    if impl not in (None, "kernel"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "kernel" or q.is_cuda:
+        return flash_attn_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   kv_offset=kv_offset)
+    return chunk_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                           kv_offset=kv_offset)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    sm_scale: float | None = None, kv_offset: int = 0,
+                    impl: str | None = None):
+    """Multi-head attention, ``[B, S, H, D]`` in and out (see
+    ``flash_attention_fwd`` for ``impl``)."""
+    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                               kv_offset=kv_offset, impl=impl)[0]

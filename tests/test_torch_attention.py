@@ -1,0 +1,121 @@
+"""Port attention (``tensorflowonspark_torch.ops.attention``) against the JAX
+package's: plain versions against ``mha_reference`` and the Pallas kernel in
+interpret mode (CPU, f32, atol/rtol 1e-5).  The Hopper kernel is held
+against its plain version on the card in ``tests/test_torch_cuda.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorflowonspark_torch.ops import attention as ta
+from tensorflowonspark_tpu.ops import attention as ja
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def make_qkv(b=2, s=64, h=4, d=16, sk=None, seed=0):
+    rng = np.random.RandomState(seed)
+    sk = s if sk is None else sk
+    return (rng.randn(b, s, h, d).astype(np.float32),
+            rng.randn(b, sk, h, d).astype(np.float32),
+            rng.randn(b, sk, h, d).astype(np.float32))
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+def _j(*xs):
+    return [jnp.asarray(x) for x in xs]
+
+
+# (b, sq, h, d, sk, causal, kv_offset): the cases of tests/test_ops_attention.py
+CASES = {
+    "causal": (1, 48, 2, 16, None, True, 0),
+    "noncausal": (1, 48, 2, 16, None, False, 0),
+    "cross_20_52": (1, 20, 2, 8, 52, False, 0),
+    "cross_20_52_causal": (1, 20, 2, 8, 52, True, 0),
+    "kv_offset": (1, 16, 2, 8, 8, True, 4),
+    "all_future": (1, 8, 1, 4, None, True, 1000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_kernel_version_matches_pallas_interpret(case):
+    b, s, h, d, sk, causal, off = CASES[case]
+    q, k, v = make_qkv(b=b, s=s, h=h, d=d, sk=sk)
+    jo, jl = ja._flash_fwd_pallas(*_j(q, k, v), causal=causal, sm_scale=None,
+                                  kv_offset=off, block_q=16, block_k=16,
+                                  interpret=True)
+    to, tl = ta.flash_attention_fwd(*_t(q, k, v), causal=causal, kv_offset=off)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    # the public entry goes through the same dispatcher
+    jp = ja.flash_attention(*_j(q, k, v), causal=causal, kv_offset=off,
+                            block_q=16, block_k=16, impl="pallas_interpret")
+    tp = ta.flash_attention(*_t(q, k, v), causal=causal, kv_offset=off)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block_k", [16, 24, 64])
+def test_blockwise_and_reference_match_jax(causal, block_k):
+    q, k, v = make_qkv()
+    ref = np.asarray(ja.mha_reference(*_j(q, k, v), causal=causal))
+    np.testing.assert_allclose(
+        ta.mha_reference(*_t(q, k, v), causal=causal).numpy(), ref, **TOL)
+    np.testing.assert_allclose(
+        ta.blockwise_attention(*_t(q, k, v), causal=causal, block_k=block_k).numpy(),
+        ref, **TOL)
+
+
+def test_chunk_merge_equals_full_attention_and_jax():
+    q, k, v = make_qkv(b=2, s=64, h=2, d=16)
+    cs = 16
+    tq, tk, tv = _t(q, k, v)
+    o, lse = ta.chunk_attention(tq, tk[:, :cs], tv[:, :cs], causal=True)
+    jo, jl = ja.chunk_attention(*_j(q, k[:, :cs], v[:, :cs]), causal=True)
+    for i in range(1, 4):
+        sl = slice(i * cs, (i + 1) * cs)
+        oc, lc = ta.chunk_attention(tq, tk[:, sl], tv[:, sl], causal=True,
+                                    kv_offset=i * cs)
+        o, lse = ta.merge_attention(o, lse, oc, lc)
+        joc, jlc = ja.chunk_attention(*_j(q, k[:, sl], v[:, sl]), causal=True,
+                                      kv_offset=i * cs)
+        jo, jl = ja.merge_attention(jo, jl, joc, jlc)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(
+        o.numpy(), ta.mha_reference(tq, tk, tv, causal=True).numpy(), **TOL)
+
+
+def test_fully_masked_rows_give_zero_and_neg_inf():
+    q, k, v = make_qkv(b=1, s=16, h=2, d=8, sk=8)
+    off = 4  # query rows < 4 see no key
+    o, lse = ta.flash_attention_fwd(*_t(q, k, v), causal=True, kv_offset=off)
+    assert torch.all(lse[:, :off] == ta.NEG_INF)
+    assert torch.all(o[:, :off] == 0)
+    assert torch.isfinite(o).all()
+    o1, l1 = ta.chunk_attention(*_t(q, k, v), causal=True)
+    o2, l2 = ta.chunk_attention(*_t(q, k, v), causal=True, kv_offset=1000)
+    om, lm = ta.merge_attention(o1, l1, o2, l2)
+    np.testing.assert_allclose(om.numpy(), o1.numpy(), atol=1e-6)
+    np.testing.assert_allclose(lm.numpy(), l1.numpy(), atol=1e-6)
+
+
+def test_dispatch_kernel_on_cpu_tensor_raises():
+    q, k, v = _t(*make_qkv(b=1, s=8, h=1, d=64))
+    with pytest.raises(ValueError, match="CUDA"):
+        ta.flash_attention(q, k, v, impl="kernel")
+    with pytest.raises(ValueError, match="unknown"):
+        ta.flash_attention(q, k, v, impl="bogus")
+
+
+def test_bf16_plain_version_close_to_f32():
+    q, k, v = make_qkv()
+    ref = ta.mha_reference(*_t(q, k, v), causal=True)
+    out = ta.flash_attention(*[x.bfloat16() for x in _t(q, k, v)], causal=True)
+    assert out.dtype == torch.bfloat16
+    # bf16 inputs and output: ~3 significant digits
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=3e-2, rtol=3e-2)
