@@ -7,13 +7,20 @@ Phases (any failure propagates and the script exits non-zero):
 
 1. device — the card's name and power limit (``nvidia-smi``) and
    ``torch.cuda.get_device_name``;
-2. kernel — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` from
-   the checkout and holds the kernel against its plain PyTorch version
+2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` from
+   the checkout and prints, per instantiation (D 64/128 x bf16/fp16), the
+   registers and spills ptxas reports, the dynamic shared memory, and the
+   counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
+   the SASS (``cuobjdump -sass``); fails if either is missing;
+3. kernel — holds the kernel against its plain PyTorch version
    (``chunk_attention``) on the card, O and lse, at the serving shape and at
-   edge shapes; times kernel, plain version and
+   edge shapes (ragged tails, one query row, key-block-crossing offsets,
+   strided q/k/v views of one packed tensor, a tile half fully masked);
+   times each as 50 launches back to back between two CUDA events, and at
+   the serving shape and D=64 also the plain version and
    ``F.scaled_dot_product_attention`` (the yardstick only: the port never
-   calls it) with CUDA events;
-3. slice — an LM serving replica at the width of the repo's chip LM
+   calls it);
+4. slice — an LM serving replica at the width of the repo's chip LM
    configuration (vocab 32000, d_model 1024, 8 layers, 8 heads, bf16, 2048
    tokens), random weights from the seed in the JAX package's bundle layout:
    ``export_bundle`` → ``serving_loop`` over the node's ``DataFeed`` with
@@ -29,8 +36,10 @@ with 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import re
 import shutil
 import statistics
 import sys
@@ -57,37 +66,85 @@ SEQ_LEN = 2048
 MAX_BATCH = 4
 BATCH_ROWS = (4, 4, 3)  # three request batches; the last one is partial
 
-# (name, B, Sq, Sk, H, D, causal, kv_offset, dtype name)
+# (name, B, Sq, Sk, H, D, causal, kv_offset, dtype name, packed): `packed`
+# makes q, k, v strided views of one [B, S, 3, H, D] tensor (Sq == Sk)
 KERNEL_CASES = [
-    ("serving_shape", 4, 2048, 2048, 8, 128, True, 0, "bfloat16"),
-    ("ragged_20_52_noncausal", 2, 20, 52, 8, 128, False, 0, "bfloat16"),
-    ("ragged_20_52_causal_fp16_d64", 2, 20, 52, 8, 64, True, 0, "float16"),
-    ("kv_offset_masked_rows", 1, 100, 70, 8, 128, True, 37, "bfloat16"),
-    ("kv_offset_negative", 1, 64, 192, 4, 128, True, -64, "bfloat16"),
-    ("head_dim_64", 4, 2048, 2048, 16, 64, True, 0, "bfloat16"),
+    ("serving_shape", 4, 2048, 2048, 8, 128, True, 0, "bfloat16", False),
+    ("ragged_20_52_noncausal", 2, 20, 52, 8, 128, False, 0, "bfloat16", False),
+    ("ragged_20_52_causal_fp16_d64", 2, 20, 52, 8, 64, True, 0, "float16", False),
+    ("kv_offset_masked_rows", 1, 100, 70, 8, 128, True, 37, "bfloat16", False),
+    ("kv_offset_negative", 1, 64, 192, 4, 128, True, -64, "bfloat16", False),
+    ("head_dim_64", 4, 2048, 2048, 16, 64, True, 0, "bfloat16", False),
+    ("ragged_200_330_noncausal", 2, 200, 330, 8, 128, False, 0, "bfloat16", False),
+    ("ragged_200_330_causal", 2, 200, 330, 8, 128, True, 0, "bfloat16", False),
+    ("sq_1_noncausal", 2, 1, 300, 8, 128, False, 0, "bfloat16", False),
+    ("sq_1_causal_decode_d64", 2, 1, 517, 8, 64, True, -516, "float16", False),
+    ("kv_offset_129", 1, 256, 384, 8, 128, True, 129, "bfloat16", False),
+    ("noncausal_64_1000", 2, 64, 1000, 8, 128, False, 0, "bfloat16", False),
+    ("head_dim_64_fp16", 4, 2048, 2048, 16, 64, True, 0, "float16", False),
+    ("packed_qkv_view", 2, 512, 512, 8, 128, True, 0, "bfloat16", True),
+    ("packed_qkv_view_d64", 2, 300, 300, 8, 64, False, 0, "float16", True),
+    # every row of the first consumer warpgroup's 64-row half sees no key
+    ("consumer_half_masked", 1, 128, 128, 8, 128, True, 64, "bfloat16", False),
 ]
+# cases timed against the plain version and the library call as well
+REFERENCE_TIMED = ("serving_shape", "head_dim_64")
+# SASS instructions that show the design: wgmma and TMA loads
+DESIGN_SASS = ("HGMMA", "UTMALDG")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one ``fn()`` call, from CUDA events."""
+@functools.cache
+def _spin_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    import torch
+
+    cycles = 10_000_000
+    torch.cuda._sleep(cycles // 10)  # warm up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def time_ms(fn, reps: int = 50, windows: int = 5, warmup: int = 3):
+    """``(device_ms, host_ms)`` of one ``fn()`` call.
+
+    Device: ``reps`` calls back to back between one pair of CUDA events,
+    over ``reps``; the median of ``windows`` windows.  Each window starts
+    behind a spin kernel (``torch.cuda._sleep``) that outlasts the host's
+    queueing of all ``reps`` calls, so the host's work per call (argument
+    checks, allocation, the launch itself) never leaves the card idle
+    inside the window.  Host: the wall time of queueing one call."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    spin = int(2 * host_ms * reps * _spin_cycles_per_ms()) + 100_000
     times = []
-    for _ in range(iters):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times), host_ms
 
 
 def live_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
@@ -122,27 +179,107 @@ def phase_device():
     return smi[0]
 
 
-def phase_kernel(seed: int) -> dict:
+def ptxas_report(log_text: str) -> dict:
+    """``{(D, dtype name): {"registers", "spill_stores", "spill_loads"}}``
+    for each instantiation of the kernel, from nvcc's ``-Xptxas -v``."""
+    report, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"flash_fwd_kernelILi(\d+)ELb([01])E", line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            cur = report.setdefault(
+                (int(m.group(1)), "bfloat16" if m.group(2) == "1" else "float16"), {})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return report
+
+
+def sass_counts(lib_path) -> dict:
+    """``{(D, dtype name): {instruction: count}}`` for ``DESIGN_SASS`` in
+    each instantiation's SASS, from ``cuobjdump -sass`` of the library."""
+    import subprocess
+    from pathlib import Path
+
+    from tensorflowonspark_torch.ops.cuda_build import find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_fwd_kernelILi(\d+)ELb([01])E", line)
+            cur = None if not m else counts.setdefault(
+                (int(m.group(1)), "bfloat16" if m.group(2) == "1" else "float16"),
+                dict.fromkeys(DESIGN_SASS, 0))
+        elif cur is not None:
+            for ins in DESIGN_SASS:
+                cur[ins] += ins in line
+    return counts
+
+
+def phase_build() -> dict:
+    """Build the kernel from the checkout; print and return what ptxas and
+    the SASS say about each instantiation (D 64/128 x bf16/fp16)."""
+    from tensorflowonspark_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    lib = cuda_build.load_library("flash_attn_fwd")
+    log(f"[build] built flash_attn_fwd in {time.perf_counter() - t0:.1f} s")
+    for line in cuda_build.build_log("flash_attn_fwd").splitlines():
+        if "error" in line or "warning" in line:
+            log(f"[build] nvcc: {line.strip()}")
+    ptxas = ptxas_report(cuda_build.build_log("flash_attn_fwd"))
+    sass = sass_counts(cuda_build.library_path("flash_attn_fwd"))
+    info = {}
+    for d in (64, 128):
+        for dt in ("bfloat16", "float16"):
+            regs, ins = ptxas.get((d, dt)), sass.get((d, dt))
+            if not regs or not ins:
+                raise AssertionError(f"no ptxas/SASS report for D={d} {dt}")
+            smem = lib.tos_flash_attn_fwd_smem_bytes(d)
+            info[f"D{d}_{dt}"] = {**regs, "smem_bytes": smem, **ins}
+            log(f"[build] D={d} {dt}: {regs.get('registers')} registers, "
+                f"{regs.get('spill_stores')} B spill stores, "
+                f"{regs.get('spill_loads')} B spill loads, {smem} B dynamic "
+                f"shared memory; SASS " + ", ".join(f"{k} x{v}" for k, v in ins.items()))
+            if not all(ins.values()):
+                raise AssertionError(f"D={d} {dt}: SASS lacks one of {DESIGN_SASS}")
+    return info
+
+
+def kernel_inputs(b, sq, sk, h, d, dtype, packed, gen):
+    import torch
+
+    if packed:
+        qkv = torch.randn((b, sq, 3, h, d), generator=gen, device="cuda").to(dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    return tuple(torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+                 for s in (sq, sk, sk))
+
+
+def phase_kernel(seed: int, smi: str) -> dict:
     import torch
     import torch.nn.functional as F
 
     from tensorflowonspark_torch.ops import attention as att
-    from tensorflowonspark_torch.ops import cuda_build
 
-    t0 = time.perf_counter()
-    cuda_build.load_libraries("flash_attn_fwd")
-    log(f"[kernel] built flash_attn_fwd in {time.perf_counter() - t0:.1f} s")
-    for line in cuda_build.build_log("flash_attn_fwd").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[kernel] ptxas: {line.strip()}")
     log(f"[kernel] tolerance O {O_TOL}, lse {LSE_TOL} (kernel vs plain "
         "chunk_attention on the same inputs; bf16/fp16 P and O on the kernel side)")
+    log(f"[kernel] timing: {time_ms.__defaults__[0]} launches back to back "
+        f"between two CUDA events behind a spin kernel, median of "
+        f"{time_ms.__defaults__[1]} windows ({smi})")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    record = None
-    for name, b, sq, sk, h, d, causal, off, dtype_name in KERNEL_CASES:
+    timed = {}
+    for name, b, sq, sk, h, d, causal, off, dtype_name, packed in KERNEL_CASES:
         dtype = getattr(torch, dtype_name)
-        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
-                   for s in (sq, sk, sk))
+        q, k, v = kernel_inputs(b, sq, sk, h, d, dtype, packed, gen)
+        if packed and att._kernel_operand(q) is not q:
+            raise AssertionError(f"{name}: packed views were copied, not read in place")
         o, lse = att.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
         po, plse = att.chunk_attention(q, k, v, causal=causal, kv_offset=off)
         torch.cuda.synchronize()
@@ -154,30 +291,42 @@ def phase_kernel(seed: int) -> dict:
         if masked.any():  # fully masked rows: exactly O = 0, lse = NEG_INF
             if not (lse[masked] == att.NEG_INF).all() or not (o[masked] == 0).all():
                 raise AssertionError(f"{name}: fully masked rows not 0 / NEG_INF")
+        if name == "consumer_half_masked" and not (masked[:, :64].all()
+                                                   and not masked[:, 64:].any()):
+            raise AssertionError(f"{name}: expected rows 0..63, and only those, masked")
         err = max((o.float() - po.float()).abs().max().item(),
                   (lse - plse).abs().max().item())
-        ms = time_ms(lambda: att.flash_attn_fwd_cuda(q, k, v, causal=causal,
-                                                     kv_offset=off))
+        ms, host_ms = time_ms(lambda: att.flash_attn_fwd_cuda(
+            q, k, v, causal=causal, kv_offset=off))
         bound_ms, bound_by = attention_bound(b, sq, sk, h, d, causal, off,
                                              q.element_size())
+        tflops = 4 * d * b * h * live_pairs(sq, sk, causal, off) / (ms * 1e-3) / 1e12
         log(f"[kernel] {name}: ok, max_abs_err {err:.3e}, masked rows "
-            f"{int(masked.sum())}, {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by})")
-        if name == "serving_shape":
-            plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=causal))
+            f"{int(masked.sum())}, {ms:.4f} ms, {tflops:.1f} TFLOP/s, host "
+            f"{host_ms:.4f} ms per call (bound "
+            f"{bound_ms:.5f} ms, {bound_by}, share {bound_ms / ms:.3f})")
+        if name in REFERENCE_TIMED:
+            plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=causal),
+                               reps=10, windows=3)[0]
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
-            record = {"name": "flash_attn_fwd", "ok": True, "route": "cuda",
-                      "source": "tensorflowonspark_torch/csrc/flash_attn_fwd.cu",
-                      "replaces": "tensorflowonspark_tpu/ops/attention.py:173",
-                      "launches": None, "max_abs_err": err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms,
-                      "shape": f"B={b} S={sq} H={h} D={d} causal {dtype_name}"}
-            log(f"[kernel] serving_shape: plain {plain_ms:.4f} ms, "
-                f"F.scaled_dot_product_attention {library_ms:.4f} ms")
+                qt, kt, vt, is_causal=True))[0]
+            timed[name] = {"shape": f"B={b} S={sq} H={h} D={d} causal {dtype_name}",
+                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": library_ms, "host_ms": host_ms,
+                           "tflops": tflops,
+                           "bound_share": bound_ms / ms}
+            log(f"[kernel] {name}: plain {plain_ms:.4f} ms, "
+                f"F.scaled_dot_product_attention {library_ms:.4f} ms, kernel / "
+                f"library {ms / library_ms:.3f} ({smi})")
         del q, k, v, o, lse, po, plse
     torch.cuda.empty_cache()
+    record = {"name": "flash_attn_fwd", "ok": True, "route": "cuda",
+              "source": "tensorflowonspark_torch/csrc/flash_attn_fwd.cu",
+              "replaces": "tensorflowonspark_tpu/ops/attention.py:173",
+              "launches": None, **timed["serving_shape"],
+              "head_dim_64": timed["head_dim_64"]}
     return record
 
 
@@ -339,7 +488,6 @@ def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
     """Where a served batch's time goes: the forward on the card (CUDA
     events) and the copy of its f32 logits to the host (host clock).  Runs
     after the launch count was read."""
-    import functools
 
     import numpy as np
     import torch
@@ -351,7 +499,7 @@ def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
     variables, _, apply_fn = load_bundle_cached(
         export, functools.partial(build_apply, device=device))
     x = np.stack(rows)
-    fwd_ms = time_ms(lambda: apply_fn(variables, x), iters=5, warmup=1)
+    fwd_ms = time_ms(lambda: apply_fn(variables, x), reps=5, windows=3, warmup=1)[0]
     out = apply_fn(variables, x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -384,7 +532,9 @@ def main() -> int:
 
     try:
         smi = phase_device()
-        record = phase_kernel(args.seed)
+        build = phase_build()
+        record = phase_kernel(args.seed, smi)
+        record["build"] = build
         record["launches"] = phase_slice(args.seed, smi)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)

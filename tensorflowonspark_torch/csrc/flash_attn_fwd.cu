@@ -17,24 +17,38 @@
 // 989 TFLOP/s, against 67 MB of q/k/v/O/lse traffic, 20 us at 3.35 TB/s.
 // So the kernel is bound by the tensor cores, not by memory.
 //
-// What the design does about it: both products run on the tensor cores
-// (mma.sync m16n8k16, bf16/fp16 in, f32 accumulate); the [S, S] logits never
-// leave registers; K and V are read from device memory once per 64-row query
-// block; query blocks of the causal diagonal start first (they are the
-// longest).  This is the simple, correct first version: 64x64 tiles, four
-// warps of 16 query rows each, K/V tiles staged through shared memory with
-// plain 16-byte loads and no overlap of copy and compute.  wgmma, TMA and a
-// pipelined producer/consumer split are the next steps towards the bound.
+// Design (warp-specialised, one CTA per (batch*head, 128 query rows), the
+// longest causal tiles first; 3 warpgroups, 384 threads):
+// - Warpgroup 0 is the producer.  After `setmaxnreg.dec` to 24 registers one
+//   thread starts every load with TMA: the Q tile once, then K and V tiles of
+//   128 keys into a ring of shared-memory stages (2 at D=128, 3 at D=64),
+//   each stage guarded by a "full" mbarrier (TMA transaction bytes) and an
+//   "empty" one (one arrival per consumer warp).  Rows past Sq or Sk arrive
+//   zero-filled, so 0 * garbage cannot become NaN.
+// - Warpgroups 1 and 2 are consumers (`setmaxnreg.inc` to 240), each owning
+//   64 query rows.  Per key block: S = Q K^T by `wgmma` m64n128k16 with both
+//   operands K-major in 128-byte-swizzled shared memory; the online softmax
+//   in registers with exp2 and sm_scale*log2(e) folded into one FMA, the
+//   causal/tail mask applied only to blocks that straddle the diagonal or
+//   the Sk tail; then O += P V by `wgmma` in RS form: P goes from the S
+//   accumulator, rounded to 16 bits, straight into the A registers, and V is
+//   the B operand read MN-major (transpose bit set).  The consumer releases
+//   the stage once its wgmma groups on it have completed.
+// - Epilogue: O is scaled by 1/l, staged 16-bit in the consumer's rows of
+//   the Q tile (swizzled, no bank conflicts) and written out with 16-byte
+//   stores through O's strides; lse = m + log l, or NEG_INF where l = 0.
 //
-// The TPU kernel's sequential k axis of the grid (with m/l/acc carried in
-// VMEM scratch from one grid step to the next) is the loop over key blocks
-// inside one thread block here; the grid is (B*H, query blocks).  There is no
-// head-major transpose and no padding of D: the kernel reads the [B,S,H,D]
-// strides it is given and masks the ragged tails itself.
+// Tensor maps: rank 4, dims (D, S, H, B) with the tensors' own byte
+// strides, box (64, 128, 1, 1) with 128-byte swizzle, encoded on the host on
+// every call.  A 128-wide head is two 64-column boxes per tile, so the
+// K-steps of Q K^T cross from one box's base to the other's after 4 steps.
+// cuTensorMapEncodeTiled comes from cudaGetDriverEntryPoint, so the library
+// does not link libcuda.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tensorflowonspark_torch/ops/cuda_build.py does it).
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -42,29 +56,178 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kWarps = 4;  // each warp owns 16 query rows of the block
-constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = 128;           // query rows per CTA, 64 per consumer
+constexpr int kBlockK = 128;           // keys per ring stage
+constexpr int kThreads = 384;          // producer + two consumer warpgroups
+constexpr int kBoxCols = 64;           // 128-byte swizzle: 64 16-bit values
+constexpr int kBoxBytes = 128 * 128;   // one 128-row x 64-column box
+constexpr int kEmptyArrivals = 8;      // one per consumer warp
+constexpr int kProducerRegs = 24;      // setmaxnreg: 128 * 24 + 256 * 240
+constexpr int kConsumerRegs = 240;     //   = 64,512 <= 65,536 registers
 constexpr float kNegInf = -1e30f;
 constexpr float kHalfNegInf = -5e29f;  // "masked" threshold, as NEG_INF / 2
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct Cfg {
+  static constexpr int kBoxes = D / kBoxCols;             // boxes per tile
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // a Q, K or V tile
+  static constexpr int kStages = D == 64 ? 3 : 2;         // K/V ring depth
+  static constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
+  // tiles, 1024 bytes to align the base for the swizzle, the mbarriers
+  static constexpr int kSmemBytes = kBarOffset + 1024 + 8 * (2 * kStages + 1);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait of more
+// than about 4 s of SM clock can only be a broken pipeline: trap, so the
+// launch fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  constexpr long long kWatchdogCycles = 1ll << 33;
+  long long start = 0;
+  for (int spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == 0) {
+      start = clock64();
+    } else if (clock64() - start > kWatchdogCycles) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(bar) : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand (layout
+// type 1 in bits 62-63).  K-major (Q, K): LBO unused (16), SBO = 1024, the
+// stride between 8-row groups.  MN-major (V): LBO = stride between 64-column
+// boxes, SBO = 1024, the stride between groups of 8 keys.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator accesses between a wgmma
+// and its wait.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define TOS_ACC8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TOS_ACC32 TOS_ACC8(0), TOS_ACC8(8), TOS_ACC8(16), TOS_ACC8(24)
+#define TOS_ACC64 TOS_ACC32, TOS_ACC8(32), TOS_ACC8(40), TOS_ACC8(48), TOS_ACC8(56)
+#define TOS_R32                                                             \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define TOS_R64                                                              \
+  TOS_R32                                                                    \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
+  "%60, %61, %62, %63"
+
+// S (64 x 128, f32) = A (64 x 16, smem K-major) * B^T (128 x 16, smem
+// K-major); scale_d = 0 overwrites S.
+#define TOS_SS_N128(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY \
+               " {" TOS_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"           \
+               : TOS_ACC64 : "l"(da), "l"(db), "r"(scale_d))
 
 template <bool kBf16>
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
   if constexpr (kBf16) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    TOS_SS_N128("bf16");
   } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    TOS_SS_N128("f16");
   }
+}
+
+// O (64 x N, f32) += A (64 x 16, registers) * B (16 x N, smem MN-major).
+#define TOS_RS_N128(TY)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY     \
+               " {" TOS_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+               : TOS_ACC64                                                   \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define TOS_RS_N64(TY)                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY      \
+               " {" TOS_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+               : TOS_ACC32                                                   \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <int N, bool kBf16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 64 || N == 128, "P V is m64n64 or m64n128");
+  if constexpr (N == 128) {
+    if constexpr (kBf16) {
+      TOS_RS_N128("bf16");
+    } else {
+      TOS_RS_N128("f16");
+    }
+  } else {
+    if constexpr (kBf16) {
+      TOS_RS_N64("bf16");
+    } else {
+      TOS_RS_N64("f16");
+    }
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats -> one register of two 16-bit values, `lo` in the low half.
@@ -81,68 +244,33 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return r;
 }
 
-// Elements d, d+1 of row `row` (0 past the last row).
-__device__ __forceinline__ uint32_t load_pair(const uint16_t* base, int row,
-                                              int rows, int64_t row_stride,
-                                              int d) {
-  if (row >= rows) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + row * row_stride + d);
-}
-
+// Accumulator layout of wgmma m64nN (f32), per warp w of the warpgroup and
+// lane = 4g + t: d[4n + e] holds row 16w + g + 8*(e >> 1), column
+// 8n + 2t + (e & 1).  Read as the A registers of a k16 step, the 16 columns
+// 16kk..16kk+15 are d[8kk .. 8kk+7] packed in pairs, so P never leaves the
+// registers.
 template <int D, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                 float* __restrict__ lse, int H, int Sq, int Sk,
-                 int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                 int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                 int causal, int kv_offset, float sm_scale) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int kStride = D + 8;  // smem row pitch: 16-byte rows, no bank conflicts
-  constexpr int kDSteps = D / 16;         // k-steps of Q K^T
-  constexpr int kDTiles = D / 8;          // n-tiles of P V
-  constexpr int kKTiles = kBlockK / 8;    // n-tiles of Q K^T
-  constexpr int kVecPerRow = D / 8;       // 16-byte vectors per K/V row
-  __shared__ __align__(16) uint16_t ks[kBlockK * kStride];
-  __shared__ __align__(16) uint16_t vs[kBlockK * kStride];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 uint16_t* __restrict__ o, float* __restrict__ lse, int H,
+                 int Sq, int Sk, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                 int causal, int kv_offset, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms 1024-aligned
+  uint8_t* const sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + C::kBarOffset;  // full[S], empty[S], q
+  const uint32_t qbar = bars + 16 * S;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int qb = gridDim.y - 1 - blockIdx.y;  // longest causal blocks first
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row within the mma tile
-  const int t = lane & 3;   // column pair within the mma tile
-  const int q0 = qb * kBlockQ;
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-
-  const uint16_t* qbase = q + b * q_sb + h * q_sh;
-  const uint16_t* kbase = k + b * k_sb + h * k_sh;
-  const uint16_t* vbase = v + b * v_sb + h * v_sh;
-
-  // Q stays in registers, as mma A fragments, for the whole key loop.
-  uint32_t qf[kDSteps][4];
-#pragma unroll
-  for (int s = 0; s < kDSteps; ++s) {
-    const int d = s * 16 + 2 * t;
-    qf[s][0] = load_pair(qbase, r0, Sq, q_ss, d);
-    qf[s][1] = load_pair(qbase, r0 + 8, Sq, q_ss, d);
-    qf[s][2] = load_pair(qbase, r0, Sq, q_ss, d + 8);
-    qf[s][3] = load_pair(qbase, r0 + 8, Sq, q_ss, d + 8);
-  }
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int i = 0; i < kDTiles; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  // Keys past the last one any row of this block may see are never loaded.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest first
+  // Keys past the last one any row of this tile may see are never loaded.
   int kend = Sk;
   if (causal) {
     const int qlast = min(q0 + kBlockQ, Sq) - 1;
@@ -150,137 +278,284 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
   const int nkb = (kend + kBlockK - 1) / kBlockK;
 
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kBlockK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBlockK * kVecPerRow; i += kThreads) {
-      const int row = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = k0 + row;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (key < Sk) {  // zero past the tail: 0 * garbage could be NaN
-        kv4 = *reinterpret_cast<const uint4*>(kbase + key * k_ss + c);
-        vv4 = *reinterpret_cast<const uint4*>(vbase + key * v_ss + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[row * kStride + c]) = kv4;
-      *reinterpret_cast<uint4*>(&vs[row * kStride + c]) = vv4;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (S + s), kEmptyArrivals);
     }
-    __syncthreads();
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[kKTiles][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer: one thread keeps the ring full ----------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if (threadIdx.x == 0 && nkb > 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+          reinterpret_cast<uint64_t>(&tm_k)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+          reinterpret_cast<uint64_t>(&tm_v)) : "memory");
+      mbar_expect_tx(qbar, C::kTileBytes);
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const uint16_t* krow = &ks[(nt * 8 + g) * kStride + 2 * t];
+      for (int x = 0; x < C::kBoxes; ++x)
+        tma_load(base + x * kBoxBytes, &tm_q, qbar, x * kBoxCols, q0, h, b);
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % S;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (S + s), ((kb / S) & 1) ^ 1);  // stage released
+        mbar_expect_tx(full, 2 * C::kTileBytes);
+        const uint32_t ks = base + C::kTileBytes * (1 + s);
+        const uint32_t vs = base + C::kTileBytes * (1 + S + s);
 #pragma unroll
-      for (int st = 0; st < kDSteps; ++st) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + st * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + st * 16 + 8);
-        mma16816<kBf16>(s[nt], qf[st], b0, b1);
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load(ks + x * kBoxBytes, &tm_k, full, x * kBoxCols, kb * kBlockK,
+                   h, b);
+          tma_load(vs + x * kBoxBytes, &tm_v, full, x * kBoxCols, kb * kBlockK,
+                   h, b);
+        }
       }
+    }
+  } else {
+    // ---------------- consumers: 64 query rows each ---------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int qw0 = q0 + 64 * cw;          // this consumer's first row
+    const int r0 = qw0 + 16 * warp + g;    // this thread's rows: r0, r0 + 8
+    const uint32_t q_rows = base + cw * 64 * 128;  // its rows of each Q box
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // running max of the raw logits
+    float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+
+    if (nkb > 0) mbar_wait(qbar, 0);
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int s = kb % S;
+      const int k0 = kb * kBlockK;
+      const uint32_t ks = base + C::kTileBytes * (1 + s);
+      const uint32_t vs = base + C::kTileBytes * (1 + S + s);
+      mbar_wait(bars + 8 * s, (kb / S) & 1);
+
+      // S = Q K^T: D/16 k-steps of 16; after 4 steps the next 64-column box.
+      float sc[64];
+      pin(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss_n128<kBf16>(sc, smem_desc(q_rows + off, 16, 1024),
+                             smem_desc(ks + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(sc);
+
+      // Mask only blocks that straddle the causal diagonal or the Sk tail.
+      if (k0 + kBlockK > Sk || (causal && kv_offset + k0 + kBlockK - 1 > qw0)) {
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + ((e >> 1) << 3);
+            const int j = k0 + n * 8 + 2 * t + (e & 1);
+            if (!(j < Sk && (!causal || kv_offset + j <= row)))
+              sc[4 * n + e] = kNegInf;
+          }
+        }
+      }
+
+      // Online softmax on the raw logits; exp2 with the scale folded in.
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
+      }
+      float alpha[2];
+      float mscaled[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // the four threads of a row group hold the row's 128 columns
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        // guard the max so exp(NEG_INF - NEG_INF) of a masked row isn't 1
+        const float msafe = fmaxf(mx[i], kHalfNegInf);
+        alpha[i] = m[i] <= kHalfNegInf ? 0.f : ex2((m[i] - msafe) * scale_log2);
+        mscaled[i] = msafe * scale_log2;
+        m[i] = mx[i];
+      }
+      float lsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // a masked logit gives exp2(<= -6e28) = 0 exactly
+          const float p = ex2(fmaf(sc[4 * n + e], scale_log2, -mscaled[e >> 1]));
+          sc[4 * n + e] = p;
+          lsum[e >> 1] += p;
+        }
+      }
+      l[0] = l[0] * alpha[0] + lsum[0];
+      l[1] = l[1] * alpha[1] + lsum[1];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n + 0] *= alpha[0];
+        acc[4 * n + 1] *= alpha[0];
+        acc[4 * n + 2] *= alpha[1];
+        acc[4 * n + 3] *= alpha[1];
+      }
+
+      // O += P V: 8 k-steps of 16 keys, P from the S accumulator.
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[kk][0] = pack2<kBf16>(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack2<kBf16>(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack2<kBf16>(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack2<kBf16>(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      pin(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs<D, kBf16>(acc, pa[kk],
+                           smem_desc(vs + kk * 16 * 128, kBoxBytes, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (S + s));  // release the stage
     }
 
-    // Scale, mask, and the block's row maxima.
-    float mblk[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + ((e >> 1) << 3);
-        const int j = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool live = j < Sk && (!causal || kv_offset + j <= row);
-        const float x = live ? s[nt][e] * sm_scale : kNegInf;
-        s[nt][e] = x;
-        mblk[e >> 1] = fmaxf(mblk[e >> 1], x);
-      }
-    }
-    float msafe[2];
-    float alpha[2];
+    // Epilogue: normalise, stage in this consumer's Q rows, store rows.
+    uint8_t* const stage = sbase + cw * 64 * 128;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      // the four threads of a row group hold the row's 64 columns
-      mblk[i] = fmaxf(mblk[i], __shfl_xor_sync(0xffffffffu, mblk[i], 1));
-      mblk[i] = fmaxf(mblk[i], __shfl_xor_sync(0xffffffffu, mblk[i], 2));
-      const float mnew = fmaxf(m[i], mblk[i]);
-      msafe[i] = fmaxf(mnew, kHalfNegInf);
-      alpha[i] = m[i] <= kHalfNegInf ? 0.f : expf(m[i] - msafe[i]);
-      m[i] = mnew;
-    }
-    float lsum[2] = {0.f, 0.f};
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const float lsafe = fmaxf(l[i], 1e-30f);
+      const float inv = 1.f / lsafe;
+      const int rl = 16 * warp + g + 8 * i;  // row within the consumer's 64
 #pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[nt][e];
-        const float p = x <= kHalfNegInf ? 0.f : expf(x - msafe[e >> 1]);
-        s[nt][e] = p;
-        lsum[e >> 1] += p;
+      for (int n = 0; n < D / 8; ++n) {
+        const int c = n % 8;  // 16-byte chunk within the 128-byte box row
+        *reinterpret_cast<uint32_t*>(stage + (n / 8) * kBoxBytes + rl * 128 +
+                                     ((c ^ (rl & 7)) << 4) + 4 * t) =
+            pack2<kBf16>(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+      }
+      const int row = r0 + 8 * i;
+      if (t == 0 && row < Sq) {
+        lse[(static_cast<int64_t>(b) * Sq + row) * H + h] =
+            l[i] > 0.f ? fmaxf(m[i], kHalfNegInf) * (scale_log2 * kLn2) + logf(lsafe)
+                       : kNegInf;
       }
     }
-    l[0] = l[0] * alpha[0] + lsum[0];
-    l[1] = l[1] * alpha[1] + lsum[1];
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulator layout is the A fragment layout of P.
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack2<kBf16>(s[2 * kk][0], s[2 * kk][1]),
-          pack2<kBf16>(s[2 * kk][2], s[2 * kk][3]),
-          pack2<kBf16>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack2<kBf16>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint16_t* vcol = &vs[(kk * 16 + 2 * t) * kStride + g];
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        const uint16_t* p = vcol + dt * 8;
-        const uint32_t b0 = uint32_t(p[0]) | (uint32_t(p[kStride]) << 16);
-        const uint32_t b1 =
-            uint32_t(p[8 * kStride]) | (uint32_t(p[9 * kStride]) << 16);
-        mma16816<kBf16>(acc[dt], a, b0, b1);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    constexpr int kChunks = D / 8;  // 16-byte chunks per row
+    uint16_t* const obase = o + b * o_sb + h * o_sh;
+#pragma unroll 4
+    for (int idx = tid; idx < 64 * kChunks; idx += 128) {
+      const int rl = idx / kChunks;
+      const int cc = idx % kChunks;
+      const int row = qw0 + rl;
+      if (row < Sq) {
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            stage + (cc / 8) * kBoxBytes + rl * 128 + (((cc % 8) ^ (rl & 7)) << 4));
+        *reinterpret_cast<uint4*>(obase + row * o_ss + cc * 8) = v;
       }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int row = r0 + 8 * i;
-    if (row >= Sq) continue;
-    const float lsafe = fmaxf(l[i], 1e-30f);
-    const float inv = 1.f / lsafe;
-    uint16_t* orow = o + b * o_sb + row * o_ss + h * o_sh + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack2<kBf16>(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
-    }
-    if (t == 0) {
-      lse[(static_cast<int64_t>(b) * Sq + row) * H + h] =
-          l[i] > 0.f ? m[i] + logf(lsafe) : kNegInf;
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Host side: tensor maps and the launch.
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                   void*, const cuuint64_t*, const cuuint64_t*,
+                                   const cuuint32_t*, const cuuint32_t*,
+                                   CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Map of a [B, S, H, D] operand read through its element strides
+// (batch, seq, head): dims (D, S, H, B), box (64, 128, 1, 1), 128-byte
+// swizzle, rows out of bounds zero-filled.  A dimension of size 1 is never
+// stepped over, so its stride is set to a legal 16 bytes.
+bool encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int S,
+                int H, int D, const int64_t* st) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int s = S > 0 ? S : 1;  // Sk = 0: nothing is loaded, the map stays legal
+  auto bytes = [](int64_t stride, int n) -> cuuint64_t {
+    return n == 1 ? 16 : static_cast<cuuint64_t>(stride) * 2;
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {bytes(st[1], s), bytes(st[2], H), bytes(st[0], B)};
+  const cuuint32_t box[4] = {kBoxCols, 128, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+            4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D, bool kBf16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int Sq, int Sk, int H,
-                   const int64_t* st, int causal, int kv_offset,
-                   float sm_scale, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int H, const int64_t* st,
+                   int causal, int kv_offset, float sm_scale,
+                   cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!encode_map(&mq, q, kBf16, B, Sq, H, D, st) ||
+      !encode_map(&mk, k, kBf16, B, Sk, H, D, st + 3) ||
+      !encode_map(&mv, v, kBf16, B, Sk, H, D, st + 6))
+    return cudaErrorInvalidValue;
+  auto* kernel = flash_fwd_kernel<D, kBf16>;
+  constexpr int smem = Cfg<D>::kSmemBytes;
+  // setmaxnreg moves registers within the CTA's pool: the consumers' 240
+  // are only there if the launch reserves 24*128 + 240*256 = 168 * 384.
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
+    return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<D, kBf16><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), lse, H, Sq,
-      Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], causal, kv_offset, sm_scale);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<uint16_t*>(o), lse, H, Sq, Sk, st[9], st[10],
+      st[11], causal, kv_offset, sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -288,9 +563,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // C entry point, loaded with ctypes.  `strides` holds 12 element strides:
 // (batch, seq, head) for q, k, v and o, in that order; the head_dim stride
-// is 1.  dtype: 0 = bf16, 1 = fp16.  Returns cudaGetLastError() after the
-// launch (0 on success).  Launches on `stream`, does not synchronise, and
-// allocates nothing.
+// is 1, every other stride a multiple of 8 and every base 16-byte aligned.
+// dtype: 0 = bf16, 1 = fp16.  Returns cudaGetLastError() after the launch
+// (0 on success), or cudaErrorInvalidValue for an input it does not take or
+// a tensor map cuTensorMapEncodeTiled refuses.  Launches on `stream`, does not
+// synchronise, and allocates nothing.
 extern "C" int tos_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int B, int Sq, int Sk,
                                   int H, int D, const int64_t* strides,
@@ -316,4 +593,9 @@ extern "C" int tos_flash_attn_fwd(const void* q, const void* k, const void* v,
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory of one CTA for head dim D (64 or 128), else 0.
+extern "C" int tos_flash_attn_fwd_smem_bytes(int D) {
+  return D == 64 ? Cfg<64>::kSmemBytes : D == 128 ? Cfg<128>::kSmemBytes : 0;
 }

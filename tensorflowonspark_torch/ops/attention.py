@@ -148,9 +148,12 @@ def _kernel_lib():
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when the kernel can read it in place (unit head_dim
-    stride, 16-byte rows, 16-byte aligned base), else a contiguous copy."""
-    if (x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:-1])
+    """``x`` itself when the kernel's tensor maps can read it in place (unit
+    head_dim stride, 16-byte rows, no broadcast dimension, 16-byte aligned
+    base), else a contiguous copy."""
+    if (x.stride(-1) == 1
+            and all(s % 8 == 0 and (s > 0 or n == 1)
+                    for s, n in zip(x.stride()[:-1], x.shape[:-1]))
             and x.data_ptr() % 16 == 0):
         return x
     return x.clone(memory_format=torch.contiguous_format)

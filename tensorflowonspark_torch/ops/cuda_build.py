@@ -3,8 +3,9 @@
 Each kernel is one source ``tensorflowonspark_torch/csrc/<name>.cu`` with a
 plain C interface.  ``load_library(name)`` compiles it with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library under
-``tensorflowonspark_torch/_kernel_build/``, named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is reused.
+``tensorflowonspark_torch/_kernel_build/``, named by a hash of the sources
+and headers in ``csrc/`` and the flags, so an edited source or header
+rebuilds and an unchanged tree is reused.
 Nothing is built or imported when this module is imported: the CPU tests
 import every module on machines without ``nvcc``.
 
@@ -47,9 +48,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lives once built (hash of source + flags)."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``name``'s library lives once built: named by a hash of every
+    ``csrc/*.cu`` and ``csrc/*.cuh`` file (any of them may be included) and
+    the flags, so an edited header rebuilds too."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

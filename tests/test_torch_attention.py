@@ -58,6 +58,50 @@ def test_plain_kernel_version_matches_pallas_interpret(case):
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
 
 
+# (b, s, h, d, causal, kv_offset): q, k, v as strided views of one packed
+# [B, S, 3, H, D] tensor, the layout the kernel reads in place
+PACKED_CASES = {
+    "causal": (2, 40, 2, 16, True, 0),
+    "noncausal": (1, 33, 3, 8, False, 0),
+    "kv_offset": (1, 24, 2, 8, True, 5),
+    "kv_offset_negative": (2, 17, 1, 16, True, -7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_plain_version_on_packed_views_matches_jax(case):
+    b, s, h, d, causal, off = PACKED_CASES[case]
+    qkv = np.random.RandomState(1).randn(b, s, 3, h, d).astype(np.float32)
+    q, k, v = (qkv[:, :, i] for i in range(3))  # numpy copies for JAX
+    tqkv = torch.from_numpy(qkv)
+    tq, tk, tv = tqkv[:, :, 0], tqkv[:, :, 1], tqkv[:, :, 2]
+    assert not tq.is_contiguous() and ta._kernel_operand(tq) is tq
+    to, tl = ta.chunk_attention(tq, tk, tv, causal=causal, kv_offset=off)
+    jo, jl = ja._flash_fwd_pallas(*_j(q, k, v), causal=causal, sm_scale=None,
+                                  kv_offset=off, block_q=8, block_k=8,
+                                  interpret=True)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    # mha_reference spreads a fully masked row uniformly (the chunk contract
+    # gives 0 there), so it is the spec only for rows that see a key
+    ref = np.asarray(ja.mha_reference(*_j(q, k, v), causal=causal, kv_offset=off))
+    seen = tl.numpy() > ta.NEG_INF / 2
+    assert seen.any()
+    np.testing.assert_allclose(to.numpy()[seen], ref[seen], **TOL)
+
+
+def test_kernel_operand_copies_only_what_tensor_maps_cannot_read():
+    x = torch.zeros((2, 16, 3, 4, 64))
+    view = x[:, :, 1]  # 16-element-aligned strides: read in place
+    assert ta._kernel_operand(view) is view
+    bcast = torch.zeros((1, 16, 4, 64)).expand(3, 16, 4, 64)  # batch stride 0
+    assert ta._kernel_operand(bcast).stride(0) == 16 * 4 * 64
+    odd = torch.zeros((2, 16, 4, 68))[..., :64]  # rows of 68: not 16-byte strides
+    assert ta._kernel_operand(odd).is_contiguous()
+    one = torch.zeros((1, 16, 4, 64)).expand(1, 16, 4, 64)  # size-1 dim, any stride
+    assert ta._kernel_operand(one) is one
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("block_k", [16, 24, 64])
 def test_blockwise_and_reference_match_jax(causal, block_k):

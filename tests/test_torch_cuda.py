@@ -11,24 +11,45 @@ import torch
 
 from tensorflowonspark_torch.ops import attention as ta
 
-# (b, sq, sk, h, d, causal, kv_offset, dtype)
+# (b, sq, sk, h, d, causal, kv_offset, dtype, packed): `packed` makes q, k, v
+# strided views of one [B, S, 3, H, D] tensor (needs sq == sk).
 GPU_CASES = {
-    "serving_shape": (4, 2048, 2048, 8, 128, True, 0, torch.bfloat16),
-    "ragged_20_52": (2, 20, 52, 3, 128, False, 0, torch.bfloat16),
-    "ragged_20_52_causal": (2, 20, 52, 3, 64, True, 0, torch.float16),
-    "kv_offset_masked_rows": (1, 100, 70, 2, 64, True, 37, torch.bfloat16),
-    "head_dim_64": (2, 300, 300, 4, 64, True, 0, torch.bfloat16),
+    "serving_shape": (4, 2048, 2048, 8, 128, True, 0, torch.bfloat16, False),
+    "ragged_20_52": (2, 20, 52, 3, 128, False, 0, torch.bfloat16, False),
+    "ragged_20_52_causal": (2, 20, 52, 3, 64, True, 0, torch.float16, False),
+    "kv_offset_masked_rows": (1, 100, 70, 2, 64, True, 37, torch.bfloat16, False),
+    "head_dim_64": (2, 300, 300, 4, 64, True, 0, torch.bfloat16, False),
+    "ragged_200_330": (2, 200, 330, 3, 128, False, 0, torch.bfloat16, False),
+    "ragged_200_330_causal": (2, 200, 330, 3, 128, True, 0, torch.bfloat16, False),
+    "sq_1": (2, 1, 300, 4, 128, False, 0, torch.bfloat16, False),
+    "sq_1_causal_decode": (2, 1, 517, 4, 64, True, -516, torch.float16, False),
+    "kv_offset_129": (1, 256, 384, 2, 128, True, 129, torch.bfloat16, False),
+    "noncausal_64_1000": (2, 64, 1000, 2, 128, False, 0, torch.bfloat16, False),
+    "head_dim_64_fp16": (4, 2048, 2048, 16, 64, True, 0, torch.float16, False),
+    "packed_qkv_view": (2, 300, 300, 4, 128, True, 0, torch.bfloat16, True),
+    "packed_qkv_view_d64": (2, 200, 200, 3, 64, False, 0, torch.float16, True),
+    # rows 0..63 (the first consumer's half of the tile) see no key at all
+    "consumer_half_masked": (1, 128, 128, 4, 128, True, 64, torch.bfloat16, False),
 }
+
+
+def make_inputs(b, sq, sk, h, d, dtype, packed, gen):
+    if packed:
+        qkv = torch.randn((b, sq, 3, h, d), generator=gen, device="cuda").to(dtype)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    return tuple(torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+                 for s in (sq, sk, sk))
 
 
 @pytest.mark.parametrize("case", sorted(GPU_CASES))
 def test_cuda_kernel_matches_plain_version(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    b, sq, sk, h, d, causal, off, dtype = GPU_CASES[case]
+    b, sq, sk, h, d, causal, off, dtype, packed = GPU_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
-               for s in (sq, sk, sk))
+    q, k, v = make_inputs(b, sq, sk, h, d, dtype, packed, g)
+    if packed:  # read in place through the views' strides, not copied
+        assert ta._kernel_operand(q) is q
     o, lse = ta.flash_attention_fwd(q, k, v, causal=causal, kv_offset=off,
                                     impl="kernel")
     po, pl = ta.chunk_attention(q, k, v, causal=causal, kv_offset=off)
@@ -37,3 +58,20 @@ def test_cuda_kernel_matches_plain_version(case):
     torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
     # the plain version rounds its logits to the input type before the softmax
     torch.testing.assert_close(lse, pl, atol=1e-2, rtol=1e-2)
+    assert torch.isfinite(o).all()
+    masked = pl <= ta.NEG_INF / 2  # fully masked rows: exactly 0 and NEG_INF
+    assert (lse[masked] == ta.NEG_INF).all() and (o[masked] == 0).all()
+    if case == "consumer_half_masked":
+        assert masked[:, :64].all() and not masked[:, 64:].any()
+
+
+@pytest.mark.parametrize("bad", ["float32", "head_dim_96", "mixed_types"])
+def test_cuda_kernel_raises_on_what_it_does_not_take(bad):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    d = 96 if bad == "head_dim_96" else 64
+    dtype = torch.float32 if bad == "float32" else torch.bfloat16
+    q = torch.zeros((1, 8, 2, d), device="cuda", dtype=dtype)
+    k = q.half() if bad == "mixed_types" else q
+    with pytest.raises(ValueError):
+        ta.flash_attention_fwd(q, k, q, impl="kernel")
