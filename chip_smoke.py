@@ -26,7 +26,28 @@ Phases (any failure propagates and the script exits non-zero):
    ``export_bundle`` → ``serving_loop`` over the node's ``DataFeed`` with
    three request batches (the last one partial), a ping and a reload; checks
    the ordered, exactly-count results, their finiteness, the kernel's launch
-   count and the logits against the same bundle with plain attention.
+   count and the logits against the same bundle with plain attention; then
+   times one forward, counts the kernels it launches (``torch.profiler``)
+   and times the copy of its logits to the host;
+5. attention at the training shape (B=8, S=2048, H=8, D=128, causal bf16):
+   the kernel's forward held against ``chunk_attention`` (O and lse) and
+   timed, and the backward of ``FlashAttention`` (the plain
+   recompute VJP through ``blockwise_attention``) against its bound and the
+   library's backward;
+6. train — the LM at the same width, B=8, S=2048, bf16 compute with f32
+   master weights, AdamW as ``optax.adamw(3e-4)``, random weights from the
+   seed: 3 warm-up and 10 timed steps through ``make_batch_iterator`` over a
+   ``DataFeed`` that repeats one Zipf batch; checks every loss is finite,
+   the last below the first, and the kernel's launches per step (n_layers;
+   2 x n_layers with remat); one step's loss and gradients with the kernel
+   against plain attention, with ``vocab_chunk`` and with ``remat``; prints
+   step ms, tokens/s, the forward / backward / optimizer split, the peak
+   memory and the model-FLOPs share of the step;
+7. train→serve — the trained weights exported as a bundle and loaded with
+   ``build_apply``: logits against the training model's eval forward;
+8. decode — ``greedy_generate`` on the served model (B=4, a 128-token
+   prompt, 64 new tokens): cached logits against a full forward at the same
+   positions, the EOS stop, ms per generated token.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -89,6 +110,24 @@ KERNEL_CASES = [
 ]
 # cases timed against the plain version and the library call as well
 REFERENCE_TIMED = ("serving_shape", "head_dim_64")
+
+TRAIN_BATCH = 8
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAIN_LR = 3e-4
+VOCAB_CHUNK = 4096
+SPLIT_STEPS = 3  # instrumented steps for the forward / backward / optimizer split
+# one train step's loss and gradients, kernel vs plain attention, vocab_chunk
+# vs dense, remat vs not: bf16 compute rounds at different places (the
+# kernel's P and O in bf16, the dense loss's logits in bf16 against the
+# blockwise loss's f32), about 2^-8 per element, and the differences run
+# through 8 layers; held per parameter to 5% of the gradient's L2 norm, and
+# the loss to 1%
+GRAD_REL_TOL = 0.05
+LOSS_REL_TOL = 1e-2
+# train→serve: the same bf16 casts of the same f32 masters, once at load
+# instead of at each use; held to bf16's rounding (2^-8) of the largest logit
+SERVE_LOGIT_REL_TOL = 2.0 ** -8
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 64
 # SASS instructions that show the design: wgmma and TMA loads
 DESIGN_SASS = ("HGMMA", "UTMALDG")
 
@@ -486,11 +525,13 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
 
 def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
     """Where a served batch's time goes: the forward on the card (CUDA
-    events) and the copy of its f32 logits to the host (host clock).  Runs
-    after the launch count was read."""
+    events), the kernels that forward launches with their summed device
+    time (``torch.profiler``), and the copy of its f32 logits to the host
+    (host clock).  Runs after the launch count was read."""
 
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from tensorflowonspark_torch.checkpoint import load_bundle_cached
     from tensorflowonspark_torch.inference import to_host
@@ -500,6 +541,14 @@ def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
         export, functools.partial(build_apply, device=device))
     x = np.stack(rows)
     fwd_ms = time_ms(lambda: apply_fn(variables, x), reps=5, windows=3, warmup=1)[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        apply_fn(variables, x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    kernel_ms = sum(getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0)
+                    for e in kernels) / 1e3
+    log(f"[slice] census of one forward, {len(rows)} rows: {len(kernels)} "
+        f"kernels, {kernel_ms:.3f} ms of kernel time (torch.profiler) ({smi})")
     out = apply_fn(variables, x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -508,6 +557,386 @@ def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
     log(f"[slice] breakdown, {len(rows)} rows: forward {fwd_ms:.2f} ms on the "
         f"card, logits to host {copy_ms:.1f} ms "
         f"({out.numel() * out.element_size() / 1e9:.2f} GB) ({smi})")
+
+
+def phase_attention_train_shape(seed: int, smi: str) -> dict:
+    """The kernel's forward and ``FlashAttention``'s backward (the plain
+    recompute VJP) at the training shape, each beside its bound, the plain
+    version and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_torch.ops import attention as att
+
+    b, s, h, d = TRAIN_BATCH, SEQ_LEN, LM_CONFIG["n_heads"], \
+        LM_CONFIG["d_model"] // LM_CONFIG["n_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    q, k, v = kernel_inputs(b, s, s, h, d, torch.bfloat16, False, gen)
+    cot = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    pairs = live_pairs(s, s, True, 0)
+    o, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
+    po, plse = att.chunk_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), po.float(), **O_TOL)
+    torch.testing.assert_close(lse, plse, **LSE_TOL)
+    err = max((o.float() - po.float()).abs().max().item(),
+              (lse - plse).abs().max().item())
+    del o, lse, po, plse
+    fwd_ms = time_ms(lambda: att.flash_attn_fwd_cuda(q, k, v, causal=True))[0]
+    fwd_bound, fwd_by = attention_bound(b, s, s, h, d, True, 0, 2)
+    plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=True),
+                       reps=5, windows=3)[0]
+    qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = att.flash_attention(*qkv, causal=True)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, qkv, cot, retain_graph=True),
+                     reps=5, windows=3, warmup=1)[0]
+    # backward: S = QK^T again, dP = dO V^T, dV = P^T dO, dQ = dS K,
+    # dK = dS^T Q: five products over the live pairs; q, k, v, dO read,
+    # dq, dk, dv written
+    bwd_flops = 10 * d * b * h * pairs
+    t_ops, t_bytes = bwd_flops / PEAK_BF16_FLOPS, 7 * b * s * h * d * 2 / PEAK_BYTES
+    bwd_bound, bwd_by = max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    cot_t = cot.transpose(1, 2).contiguous()
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), cot_t, retain_graph=True), reps=5, windows=3)[0]
+    fwd_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach(), is_causal=True))[0]
+    shape = f"B={b} S={s} H={h} D={d} causal bfloat16"
+    log(f"[attn-train] {shape}: kernel vs plain ok, max_abs_err {err:.3e} "
+        f"(tolerance O {O_TOL}, lse {LSE_TOL}); kernel forward {fwd_ms:.4f} ms (bound "
+        f"{fwd_bound:.5f} ms, {fwd_by}, share {fwd_bound / fwd_ms:.3f}); plain "
+        f"{plain_ms:.4f} ms; F.scaled_dot_product_attention {fwd_library_ms:.4f} ms "
+        f"({smi})")
+    log(f"[attn-train] backward (recompute VJP through blockwise_attention, "
+        f"block_k {att.BWD_BLOCK_K}): {bwd_ms:.4f} ms per layer (bound "
+        f"{bwd_bound:.5f} ms, {bwd_by}, share {bwd_bound / bwd_ms:.4f}); "
+        f"library backward {bwd_library_ms:.4f} ms ({smi})")
+    return {"shape": shape, "max_abs_err": err, "ms": fwd_ms,
+            "bound_ms": fwd_bound, "bound_by": fwd_by,
+            "plain_ms": plain_ms, "library_ms": fwd_library_ms, "bwd_ms": bwd_ms,
+            "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
+            "bwd_library_ms": bwd_library_ms}
+
+
+def make_train_model(cfg: dict, seed: int, device: str):
+    """The LM with f32 master weights, flax's initialisers drawn from a
+    generator seeded with ``seed``."""
+    import torch
+
+    from tensorflowonspark_torch.models.transformer import build_transformer
+
+    with torch.device(device):
+        model = build_transformer(cfg)
+    return model.init_weights(torch.Generator(device=device).manual_seed(seed))
+
+
+def loss_and_grads(model, loss_fn, batch) -> tuple[float, dict]:
+    """One step's loss and gradients, no update."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+def grad_disagreement(got: dict, want: dict) -> tuple[float, str]:
+    """The largest per-parameter ``|got - want| / |want|`` (L2 norms)."""
+    errs = {n: ((got[n].float() - want[n].float()).norm()
+                / want[n].float().norm().clamp_min(1e-30)).item() for n in want}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+def phase_train(seed: int, smi: str, device: str = "cuda"):
+    """Train the LM through the streamed feed; returns ``(model, record)``."""
+    import numpy as np
+    import torch
+
+    from examples_torch.llm.train_lm import synthetic_ids
+    from tensorflowonspark_torch.feeding import DataFeed, FeedQueues
+    from tensorflowonspark_torch.marker import EndOfFeed, EndPartition
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.parallel import dp
+
+    cuda = device == "cuda"
+    n_layers = LM_CONFIG["n_layers"]
+    per_step = n_layers if cuda else 0  # the CPU path has no kernel
+    model = make_train_model(LM_CONFIG, seed, device)
+    optimizer = dp.adamw(model.parameters(), TRAIN_LR)
+    loss_fn = tfm.make_loss_fn(model)
+    step = dp.make_train_step(loss_fn, optimizer)
+    state = dp.TrainState.create(model, optimizer)
+    ids = synthetic_ids(TRAIN_BATCH, SEQ_LEN, LM_CONFIG["vocab_size"], seed)
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    queues = FeedQueues(capacity=n_steps * (TRAIN_BATCH + 1) + 1)
+    q = queues.get_queue("input")
+    for _ in range(n_steps):  # one partition per step, the same batch each time
+        for row in ids:
+            q.put(row)
+        q.put(EndPartition())
+    q.put(EndOfFeed())
+    feed = DataFeed(queues, train_mode=True, poll_interval=0.05)
+
+    def to_arrays(rows):
+        return {"input_ids": torch.from_numpy(np.stack(rows)).to(device)}
+
+    log(f"[train] {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M f32 "
+        f"master params, bf16 compute, B={TRAIN_BATCH} S={SEQ_LEN}, AdamW "
+        f"lr {TRAIN_LR} (fused={optimizer.defaults.get('fused')}), "
+        f"{TRAIN_WARMUP} warm-up + {TRAIN_TIMED} timed steps over a DataFeed")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+    losses, launches = [], []
+    att.flash_attn_fwd_cuda.launches = 0
+    for i, (batch, n) in enumerate(dp.make_batch_iterator(feed, TRAIN_BATCH, to_arrays)):
+        if n != TRAIN_BATCH:
+            raise AssertionError(f"step {i}: {n} real rows, expected {TRAIN_BATCH}")
+        if i == TRAIN_WARMUP and cuda:
+            start.record()
+            t_host = time.perf_counter()
+        before = att.flash_attn_fwd_cuda.launches
+        state, metrics = step(state, batch)
+        launches.append(att.flash_attn_fwd_cuda.launches - before)
+        losses.append(metrics["loss"])
+    if cuda:
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / TRAIN_TIMED
+    train_launches = att.flash_attn_fwd_cuda.launches
+    losses = [x.item() for x in losses]
+    log("[train] losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    if len(losses) != n_steps or state.step != n_steps:
+        raise AssertionError(f"{len(losses)} steps taken, expected {n_steps}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("a training loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    if set(launches) != {per_step}:
+        raise AssertionError(f"kernel launches per step {launches}, expected "
+                             f"{per_step} (one per layer)")
+    log(f"[train] kernel launches: {per_step} per step, {train_launches} over "
+        f"{n_steps} steps")
+    record = {"launches": train_launches, "losses": losses}
+
+    batch = {"input_ids": torch.from_numpy(ids).to(device)}
+    if cuda:
+        step_ms = start.elapsed_time(end) / TRAIN_TIMED
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tokens = TRAIN_BATCH * SEQ_LEN
+        split = train_split(model, optimizer, loss_fn, batch)
+        flops, formula = model_flops(model)
+        mfu = flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS
+        log(f"[train] step {step_ms:.2f} ms on the card (CUDA events over "
+            f"{TRAIN_TIMED} steps; host {host_ms:.2f} ms per step), "
+            f"{tokens / step_ms * 1e3:.0f} tokens/s; split forward "
+            f"{split['fwd_ms']:.2f} / backward {split['bwd_ms']:.2f} / optimizer "
+            f"{split['opt_ms']:.2f} ms (median of {SPLIT_STEPS}); peak memory "
+            f"{peak_gb:.2f} GB ({smi})")
+        log(f"[train] model FLOPs per step {flops / 1e12:.3f} TFLOP = {formula}; "
+            f"share of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s: {mfu:.4f} ({smi})")
+        record.update(step_ms=step_ms, host_ms=host_ms, tokens_per_s=tokens / step_ms * 1e3,
+                      peak_gb=peak_gb, model_tflop=flops / 1e12, mfu=mfu, **split)
+    record.update(train_agreement(model, loss_fn, batch, per_step, device))
+    return model, record
+
+
+def train_split(model, optimizer, loss_fn, batch) -> dict:
+    """Forward, backward and optimizer time of a step (CUDA events), median
+    of ``SPLIT_STEPS`` steps; these steps update the model too."""
+    import torch
+
+    times = {"fwd_ms": [], "bwd_ms": [], "opt_ms": []}
+    for _ in range(SPLIT_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for p in model.parameters():
+            p.grad = None
+        ev[0].record()
+        loss, _ = loss_fn(model, batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        optimizer.step()
+        ev[3].record()
+        ev[3].synchronize()
+        for key, (a, b) in zip(times, zip(ev, ev[1:])):
+            times[key].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def model_flops(model) -> tuple[float, str]:
+    """Model FLOPs of one train step and the formula that gives them."""
+    b, s, n_layers = TRAIN_BATCH, SEQ_LEN, LM_CONFIG["n_layers"]
+    h, dh = model.n_heads, model.d_head
+    params = sum(p.numel() for n, p in model.named_parameters()
+                 if not n.startswith("embed."))
+    pairs = live_pairs(s, s, True, 0)
+    attn = 3 * 4 * b * h * dh * pairs * n_layers
+    formula = (f"6 x {params} (non-embedding params + lm_head) x {b * s} tokens "
+               f"+ 3 x 4 x B {b} x H {h} x Dh {dh} x {pairs} causal pairs x "
+               f"{n_layers} layers (attention forward + 2x backward)")
+    return 6 * params * b * s + attn, formula
+
+
+def train_agreement(model, loss_fn, batch, per_step: int, device: str) -> dict:
+    """One step's loss and gradients at the same weights and batch: the
+    kernel path against plain attention (``attn_impl="xla"``), against
+    ``vocab_chunk`` and against ``remat``; counts a remat step's launches."""
+    import torch
+
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.ops import attention as att
+
+    loss, grads = loss_and_grads(model, loss_fn, batch)
+    with torch.device(device):
+        plain = tfm.build_transformer({**LM_CONFIG, "attn_impl": "xla"})
+    plain.load_state_dict(model.state_dict())
+    before = att.flash_attn_fwd_cuda.launches
+    others = {"xla": loss_and_grads(plain, tfm.make_loss_fn(plain), batch)}
+    del plain
+    if att.flash_attn_fwd_cuda.launches != before:
+        raise AssertionError("the plain-attention step launched the kernel")
+    others["vocab_chunk"] = loss_and_grads(
+        model, tfm.make_loss_fn(model, vocab_chunk=VOCAB_CHUNK), batch)
+    model.remat = True
+    before = att.flash_attn_fwd_cuda.launches
+    others["remat"] = loss_and_grads(model, loss_fn, batch)
+    remat_launches = att.flash_attn_fwd_cuda.launches - before
+    model.remat = False
+    if remat_launches != 2 * per_step:
+        raise AssertionError(f"a remat step launched the kernel {remat_launches} "
+                             f"times, expected {2 * per_step}")
+    out = {"remat_launches": remat_launches}
+    for name, (other_loss, other_grads) in others.items():
+        loss_err = abs(other_loss - loss) / abs(loss)
+        grad_err, worst = grad_disagreement(other_grads, grads)
+        log(f"[train] one step, {name} vs the kernel's dense step: loss "
+            f"{other_loss:.5f} vs {loss:.5f} (rel {loss_err:.2e}, limit "
+            f"{LOSS_REL_TOL}); worst gradient rel L2 error {grad_err:.3e} at "
+            f"{worst} (limit {GRAD_REL_TOL})")
+        if loss_err > LOSS_REL_TOL or grad_err > GRAD_REL_TOL:
+            raise AssertionError(f"{name} step disagrees with the kernel's step")
+        out[f"{name}_grad_rel_err"] = grad_err
+        del other_grads
+    log(f"[train] remat step: {remat_launches} kernel launches (2 x n_layers)")
+    return out
+
+
+def phase_train_serve(model, smi: str, device: str = "cuda"):
+    """Export the trained weights, serve them through ``build_apply`` and
+    hold the logits against the training model's eval forward; returns the
+    served apply function."""
+    import numpy as np
+    import torch
+
+    from examples_torch.llm.train_lm import synthetic_ids
+    from tensorflowonspark_torch.checkpoint import export_bundle, load_bundle
+    from tensorflowonspark_torch.convert import torch_to_flax
+    from tensorflowonspark_torch.models.registry import build_apply
+
+    export = os.path.join(WORK_DIR, "trained_bundle")
+    t0 = time.perf_counter()
+    export_bundle(export, torch_to_flax(model.state_dict(), LM_CONFIG["n_heads"]),
+                  LM_CONFIG)
+    params, config = load_bundle(export)
+    apply = build_apply(config, device=device)
+    x = synthetic_ids(2, SEQ_LEN, LM_CONFIG["vocab_size"], seed=99)
+    served = apply(params, x)
+    with torch.inference_mode():
+        trained = model.eval()(torch.from_numpy(x).to(device))
+    model.train()
+    scale = trained.abs().max().item()
+    err = (served - trained).abs().max().item()
+    log(f"[train->serve] bundle round trip in {time.perf_counter() - t0:.1f} s; "
+        f"served vs trained-model logits: max_abs_err {err:.3e} (limit "
+        f"{SERVE_LOGIT_REL_TOL:.4f} x {scale:.3f}), argmax agreement "
+        f"{(served.argmax(-1) == trained.argmax(-1)).float().mean().item():.4f}")
+    if not (err <= SERVE_LOGIT_REL_TOL * scale and np.isfinite(scale)):
+        raise AssertionError("served logits differ from the trained model's")
+    return apply, params
+
+
+def phase_decode(apply, params, smi: str, device: str = "cuda") -> dict:
+    """Greedy decoding through the KV cache on the served model."""
+    import numpy as np
+    import torch
+
+    from examples_torch.llm.train_lm import synthetic_ids
+    from tensorflowonspark_torch.models.transformer import KVCache, greedy_generate
+
+    model = apply.model
+    prompt = synthetic_ids(DECODE_BATCH, DECODE_PROMPT, LM_CONFIG["vocab_size"], seed=7)
+    total = DECODE_PROMPT + DECODE_NEW
+
+    def timed(**kw):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = greedy_generate(model, prompt, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    greedy_generate(model, prompt, max_new_tokens=2)  # warm up
+    _, prefill_ms = timed(max_new_tokens=0)
+    out, gen_ms = timed(max_new_tokens=DECODE_NEW)
+    if out.shape != (DECODE_BATCH, total) or not (out[:, :DECODE_PROMPT] == prompt).all():
+        raise AssertionError(f"generated {out.shape}, expected the prompt + {DECODE_NEW}")
+    per_token = (gen_ms - prefill_ms) / DECODE_NEW
+    log(f"[decode] B={DECODE_BATCH}, prompt {DECODE_PROMPT}, {DECODE_NEW} new tokens: "
+        f"{gen_ms:.1f} ms, prefill {prefill_ms:.1f} ms, {per_token:.2f} ms per "
+        f"generated token (host clock, each step reads its tokens) ({smi})")
+
+    # cached logits (prefill, then one-token steps over the generated
+    # tokens) against one full forward over the same sequence
+    cache = KVCache.empty(model, DECODE_BATCH, total)
+    seq = torch.from_numpy(out).to(device)
+    with torch.inference_mode():
+        logits, cache = model(seq[:, :DECODE_PROMPT], cache)
+        steps = [logits]
+        for t in range(DECODE_PROMPT, total - 1):
+            logits, cache = model(seq[:, t:t + 1], cache)
+            steps.append(logits)
+    cached = torch.cat(steps, dim=1)
+    full = apply(params, out[:, :total - 1])
+    scale = full.abs().max().item()
+    err = (cached - full).abs().max().item()
+    agree = (cached.argmax(-1) == full.argmax(-1)).float().mean().item()
+    log(f"[decode] cached vs full-forward logits at {total - 1} positions: "
+        f"max_abs_err {err:.4f} (limit {LOGIT_REL_TOL} x {scale:.3f}), argmax "
+        f"agreement {agree:.4f}")
+    if err > LOGIT_REL_TOL * scale:
+        raise AssertionError("cached decode logits disagree with the full forward")
+    if not (cached[:, DECODE_PROMPT - 1:].argmax(-1).cpu().numpy()
+            == out[:, DECODE_PROMPT:]).all():
+        raise AssertionError("greedy tokens are not the argmax of their logits")
+
+    eos = int(out[0, DECODE_PROMPT])  # row 0 finishes at its first new token
+    stopped = greedy_generate(model, prompt, max_new_tokens=DECODE_NEW, eos_id=eos,
+                              pad_id=0)
+    for r in range(DECODE_BATCH):
+        gen = stopped[r, DECODE_PROMPT:]
+        hits = np.where(gen == eos)[0]
+        end = hits[0] + 1 if len(hits) else len(gen)
+        if not ((gen[:end] == out[r, DECODE_PROMPT:DECODE_PROMPT + end]).all()
+                and (gen[end:] == 0).all()):
+            raise AssertionError(f"EOS stop: row {r} not the greedy chain then pads")
+    if not (stopped[0, DECODE_PROMPT] == eos and (stopped[0, DECODE_PROMPT + 1:] == 0).all()):
+        raise AssertionError("EOS stop: row 0 did not stop at its EOS")
+    log(f"[decode] EOS stop: ok ({stopped.shape[1] - DECODE_PROMPT} steps run)")
+    return {"decode_ms_per_token": per_token, "prefill_ms": prefill_ms,
+            "decode_logit_max_abs_err": err}
 
 
 def _leaves(tree):
@@ -536,6 +965,15 @@ def main() -> int:
         record = phase_kernel(args.seed, smi)
         record["build"] = build
         record["launches"] = phase_slice(args.seed, smi)
+        record["train_shape"] = phase_attention_train_shape(args.seed, smi)
+        torch.cuda.empty_cache()
+        model, train = phase_train(args.seed, smi)
+        record["train_launches"] = train.pop("launches")
+        apply, params = phase_train_serve(model, smi)
+        del model
+        torch.cuda.empty_cache()
+        train.update(phase_decode(apply, params, smi))
+        record["train"] = train
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(json.dumps({"kernels": [record]}))

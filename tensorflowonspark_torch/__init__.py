@@ -7,8 +7,12 @@ serving replica — the node's feed (``feeding``), the bundle format
 (``checkpoint``), the model registry and the decoder-only ``Transformer``
 (``models``), the flash-attention forward as a hand-written Hopper kernel
 (``ops.attention``, ``csrc/flash_attn_fwd.cu``) and the replica loop
-(``serving.serving_loop``).  Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``; without a card they raise.
+(``serving.serving_loop``); LM training on one device — the attention's
+recompute backward, the blockwise cross-entropy (``ops.xent``), the loss
+(``models.transformer.make_loss_fn``) and the train step and batch feed
+(``parallel.dp``); and the KV-cache decode path
+(``models.transformer.greedy_generate``).  Entry points run on the CUDA
+card unless the caller passes ``device="cpu"``; without a card they raise.
 """
 
 __version__ = "0.1.0"

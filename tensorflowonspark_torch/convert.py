@@ -11,7 +11,11 @@ numpy arrays, as a bundle holds them) ↔ the port's state dict.
 | ``embed/embedding``            | [V, D]     | ``embed.weight`` [V, D]             |
 | ``*_norm/scale``               | [D]        | ``*_norm.scale`` [D]                |
 
-``block_{i}`` in the tree is ``blocks.{i}`` in the state dict.
+``block_{i}`` in the tree is ``blocks.{i}`` in the state dict.  A
+``{name: grad}`` dict of a trained model converts like its state dict, so
+gradients and trained weights go back to the JAX layout leaf by leaf (and
+``checkpoint.export_bundle`` of ``torch_to_flax(model.state_dict(), H)``
+is a bundle the serving slice loads).
 """
 
 from __future__ import annotations

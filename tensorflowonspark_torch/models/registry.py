@@ -42,9 +42,12 @@ def build_apply(config: dict, device=None) -> Callable:
     ``variables`` is the bundle's param tree in the JAX package's layout
     (flax names, numpy arrays), bare or as ``{"params": ...}``.  Its first
     call with a given tree converts it and loads it onto ``device`` — once,
-    casting the matrices to the compute type there — and later calls with
-    the same tree reuse the loaded weights.  The model runs in ``eval()``
-    under ``torch.inference_mode()``; ``x`` may be numpy or a tensor.
+    casting the matrices to the compute type there (``cast_matrices_``, so
+    the model's cast at each use is a no-op) — and later calls with the
+    same tree reuse the loaded weights.  The model runs in ``eval()`` under
+    ``torch.inference_mode()``; ``x`` may be numpy or a tensor.  The loaded
+    module is ``apply.model`` (the decode path, ``greedy_generate``, takes
+    it).
 
     ``device`` defaults to ``cuda`` and raises when there is no card.
     """
@@ -53,7 +56,7 @@ def build_apply(config: dict, device=None) -> Callable:
 
     dev = default_device(device)
     with torch.device("meta"):
-        model = build(config)
+        model = build(config).cast_matrices_()
     model = model.to_empty(device=dev).eval()
     loaded: list = [None]  # the param tree whose weights the model holds
 
@@ -66,4 +69,5 @@ def build_apply(config: dict, device=None) -> Callable:
         with torch.inference_mode():
             return model(torch.as_tensor(x, device=dev))
 
+    apply_fn.model = model
     return apply_fn

@@ -2,6 +2,7 @@
 plain PyTorch versions."""
 
 from tensorflowonspark_torch.ops.attention import (  # noqa: F401
+    FlashAttention,
     blockwise_attention,
     chunk_attention,
     flash_attention,
@@ -9,3 +10,4 @@ from tensorflowonspark_torch.ops.attention import (  # noqa: F401
     merge_attention,
     mha_reference,
 )
+from tensorflowonspark_torch.ops.xent import blockwise_cross_entropy  # noqa: F401

@@ -8,11 +8,17 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
 - ``chunk_attention`` / ``merge_attention`` — the ``(out, lse)`` chunk
   compute and its online-softmax merge, the primitives ring attention
   composes; ``chunk_attention`` is also the plain version of the kernel;
-- ``blockwise_attention`` — online softmax as a loop over key blocks;
+- ``blockwise_attention`` — online softmax as a loop over checkpointed key
+  blocks;
 - ``flash_attention`` / ``flash_attention_fwd`` — the public entry.  A CUDA
   tensor goes to the kernel (``csrc/flash_attn_fwd.cu``, through
   ``flash_attn_fwd_cuda``), a CPU tensor to the plain version.  A CUDA
   tensor whose kernel fails to build or launch raises: nothing falls back.
+  When autograd records the call, it goes through ``FlashAttention``, the
+  counterpart of the JAX package's ``custom_vjp`` ``_flash_attention_tpu``:
+  the same forward, and a backward that recomputes through
+  ``blockwise_attention`` from the saved ``q, k, v`` (there is no backward
+  kernel, in the reference either).
 
 All softmax accumulation is float32 whatever the input type.
 """
@@ -23,6 +29,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30  # finite stand-in for -inf: keeps exp() exactly 0 without nan
 
@@ -92,33 +99,46 @@ def merge_attention(o1, lse1, o2, lse2):
     return o.to(o1.dtype), lse
 
 
+def _online_block(o, m, l, q, kc, vc, start, *, causal, scale, kv_offset):
+    """One key block of the online softmax: the carry ``(o, m, l)`` updated
+    by keys ``start .. start + len(kc)``."""
+    logits = _logits(q, kc, scale)
+    if causal:
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = kv_offset + start + torch.arange(kc.shape[1], device=q.device)
+        logits = torch.where(kpos[None, :] <= qpos, logits, NEG_INF)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    m_safe = torch.clamp(m_new, min=NEG_INF / 2)
+    p = torch.exp(logits - m_safe[..., None])
+    p = torch.where(logits <= NEG_INF / 2, 0.0, p)
+    alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+    l = l * alpha + p.sum(dim=-1)
+    o = (o * alpha.transpose(1, 2)[..., None]
+         + torch.einsum("bhqk,bkhd->bqhd", p, vc.float()))
+    return o, m_new, l
+
+
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         sm_scale: float | None = None, block_k: int = 512,
                         kv_offset: int = 0):
     """Online-softmax attention as a loop over key blocks: memory stays
-    O(Sq·block_k) instead of O(Sq·Sk)."""
+    O(Sq·block_k) instead of O(Sq·Sk).
+
+    Each block step runs under ``torch.utils.checkpoint`` (the JAX scan's
+    ``jax.checkpoint``): when autograd records the loop, only the carries
+    are kept, and the backward recomputes each block's f32 logits and P, so
+    backward memory stays O(Sq·block_k) too."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     o = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    qpos = torch.arange(sq, device=q.device)[:, None]
     for start in range(0, sk, block_k):
-        kc, vc = k[:, start:start + block_k], v[:, start:start + block_k]
-        logits = _logits(q, kc, scale)
-        if causal:
-            kpos = kv_offset + start + torch.arange(kc.shape[1], device=q.device)
-            logits = torch.where(kpos[None, :] <= qpos, logits, NEG_INF)
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        m_safe = torch.clamp(m_new, min=NEG_INF / 2)
-        p = torch.exp(logits - m_safe[..., None])
-        p = torch.where(logits <= NEG_INF / 2, 0.0, p)
-        alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
-        l = l * alpha + p.sum(dim=-1)
-        o = (o * alpha.transpose(1, 2)[..., None]
-             + torch.einsum("bhqk,bkhd->bqhd", p, vc.float()))
-        m = m_new
+        o, m, l = checkpoint(
+            _online_block, o, m, l, q, k[:, start:start + block_k],
+            v[:, start:start + block_k], start, use_reentrant=False,
+            causal=causal, scale=scale, kv_offset=kv_offset)
     o = o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
     return o.to(q.dtype)
 
@@ -209,6 +229,47 @@ flash_attn_fwd_cuda.launches = 0
 # Public entry.
 # ---------------------------------------------------------------------------
 
+BWD_BLOCK_K = 512  # key block of the recompute backward (the JAX default)
+
+
+def _forward(q, k, v, causal, sm_scale, kv_offset, impl):
+    if impl == "kernel" or q.is_cuda:
+        return flash_attn_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   kv_offset=kv_offset)
+    return chunk_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                           kv_offset=kv_offset)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(out, lse)`` of the forward, with a recompute backward — the
+    counterpart of ``_flash_attention_tpu`` and its rules
+    (``tensorflowonspark_tpu/ops/attention.py:283-312``).
+
+    Forward: the kernel for a CUDA tensor, ``chunk_attention`` for a CPU
+    tensor; it saves only ``q, k, v``.  Backward: the VJP of
+    ``blockwise_attention`` with ``block_k=BWD_BLOCK_K`` and the same
+    ``causal``, ``sm_scale`` and ``kv_offset``, each block checkpointed, so
+    its memory is O(Sq·block_k).  ``lse`` carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, kv_offset, impl):
+        out, lse = _forward(q, k, v, causal, sm_scale, kv_offset, impl)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, sm_scale, kv_offset)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, _g_lse):
+        causal, sm_scale, kv_offset = ctx.args
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = blockwise_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                      block_k=BWD_BLOCK_K, kv_offset=kv_offset)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g_out)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         sm_scale: float | None = None, kv_offset: int = 0,
                         impl: str | None = None):
@@ -216,15 +277,16 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
 
     ``impl=None`` picks by device: the kernel for a CUDA tensor, the plain
     version (``chunk_attention``) for a CPU tensor.  ``impl="kernel"``
-    forces the kernel, which raises on a CPU tensor.
+    forces the kernel, which raises on a CPU tensor.  When autograd records
+    the call (grad enabled and an input that requires grad), it goes
+    through ``FlashAttention``; otherwise (inference) the forward runs
+    alone.
     """
     if impl not in (None, "kernel"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "kernel" or q.is_cuda:
-        return flash_attn_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
-                                   kv_offset=kv_offset)
-    return chunk_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                           kv_offset=kv_offset)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, sm_scale, kv_offset, impl)
+    return _forward(q, k, v, causal, sm_scale, kv_offset, impl)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

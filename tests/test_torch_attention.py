@@ -163,3 +163,65 @@ def test_bf16_plain_version_close_to_f32():
     assert out.dtype == torch.bfloat16
     # bf16 inputs and output: ~3 significant digits
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=3e-2, rtol=3e-2)
+
+
+# (b, sq, h, d, sk, causal, kv_offset): the recompute backward against
+# jax.grad through the Pallas kernel's custom_vjp (interpret mode,
+# block_k=16); 40 and 52 keys are not multiples of 16
+GRAD_CASES = {
+    "causal": (2, 40, 2, 16, None, True, 0),
+    "noncausal": (1, 40, 2, 16, None, False, 0),
+    "kv_offset": (1, 24, 2, 8, 20, True, 5),
+    "kv_offset_negative": (1, 20, 2, 8, 52, True, -7),
+    "cross_20_52_noncausal": (2, 20, 2, 8, 52, False, 0),
+}
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)  # f32; the two sides sum in other orders
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_attention_grads_match_jax_pallas_interpret(case):
+    import jax
+
+    b, s, h, d, sk, causal, off = GRAD_CASES[case]
+    q, k, v = make_qkv(b=b, s=s, h=h, d=d, sk=sk, seed=4)
+    g = np.random.RandomState(5).randn(*q.shape).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = ja.flash_attention(q, k, v, causal=causal, kv_offset=off,
+                                 block_q=16, block_k=16, impl="pallas_interpret")
+        return (out * g).sum()
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    out = ta.flash_attention(tq, tk, tv, causal=causal, kv_offset=off)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    (out * torch.from_numpy(g)).sum().backward()
+    for tgrad, jgrad in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), **GRAD_TOL)
+
+
+def test_attention_function_forward_saves_only_qkv_and_inference_skips_it():
+    q, k, v = (x.requires_grad_() for x in _t(*make_qkv(b=1, s=24, h=2, d=8)))
+    out, lse = ta.flash_attention_fwd(q, k, v, causal=True)
+    assert len(out.grad_fn.saved_tensors) == 3
+    assert not lse.requires_grad  # lse carries no gradient
+    with torch.no_grad():
+        o2, l2 = ta.flash_attention_fwd(q, k, v, causal=True)
+    assert o2.grad_fn is None
+    np.testing.assert_array_equal(o2.numpy(), out.detach().numpy())
+    np.testing.assert_array_equal(l2.numpy(), lse.numpy())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_checkpointed_blockwise_grads_match_jax_blockwise(causal):
+    """The port's blockwise loop under autograd (each block checkpointed)
+    has the JAX scan's gradients, ragged last block included."""
+    import jax
+
+    q, k, v = make_qkv(b=1, s=36, h=2, d=8, seed=6)
+    jgrads = jax.grad(lambda *a: ja.blockwise_attention(
+        *a, causal=causal, block_k=16).sum(), argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    ta.blockwise_attention(tq, tk, tv, causal=causal, block_k=16).sum().backward()
+    for tgrad, jgrad in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), **GRAD_TOL)

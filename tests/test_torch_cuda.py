@@ -75,3 +75,64 @@ def test_cuda_kernel_raises_on_what_it_does_not_take(bad):
     k = q.half() if bad == "mixed_types" else q
     with pytest.raises(ValueError):
         ta.flash_attention_fwd(q, k, q, impl="kernel")
+
+
+# (b, s, sk, h, d, causal, kv_offset): the training shape first
+GRAD_CASES = {
+    "training_shape": (8, 2048, 2048, 8, 128, True, 0),
+    "ragged_300_d64": (2, 300, 300, 4, 64, True, 0),
+    "kv_offset_noncausal_cross": (1, 100, 700, 2, 128, False, 0),
+    "kv_offset_masked_rows": (1, 200, 150, 2, 128, True, 37),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_cuda_attention_grads_kernel_forward_vs_plain_forward(case):
+    """FlashAttention (kernel forward, recompute backward) against autograd
+    through the plain blockwise forward, bf16 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, s, sk, h, d, causal, off = GRAD_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = make_inputs(b, s, sk, h, d, torch.bfloat16, False, g)
+    cot = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    grads, outs = [], []
+    for attend in (ta.flash_attention, ta.blockwise_attention):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        before = ta.flash_attn_fwd_cuda.launches
+        out = attend(*leaves, causal=causal, kv_offset=off)
+        launched = ta.flash_attn_fwd_cuda.launches - before
+        assert launched == (1 if attend is ta.flash_attention else 0)
+        out.backward(cot)
+        assert ta.flash_attn_fwd_cuda.launches - before == launched  # none in backward
+        outs.append(out.float())
+        grads.append([x.grad.float() for x in leaves])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], outs[1], atol=2e-2, rtol=2e-2)
+    # both backwards are the same recompute of the same q, k, v and cotangent
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_cuda_train_step_launches_per_layer(remat):
+    """One train step launches the kernel once per layer; with remat the
+    backward re-runs each block's forward, so twice per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.parallel import dp
+
+    with torch.device("cuda"):
+        model = tfm.Transformer(vocab_size=512, d_model=256, n_layers=3, n_heads=2,
+                                remat=remat)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    opt = dp.adamw(model.parameters(), 1e-3)
+    step = dp.make_train_step(tfm.make_loss_fn(model), opt)
+    ids = torch.randint(0, 512, (2, 256), device="cuda")
+    before = ta.flash_attn_fwd_cuda.launches
+    _, metrics = step(dp.TrainState.create(model, opt), {"input_ids": ids})
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"])
+    assert ta.flash_attn_fwd_cuda.launches - before == 3 * (2 if remat else 1)

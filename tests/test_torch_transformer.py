@@ -1,7 +1,8 @@
 """Port ``Transformer`` against the JAX package's (``attn_impl=
 "pallas_interpret"``, so the JAX side runs its Pallas kernel), weights moved
 through ``convert.py``; plus the converter's round trip and the NotImplemented
-edges of the slice."""
+edges of the slice.  The decode path is held against JAX in
+``tests/test_torch_decode.py``."""
 
 import jax
 import numpy as np
@@ -120,7 +121,6 @@ def test_pad_and_pack_batch_match_jax():
     ({"n_experts": 4}, "MoE"),
     ({"attn_impl": "ring"}, "sequence parallelism"),
     ({"attn_impl": "ulysses"}, "sequence parallelism"),
-    ({"decode": True}, "decode"),
 ])
 def test_unported_options_raise_not_implemented(cfg, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -134,3 +134,21 @@ def test_build_apply_defaults_to_cuda_and_raises_without_it():
         treg.build_apply(SMALL)
     with pytest.raises(RuntimeError, match="CUDA"):
         treg.build_apply(SMALL, device="cuda")
+
+
+def test_training_holds_f32_masters_and_serving_casts_once():
+    cfg = {**SMALL, "bf16": True, "attn_impl": "auto"}
+    _, params = _jax_params(cfg)
+    model = ttfm.build_transformer(cfg)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    model.load_state_dict(convert.flax_to_torch(params))
+    apply = treg.build_apply(cfg, device="cpu")
+    served = apply(params, _ids())
+    dtypes = {n: p.dtype for n, p in apply.model.named_parameters()}
+    assert dtypes["blocks.0.attn.q_proj.weight"] == torch.bfloat16
+    assert dtypes["embed.weight"] == dtypes["lm_head.weight"] == torch.bfloat16
+    assert dtypes["final_norm.scale"] == dtypes["blocks.1.mlp_norm.scale"] == torch.float32
+    # the cast at each use gives the very values the cast at load gives
+    with torch.inference_mode():
+        trained = model.eval()(torch.from_numpy(_ids()))
+    torch.testing.assert_close(trained, served, rtol=0, atol=0)
