@@ -7,19 +7,24 @@ Phases (any failure propagates and the script exits non-zero):
 
 1. device — the card's name and power limit (``nvidia-smi``) and
    ``torch.cuda.get_device_name``;
-2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` from
-   the checkout and prints, per instantiation (D 64/128 x bf16/fp16), the
-   registers and spills ptxas reports, the dynamic shared memory, and the
-   counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
-   the SASS (``cuobjdump -sass``); fails if either is missing;
-3. kernel — holds the kernel against its plain PyTorch version
+2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` and
+   ``flash_attn_fwd_generic.cu`` from the checkout (one ``nvcc`` each, in
+   parallel) and prints, per instantiation of the first (D 64/128 x
+   bf16/fp16), the registers and spills ptxas reports, the dynamic shared
+   memory, and the counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+   instructions in the SASS (``cuobjdump -sass``), failing if either is
+   missing; and per instantiation of the second (type x columns per lane)
+   its registers and spills;
+3. kernel — holds the kernels against their plain PyTorch version
    (``chunk_attention``) on the card, O and lse, at the serving shape and at
    edge shapes (ragged tails, one query row, key-block-crossing offsets,
-   strided q/k/v views of one packed tensor, a tile half fully masked);
-   times each as 50 launches back to back between two CUDA events, and at
-   the serving shape and D=64 also the plain version and
-   ``F.scaled_dot_product_attention`` (the yardstick only: the port never
-   calls it);
+   strided q/k/v views of one packed tensor, a tile half fully masked), and
+   the CUDA-core kernel and the zero-padded wgmma path (f32 at the serving
+   shape, f32 D=64 ragged with a kv_offset, bf16 D=32 and D=96, bf16 and f32
+   D=256); times each as 50 launches back to back between two CUDA events,
+   and at the serving shape, D=64, f32 at the serving shape and bf16 D=256
+   also the plain version and ``F.scaled_dot_product_attention`` (the
+   yardstick only: the port never calls it);
 4. slice — an LM serving replica at the width of the repo's chip LM
    configuration (vocab 32000, d_model 1024, 8 layers, 8 heads, bf16, 2048
    tokens), random weights from the seed in the JAX package's bundle layout:
@@ -29,6 +34,16 @@ Phases (any failure propagates and the script exits non-zero):
    count and the logits against the same bundle with plain attention; then
    times one forward, counts the kernels it launches (``torch.profiler``)
    and times the copy of its logits to the host;
+   cluster — the same bundle served by the port's cluster: ``run(
+   serving_loop, ..., num_executors=2)`` starts two replica node processes
+   on the card, ``cluster.serve`` opens the gateway, and request batches of
+   4, 4 and 3 rows go through ``gateway.predict``, one row through the TCP
+   ``GatewayClient``, then a hot reload to other weights; checks ordered,
+   exactly-count results, one row's logits per request against the
+   in-process replica, changed predictions after the reload, each node's
+   registered device (the card) and the replicas' kernel launches (8 per
+   served batch, from ``cluster.metrics()``); prints per-request host
+   latency beside the replicas' ``serve.node_batch_secs``;
 5. attention at the training shape (B=8, S=2048, H=8, D=128, causal bf16):
    the kernel's forward held against ``chunk_attention`` (O and lse) and
    timed, and the backward of ``FlashAttention`` (the plain
@@ -47,7 +62,10 @@ Phases (any failure propagates and the script exits non-zero):
    ``build_apply``: logits against the training model's eval forward;
 8. decode — ``greedy_generate`` on the served model (B=4, a 128-token
    prompt, 64 new tokens): cached logits against a full forward at the same
-   positions, the EOS stop, ms per generated token.
+   positions, the EOS stop, ms per generated token;
+9. f32 train step — one AdamW step of the f32 model configuration at the
+   same width (B=2, S=2048) through the CUDA-core kernel: a finite loss,
+   n_layers launches, and the gradients against plain attention.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -59,6 +77,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -70,6 +89,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "chip_smoke_work")  # bundle files, removed at exit
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16/fp16 tensor-core rate
+PEAK_F32_FLOPS = 66.9e12  # H100 SXM f32 FMA rate outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 # O: P is rounded to bf16/fp16 for the P·V product on the tensor cores and O
 # is stored in bf16/fp16, while the plain version runs softmax and P·V in f32.
@@ -77,6 +97,8 @@ O_TOL = dict(atol=2e-2, rtol=2e-2)
 # lse: the plain version's logits are a bf16/fp16 einsum (rounded before
 # the f32 softmax), the kernel's are accumulated in f32.
 LSE_TOL = dict(atol=1e-2, rtol=1e-2)
+# f32 inputs: both sides are f32 FMA (no TF32), summed in other orders
+F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # slice logits, served (kernel attention) vs plain attention: bf16 compute
 # rounds at different places over 8 layers; held to 5% of the largest logit
 LOGIT_REL_TOL = 0.05
@@ -108,8 +130,18 @@ KERNEL_CASES = [
     # every row of the first consumer warpgroup's 64-row half sees no key
     ("consumer_half_masked", 1, 128, 128, 8, 128, True, 64, "bfloat16", False),
 ]
+# the CUDA-core kernel (f32 at any D, bf16/fp16 above 128) and the wgmma
+# kernel's zero-padded path (bf16/fp16 with D < 128, not 64), same fields
+GENERIC_CASES = [
+    ("f32_serving_shape", 4, 2048, 2048, 8, 128, True, 0, "float32", False),
+    ("f32_d64_ragged_kv_offset", 2, 200, 330, 8, 64, True, 37, "float32", False),
+    ("bf16_d32_padded", 4, 512, 512, 8, 32, True, 0, "bfloat16", False),
+    ("bf16_d96_padded", 2, 300, 300, 8, 96, True, 0, "bfloat16", False),
+    ("bf16_d256", 4, 2048, 2048, 4, 256, True, 0, "bfloat16", False),
+    ("f32_d256", 2, 512, 512, 4, 256, True, 0, "float32", False),
+]
 # cases timed against the plain version and the library call as well
-REFERENCE_TIMED = ("serving_shape", "head_dim_64")
+REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d256")
 
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
@@ -128,6 +160,9 @@ LOSS_REL_TOL = 1e-2
 # instead of at each use; held to bf16's rounding (2^-8) of the largest logit
 SERVE_LOGIT_REL_TOL = 2.0 ** -8
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 64
+F32_TRAIN_BATCH = 2  # the f32 step: f32 products and an f32 recompute backward
+CLUSTER_ROWS = (4, 4, 3)  # gateway.predict requests; then one row over TCP
+CLUSTER_NODES = 2
 # SASS instructions that show the design: wgmma and TMA loads
 DESIGN_SASS = ("HGMMA", "UTMALDG")
 
@@ -194,11 +229,13 @@ def live_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
 
 
 def attention_bound(b, sq, sk, h, d, causal, kv_offset, itemsize):
-    """(bound_ms, bound_by): the larger of the tensor-core time of the two
-    products over the live pairs and the time to move q, k, v, O and lse."""
+    """(bound_ms, bound_by): the larger of the time of the two products over
+    the live pairs at the card's peak for the input type (tensor cores for
+    16-bit types, f32 FMA for f32) and the time to move q, k, v, O and lse."""
     flops = 4 * d * b * h * live_pairs(sq, sk, causal, kv_offset)
     nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * itemsize + b * sq * h * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -261,17 +298,43 @@ def sass_counts(lib_path) -> dict:
     return counts
 
 
+GENERIC_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
+
+
+def generic_ptxas_report(log_text: str) -> dict:
+    """``{(dtype name, columns per lane): {"registers", "spill_stores",
+    "spill_loads"}}`` for each instantiation of the CUDA-core kernel."""
+    report, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"flash_fwd_generic_kernelI(f|13__nv_bfloat16|6__half)Li(\d+)E",
+                      line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            cur = report.setdefault((GENERIC_TYPES[m.group(1)], int(m.group(2))), {})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return report
+
+
 def phase_build() -> dict:
-    """Build the kernel from the checkout; print and return what ptxas and
-    the SASS say about each instantiation (D 64/128 x bf16/fp16)."""
+    """Build both kernels from the checkout (one nvcc each, in parallel);
+    print and return what ptxas and the SASS say about each instantiation
+    of the wgmma kernel (D 64/128 x bf16/fp16) and what ptxas says about
+    each of the CUDA-core kernel's (type x columns per lane)."""
     from tensorflowonspark_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    lib = cuda_build.load_library("flash_attn_fwd")
-    log(f"[build] built flash_attn_fwd in {time.perf_counter() - t0:.1f} s")
-    for line in cuda_build.build_log("flash_attn_fwd").splitlines():
-        if "error" in line or "warning" in line:
-            log(f"[build] nvcc: {line.strip()}")
+    lib, generic = cuda_build.load_libraries("flash_attn_fwd", "flash_attn_fwd_generic")
+    log(f"[build] built flash_attn_fwd and flash_attn_fwd_generic in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("flash_attn_fwd", "flash_attn_fwd_generic"):
+        for line in cuda_build.build_log(name).splitlines():
+            if "error" in line or "warning" in line:
+                log(f"[build] nvcc {name}: {line.strip()}")
     ptxas = ptxas_report(cuda_build.build_log("flash_attn_fwd"))
     sass = sass_counts(cuda_build.library_path("flash_attn_fwd"))
     info = {}
@@ -288,6 +351,19 @@ def phase_build() -> dict:
                 f"shared memory; SASS " + ", ".join(f"{k} x{v}" for k, v in ins.items()))
             if not all(ins.values()):
                 raise AssertionError(f"D={d} {dt}: SASS lacks one of {DESIGN_SASS}")
+    gen = generic_ptxas_report(cuda_build.build_log("flash_attn_fwd_generic"))
+    for dt in GENERIC_TYPES.values():
+        for nc in (1, 2, 4, 8):
+            regs = gen.get((dt, nc))
+            if not regs:
+                raise AssertionError(f"no ptxas report for the CUDA-core kernel, "
+                                     f"{dt}, {nc} columns per lane")
+            smem = generic.tos_flash_attn_fwd_generic_smem_bytes(32 * nc)
+            info[f"generic_{dt}_nc{nc}"] = {**regs, "smem_bytes": smem}
+            log(f"[build] generic {dt}, D<={32 * nc}: {regs.get('registers')} "
+                f"registers, {regs.get('spill_stores')} B spill stores, "
+                f"{regs.get('spill_loads')} B spill loads, {smem} B dynamic "
+                f"shared memory at D={32 * nc}")
     return info
 
 
@@ -301,29 +377,39 @@ def kernel_inputs(b, sq, sk, h, d, dtype, packed, gen):
                  for s in (sq, sk, sk))
 
 
-def phase_kernel(seed: int, smi: str) -> dict:
+def phase_kernel(seed: int, smi: str) -> list[dict]:
+    """Both kernels against ``chunk_attention`` at every case; returns the
+    ``kernels`` records of the wgmma kernel and of the CUDA-core kernel."""
     import torch
     import torch.nn.functional as F
 
     from tensorflowonspark_torch.ops import attention as att
 
-    log(f"[kernel] tolerance O {O_TOL}, lse {LSE_TOL} (kernel vs plain "
-        "chunk_attention on the same inputs; bf16/fp16 P and O on the kernel side)")
+    log(f"[kernel] tolerance O {O_TOL}, lse {LSE_TOL} for bf16/fp16 (P and O "
+        f"rounded on the kernel side), {F32_TOL} for f32 (kernel vs plain "
+        "chunk_attention on the same inputs)")
     log(f"[kernel] timing: {time_ms.__defaults__[0]} launches back to back "
         f"between two CUDA events behind a spin kernel, median of "
         f"{time_ms.__defaults__[1]} windows ({smi})")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     timed = {}
-    for name, b, sq, sk, h, d, causal, off, dtype_name, packed in KERNEL_CASES:
+    for name, b, sq, sk, h, d, causal, off, dtype_name, packed in \
+            KERNEL_CASES + GENERIC_CASES:
         dtype = getattr(torch, dtype_name)
         q, k, v = kernel_inputs(b, sq, sk, h, d, dtype, packed, gen)
         if packed and att._kernel_operand(q) is not q:
             raise AssertionError(f"{name}: packed views were copied, not read in place")
+        to_generic = dtype == torch.float32 or d > max(att.KERNEL_HEAD_DIMS)
+        counter = att.flash_attn_fwd_generic_cuda if to_generic else att.flash_attn_fwd_cuda
+        before = counter.launches
         o, lse = att.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
         po, plse = att.chunk_attention(q, k, v, causal=causal, kv_offset=off)
         torch.cuda.synchronize()
-        torch.testing.assert_close(o.float(), po.float(), **O_TOL)
-        torch.testing.assert_close(lse, plse, **LSE_TOL)
+        if counter.launches != before + 1:
+            raise AssertionError(f"{name}: expected one launch of {counter.__name__}")
+        o_tol, lse_tol = (F32_TOL, F32_TOL) if dtype == torch.float32 else (O_TOL, LSE_TOL)
+        torch.testing.assert_close(o.float(), po.float(), **o_tol)
+        torch.testing.assert_close(lse, plse, **lse_tol)
         if not torch.isfinite(o).all():
             raise AssertionError(f"{name}: non-finite output")
         masked = plse <= att.NEG_INF / 2
@@ -340,10 +426,10 @@ def phase_kernel(seed: int, smi: str) -> dict:
         bound_ms, bound_by = attention_bound(b, sq, sk, h, d, causal, off,
                                              q.element_size())
         tflops = 4 * d * b * h * live_pairs(sq, sk, causal, off) / (ms * 1e-3) / 1e12
-        log(f"[kernel] {name}: ok, max_abs_err {err:.3e}, masked rows "
-            f"{int(masked.sum())}, {ms:.4f} ms, {tflops:.1f} TFLOP/s, host "
-            f"{host_ms:.4f} ms per call (bound "
-            f"{bound_ms:.5f} ms, {bound_by}, share {bound_ms / ms:.3f})")
+        log(f"[kernel] {name}: ok ({counter.__name__}), max_abs_err {err:.3e}, "
+            f"masked rows {int(masked.sum())}, {ms:.4f} ms, {tflops:.1f} TFLOP/s, "
+            f"host {host_ms:.4f} ms per call (bound {bound_ms:.5f} ms, "
+            f"{bound_by}, share {bound_ms / ms:.3f})")
         if name in REFERENCE_TIMED:
             plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=causal),
                                reps=10, windows=3)[0]
@@ -361,12 +447,15 @@ def phase_kernel(seed: int, smi: str) -> dict:
                 f"library {ms / library_ms:.3f} ({smi})")
         del q, k, v, o, lse, po, plse
     torch.cuda.empty_cache()
-    record = {"name": "flash_attn_fwd", "ok": True, "route": "cuda",
-              "source": "tensorflowonspark_torch/csrc/flash_attn_fwd.cu",
-              "replaces": "tensorflowonspark_tpu/ops/attention.py:173",
-              "launches": None, **timed["serving_shape"],
-              "head_dim_64": timed["head_dim_64"]}
-    return record
+    replaces = "tensorflowonspark_tpu/ops/attention.py:173"
+    return [{"name": "flash_attn_fwd", "ok": True, "route": "cuda",
+             "source": "tensorflowonspark_torch/csrc/flash_attn_fwd.cu",
+             "replaces": replaces, "launches": None, **timed["serving_shape"],
+             "head_dim_64": timed["head_dim_64"]},
+            {"name": "flash_attn_fwd_generic", "ok": True, "route": "cuda",
+             "source": "tensorflowonspark_torch/csrc/flash_attn_fwd_generic.cu",
+             "replaces": replaces, "launches": None,
+             **timed["f32_serving_shape"], "bf16_d256": timed["bf16_d256"]}]
 
 
 def make_lm_params(cfg: dict, seed: int) -> dict:
@@ -521,6 +610,130 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
     if device == "cuda":
         log_breakdown(export, batches[0], device, smi)
     return launches
+
+
+def phase_cluster(seed: int, smi: str, device: str = "cuda") -> dict:
+    """Serve the slice's bundle through the port's cluster: two replica node
+    processes on the card behind ``cluster.serve``; requests through
+    ``gateway.predict`` and the TCP ``GatewayClient``, then a hot reload.
+    Returns the kernel launches the replicas report and the timings."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import cluster as tcluster
+    from tensorflowonspark_torch.checkpoint import export_bundle
+    from tensorflowonspark_torch.models.registry import build_apply
+    from tensorflowonspark_torch.serving import GatewayClient, serving_loop
+
+    export = os.path.join(WORK_DIR, "lm_bundle")  # the slice phase's bundle
+    cuda = device == "cuda"
+    rng = np.random.default_rng(seed + 5)
+    requests = [[rng.integers(0, LM_CONFIG["vocab_size"], SEQ_LEN, dtype=np.int32)
+                 for _ in range(n)] for n in (*CLUSTER_ROWS, 1)]
+    t0 = time.perf_counter()
+    cluster = tcluster.run(
+        serving_loop, {"export_dir": export, "max_batch": MAX_BATCH, "device": device},
+        num_executors=CLUSTER_NODES, input_mode=tcluster.InputMode.STREAMING,
+        log_dir=os.path.join(WORK_DIR, "cluster_logs"), heartbeat_interval=0.5,
+        reservation_timeout=300)
+    served, latency, reloaded = [], [], None
+    try:
+        up_s = time.perf_counter() - t0
+        for meta in cluster.cluster_info:
+            dev = meta["device"]
+            want = ("gpu", torch.cuda.get_device_name(0)) if cuda else ("cpu", "cpu")
+            if (dev["platform"], dev["device_kind"]) != want:
+                raise AssertionError(f"node {meta['executor_id']} registered {dev}, "
+                                     f"expected {want}")
+        log(f"[cluster] {CLUSTER_NODES} replica node processes up in {up_s:.1f} s; "
+            f"registered devices: "
+            + "; ".join(f"{m['executor_id']}: {m['device']['platform']} "
+                        f"{m['device']['device_kind']}" for m in cluster.cluster_info))
+        gw = cluster.serve(export, max_batch=MAX_BATCH, max_delay_ms=2.0,
+                           reload_poll_secs=0)
+        for rows in requests[:-1]:
+            t = time.perf_counter()
+            served.append(gw.predict(rows, timeout=600.0))
+            latency.append(time.perf_counter() - t)
+        client = GatewayClient("127.0.0.1", gw.endpoint[1], cluster.authkey)
+        try:
+            t = time.perf_counter()
+            served.append(client.predict(requests[-1], timeout=600.0))
+            latency.append(time.perf_counter() - t)
+        finally:
+            client.close()
+        # hot reload: other weights into the same export_dir
+        other = make_lm_params(LM_CONFIG, seed + 7)
+        export_bundle(export, other, LM_CONFIG)
+        del other
+        t = time.perf_counter()
+        acks = gw.reload()
+        reload_s = time.perf_counter() - t
+        reloaded = gw.predict(requests[0][:1], timeout=600.0)[0]
+    finally:
+        cluster.shutdown(timeout=300.0)
+    metrics = cluster.metrics()
+    nodes = {k: v for k, v in metrics["nodes"].items() if k != "driver"}
+
+    def node_sum(name):
+        return sum((v.get("counters") or {}).get(name, 0) for v in nodes.values())
+
+    batches, launches = node_sum("serve.node_batches"), node_sum("attn.flash_fwd_launches")
+    per_batch = LM_CONFIG["n_layers"] if cuda else 0  # the CPU path has no kernel
+    log(f"[cluster] replicas: {batches} served batches, {launches} kernel launches "
+        f"(attn.flash_fwd_launches; expected {per_batch} per batch), reload acked "
+        f"by {sorted(acks)} in {reload_s:.1f} s")
+    if len(nodes) != CLUSTER_NODES or batches < len(requests):
+        raise AssertionError(f"replica metrics from {sorted(nodes)}: {batches} batches")
+    if launches != per_batch * batches:
+        raise AssertionError(f"replica kernel launches {launches} != "
+                             f"{per_batch} x {batches} served batches")
+
+    # ordered, exactly-count results; one row of each request against the
+    # in-process replica on the same bundle as the slice exported it
+    if [len(r) for r in served] != [len(r) for r in requests]:
+        raise AssertionError(f"result counts {[len(r) for r in served]} != "
+                             f"request rows {[len(r) for r in requests]}")
+    params = make_lm_params(LM_CONFIG, seed)  # what the slice phase exported
+    apply = build_apply(LM_CONFIG, device=device)
+    worst = 0.0
+    for i, (rows, got) in enumerate(zip(requests, served)):
+        j = len(rows) - 1  # the last row: order within the request
+        ref = apply(params, np.stack([rows[j]] * MAX_BATCH))[0]
+        row = torch.from_numpy(np.asarray(got[j])).to(device)
+        if row.shape != (SEQ_LEN, LM_CONFIG["vocab_size"]) or not torch.isfinite(row).all():
+            raise AssertionError(f"request {i}: served logits not finite [S, V]")
+        scale = ref.abs().max().item()
+        err = (row - ref).abs().max().item()
+        worst = max(worst, err / scale)
+        if err > LOGIT_REL_TOL * scale:
+            raise AssertionError(f"request {i}: served logits differ from the "
+                                 f"in-process replica by {err:.4f} > "
+                                 f"{LOGIT_REL_TOL} x {scale:.3f}")
+    first = np.asarray(served[0][0])
+    changed = float(np.abs(np.asarray(reloaded) - first).max())
+    if not changed > 0.0:
+        raise AssertionError("predictions did not change after the hot reload")
+    # the replicas' own digests (the driver's registry holds the slice's)
+    digests = [(v.get("histograms") or {}).get("serve.node_batch_secs") or {}
+               for v in nodes.values()]
+    count = sum(d.get("count", 0) for d in digests)
+    node_ms = [1e3 * min(d["min"] for d in digests if d.get("count")),
+               1e3 * sum(d.get("sum", 0.0) for d in digests) / max(count, 1),
+               1e3 * max(d["max"] for d in digests if d.get("count"))]
+    log(f"[cluster] logits vs the in-process replica: worst max_abs_err/max|logit| "
+        f"{worst:.4f} (limit {LOGIT_REL_TOL}); after the reload the first row "
+        f"moved by up to {changed:.3f}")
+    for n, secs in zip([len(r) for r in requests], latency):
+        log(f"[cluster] request of {n} row(s) x {SEQ_LEN} tokens: {secs * 1e3:.1f} ms "
+            f"host clock ({n * SEQ_LEN * LM_CONFIG['vocab_size'] * 4 / 1e9:.2f} GB "
+            f"of f32 logits back) ({smi})")
+    log(f"[cluster] replicas' serve.node_batch_secs (forward + logits to host, "
+        f"{count} batches): min {node_ms[0]:.1f} / mean {node_ms[1]:.1f} / max "
+        f"{node_ms[2]:.1f} ms ({smi})")
+    return {"launches": launches, "batches": batches,
+            "request_ms": [x * 1e3 for x in latency], "node_batch_ms": node_ms,
+            "reload_s": reload_s, "logit_rel_err": worst}
 
 
 def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
@@ -939,6 +1152,61 @@ def phase_decode(apply, params, smi: str, device: str = "cuda") -> dict:
             "decode_logit_max_abs_err": err}
 
 
+def phase_train_f32(seed: int, smi: str, device: str = "cuda") -> dict:
+    """One AdamW step of the f32 model configuration (``bf16: false``) at
+    the LM width, through the CUDA-core kernel: a finite loss, n_layers
+    launches, and the step's gradients against plain attention."""
+    import torch
+
+    from examples_torch.llm.train_lm import synthetic_ids
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.parallel import dp
+
+    cfg = {**LM_CONFIG, "bf16": False}
+    model = make_train_model(cfg, seed + 11, device)
+    optimizer = dp.adamw(model.parameters(), TRAIN_LR)
+    loss_fn = tfm.make_loss_fn(model)
+    ids = synthetic_ids(F32_TRAIN_BATCH, SEQ_LEN, cfg["vocab_size"], seed)
+    batch = {"input_ids": torch.from_numpy(ids).to(device)}
+    cuda = device == "cuda"
+    with torch.device(device):
+        plain = tfm.build_transformer({**cfg, "attn_impl": "xla"})
+    plain.load_state_dict(model.state_dict())
+    plain_loss, plain_grads = loss_and_grads(plain, tfm.make_loss_fn(plain), batch)
+    del plain
+    att.flash_attn_fwd_generic_cuda.launches = 0
+    wgmma = att.flash_attn_fwd_cuda.launches
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(model, loss_fn, batch)
+    step_s = time.perf_counter() - t0
+    launches = att.flash_attn_fwd_generic_cuda.launches
+    want = cfg["n_layers"] if cuda else 0  # the CPU path has no kernel
+    if launches != want or att.flash_attn_fwd_cuda.launches != wgmma:
+        raise AssertionError(f"f32 step: {launches} launches of the CUDA-core "
+                             f"kernel (expected {want}), "
+                             f"{att.flash_attn_fwd_cuda.launches - wgmma} of the wgmma one")
+    if not math.isfinite(loss):
+        raise AssertionError(f"f32 step: loss {loss}")
+    loss_err = abs(plain_loss - loss) / abs(loss)
+    grad_err, worst = grad_disagreement(grads, plain_grads)
+    for name, p in model.named_parameters():
+        p.grad = grads[name]
+    optimizer.step()
+    del grads, plain_grads
+    log(f"[train-f32] one AdamW step, f32 compute, B={F32_TRAIN_BATCH} S={SEQ_LEN}: "
+        f"loss {loss:.5f} (plain attention {plain_loss:.5f}, rel {loss_err:.2e}, "
+        f"limit {LOSS_REL_TOL}); worst gradient rel L2 error {grad_err:.3e} at "
+        f"{worst} (limit {GRAD_REL_TOL}); {launches} launches of the CUDA-core "
+        f"kernel; forward + backward {step_s * 1e3:.1f} ms host clock ({smi})")
+    if loss_err > LOSS_REL_TOL or grad_err > GRAD_REL_TOL:
+        raise AssertionError("the f32 step disagrees with plain attention")
+    return {"launches": launches, "loss": loss, "grad_rel_err": grad_err,
+            "fwd_bwd_ms": step_s * 1e3}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -962,9 +1230,13 @@ def main() -> int:
     try:
         smi = phase_device()
         build = phase_build()
-        record = phase_kernel(args.seed, smi)
+        record, generic = phase_kernel(args.seed, smi)
         record["build"] = build
         record["launches"] = phase_slice(args.seed, smi)
+        cluster = phase_cluster(args.seed, smi)
+        record["cluster_launches"] = cluster.pop("launches")
+        record["cluster"] = cluster
+        torch.cuda.empty_cache()
         record["train_shape"] = phase_attention_train_shape(args.seed, smi)
         torch.cuda.empty_cache()
         model, train = phase_train(args.seed, smi)
@@ -974,9 +1246,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         train.update(phase_decode(apply, params, smi))
         record["train"] = train
+        del apply, params
+        torch.cuda.empty_cache()
+        train_f32 = phase_train_f32(args.seed, smi)
+        generic["launches"] = train_f32.pop("launches")
+        generic["train_f32"] = train_f32
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, generic]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,17 +3,18 @@
 
 A decoder-only transformer trains on a synthetic Zipf token stream with
 AdamW, then (``--generate N``) greedily decodes N tokens through the KV
-cache.  On the card, attention runs the Hopper flash-attention kernel
-forward with its recompute backward.  The kernel takes bf16 and fp16 only,
-so the card needs ``--bf16``; an f32 run there raises until the kernel's
-f32 path is ported (ROADMAP.md queue 2)::
+cache.  On the card, attention runs the hand-written kernel forward with
+its recompute backward: the Hopper ``wgmma`` kernel for ``--bf16``, the
+CUDA-core kernel for f32 (the default); head dims (d_model / n_heads) up
+to 256, a larger one raises::
 
   # on the CPU, tiny:
   python examples_torch/llm/train_lm.py --device cpu --vocab-size 256 \\
       --d-model 64 --n-layers 2 --seq-len 64 --batch 4 --steps 5
 
-  # on one card, bf16:
+  # on one card, bf16 or f32:
   python examples_torch/llm/train_lm.py --bf16 --seq-len 2048 --steps 20
+  python examples_torch/llm/train_lm.py --seq-len 2048 --batch 2 --steps 5
 
 Mesh parallelism (``--tp/--sp/--ep/--pp``), MoE (``--n-experts``) and
 ``--profile-dir`` are not ported yet and raise.
@@ -93,13 +94,16 @@ def main(argv=None) -> dict:
 
     from tensorflowonspark_torch.gpu_info import default_device
     from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.ops.attention import MAX_HEAD_DIM
     from tensorflowonspark_torch.parallel import dp as dplib
 
     dev = default_device(args.device)
-    if dev.type == "cuda" and not args.bf16:
-        raise NotImplementedError(
-            "f32 attention on the card needs the kernel's f32 path, not "
-            "ported yet: ROADMAP.md queue 2; pass --bf16")
+    head_dim = args.d_model // args.n_heads
+    if dev.type == "cuda" and head_dim > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {head_dim} (d_model {args.d_model} / n_heads "
+            f"{args.n_heads}) is over the attention kernels' limit of "
+            f"{MAX_HEAD_DIM}; raise --n-heads")
     with torch.device(dev):
         model = tfm.Transformer(
             vocab_size=args.vocab_size, d_model=args.d_model,

@@ -11,20 +11,35 @@ serving replica — the node's feed (``feeding``), the bundle format
 recompute backward, the blockwise cross-entropy (``ops.xent``), the loss
 (``models.transformer.make_loss_fn``) and the train step and batch feed
 (``parallel.dp``); and the KV-cache decode path
-(``models.transformer.greedy_generate``).  Entry points run on the CUDA
-card unless the caller passes ``device="cpu"``; without a card they raise.
+(``models.transformer.greedy_generate``); and the cluster around them — the
+coordinator, node processes, launchers, data plane and supervisor
+(``run`` → ``TorchCluster``: ``train``, ``inference``, ``serve``) and the
+online-serving gateway (``serving``: ``ServingGateway``, ``GatewayClient``).
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; without a card they raise.
 """
 
 __version__ = "0.1.0"
 
 from tensorflowonspark_torch import telemetry  # noqa: F401 - metrics/span API
+from tensorflowonspark_torch.cluster import InputMode, TorchCluster, run  # noqa: F401
 from tensorflowonspark_torch.checkpoint import (  # noqa: F401
     export_bundle,
     load_bundle,
     load_bundle_cached,
 )
+from tensorflowonspark_torch.data import PartitionedDataset  # noqa: F401
 from tensorflowonspark_torch.feeding import DataFeed, FeedQueues  # noqa: F401
 from tensorflowonspark_torch.inference import bundle_inference_loop  # noqa: F401
+from tensorflowonspark_torch.launcher import (  # noqa: F401
+    LocalLauncher,
+    SubprocessLauncher,
+)
 from tensorflowonspark_torch.marker import EndOfFeed, EndPartition  # noqa: F401
 from tensorflowonspark_torch.models.registry import build, build_apply  # noqa: F401
-from tensorflowonspark_torch.serving.loop import serving_loop  # noqa: F401
+from tensorflowonspark_torch.serving import (  # noqa: F401
+    GatewayClient,
+    ServingGateway,
+    serving_loop,
+)
+TFCluster = TorchCluster  # drop-in alias for TensorFlowOnSpark users, as in the JAX package

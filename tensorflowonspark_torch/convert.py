@@ -1,5 +1,7 @@
-"""Parameter layouts: the JAX package's transformer param tree (flax names,
-numpy arrays, as a bundle holds them) ↔ the port's state dict.
+"""Parameter layouts: the JAX package's param trees (flax names, numpy
+arrays, as a bundle holds them) ↔ the port's state dicts.
+
+The transformer:
 
 | JAX param                      | shape      | port key / shape                    |
 | ------------------------------ | ---------- | ----------------------------------- |
@@ -16,6 +18,9 @@ numpy arrays, as a bundle holds them) ↔ the port's state dict.
 gradients and trained weights go back to the JAX layout leaf by leaf (and
 ``checkpoint.export_bundle`` of ``torch_to_flax(model.state_dict(), H)``
 is a bundle the serving slice loads).
+
+The linear model (``models/linear.py``): ``w`` [in, out] is ``weight``
+[out, in], ``b`` [out] is ``bias`` [out].
 """
 
 from __future__ import annotations
@@ -42,8 +47,11 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
-    """JAX ``Transformer`` params → port ``Transformer`` state dict (CPU
-    tensors in the tree's dtype; ``load_state_dict`` casts them)."""
+    """JAX ``Transformer`` (or ``linear``) params → the port model's state
+    dict (CPU tensors in the tree's dtype; ``load_state_dict`` casts them)."""
+    if set(params) == {"w", "b"}:
+        return {"weight": _tensor(params["w"]).T.contiguous(),
+                "bias": _tensor(params["b"])}
     out = {"embed.weight": _tensor(params["embed"]["embedding"])}
     i = 0
     while f"block_{i}" in params:
@@ -68,8 +76,13 @@ def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def torch_to_flax(state: dict, n_heads: int) -> dict:
-    """Port state dict → JAX param tree (numpy; 16-bit floats widen to f32)."""
+def torch_to_flax(state: dict, n_heads: int | None = None) -> dict:
+    """Port state dict → JAX param tree (numpy; 16-bit floats widen to f32).
+    ``n_heads`` splits the transformer's attention projections; the linear
+    model needs none."""
+    if set(state) == {"weight", "bias"}:
+        return {"w": np.ascontiguousarray(_numpy(state["weight"]).T),
+                "b": _numpy(state["bias"])}
     tree: dict = {"embed": {"embedding": _numpy(state["embed.weight"])}}
     i = 0
     while f"blocks.{i}.attn.q_proj.weight" in state:

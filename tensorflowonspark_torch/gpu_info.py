@@ -40,16 +40,25 @@ def device_summary() -> dict:
     """What this process sees, in the shape of ``tpu_info.device_summary``."""
     if not torch.cuda.is_available():
         return {"platform": "cpu", "device_kind": "cpu", "num_devices": 0,
-                "coords": [], "process_index": 0, "nvidia_smi": []}
+                "coords": [], "process_index": _process_index(),
+                "nvidia_smi": []}
     n = torch.cuda.device_count()
     return {
         "platform": "gpu",
         "device_kind": torch.cuda.get_device_name(0),
         "num_devices": n,
         "coords": [[i] for i in range(n)],
-        "process_index": 0,
+        "process_index": _process_index(),
         "nvidia_smi": nvidia_smi_name_power(),
     }
+
+
+def _process_index() -> int:
+    """This process's rank in the torch.distributed world (0 outside one):
+    what ``jax.process_index()`` gives the JAX package's summary."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def default_device(device=None) -> torch.device:

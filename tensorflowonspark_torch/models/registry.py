@@ -13,7 +13,7 @@ import torch
 logger = logging.getLogger(__name__)
 
 _REGISTRY: dict[str, Callable] = {}
-_FAMILIES = ("transformer",)  # the model modules ported so far
+_FAMILIES = ("transformer", "linear")  # the model modules ported so far
 
 
 def register(name: str):

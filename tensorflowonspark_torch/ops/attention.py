@@ -11,9 +11,14 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
 - ``blockwise_attention`` — online softmax as a loop over checkpointed key
   blocks;
 - ``flash_attention`` / ``flash_attention_fwd`` — the public entry.  A CUDA
-  tensor goes to the kernel (``csrc/flash_attn_fwd.cu``, through
-  ``flash_attn_fwd_cuda``), a CPU tensor to the plain version.  A CUDA
-  tensor whose kernel fails to build or launch raises: nothing falls back.
+  tensor goes to the kernels (through ``flash_attn_fwd_cuda``), a CPU
+  tensor to the plain version.  bf16/fp16 with head_dim <= 128 runs the
+  ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``), zero-padded along D to 64
+  or 128 as the TPU kernel pads to 128 lanes; f32 at any head_dim, and
+  bf16/fp16 with 128 < head_dim <= 256, run the CUDA-core kernel
+  (``csrc/flash_attn_fwd_generic.cu``, ``flash_attn_fwd_generic_cuda``).
+  head_dim > 256 raises.  A CUDA tensor whose kernel fails to build or
+  launch raises: nothing falls back.
   When autograd records the call, it goes through ``FlashAttention``, the
   counterpart of the JAX package's ``custom_vjp`` ``_flash_attention_tpu``:
   the same forward, and a backward that recomputes through
@@ -30,6 +35,8 @@ import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from tensorflowonspark_torch import telemetry
 
 NEG_INF = -1e30  # finite stand-in for -inf: keeps exp() exactly 0 without nan
 
@@ -144,27 +151,31 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# The kernel: csrc/flash_attn_fwd.cu, bound through ctypes.
+# The kernels: csrc/flash_attn_fwd.cu and csrc/flash_attn_fwd_generic.cu,
+# bound through ctypes.
 # ---------------------------------------------------------------------------
 
-KERNEL_HEAD_DIMS = (64, 128)
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-_LIB = None
+KERNEL_HEAD_DIMS = (64, 128)     # the wgmma kernel's head dims
+MAX_HEAD_DIM = 256               # the largest head_dim the kernels take
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_LIBS: dict = {}
 
 
-def _kernel_lib():
-    global _LIB
-    if _LIB is None:
+def _kernel_lib(name: str):
+    """Build (first use) and bind ``csrc/<name>.cu``; both kernels share the
+    C signature ``tos_<name>(q, k, v, o, lse, B, Sq, Sk, H, D, strides,
+    causal, kv_offset, sm_scale, dtype, stream)``."""
+    if name not in _LIBS:
         from tensorflowonspark_torch.ops.cuda_build import load_library
 
-        lib = load_library("flash_attn_fwd")
-        fn = lib.tos_flash_attn_fwd
+        lib = load_library(name)
+        fn = getattr(lib, f"tos_{name}")
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
@@ -179,47 +190,93 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
-                        sm_scale: float | None = None, kv_offset: int = 0):
-    """Launch the Hopper kernel; returns ``(out, lse)``.  Inputs are CUDA
-    tensors of one type, bf16 or fp16, with head_dim 64 or 128; anything
-    else raises.  ``flash_attn_fwd_cuda.launches`` counts the launches."""
+def _check_inputs(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attn_fwd_cuda needs CUDA tensors; the plain "
+        raise ValueError("the attention kernels need CUDA tensors; the plain "
                          "version (chunk_attention) is the CPU path")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"kernel takes bf16 or fp16 q/k/v of one type, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"the kernels take bf16, fp16 or f32 q/k/v of one "
+                         f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,Sq,H,D] and k, v [B,Sk,H,D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, sq, h, d = q.shape
+    b, _, h, d = q.shape
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel head_dim must be one of {KERNEL_HEAD_DIMS}, "
-                         f"got {d}")
-    sk = k.shape[1]
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head_dim up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+
+
+def _launch(name, q, k, v, causal, scale, kv_offset):
+    """Run ``csrc/<name>.cu`` on checked inputs; returns ``(out, lse)``."""
+    b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 12)(
         *(s for x in (q, k, v, out) for s in x.stride()[:3]))
-    fn = _kernel_lib().tos_flash_attn_fwd
+    fn = getattr(_kernel_lib(name), f"tos_{name}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, sq, sk, h, d, ctypes.cast(strides, ctypes.c_void_p),
-                 int(bool(causal)), int(kv_offset), float(scale),
-                 _DTYPE_CODES[q.dtype], stream)
+                 lse.data_ptr(), b, sq, k.shape[1], h, d,
+                 ctypes.cast(strides, ctypes.c_void_p), int(bool(causal)),
+                 int(kv_offset), float(scale), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error {err}")
-    flash_attn_fwd_cuda.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    # both kernels' launches, as node processes report them to
+    # cluster.metrics()
+    telemetry.counter("attn.flash_fwd_launches").inc()
     return out, lse
+
+
+def flash_attn_fwd_generic_cuda(q, k, v, *, causal: bool = True,
+                                sm_scale: float | None = None,
+                                kv_offset: int = 0):
+    """Launch the CUDA-core kernel (``csrc/flash_attn_fwd_generic.cu``);
+    returns ``(out, lse)``.  Inputs are CUDA tensors of one type, f32, bf16
+    or fp16, with head_dim up to 256; anything else raises.
+    ``flash_attn_fwd_generic_cuda.launches`` counts its launches."""
+    _check_inputs(q, k, v)
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    out = _launch("flash_attn_fwd_generic", q, k, v, causal, scale, kv_offset)
+    flash_attn_fwd_generic_cuda.launches += 1
+    return out
+
+
+flash_attn_fwd_generic_cuda.launches = 0
+
+
+def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
+                        sm_scale: float | None = None, kv_offset: int = 0):
+    """Run attention on the card's kernels; returns ``(out, lse)``.  Inputs
+    are CUDA tensors of one type (bf16, fp16 or f32) with head_dim up to
+    256; anything else raises.
+
+    bf16/fp16 with head_dim <= 128 launches the ``wgmma`` kernel, q, k and v
+    zero-padded along D to 64 or 128 when head_dim is neither (zero columns
+    change neither Q Kᵀ nor the first head_dim columns of P V; ``sm_scale``
+    defaults to ``1/sqrt`` of the unpadded head_dim) and O sliced back;
+    ``flash_attn_fwd_cuda.launches`` counts those launches.  f32, and
+    bf16/fp16 with head_dim > 128, go to ``flash_attn_fwd_generic_cuda``."""
+    _check_inputs(q, k, v)
+    d = q.shape[-1]
+    if q.dtype == torch.float32 or d > max(KERNEL_HEAD_DIMS):
+        return flash_attn_fwd_generic_cuda(q, k, v, causal=causal,
+                                           sm_scale=sm_scale, kv_offset=kv_offset)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    padded = next(p for p in KERNEL_HEAD_DIMS if d <= p)
+    if padded != d:
+        q, k, v = (torch.nn.functional.pad(x, (0, padded - d)) for x in (q, k, v))
+    q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
+    out, lse = _launch("flash_attn_fwd", q, k, v, causal, scale, kv_offset)
+    flash_attn_fwd_cuda.launches += 1
+    return (out[..., :d] if padded != d else out), lse
 
 
 flash_attn_fwd_cuda.launches = 0

@@ -1,7 +1,8 @@
 """Port attention (``tensorflowonspark_torch.ops.attention``) against the JAX
 package's: plain versions against ``mha_reference`` and the Pallas kernel in
-interpret mode (CPU, f32, atol/rtol 1e-5).  The Hopper kernel is held
-against its plain version on the card in ``tests/test_torch_cuda.py``."""
+interpret mode (CPU, f32, atol/rtol 1e-5), at the head dims both kernels
+take.  The kernels are held against their plain version on the card in
+``tests/test_torch_cuda.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,6 +57,50 @@ def test_plain_kernel_version_matches_pallas_interpret(case):
                             block_q=16, block_k=16, impl="pallas_interpret")
     tp = ta.flash_attention(*_t(q, k, v), causal=causal, kv_offset=off)
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **TOL)
+
+
+# (b, sq, h, d, sk, causal, kv_offset): the head dims the card's kernels
+# take besides 64 and 128 — 32 and 96 through the zero-padded wgmma path
+# (bf16/fp16), 256 through the CUDA-core kernel, all of them in f32 through
+# the CUDA-core kernel — at ragged lengths and a nonzero kv_offset
+HEAD_DIM_CASES = {
+    "d32_ragged_causal_offset": (2, 20, 2, 32, 37, True, 5),
+    "d96_noncausal": (1, 24, 2, 96, 40, False, 0),
+    "d96_causal": (1, 33, 2, 96, None, True, 0),
+    "d256_causal_offset": (1, 17, 1, 256, 30, True, 9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HEAD_DIM_CASES))
+def test_plain_version_at_the_kernels_head_dims_matches_jax(case):
+    b, s, h, d, sk, causal, off = HEAD_DIM_CASES[case]
+    q, k, v = make_qkv(b=b, s=s, h=h, d=d, sk=sk, seed=2)
+    jo, jl = ja._flash_fwd_pallas(*_j(q, k, v), causal=causal, sm_scale=None,
+                                  kv_offset=off, block_q=8, block_k=8,
+                                  interpret=True)
+    to, tl = ta.flash_attention_fwd(*_t(q, k, v), causal=causal, kv_offset=off)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    ref = np.asarray(ja.mha_reference(*_j(q, k, v), causal=causal, kv_offset=off))
+    seen = tl.numpy() > ta.NEG_INF / 2  # rows that see a key (see above)
+    assert seen.any()
+    np.testing.assert_allclose(to.numpy()[seen], ref[seen], **TOL)
+
+
+@pytest.mark.parametrize("d, padded", [(32, 64), (96, 128), (80, 128)])
+def test_zero_padding_the_head_dim_changes_nothing(d, padded):
+    """What ``flash_attn_fwd_cuda`` does for a bf16/fp16 head_dim the wgmma
+    kernel lacks: zero columns change neither Q Kᵀ nor the first d columns
+    of P V, so attention over inputs padded along D, at the unpadded
+    ``1/sqrt(d)`` scale and sliced back, is attention over the inputs."""
+    q, k, v = _t(*make_qkv(b=2, s=24, h=2, d=d, sk=31, seed=3))
+    pad = [torch.nn.functional.pad(x, (0, padded - d)) for x in (q, k, v)]
+    po, pl = ta.chunk_attention(*pad, causal=True, kv_offset=3,
+                                sm_scale=1.0 / d ** 0.5)
+    o, lse = ta.chunk_attention(q, k, v, causal=True, kv_offset=3)
+    assert not po[..., d:].any()
+    np.testing.assert_allclose(po[..., :d].numpy(), o.numpy(), **TOL)
+    np.testing.assert_allclose(pl.numpy(), lse.numpy(), **TOL)
 
 
 # (b, s, h, d, causal, kv_offset): q, k, v as strided views of one packed

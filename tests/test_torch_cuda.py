@@ -1,5 +1,6 @@
-"""The Hopper flash-attention kernel against its plain PyTorch version, on
-the card.  No JAX here, so the file runs on the machine with the card:
+"""The attention kernels (the Hopper ``wgmma`` kernel, its zero-padded path
+and the CUDA-core kernel for f32 and head dims up to 256) against their
+plain PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py
 
@@ -65,15 +66,65 @@ def test_cuda_kernel_matches_plain_version(case):
         assert masked[:, :64].all() and not masked[:, 64:].any()
 
 
-@pytest.mark.parametrize("bad", ["float32", "head_dim_96", "mixed_types"])
+# (b, sq, sk, h, d, causal, kv_offset, dtype, packed) for the CUDA-core
+# kernel (f32 at any head_dim, bf16/fp16 above 128) and the wgmma kernel's
+# zero-padded path (bf16/fp16 with head_dim < 128, not 64)
+GENERIC_CASES = {
+    "f32_serving_shape": (4, 2048, 2048, 8, 128, True, 0, torch.float32, False),
+    "f32_d64_ragged_kv_offset": (2, 100, 170, 3, 64, True, 37, torch.float32, False),
+    "f32_d33_noncausal": (2, 70, 45, 2, 33, False, 0, torch.float32, False),
+    "f32_d256_decode": (2, 1, 517, 4, 256, True, -516, torch.float32, False),
+    "f32_packed_d80": (2, 130, 130, 3, 80, True, 0, torch.float32, True),
+    "bf16_d256": (2, 300, 300, 4, 256, True, 0, torch.bfloat16, False),
+    "fp16_d200_ragged": (2, 77, 140, 2, 200, False, 0, torch.float16, False),
+    "bf16_d32_padded": (2, 300, 300, 4, 32, True, 0, torch.bfloat16, False),
+    "bf16_d96_padded": (2, 200, 330, 3, 96, True, 0, torch.bfloat16, False),
+    "fp16_d80_padded_masked_rows": (1, 100, 70, 2, 80, True, 37, torch.float16, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GENERIC_CASES))
+def test_cuda_generic_and_padded_paths_match_plain_version(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, sq, sk, h, d, causal, off, dtype, packed = GENERIC_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = make_inputs(b, sq, sk, h, d, dtype, packed, g)
+    wgmma = ta.flash_attn_fwd_cuda.launches
+    generic = ta.flash_attn_fwd_generic_cuda.launches
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    try:
+        o, lse = ta.flash_attention_fwd(q, k, v, causal=causal, kv_offset=off,
+                                        impl="kernel")
+        po, pl = ta.chunk_attention(q, k, v, causal=causal, kv_offset=off)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    to_generic = dtype == torch.float32 or d > 128
+    assert ta.flash_attn_fwd_generic_cuda.launches - generic == int(to_generic)
+    assert ta.flash_attn_fwd_cuda.launches - wgmma == int(not to_generic)
+    assert o.shape == q.shape and o.dtype == dtype
+    if dtype == torch.float32:  # f32 FMA on both sides, summed in other orders
+        torch.testing.assert_close(o, po, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(lse, pl, atol=1e-4, rtol=1e-4)
+    else:  # the plain version's logits and the output round to the input type
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(lse, pl, atol=1e-2, rtol=1e-2)
+    masked = pl <= ta.NEG_INF / 2
+    assert (lse[masked] == ta.NEG_INF).all() and (o[masked] == 0).all()
+    assert torch.isfinite(o).all()
+
+
+@pytest.mark.parametrize("bad", ["float64", "head_dim_320", "mixed_types"])
 def test_cuda_kernel_raises_on_what_it_does_not_take(bad):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    d = 96 if bad == "head_dim_96" else 64
-    dtype = torch.float32 if bad == "float32" else torch.bfloat16
+    d = 320 if bad == "head_dim_320" else 64
+    dtype = torch.float64 if bad == "float64" else torch.bfloat16
     q = torch.zeros((1, 8, 2, d), device="cuda", dtype=dtype)
     k = q.half() if bad == "mixed_types" else q
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="256" if bad == "head_dim_320" else None):
         ta.flash_attention_fwd(q, k, q, impl="kernel")
 
 

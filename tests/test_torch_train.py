@@ -346,13 +346,15 @@ def test_train_lm_defaults_to_cuda_and_raises_without_it():
 
 
 def test_train_lm_f32_on_the_card_raises(monkeypatch):
-    # the kernel takes bf16/fp16 only: an f32 run on the card raises rather
-    # than route attention to the plain version
+    # f32 runs on the card through the CUDA-core kernel now; what it cannot
+    # take is a head dim over the kernels' 256, and the run says so before
+    # building anything rather than route attention to the plain version
     from tensorflowonspark_torch import gpu_info
 
     monkeypatch.setattr(gpu_info, "default_device", lambda d: torch.device(d))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        _train_lm().main(TINY + ["--device", "cuda", "--steps", "1"])
+    wide = ["--d-model", "640", "--n-heads", "2"]  # the later flags win
+    with pytest.raises(ValueError, match="head dim 320 .* limit of 256"):
+        _train_lm().main(TINY + wide + ["--device", "cuda", "--steps", "1"])
 
 
 def test_cross_entropy_loss_and_accuracy_match_jax():
