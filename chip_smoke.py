@@ -7,24 +7,32 @@ Phases (any failure propagates and the script exits non-zero):
 
 1. device — the card's name and power limit (``nvidia-smi``) and
    ``torch.cuda.get_device_name``;
-2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` and
-   ``flash_attn_fwd_generic.cu`` from the checkout (one ``nvcc`` each, in
-   parallel) and prints, per instantiation of the first (D 64/128 x
-   bf16/fp16), the registers and spills ptxas reports, the dynamic shared
+2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu``,
+   ``flash_attn_fwd_tf32.cu`` and ``flash_attn_fwd_generic.cu`` from the
+   checkout (one ``nvcc`` each, in parallel) and prints, per instantiation
+   of the two ``wgmma`` kernels (D 64/128/256 x bf16/fp16; f32 as 3xTF32 at
+   D 64/128), the registers and spills ptxas reports, the dynamic shared
    memory, and the counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
    instructions in the SASS (``cuobjdump -sass``), failing if either is
-   missing; and per instantiation of the second (type x columns per lane)
-   its registers and spills;
-3. kernel — holds the kernels against their plain PyTorch version
-   (``chunk_attention``) on the card, O and lse, at the serving shape and at
-   edge shapes (ragged tails, one query row, key-block-crossing offsets,
-   strided q/k/v views of one packed tensor, a tile half fully masked), and
-   the CUDA-core kernel and the zero-padded wgmma path (f32 at the serving
-   shape, f32 D=64 ragged with a kv_offset, bf16 D=32 and D=96, bf16 and f32
-   D=256); times each as 50 launches back to back between two CUDA events,
-   and at the serving shape, D=64, f32 at the serving shape and bf16 D=256
-   also the plain version and ``F.scaled_dot_product_attention`` (the
-   yardstick only: the port never calls it);
+   missing or a spill shows; and the registers and spills of the 3xTF32
+   kernel's K/V pre-pass and of the CUDA-core kernel;
+3. kernel — holds every route (``ops.attention._route``) against the plain
+   PyTorch version (``chunk_attention``) on the card, O and lse, at the
+   serving shape and at edge shapes (ragged tails, one query row,
+   key-block-crossing offsets, strided q/k/v views of one packed tensor, a
+   tile half fully masked), for bf16/fp16 at D 64/128 and at D=256 (and
+   129-255 padded to it), for f32 through the 3xTF32 kernel (and with every
+   low mantissa bit set) and through the CUDA-core kernel (D=256, at the
+   head-dim-256 f32 step's shape and one decode row), and the zero-padded
+   paths; each case launches its route's kernel once and no other
+   (``ops.attention.LAUNCHES``).  Times each as 50 launches back to back
+   between two CUDA events, and the cases of ``REFERENCE_TIMED`` also
+   against the plain version and ``F.scaled_dot_product_attention`` (the
+   yardstick only: the port never calls it); each bound names what it
+   bounds (``BOUND_BASIS``); at the f32 serving shape also the pre-pass and
+   the attention kernel apart (``torch.profiler``), the function's own
+   bound at the TF32 rate beside the 3xTF32 design's, and which SDPA
+   backends take f32;
 4. slice — an LM serving replica at the width of the repo's chip LM
    configuration (vocab 32000, d_model 1024, 8 layers, 8 heads, bf16, 2048
    tokens), random weights from the seed in the JAX package's bundle layout:
@@ -64,8 +72,13 @@ Phases (any failure propagates and the script exits non-zero):
    prompt, 64 new tokens): cached logits against a full forward at the same
    positions, the EOS stop, ms per generated token;
 9. f32 train step — one AdamW step of the f32 model configuration at the
-   same width (B=2, S=2048) through the CUDA-core kernel: a finite loss,
-   n_layers launches, and the gradients against plain attention.
+   same width (B=2, S=2048) through the 3xTF32 kernel: a finite loss,
+   n_layers launches of it and none of the other kernels, and the
+   gradients against plain attention;
+10. head dim 256 — the same step for the LM with 4 heads of 256 (depth cut
+   to ``D256_LAYERS``), in bf16 (the ``wgmma`` kernel at D=256) and in f32
+   (the CUDA-core kernel): n_layers launches of the route's kernel, and
+   loss and gradients against plain attention.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -89,6 +102,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(ROOT, "chip_smoke_work")  # bundle files, removed at exit
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16/fp16 tensor-core rate
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 PEAK_F32_FLOPS = 66.9e12  # H100 SXM f32 FMA rate outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 # O: P is rounded to bf16/fp16 for the P·V product on the tensor cores and O
@@ -97,7 +111,10 @@ O_TOL = dict(atol=2e-2, rtol=2e-2)
 # lse: the plain version's logits are a bf16/fp16 einsum (rounded before
 # the f32 softmax), the kernel's are accumulated in f32.
 LSE_TOL = dict(atol=1e-2, rtol=1e-2)
-# f32 inputs: both sides are f32 FMA (no TF32), summed in other orders
+# f32 inputs: the 3xTF32 kernel's products are good to about 2^-20 relative
+# (x = hi + lo split, the lo.lo term dropped) and the CUDA-core kernel is f32
+# FMA, against the plain version's f32 einsums (no TF32), summed in other
+# orders
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # slice logits, served (kernel attention) vs plain attention: bf16 compute
 # rounds at different places over 8 layers; held to 5% of the largest logit
@@ -130,18 +147,43 @@ KERNEL_CASES = [
     # every row of the first consumer warpgroup's 64-row half sees no key
     ("consumer_half_masked", 1, 128, 128, 8, 128, True, 64, "bfloat16", False),
 ]
-# the CUDA-core kernel (f32 at any D, bf16/fp16 above 128) and the wgmma
-# kernel's zero-padded path (bf16/fp16 with D < 128, not 64), same fields
+# the other routes (ops.attention._route), same fields: f32 up to D=128 on
+# the 3xTF32 kernel (padded to 64 or 128), bf16/fp16 at D=256 on the wgmma
+# kernel (129-255 padded to 256) and below 128 padded to 64 or 128, f32
+# above 128 on the CUDA-core kernel; a name with "low_bits" sets every low
+# mantissa bit of the f32 inputs
 GENERIC_CASES = [
     ("f32_serving_shape", 4, 2048, 2048, 8, 128, True, 0, "float32", False),
     ("f32_d64_ragged_kv_offset", 2, 200, 330, 8, 64, True, 37, "float32", False),
+    ("f32_ragged_200_330_noncausal", 2, 200, 330, 8, 128, False, 0, "float32", False),
+    ("f32_kv_offset_masked_rows", 1, 100, 70, 8, 128, True, 37, "float32", False),
+    ("f32_kv_offset_negative", 1, 64, 192, 4, 128, True, -64, "float32", False),
+    ("f32_sq_1_causal_decode", 2, 1, 517, 8, 128, True, -516, "float32", False),
+    ("f32_packed_qkv_view", 2, 512, 512, 8, 128, True, 0, "float32", True),
+    ("f32_consumer_half_masked", 1, 128, 128, 8, 128, True, 64, "float32", False),
+    ("f32_d33_padded", 2, 70, 45, 8, 33, False, 0, "float32", False),
+    ("f32_d80_padded_packed", 2, 130, 130, 8, 80, True, 0, "float32", True),
+    ("f32_low_bits", 2, 512, 512, 8, 128, True, 0, "float32", False),
     ("bf16_d32_padded", 4, 512, 512, 8, 32, True, 0, "bfloat16", False),
     ("bf16_d96_padded", 2, 300, 300, 8, 96, True, 0, "bfloat16", False),
     ("bf16_d256", 4, 2048, 2048, 4, 256, True, 0, "bfloat16", False),
-    ("f32_d256", 2, 512, 512, 4, 256, True, 0, "float32", False),
+    ("bf16_d256_train_shape", 8, 2048, 2048, 4, 256, True, 0, "bfloat16", False),
+    ("bf16_d256_ragged_noncausal", 2, 200, 330, 4, 256, False, 0, "bfloat16", False),
+    ("bf16_d256_kv_offset_masked_rows", 1, 100, 70, 4, 256, True, 37, "bfloat16", False),
+    ("bf16_d256_kv_offset_negative", 1, 64, 192, 4, 256, True, -64, "bfloat16", False),
+    ("fp16_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float16", False),
+    ("bf16_d256_packed_qkv_view", 2, 512, 512, 4, 256, True, 0, "bfloat16", True),
+    ("bf16_d256_consumer_half_masked", 1, 128, 128, 4, 256, True, 64, "bfloat16", False),
+    ("bf16_d160_padded", 2, 300, 300, 4, 160, True, 0, "bfloat16", False),
+    ("fp16_d192_padded", 2, 200, 330, 4, 192, True, 5, "float16", False),
+    # the head-dim-256 f32 train step's own shape, and its decode edge
+    ("f32_d256", 2, 2048, 2048, 4, 256, True, 0, "float32", False),
+    ("f32_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float32", False),
 ]
 # cases timed against the plain version and the library call as well
-REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d256")
+REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d256",
+                   "bf16_d256_train_shape", "f32_d256", "bf16_d32_padded",
+                   "bf16_d96_padded")
 
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
@@ -161,6 +203,7 @@ LOSS_REL_TOL = 1e-2
 SERVE_LOGIT_REL_TOL = 2.0 ** -8
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 64
 F32_TRAIN_BATCH = 2  # the f32 step: f32 products and an f32 recompute backward
+D256_HEADS, D256_LAYERS = 4, 2  # head dim 256 at the LM's width, depth cut
 CLUSTER_ROWS = (4, 4, 3)  # gateway.predict requests; then one row over TCP
 CLUSTER_NODES = 2
 # SASS instructions that show the design: wgmma and TMA loads
@@ -169,6 +212,14 @@ DESIGN_SASS = ("HGMMA", "UTMALDG")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    from tensorflowonspark_torch.ops import attention as att
+
+    for name in att.LAUNCHES:
+        att.LAUNCHES[name] = 0
 
 
 @functools.cache
@@ -228,13 +279,25 @@ def live_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
     return sum(min(sk, max(0, i - kv_offset + 1)) for i in range(sq))
 
 
-def attention_bound(b, sq, sk, h, d, causal, kv_offset, itemsize):
-    """(bound_ms, bound_by): the larger of the time of the two products over
-    the live pairs at the card's peak for the input type (tensor cores for
-    16-bit types, f32 FMA for f32) and the time to move q, k, v, O and lse."""
-    flops = 4 * d * b * h * live_pairs(sq, sk, causal, kv_offset)
+# what each route's bound_ms bounds: (peak FLOP/s, products done per
+# product of the function, the basis as the kernels record states it)
+BOUND_BASIS = {
+    "flash_attn_fwd": (PEAK_BF16_FLOPS, 1, "the function at the bf16/fp16 "
+                       "tensor-core rate (989 TFLOP/s)"),
+    "flash_attn_fwd_tf32": (PEAK_TF32_FLOPS, 3, "the 3xTF32 design: three TF32 "
+                            "products per f32 product at 495 TFLOP/s"),
+    "flash_attn_fwd_generic": (PEAK_F32_FLOPS, 1, "the CUDA-core design: f32 "
+                               "FMA at 66.9 TFLOP/s"),
+}
+
+
+def attention_bound(b, sq, sk, h, d, causal, kv_offset, itemsize,
+                    peak=PEAK_BF16_FLOPS, products=1):
+    """(bound_ms, bound_by): the larger of the time of ``products`` times
+    the two products over the live pairs at ``peak`` FLOP/s and the time to
+    move q, k, v, O and lse."""
+    flops = products * 4 * d * b * h * live_pairs(sq, sk, causal, kv_offset)
     nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * itemsize + b * sq * h * 4
-    peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -255,15 +318,42 @@ def phase_device():
     return smi[0]
 
 
+KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32", "flash_attn_fwd_generic")
+# the wgmma instantiations: (library, D, dtype name)
+WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt) for d in (64, 128, 256)
+                    for dt in ("bfloat16", "float16")]
+                   + [("flash_attn_fwd_tf32", d, "float32") for d in (64, 128)])
+# the 3xTF32 kernel's K/V pre-pass and the CUDA-core kernel (one
+# instantiation for every D <= 256, keyed 256), reported by ptxas only
+OTHER_INSTANCES = (("flash_attn_fwd_tf32", "split_kv", "float32"),
+                   ("flash_attn_fwd_generic", 256, "float32"))
+
+
+def kernel_key(text: str):
+    """``(library, D, dtype name)`` of the kernel instantiation a mangled
+    name in ``text`` names, or None."""
+    m = re.search(r"flash_fwd_kernelILi(\d+)ELb([01])E", text)
+    if m:
+        return ("flash_attn_fwd", int(m.group(1)),
+                "bfloat16" if m.group(2) == "1" else "float16")
+    m = re.search(r"flash_fwd_tf32_kernelILi(\d+)E", text)
+    if m:
+        return ("flash_attn_fwd_tf32", int(m.group(1)), "float32")
+    if "split_kv_kernel" in text:
+        return OTHER_INSTANCES[0]
+    if "flash_fwd_generic_kernel" in text:
+        return OTHER_INSTANCES[1]
+    return None
+
+
 def ptxas_report(log_text: str) -> dict:
-    """``{(D, dtype name): {"registers", "spill_stores", "spill_loads"}}``
-    for each instantiation of the kernel, from nvcc's ``-Xptxas -v``."""
+    """``{kernel_key: {"registers", "spill_stores", "spill_loads"}}`` for
+    each kernel instantiation, from nvcc's ``-Xptxas -v``."""
     report, cur = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"flash_fwd_kernelILi(\d+)ELb([01])E", line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            cur = report.setdefault(
-                (int(m.group(1)), "bfloat16" if m.group(2) == "1" else "float16"), {})
+        key = kernel_key(line)
+        if key and ("Compiling entry" in line or "Function properties" in line):
+            cur = report.setdefault(key, {})
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
@@ -275,8 +365,8 @@ def ptxas_report(log_text: str) -> dict:
 
 
 def sass_counts(lib_path) -> dict:
-    """``{(D, dtype name): {instruction: count}}`` for ``DESIGN_SASS`` in
-    each instantiation's SASS, from ``cuobjdump -sass`` of the library."""
+    """``{kernel_key: {instruction: count}}`` for ``DESIGN_SASS`` in each
+    instantiation's SASS, from ``cuobjdump -sass`` of the library."""
     import subprocess
     from pathlib import Path
 
@@ -288,98 +378,117 @@ def sass_counts(lib_path) -> dict:
     counts, cur = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_fwd_kernelILi(\d+)ELb([01])E", line)
-            cur = None if not m else counts.setdefault(
-                (int(m.group(1)), "bfloat16" if m.group(2) == "1" else "float16"),
-                dict.fromkeys(DESIGN_SASS, 0))
+            key = kernel_key(line)
+            cur = None if key is None else counts.setdefault(
+                key, dict.fromkeys(DESIGN_SASS, 0))
         elif cur is not None:
             for ins in DESIGN_SASS:
                 cur[ins] += ins in line
     return counts
 
 
-GENERIC_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
-
-
-def generic_ptxas_report(log_text: str) -> dict:
-    """``{(dtype name, columns per lane): {"registers", "spill_stores",
-    "spill_loads"}}`` for each instantiation of the CUDA-core kernel."""
-    report, cur = {}, None
-    for line in log_text.splitlines():
-        m = re.search(r"flash_fwd_generic_kernelI(f|13__nv_bfloat16|6__half)Li(\d+)E",
-                      line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            cur = report.setdefault((GENERIC_TYPES[m.group(1)], int(m.group(2))), {})
-        elif cur is not None:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m:
-                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                cur["registers"] = int(m.group(1))
-    return report
-
-
 def phase_build() -> dict:
-    """Build both kernels from the checkout (one nvcc each, in parallel);
-    print and return what ptxas and the SASS say about each instantiation
-    of the wgmma kernel (D 64/128 x bf16/fp16) and what ptxas says about
-    each of the CUDA-core kernel's (type x columns per lane)."""
+    """Build the three kernels from the checkout (one nvcc each, in
+    parallel); print and return what ptxas and the SASS say about each
+    ``wgmma`` instantiation (failing on a spill or a missing HGMMA/UTMALDG)
+    and what ptxas says about the pre-pass and the CUDA-core kernel."""
     from tensorflowonspark_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    lib, generic = cuda_build.load_libraries("flash_attn_fwd", "flash_attn_fwd_generic")
-    log(f"[build] built flash_attn_fwd and flash_attn_fwd_generic in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name in ("flash_attn_fwd", "flash_attn_fwd_generic"):
-        for line in cuda_build.build_log(name).splitlines():
+    libs = dict(zip(KERNEL_LIBS, cuda_build.load_libraries(*KERNEL_LIBS)))
+    log(f"[build] built {', '.join(KERNEL_LIBS)} in {time.perf_counter() - t0:.1f} s")
+    ptxas, sass = {}, {}
+    for name in KERNEL_LIBS:
+        text = cuda_build.build_log(name)
+        for line in text.splitlines():
             if "error" in line or "warning" in line:
                 log(f"[build] nvcc {name}: {line.strip()}")
-    ptxas = ptxas_report(cuda_build.build_log("flash_attn_fwd"))
-    sass = sass_counts(cuda_build.library_path("flash_attn_fwd"))
+        ptxas.update(ptxas_report(text))
+        if name != "flash_attn_fwd_generic":
+            sass.update(sass_counts(cuda_build.library_path(name)))
     info = {}
-    for d in (64, 128):
-        for dt in ("bfloat16", "float16"):
-            regs, ins = ptxas.get((d, dt)), sass.get((d, dt))
-            if not regs or not ins:
-                raise AssertionError(f"no ptxas/SASS report for D={d} {dt}")
-            smem = lib.tos_flash_attn_fwd_smem_bytes(d)
-            info[f"D{d}_{dt}"] = {**regs, "smem_bytes": smem, **ins}
-            log(f"[build] D={d} {dt}: {regs.get('registers')} registers, "
-                f"{regs.get('spill_stores')} B spill stores, "
-                f"{regs.get('spill_loads')} B spill loads, {smem} B dynamic "
-                f"shared memory; SASS " + ", ".join(f"{k} x{v}" for k, v in ins.items()))
-            if not all(ins.values()):
-                raise AssertionError(f"D={d} {dt}: SASS lacks one of {DESIGN_SASS}")
-    gen = generic_ptxas_report(cuda_build.build_log("flash_attn_fwd_generic"))
-    for dt in GENERIC_TYPES.values():
-        for nc in (1, 2, 4, 8):
-            regs = gen.get((dt, nc))
-            if not regs:
-                raise AssertionError(f"no ptxas report for the CUDA-core kernel, "
-                                     f"{dt}, {nc} columns per lane")
-            smem = generic.tos_flash_attn_fwd_generic_smem_bytes(32 * nc)
-            info[f"generic_{dt}_nc{nc}"] = {**regs, "smem_bytes": smem}
-            log(f"[build] generic {dt}, D<={32 * nc}: {regs.get('registers')} "
-                f"registers, {regs.get('spill_stores')} B spill stores, "
-                f"{regs.get('spill_loads')} B spill loads, {smem} B dynamic "
-                f"shared memory at D={32 * nc}")
+    for key in WGMMA_INSTANCES + list(OTHER_INSTANCES):
+        lib_name, d, dt = key
+        regs, ins = ptxas.get(key), sass.get(key, {})
+        if not regs:
+            raise AssertionError(f"no ptxas report for {key}")
+        label = f"D={d}" if isinstance(d, int) else d
+        smem = 0 if d == "split_kv" else getattr(
+            libs[lib_name], f"tos_{lib_name}_smem_bytes")(d)
+        tag = {"flash_attn_fwd": "", "flash_attn_fwd_tf32": "tf32_",
+               "flash_attn_fwd_generic": "generic_"}[lib_name]
+        info[f"{tag}{label.replace('=', '')}_{dt}"] = {**regs, "smem_bytes": smem, **ins}
+        log(f"[build] {lib_name} {label} {dt}: {regs.get('registers')} registers, "
+            f"{regs.get('spill_stores')} B spill stores, "
+            f"{regs.get('spill_loads')} B spill loads, {smem} B dynamic shared "
+            f"memory" + ("; SASS " + ", ".join(f"{k} x{v}" for k, v in ins.items())
+                         if ins else ""))
+        if key in WGMMA_INSTANCES:
+            if not (ins and all(ins.values())):
+                raise AssertionError(f"{key}: SASS lacks one of {DESIGN_SASS}")
+            if regs.get("spill_stores") or regs.get("spill_loads"):
+                raise AssertionError(f"{key}: ptxas reports spills")
     return info
 
 
-def kernel_inputs(b, sq, sk, h, d, dtype, packed, gen):
+def kernel_inputs(b, sq, sk, h, d, dtype, packed, gen, low_bits=False):
     import torch
 
     if packed:
         qkv = torch.randn((b, sq, 3, h, d), generator=gen, device="cuda").to(dtype)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    return tuple(torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
-                 for s in (sq, sk, sk))
+    xs = [torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+          for s in (sq, sk, sk)]
+    if low_bits:  # every one of the 13 mantissa bits a .tf32 operand drops set
+        xs = [(x.view(torch.int32) | 0x1FFF).view(torch.float32) for x in xs]
+    return tuple(xs)
+
+
+def kernel_device_ms(fn, reps: int = 10) -> dict:
+    """Device ms per ``fn()`` call of each kernel it launches, by kernel
+    name (``torch.profiler`` over ``reps`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0)
+            out[e.name] = out.get(e.name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def sdpa_backends(q, k, v, smi: str) -> dict:
+    """``F.scaled_dot_product_attention`` under each backend of
+    ``torch.nn.attention.sdpa_kernel``: its ms, or why it refused."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                out[backend.name] = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), reps=10, windows=3)[0]
+        except RuntimeError as e:
+            out[backend.name] = "refused: " + str(e).strip().splitlines()[0][:120]
+    log(f"[kernel] f32 F.scaled_dot_product_attention by backend: "
+        + "; ".join(f"{k} {v:.4f} ms" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in out.items()) + f" ({smi})")
+    return out
 
 
 def phase_kernel(seed: int, smi: str) -> list[dict]:
-    """Both kernels against ``chunk_attention`` at every case; returns the
-    ``kernels`` records of the wgmma kernel and of the CUDA-core kernel."""
+    """Every route against ``chunk_attention`` at every case; returns the
+    ``kernels`` records of the wgmma kernel, the 3xTF32 kernel and the
+    CUDA-core kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -396,17 +505,18 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
     for name, b, sq, sk, h, d, causal, off, dtype_name, packed in \
             KERNEL_CASES + GENERIC_CASES:
         dtype = getattr(torch, dtype_name)
-        q, k, v = kernel_inputs(b, sq, sk, h, d, dtype, packed, gen)
-        if packed and att._kernel_operand(q) is not q:
+        q, k, v = kernel_inputs(b, sq, sk, h, d, dtype, packed, gen,
+                                low_bits="low_bits" in name)
+        if packed and d in att.KERNEL_HEAD_DIMS and att._kernel_operand(q) is not q:
             raise AssertionError(f"{name}: packed views were copied, not read in place")
-        to_generic = dtype == torch.float32 or d > max(att.KERNEL_HEAD_DIMS)
-        counter = att.flash_attn_fwd_generic_cuda if to_generic else att.flash_attn_fwd_cuda
-        before = counter.launches
+        route, padded = att._route(dtype, d)
+        before = dict(att.LAUNCHES)
         o, lse = att.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
         po, plse = att.chunk_attention(q, k, v, causal=causal, kv_offset=off)
         torch.cuda.synchronize()
-        if counter.launches != before + 1:
-            raise AssertionError(f"{name}: expected one launch of {counter.__name__}")
+        launched = {n: c - before[n] for n, c in att.LAUNCHES.items()}
+        if launched != {n: int(n == route) for n in att.LAUNCHES}:
+            raise AssertionError(f"{name}: launches {launched}, expected one of {route}")
         o_tol, lse_tol = (F32_TOL, F32_TOL) if dtype == torch.float32 else (O_TOL, LSE_TOL)
         torch.testing.assert_close(o.float(), po.float(), **o_tol)
         torch.testing.assert_close(lse, plse, **lse_tol)
@@ -416,46 +526,80 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
         if masked.any():  # fully masked rows: exactly O = 0, lse = NEG_INF
             if not (lse[masked] == att.NEG_INF).all() or not (o[masked] == 0).all():
                 raise AssertionError(f"{name}: fully masked rows not 0 / NEG_INF")
-        if name == "consumer_half_masked" and not (masked[:, :64].all()
-                                                   and not masked[:, 64:].any()):
+        if name.endswith("consumer_half_masked") and not (masked[:, :64].all()
+                                                          and not masked[:, 64:].any()):
             raise AssertionError(f"{name}: expected rows 0..63, and only those, masked")
         err = max((o.float() - po.float()).abs().max().item(),
                   (lse - plse).abs().max().item())
         ms, host_ms = time_ms(lambda: att.flash_attn_fwd_cuda(
             q, k, v, causal=causal, kv_offset=off))
+        tf32 = route == "flash_attn_fwd_tf32"
+        peak, products, basis = BOUND_BASIS[route]
         bound_ms, bound_by = attention_bound(b, sq, sk, h, d, causal, off,
-                                             q.element_size())
+                                             q.element_size(), peak, products)
         tflops = 4 * d * b * h * live_pairs(sq, sk, causal, off) / (ms * 1e-3) / 1e12
-        log(f"[kernel] {name}: ok ({counter.__name__}), max_abs_err {err:.3e}, "
-            f"masked rows {int(masked.sum())}, {ms:.4f} ms, {tflops:.1f} TFLOP/s, "
-            f"host {host_ms:.4f} ms per call (bound {bound_ms:.5f} ms, "
-            f"{bound_by}, share {bound_ms / ms:.3f})")
+        log(f"[kernel] {name}: ok ({route}, D {d} -> {padded}), max_abs_err "
+            f"{err:.3e}, masked rows {int(masked.sum())}, {ms:.4f} ms, "
+            f"{tflops:.1f} TFLOP/s, host {host_ms:.4f} ms per call (bound "
+            f"{bound_ms:.5f} ms, {bound_by}, on {basis}; share "
+            f"{bound_ms / ms:.3f})")
         if name in REFERENCE_TIMED:
             plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=causal),
                                reps=10, windows=3)[0]
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))[0]
-            timed[name] = {"shape": f"B={b} S={sq} H={h} D={d} causal {dtype_name}",
-                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by,
-                           "library_ms": library_ms, "host_ms": host_ms,
-                           "tflops": tflops,
-                           "bound_share": bound_ms / ms}
+            rec = {"shape": f"B={b} S={sq} H={h} D={d} causal {dtype_name}",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "bound_basis": basis,
+                   "library_ms": library_ms, "host_ms": host_ms, "tflops": tflops,
+                   "bound_share": bound_ms / ms}
             log(f"[kernel] {name}: plain {plain_ms:.4f} ms, "
                 f"F.scaled_dot_product_attention {library_ms:.4f} ms, kernel / "
                 f"library {ms / library_ms:.3f} ({smi})")
+            if tf32:
+                parts = kernel_device_ms(lambda: att.flash_attn_fwd_cuda(
+                    q, k, v, causal=causal, kv_offset=off))
+                rec["prepass_ms"] = sum(t for n, t in parts.items() if "split_kv" in n)
+                rec["attention_kernel_ms"] = sum(
+                    t for n, t in parts.items() if "flash_fwd_tf32" in n)
+                # the function's own FLOPs at the TF32 rate: what the card
+                # needs for this work on its fastest f32-input pipes
+                rec["bound_function_tf32_ms"] = attention_bound(
+                    b, sq, sk, h, d, causal, off, 4, PEAK_TF32_FLOPS)[0]
+                # the CUDA-core design's bound, which this kernel runs under:
+                # not a bound on the card, kept to compare the two designs
+                rec["cuda_core_design_bound_ms"] = attention_bound(
+                    b, sq, sk, h, d, causal, off, 4, PEAK_F32_FLOPS)[0]
+                rec["sdpa_backends"] = sdpa_backends(qt, kt, vt, smi)
+                log(f"[kernel] {name}: pre-pass {rec['prepass_ms']:.4f} ms + "
+                    f"attention kernel {rec['attention_kernel_ms']:.4f} ms "
+                    f"(torch.profiler, device time per call); bounds: "
+                    f"{bound_ms:.5f} ms on the 3xTF32 design (bound_ms, share "
+                    f"{bound_ms / ms:.3f}), {rec['bound_function_tf32_ms']:.5f} "
+                    f"ms for the function's own FLOPs at "
+                    f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s (share "
+                    f"{rec['bound_function_tf32_ms'] / ms:.3f}); the CUDA-core "
+                    f"design's f32-FMA bound, {rec['cuda_core_design_bound_ms']:.5f}"
+                    f" ms, bounds that design only ({smi})")
+            timed[name] = rec
+            del qt, kt, vt
         del q, k, v, o, lse, po, plse
     torch.cuda.empty_cache()
-    replaces = "tensorflowonspark_tpu/ops/attention.py:173"
-    return [{"name": "flash_attn_fwd", "ok": True, "route": "cuda",
-             "source": "tensorflowonspark_torch/csrc/flash_attn_fwd.cu",
-             "replaces": replaces, "launches": None, **timed["serving_shape"],
-             "head_dim_64": timed["head_dim_64"]},
-            {"name": "flash_attn_fwd_generic", "ok": True, "route": "cuda",
-             "source": "tensorflowonspark_torch/csrc/flash_attn_fwd_generic.cu",
-             "replaces": replaces, "launches": None,
-             **timed["f32_serving_shape"], "bf16_d256": timed["bf16_d256"]}]
+
+    def record(name: str, case: str, **extra) -> dict:
+        return {"name": name, "ok": True, "route": "cuda",
+                "source": f"tensorflowonspark_torch/csrc/{name}.cu",
+                "replaces": "tensorflowonspark_tpu/ops/attention.py:173",
+                "launches": None, **timed[case], **extra}
+
+    return [record("flash_attn_fwd", "serving_shape",
+                   head_dim_64=timed["head_dim_64"], d256=timed["bf16_d256"],
+                   d256_train_shape=timed["bf16_d256_train_shape"],
+                   d32_padded=timed["bf16_d32_padded"],
+                   d96_padded=timed["bf16_d96_padded"]),
+            record("flash_attn_fwd_tf32", "f32_serving_shape"),
+            record("flash_attn_fwd_generic", "f32_d256")]
 
 
 def make_lm_params(cfg: dict, seed: int) -> dict:
@@ -548,12 +692,12 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
             return TimedFeed(queues, train_mode=train_mode, poll_interval=0.05)
 
     invalidate_bundle()
-    att.flash_attn_fwd_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     serving_loop({"export_dir": export, "max_batch": MAX_BATCH, "device": device},
                  Ctx())
     wall = time.perf_counter() - t0
-    launches = att.flash_attn_fwd_cuda.launches
+    launches = att.LAUNCHES["flash_attn_fwd"]
     log(f"[slice] serving_loop finished in {wall:.1f} s; flash_attn_fwd "
         f"launches {launches}")
 
@@ -598,7 +742,7 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
             raise AssertionError(f"served logits differ from plain attention by "
                                  f"{err:.4f} > {LOGIT_REL_TOL} x {scale:.3f}")
         start += len(rows)
-    if att.flash_attn_fwd_cuda.launches != launches:
+    if att.LAUNCHES["flash_attn_fwd"] != launches:
         raise AssertionError("the plain-attention reference launched the kernel")
     log(f"[slice] logits vs plain attention: worst max_abs_err/max|logit| "
         f"{worst:.4f} (limit {LOGIT_REL_TOL}), argmax agreement "
@@ -911,22 +1055,22 @@ def phase_train(seed: int, smi: str, device: str = "cuda"):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
     losses, launches = [], []
-    att.flash_attn_fwd_cuda.launches = 0
+    reset_launches()
     for i, (batch, n) in enumerate(dp.make_batch_iterator(feed, TRAIN_BATCH, to_arrays)):
         if n != TRAIN_BATCH:
             raise AssertionError(f"step {i}: {n} real rows, expected {TRAIN_BATCH}")
         if i == TRAIN_WARMUP and cuda:
             start.record()
             t_host = time.perf_counter()
-        before = att.flash_attn_fwd_cuda.launches
+        before = att.LAUNCHES["flash_attn_fwd"]
         state, metrics = step(state, batch)
-        launches.append(att.flash_attn_fwd_cuda.launches - before)
+        launches.append(att.LAUNCHES["flash_attn_fwd"] - before)
         losses.append(metrics["loss"])
     if cuda:
         end.record()
         end.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3 / TRAIN_TIMED
-    train_launches = att.flash_attn_fwd_cuda.launches
+    train_launches = att.LAUNCHES["flash_attn_fwd"]
     losses = [x.item() for x in losses]
     log("[train] losses: " + ", ".join(f"{x:.4f}" for x in losses))
     if len(losses) != n_steps or state.step != n_steps:
@@ -1015,17 +1159,17 @@ def train_agreement(model, loss_fn, batch, per_step: int, device: str) -> dict:
     with torch.device(device):
         plain = tfm.build_transformer({**LM_CONFIG, "attn_impl": "xla"})
     plain.load_state_dict(model.state_dict())
-    before = att.flash_attn_fwd_cuda.launches
+    before = att.LAUNCHES["flash_attn_fwd"]
     others = {"xla": loss_and_grads(plain, tfm.make_loss_fn(plain), batch)}
     del plain
-    if att.flash_attn_fwd_cuda.launches != before:
+    if att.LAUNCHES["flash_attn_fwd"] != before:
         raise AssertionError("the plain-attention step launched the kernel")
     others["vocab_chunk"] = loss_and_grads(
         model, tfm.make_loss_fn(model, vocab_chunk=VOCAB_CHUNK), batch)
     model.remat = True
-    before = att.flash_attn_fwd_cuda.launches
+    before = att.LAUNCHES["flash_attn_fwd"]
     others["remat"] = loss_and_grads(model, loss_fn, batch)
-    remat_launches = att.flash_attn_fwd_cuda.launches - before
+    remat_launches = att.LAUNCHES["flash_attn_fwd"] - before
     model.remat = False
     if remat_launches != 2 * per_step:
         raise AssertionError(f"a remat step launched the kernel {remat_launches} "
@@ -1152,10 +1296,13 @@ def phase_decode(apply, params, smi: str, device: str = "cuda") -> dict:
             "decode_logit_max_abs_err": err}
 
 
-def phase_train_f32(seed: int, smi: str, device: str = "cuda") -> dict:
-    """One AdamW step of the f32 model configuration (``bf16: false``) at
-    the LM width, through the CUDA-core kernel: a finite loss, n_layers
-    launches, and the step's gradients against plain attention."""
+def step_against_plain(cfg: dict, seed: int, rows: int, route: str, tag: str,
+                       smi: str, device: str) -> dict:
+    """One AdamW step of ``cfg`` at S=SEQ_LEN: the loss and gradients with
+    the kernels against plain attention (``attn_impl: xla``), every
+    wrapper's count set to 0 just before the kernel step and read just
+    after; on the card exactly n_layers launches of ``route`` and none of
+    the other kernels."""
     import torch
 
     from examples_torch.llm.train_lm import synthetic_ids
@@ -1163,11 +1310,10 @@ def phase_train_f32(seed: int, smi: str, device: str = "cuda") -> dict:
     from tensorflowonspark_torch.ops import attention as att
     from tensorflowonspark_torch.parallel import dp
 
-    cfg = {**LM_CONFIG, "bf16": False}
-    model = make_train_model(cfg, seed + 11, device)
+    model = make_train_model(cfg, seed, device)
     optimizer = dp.adamw(model.parameters(), TRAIN_LR)
     loss_fn = tfm.make_loss_fn(model)
-    ids = synthetic_ids(F32_TRAIN_BATCH, SEQ_LEN, cfg["vocab_size"], seed)
+    ids = synthetic_ids(rows, SEQ_LEN, cfg["vocab_size"], seed)
     batch = {"input_ids": torch.from_numpy(ids).to(device)}
     cuda = device == "cuda"
     with torch.device(device):
@@ -1175,36 +1321,61 @@ def phase_train_f32(seed: int, smi: str, device: str = "cuda") -> dict:
     plain.load_state_dict(model.state_dict())
     plain_loss, plain_grads = loss_and_grads(plain, tfm.make_loss_fn(plain), batch)
     del plain
-    att.flash_attn_fwd_generic_cuda.launches = 0
-    wgmma = att.flash_attn_fwd_cuda.launches
+    reset_launches()
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss, grads = loss_and_grads(model, loss_fn, batch)
     step_s = time.perf_counter() - t0
-    launches = att.flash_attn_fwd_generic_cuda.launches
+    launched = dict(att.LAUNCHES)
     want = cfg["n_layers"] if cuda else 0  # the CPU path has no kernel
-    if launches != want or att.flash_attn_fwd_cuda.launches != wgmma:
-        raise AssertionError(f"f32 step: {launches} launches of the CUDA-core "
-                             f"kernel (expected {want}), "
-                             f"{att.flash_attn_fwd_cuda.launches - wgmma} of the wgmma one")
+    if launched != {n: want if n == route else 0 for n in att.LAUNCHES}:
+        raise AssertionError(f"{tag} step: launches {launched}, expected {want} "
+                             f"of {route} and none of the others")
     if not math.isfinite(loss):
-        raise AssertionError(f"f32 step: loss {loss}")
+        raise AssertionError(f"{tag} step: loss {loss}")
     loss_err = abs(plain_loss - loss) / abs(loss)
     grad_err, worst = grad_disagreement(grads, plain_grads)
     for name, p in model.named_parameters():
         p.grad = grads[name]
     optimizer.step()
     del grads, plain_grads
-    log(f"[train-f32] one AdamW step, f32 compute, B={F32_TRAIN_BATCH} S={SEQ_LEN}: "
-        f"loss {loss:.5f} (plain attention {plain_loss:.5f}, rel {loss_err:.2e}, "
-        f"limit {LOSS_REL_TOL}); worst gradient rel L2 error {grad_err:.3e} at "
-        f"{worst} (limit {GRAD_REL_TOL}); {launches} launches of the CUDA-core "
-        f"kernel; forward + backward {step_s * 1e3:.1f} ms host clock ({smi})")
+    compute = "bf16" if cfg["bf16"] else "f32"
+    log(f"[{tag}] one AdamW step, {compute} compute, {cfg['n_layers']} layers of "
+        f"{cfg['n_heads']} heads of {cfg['d_model'] // cfg['n_heads']}, B={rows} "
+        f"S={SEQ_LEN}: loss {loss:.5f} (plain attention {plain_loss:.5f}, rel "
+        f"{loss_err:.2e}, limit {LOSS_REL_TOL}); worst gradient rel L2 error "
+        f"{grad_err:.3e} at {worst} (limit {GRAD_REL_TOL}); "
+        f"{launched[route]} launches of {route}; forward + backward "
+        f"{step_s * 1e3:.1f} ms host clock ({smi})")
     if loss_err > LOSS_REL_TOL or grad_err > GRAD_REL_TOL:
-        raise AssertionError("the f32 step disagrees with plain attention")
-    return {"launches": launches, "loss": loss, "grad_rel_err": grad_err,
+        raise AssertionError(f"the {tag} step disagrees with plain attention")
+    return {"launches": launched[route], "loss": loss, "grad_rel_err": grad_err,
             "fwd_bwd_ms": step_s * 1e3}
+
+
+def phase_train_f32(seed: int, smi: str, device: str = "cuda") -> dict:
+    """One AdamW step of the f32 model configuration (``bf16: false``) at
+    the LM width through the 3xTF32 kernel: a finite loss, n_layers
+    launches of it and none of the others, and the step's gradients
+    against plain attention.  Its step time against another checkout's is
+    measured by ``examples_torch/attention_ab.py``, not here."""
+    return step_against_plain({**LM_CONFIG, "bf16": False}, seed + 11,
+                              F32_TRAIN_BATCH, "flash_attn_fwd_tf32", "train-f32",
+                              smi, device)
+
+
+def phase_train_d256(seed: int, smi: str, device: str = "cuda") -> dict:
+    """The LM at its width with ``D256_HEADS`` heads of 256 (depth cut to
+    ``D256_LAYERS``): one bf16 step through the wgmma kernel at D=256 and
+    one f32 step through the CUDA-core kernel, each against plain
+    attention; returns each step's numbers by route."""
+    cfg = {**LM_CONFIG, "n_heads": D256_HEADS, "n_layers": D256_LAYERS}
+    return {route: step_against_plain({**cfg, "bf16": bf16}, seed + 13,
+                                      F32_TRAIN_BATCH, route, tag, smi, device)
+            for route, bf16, tag in (("flash_attn_fwd", True, "train-d256-bf16"),
+                                     ("flash_attn_fwd_generic", False,
+                                      "train-d256-f32"))}
 
 
 def _leaves(tree):
@@ -1230,7 +1401,7 @@ def main() -> int:
     try:
         smi = phase_device()
         build = phase_build()
-        record, generic = phase_kernel(args.seed, smi)
+        record, tf32, generic = phase_kernel(args.seed, smi)
         record["build"] = build
         record["launches"] = phase_slice(args.seed, smi)
         cluster = phase_cluster(args.seed, smi)
@@ -1249,11 +1420,16 @@ def main() -> int:
         del apply, params
         torch.cuda.empty_cache()
         train_f32 = phase_train_f32(args.seed, smi)
-        generic["launches"] = train_f32.pop("launches")
-        generic["train_f32"] = train_f32
+        tf32["launches"] = train_f32.pop("launches")
+        tf32["train_f32"] = train_f32
+        d256 = phase_train_d256(args.seed, smi)
+        record["d256_launches"] = d256["flash_attn_fwd"].pop("launches")
+        record["train_d256"] = d256["flash_attn_fwd"]
+        generic["launches"] = d256["flash_attn_fwd_generic"].pop("launches")
+        generic["train_d256_f32"] = d256["flash_attn_fwd_generic"]
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
-    print(json.dumps({"kernels": [record, generic]}))
+    print(json.dumps({"kernels": [record, tf32, generic]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,10 +3,11 @@
 
 A decoder-only transformer trains on a synthetic Zipf token stream with
 AdamW, then (``--generate N``) greedily decodes N tokens through the KV
-cache.  On the card, attention runs the hand-written kernel forward with
-its recompute backward: the Hopper ``wgmma`` kernel for ``--bf16``, the
-CUDA-core kernel for f32 (the default); head dims (d_model / n_heads) up
-to 256, a larger one raises::
+cache.  On the card, attention runs a hand-written kernel forward with its
+recompute backward: the Hopper ``wgmma`` kernel for ``--bf16``; for f32
+(the default) the 3xTF32 ``wgmma`` kernel at head dims (d_model /
+n_heads) up to 128 and the CUDA-core kernel above; head dims up to 256, a
+larger one raises::
 
   # on the CPU, tiny:
   python examples_torch/llm/train_lm.py --device cpu --vocab-size 256 \\

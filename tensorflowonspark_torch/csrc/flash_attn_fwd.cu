@@ -21,177 +21,107 @@
 // longest causal tiles first; 3 warpgroups, 384 threads):
 // - Warpgroup 0 is the producer.  After `setmaxnreg.dec` to 24 registers one
 //   thread starts every load with TMA: the Q tile once, then K and V tiles of
-//   128 keys into a ring of shared-memory stages (2 at D=128, 3 at D=64),
-//   each stage guarded by a "full" mbarrier (TMA transaction bytes) and an
-//   "empty" one (one arrival per consumer warp).  Rows past Sq or Sk arrive
-//   zero-filled, so 0 * garbage cannot become NaN.
+//   BK keys (128, or 64 at D=256) into a ring of shared-memory stages (3 at
+//   D=64, 2 at D=128 and D=256), each stage guarded by a "full" mbarrier
+//   (TMA transaction bytes) and an "empty" one (one arrival per consumer
+//   warp).  Rows past Sq or Sk arrive zero-filled, so 0 * garbage cannot
+//   become NaN.
 // - Warpgroups 1 and 2 are consumers (`setmaxnreg.inc` to 240), each owning
-//   64 query rows.  Per key block: S = Q K^T by `wgmma` m64n128k16 with both
+//   64 query rows.  Per key block: S = Q K^T by `wgmma` m64nBKk16 with both
 //   operands K-major in 128-byte-swizzled shared memory; the online softmax
 //   in registers with exp2 and sm_scale*log2(e) folded into one FMA, the
 //   causal/tail mask applied only to blocks that straddle the diagonal or
-//   the Sk tail; then O += P V by `wgmma` in RS form: P goes from the S
-//   accumulator, rounded to 16 bits, straight into the A registers, and V is
-//   the B operand read MN-major (transpose bit set).  The consumer releases
-//   the stage once its wgmma groups on it have completed.
+//   the Sk tail; then O += P V by `wgmma` m64nDk16 in RS form: P goes from
+//   the S accumulator, rounded to 16 bits, straight into the A registers,
+//   and V is the B operand read MN-major (transpose bit set).  The consumer
+//   releases the stage once its wgmma groups on it have completed.
 // - Epilogue: O is scaled by 1/l, staged 16-bit in the consumer's rows of
 //   the Q tile (swizzled, no bank conflicts) and written out with 16-byte
 //   stores through O's strides; lse = m + log l, or NEG_INF where l = 0.
 //
+// D=256 (bf16/fp16 heads of 129-256, zero-padded to 256 by the wrapper):
+// the key tile halves to BK=64 so that a consumer thread holds O (128 f32),
+// S (32) and P (16) in its 240 registers; shared memory is Q 64 KB + 2
+// stages x (K 32 KB + V 32 KB) = 192 KB.  P V is one m64n256k16 per 16 keys.
+//
 // Tensor maps: rank 4, dims (D, S, H, B) with the tensors' own byte
-// strides, box (64, 128, 1, 1) with 128-byte swizzle, encoded on the host on
-// every call.  A 128-wide head is two 64-column boxes per tile, so the
-// K-steps of Q K^T cross from one box's base to the other's after 4 steps.
-// cuTensorMapEncodeTiled comes from cudaGetDriverEntryPoint, so the library
-// does not link libcuda.
+// strides, box (64, 128 or BK, 1, 1) with 128-byte swizzle, encoded on the
+// host on every call.  A head of D columns is D/64 boxes per tile, so the
+// K-steps of Q K^T cross from one box's base to the next after 4 steps.
+// The mbarrier, TMA and wgmma helpers are in hopper_pipeline.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tensorflowonspark_torch/ops/cuda_build.py does it).
 
-#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper_pipeline.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 128;           // query rows per CTA, 64 per consumer
-constexpr int kBlockK = 128;           // keys per ring stage
 constexpr int kThreads = 384;          // producer + two consumer warpgroups
 constexpr int kBoxCols = 64;           // 128-byte swizzle: 64 16-bit values
-constexpr int kBoxBytes = 128 * 128;   // one 128-row x 64-column box
+constexpr int kBoxBytes = 128 * 128;   // one 128-row x 64-column box of Q
 constexpr int kEmptyArrivals = 8;      // one per consumer warp
 constexpr int kProducerRegs = 24;      // setmaxnreg: 128 * 24 + 256 * 240
 constexpr int kConsumerRegs = 240;     //   = 64,512 <= 65,536 registers
-constexpr float kNegInf = -1e30f;
-constexpr float kHalfNegInf = -5e29f;  // "masked" threshold, as NEG_INF / 2
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Cfg {
-  static constexpr int kBoxes = D / kBoxCols;             // boxes per tile
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // a Q, K or V tile
-  static constexpr int kStages = D == 64 ? 3 : 2;         // K/V ring depth
-  static constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
+  // keys per ring stage: 128, or 64 at D=256 so that O (128 registers),
+  // S and P fit a consumer thread's 240 registers and two stages fit
+  static constexpr int kBlockK = D == 256 ? 64 : 128;
+  static constexpr int kBoxes = D / kBoxCols;              // boxes per tile
+  static constexpr int kKVBoxBytes = kBlockK * 128;        // one K or V box
+  static constexpr int kQTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kKVTileBytes = kBoxes * kKVBoxBytes;
+  static constexpr int kStages = D == 64 ? 3 : 2;          // K/V ring depth
+  static constexpr int kBarOffset = kQTileBytes + 2 * kStages * kKVTileBytes;
   // tiles, 1024 bytes to align the base for the swizzle, the mbarriers
   static constexpr int kSmemBytes = kBarOffset + 1024 + 8 * (2 * kStages + 1);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A wait of more
-// than about 4 s of SM clock can only be a broken pipeline: trap, so the
-// launch fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  constexpr long long kWatchdogCycles = 1ll << 33;
-  long long start = 0;
-  for (int spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == 0) {
-      start = clock64();
-    } else if (clock64() - start > kWatchdogCycles) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3), "r"(bar) : "memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand (layout
-// type 1 in bits 62-63).  K-major (Q, K): LBO unused (16), SBO = 1024, the
-// stride between 8-row groups.  MN-major (V): LBO = stride between 64-column
-// boxes, SBO = 1024, the stride between groups of 8 keys.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator accesses between a wgmma
-// and its wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define TOS_ACC8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define TOS_ACC32 TOS_ACC8(0), TOS_ACC8(8), TOS_ACC8(16), TOS_ACC8(24)
-#define TOS_ACC64 TOS_ACC32, TOS_ACC8(32), TOS_ACC8(40), TOS_ACC8(48), TOS_ACC8(56)
-#define TOS_R32                                                             \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define TOS_R64                                                              \
-  TOS_R32                                                                    \
-  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
-  "%60, %61, %62, %63"
-
-// S (64 x 128, f32) = A (64 x 16, smem K-major) * B^T (128 x 16, smem
-// K-major); scale_d = 0 overwrites S.
+// S (64 x N, f32) = A (64 x 16, smem K-major) * B^T (N x 16, smem K-major);
+// scale_d = 0 overwrites S.
 #define TOS_SS_N128(TY)                                                  \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"              \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY \
                " {" TOS_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"           \
                : TOS_ACC64 : "l"(da), "l"(db), "r"(scale_d))
+#define TOS_SS_N64(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"             \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY \
+               " {" TOS_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"          \
+               : TOS_ACC32 : "l"(da), "l"(db), "r"(scale_d))
 
-template <bool kBf16>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  if constexpr (kBf16) {
-    TOS_SS_N128("bf16");
+template <int N, bool kBf16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "Q K^T is m64n64 or m64n128");
+  if constexpr (N == 128) {
+    if constexpr (kBf16) {
+      TOS_SS_N128("bf16");
+    } else {
+      TOS_SS_N128("f16");
+    }
   } else {
-    TOS_SS_N128("f16");
+    if constexpr (kBf16) {
+      TOS_SS_N64("bf16");
+    } else {
+      TOS_SS_N64("f16");
+    }
   }
 }
 
 // O (64 x N, f32) += A (64 x 16, registers) * B (16 x N, smem MN-major).
+#define TOS_RS_N256(TY)                                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY       \
+               " {" TOS_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+               : TOS_ACC128                                                    \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 #define TOS_RS_N128(TY)                                                      \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                  \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY     \
@@ -208,8 +138,14 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
 template <int N, bool kBf16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128, "P V is m64n64 or m64n128");
-  if constexpr (N == 128) {
+  static_assert(N == 64 || N == 128 || N == 256, "P V is m64n64, n128 or n256");
+  if constexpr (N == 256) {
+    if constexpr (kBf16) {
+      TOS_RS_N256("bf16");
+    } else {
+      TOS_RS_N256("f16");
+    }
+  } else if constexpr (N == 128) {
     if constexpr (kBf16) {
       TOS_RS_N128("bf16");
     } else {
@@ -222,12 +158,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
       TOS_RS_N64("f16");
     }
   }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Two floats -> one register of two 16-bit values, `lo` in the low half.
@@ -259,6 +189,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  int causal, int kv_offset, float scale_log2) {
   using C = Cfg<D>;
   constexpr int S = C::kStages;
+  constexpr int BK = C::kBlockK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms 1024-aligned
@@ -276,7 +207,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int qlast = min(q0 + kBlockQ, Sq) - 1;
     kend = min(Sk, max(0, qlast - kv_offset + 1));
   }
-  const int nkb = (kend + kBlockK - 1) / kBlockK;
+  const int nkb = (kend + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -294,11 +225,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---------------- producer: one thread keeps the ring full ----------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
     if (threadIdx.x == 0 && nkb > 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-          reinterpret_cast<uint64_t>(&tm_k)) : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-          reinterpret_cast<uint64_t>(&tm_v)) : "memory");
-      mbar_expect_tx(qbar, C::kTileBytes);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      mbar_expect_tx(qbar, C::kQTileBytes);
 #pragma unroll
       for (int x = 0; x < C::kBoxes; ++x)
         tma_load(base + x * kBoxBytes, &tm_q, qbar, x * kBoxCols, q0, h, b);
@@ -306,14 +235,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = kb % S;
         const uint32_t full = bars + 8 * s;
         mbar_wait(bars + 8 * (S + s), ((kb / S) & 1) ^ 1);  // stage released
-        mbar_expect_tx(full, 2 * C::kTileBytes);
-        const uint32_t ks = base + C::kTileBytes * (1 + s);
-        const uint32_t vs = base + C::kTileBytes * (1 + S + s);
+        mbar_expect_tx(full, 2 * C::kKVTileBytes);
+        const uint32_t ks = base + C::kQTileBytes + C::kKVTileBytes * s;
+        const uint32_t vs = base + C::kQTileBytes + C::kKVTileBytes * (S + s);
 #pragma unroll
         for (int x = 0; x < C::kBoxes; ++x) {
-          tma_load(ks + x * kBoxBytes, &tm_k, full, x * kBoxCols, kb * kBlockK,
+          tma_load(ks + x * C::kKVBoxBytes, &tm_k, full, x * kBoxCols, kb * BK,
                    h, b);
-          tma_load(vs + x * kBoxBytes, &tm_v, full, x * kBoxCols, kb * kBlockK,
+          tma_load(vs + x * C::kKVBoxBytes, &tm_v, full, x * kBoxCols, kb * BK,
                    h, b);
         }
       }
@@ -340,29 +269,30 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (nkb > 0) mbar_wait(qbar, 0);
     for (int kb = 0; kb < nkb; ++kb) {
       const int s = kb % S;
-      const int k0 = kb * kBlockK;
-      const uint32_t ks = base + C::kTileBytes * (1 + s);
-      const uint32_t vs = base + C::kTileBytes * (1 + S + s);
+      const int k0 = kb * BK;
+      const uint32_t ks = base + C::kQTileBytes + C::kKVTileBytes * s;
+      const uint32_t vs = base + C::kQTileBytes + C::kKVTileBytes * (S + s);
       mbar_wait(bars + 8 * s, (kb / S) & 1);
 
       // S = Q K^T: D/16 k-steps of 16; after 4 steps the next 64-column box.
-      float sc[64];
+      float sc[BK / 2];
       pin(sc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss_n128<kBf16>(sc, smem_desc(q_rows + off, 16, 1024),
-                             smem_desc(ks + off, 16, 1024), kk > 0);
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss<BK, kBf16>(sc, smem_desc(q_rows + (kk / 4) * kBoxBytes + col, 16, 1024),
+                            smem_desc(ks + (kk / 4) * C::kKVBoxBytes + col, 16, 1024),
+                            kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
       pin(sc);
 
       // Mask only blocks that straddle the causal diagonal or the Sk tail.
-      if (k0 + kBlockK > Sk || (causal && kv_offset + k0 + kBlockK - 1 > qw0)) {
+      if (k0 + BK > Sk || (causal && kv_offset + k0 + BK - 1 > qw0)) {
 #pragma unroll
-        for (int n = 0; n < 16; ++n) {
+        for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int row = r0 + ((e >> 1) << 3);
@@ -376,7 +306,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       // Online softmax on the raw logits; exp2 with the scale folded in.
       float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
@@ -385,7 +315,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       float mscaled[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        // the four threads of a row group hold the row's 128 columns
+        // the four threads of a row group hold the row's BK columns
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
         // guard the max so exp(NEG_INF - NEG_INF) of a masked row isn't 1
@@ -396,7 +326,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       float lsum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           // a masked logit gives exp2(<= -6e28) = 0 exactly
@@ -415,10 +345,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         acc[4 * n + 3] *= alpha[1];
       }
 
-      // O += P V: 8 k-steps of 16 keys, P from the S accumulator.
-      uint32_t pa[8][4];
+      // O += P V: BK/16 k-steps of 16 keys, P from the S accumulator.
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < BK / 16; ++kk) {
         pa[kk][0] = pack2<kBf16>(sc[8 * kk + 0], sc[8 * kk + 1]);
         pa[kk][1] = pack2<kBf16>(sc[8 * kk + 2], sc[8 * kk + 3]);
         pa[kk][2] = pack2<kBf16>(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -427,9 +357,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       pin(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
         wgmma_rs<D, kBf16>(acc, pa[kk],
-                           smem_desc(vs + kk * 16 * 128, kBoxBytes, 1024));
+                           smem_desc(vs + kk * 16 * 128, C::kKVBoxBytes, 1024));
       wgmma_commit();
       wgmma_wait_all();
       pin(acc);
@@ -481,39 +411,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 // Host side: tensor maps and the launch.
 // ---------------------------------------------------------------------------
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                   void*, const cuuint64_t*, const cuuint64_t*,
-                                   const cuuint32_t*, const cuuint32_t*,
-                                   CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // Map of a [B, S, H, D] operand read through its element strides
-// (batch, seq, head): dims (D, S, H, B), box (64, 128, 1, 1), 128-byte
+// (batch, seq, head): dims (D, S, H, B), box (64, rows, 1, 1), 128-byte
 // swizzle, rows out of bounds zero-filled.  A dimension of size 1 is never
 // stepped over, so its stride is set to a legal 16 bytes.
 bool encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int S,
-                int H, int D, const int64_t* st) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+                int H, int D, const int64_t* st, int rows) {
   const int s = S > 0 ? S : 1;  // Sk = 0: nothing is loaded, the map stays legal
   auto bytes = [](int64_t stride, int n) -> cuuint64_t {
     return n == 1 ? 16 : static_cast<cuuint64_t>(stride) * 2;
@@ -521,13 +424,10 @@ bool encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int S,
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {bytes(st[1], s), bytes(st[2], H), bytes(st[0], B)};
-  const cuuint32_t box[4] = {kBoxCols, 128, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            4, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
+  return encode_map_4d(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                       ptr, dims, strides, box);
 }
 
 template <int D, bool kBf16>
@@ -535,10 +435,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Sk, int H, const int64_t* st,
                    int causal, int kv_offset, float sm_scale,
                    cudaStream_t stream) {
+  constexpr int kRowsKV = Cfg<D>::kBlockK;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(&mq, q, kBf16, B, Sq, H, D, st) ||
-      !encode_map(&mk, k, kBf16, B, Sk, H, D, st + 3) ||
-      !encode_map(&mv, v, kBf16, B, Sk, H, D, st + 6))
+  if (!encode_map(&mq, q, kBf16, B, Sq, H, D, st, kBlockQ) ||
+      !encode_map(&mk, k, kBf16, B, Sk, H, D, st + 3, kRowsKV) ||
+      !encode_map(&mv, v, kBf16, B, Sk, H, D, st + 6, kRowsKV))
     return cudaErrorInvalidValue;
   auto* kernel = flash_fwd_kernel<D, kBf16>;
   constexpr int smem = Cfg<D>::kSmemBytes;
@@ -559,14 +460,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_typed(bool bf16, const void* q, const void* k, const void* v,
+                         void* o, float* lse, int B, int Sq, int Sk, int H,
+                         const int64_t* st, int causal, int kv_offset,
+                         float sm_scale, cudaStream_t s) {
+  return bf16 ? launch<D, true>(q, k, v, o, lse, B, Sq, Sk, H, st, causal,
+                                kv_offset, sm_scale, s)
+              : launch<D, false>(q, k, v, o, lse, B, Sq, Sk, H, st, causal,
+                                 kv_offset, sm_scale, s);
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes.  `strides` holds 12 element strides:
 // (batch, seq, head) for q, k, v and o, in that order; the head_dim stride
 // is 1, every other stride a multiple of 8 and every base 16-byte aligned.
-// dtype: 0 = bf16, 1 = fp16.  Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for an input it does not take or
-// a tensor map cuTensorMapEncodeTiled refuses.  Launches on `stream`, does not
+// D is 64, 128 or 256; dtype: 0 = bf16, 1 = fp16.  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for an input it does not take or a tensor map
+// cuTensorMapEncodeTiled refuses.  Launches on `stream`, does not
 // synchronise, and allocates nothing.
 extern "C" int tos_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int B, int Sq, int Sk,
@@ -580,22 +493,24 @@ extern "C" int tos_flash_attn_fwd(const void* q, const void* k, const void* v,
   const bool bf16 = dtype == 0;
   cudaError_t err;
   if (D == 64) {
-    err = bf16 ? launch<64, true>(q, k, v, o, l, B, Sq, Sk, H, strides, causal,
-                                  kv_offset, sm_scale, s)
-               : launch<64, false>(q, k, v, o, l, B, Sq, Sk, H, strides,
-                                   causal, kv_offset, sm_scale, s);
+    err = launch_typed<64>(bf16, q, k, v, o, l, B, Sq, Sk, H, strides, causal,
+                           kv_offset, sm_scale, s);
   } else if (D == 128) {
-    err = bf16 ? launch<128, true>(q, k, v, o, l, B, Sq, Sk, H, strides,
-                                   causal, kv_offset, sm_scale, s)
-               : launch<128, false>(q, k, v, o, l, B, Sq, Sk, H, strides,
-                                    causal, kv_offset, sm_scale, s);
+    err = launch_typed<128>(bf16, q, k, v, o, l, B, Sq, Sk, H, strides, causal,
+                            kv_offset, sm_scale, s);
+  } else if (D == 256) {
+    err = launch_typed<256>(bf16, q, k, v, o, l, B, Sq, Sk, H, strides, causal,
+                            kv_offset, sm_scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory of one CTA for head dim D (64 or 128), else 0.
+// Dynamic shared memory of one CTA for head dim D (64, 128 or 256), else 0.
 extern "C" int tos_flash_attn_fwd_smem_bytes(int D) {
-  return D == 64 ? Cfg<64>::kSmemBytes : D == 128 ? Cfg<128>::kSmemBytes : 0;
+  return D == 64    ? Cfg<64>::kSmemBytes
+         : D == 128 ? Cfg<128>::kSmemBytes
+         : D == 256 ? Cfg<256>::kSmemBytes
+                    : 0;
 }

@@ -12,13 +12,15 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
   blocks;
 - ``flash_attention`` / ``flash_attention_fwd`` — the public entry.  A CUDA
   tensor goes to the kernels (through ``flash_attn_fwd_cuda``), a CPU
-  tensor to the plain version.  bf16/fp16 with head_dim <= 128 runs the
-  ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``), zero-padded along D to 64
-  or 128 as the TPU kernel pads to 128 lanes; f32 at any head_dim, and
-  bf16/fp16 with 128 < head_dim <= 256, run the CUDA-core kernel
-  (``csrc/flash_attn_fwd_generic.cu``, ``flash_attn_fwd_generic_cuda``).
-  head_dim > 256 raises.  A CUDA tensor whose kernel fails to build or
-  launch raises: nothing falls back.
+  tensor to the plain version.  ``_route`` picks the kernel: bf16/fp16
+  with head_dim <= 256 runs the ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``),
+  zero-padded along D to 64, 128 or 256 as the TPU kernel pads to 128
+  lanes; f32 with head_dim <= 128 runs the 3xTF32 ``wgmma`` kernel
+  (``csrc/flash_attn_fwd_tf32.cu``), zero-padded to 64 or 128; f32 with
+  128 < head_dim <= 256 runs the CUDA-core kernel
+  (``csrc/flash_attn_fwd_generic.cu``).  head_dim > 256 raises.
+  ``LAUNCHES`` counts each kernel's launches.  A CUDA tensor whose kernel
+  fails to build or launch raises: nothing falls back.
   When autograd records the call, it goes through ``FlashAttention``, the
   counterpart of the JAX package's ``custom_vjp`` ``_flash_attention_tpu``:
   the same forward, and a backward that recomputes through
@@ -151,29 +153,61 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# The kernels: csrc/flash_attn_fwd.cu and csrc/flash_attn_fwd_generic.cu,
-# bound through ctypes.
+# The kernels: csrc/flash_attn_fwd.cu, csrc/flash_attn_fwd_tf32.cu and
+# csrc/flash_attn_fwd_generic.cu, bound through ctypes.
 # ---------------------------------------------------------------------------
 
-KERNEL_HEAD_DIMS = (64, 128)     # the wgmma kernel's head dims
-MAX_HEAD_DIM = 256               # the largest head_dim the kernels take
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+KERNEL_HEAD_DIMS = (64, 128, 256)  # the wgmma kernel's head dims (bf16/fp16)
+TF32_HEAD_DIMS = (64, 128)         # the 3xTF32 wgmma kernel's head dims (f32)
+MAX_HEAD_DIM = 256                 # the largest head_dim the kernels take
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}  # the wgmma kernel's
 _LIBS: dict = {}
+# C signatures: tos_<name>(q, k, v, o, lse, [scratch,] B, Sq, Sk, H, D,
+# strides, causal, kv_offset, sm_scale, [dtype,] stream): the 3xTF32 kernel
+# takes a scratch pointer, the wgmma kernel a dtype code
+_SHAPE_ARGS = ([ctypes.c_int] * 5
+               + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float])
+_ARGTYPES = {
+    "flash_attn_fwd": ([ctypes.c_void_p] * 5 + _SHAPE_ARGS
+                       + [ctypes.c_int, ctypes.c_void_p]),
+    "flash_attn_fwd_tf32": [ctypes.c_void_p] * 6 + _SHAPE_ARGS + [ctypes.c_void_p],
+    "flash_attn_fwd_generic": [ctypes.c_void_p] * 5 + _SHAPE_ARGS + [ctypes.c_void_p],
+}
+# each kernel's launches, by its name in _route; bumped only where _launch
+# has launched it
+LAUNCHES = dict.fromkeys(_ARGTYPES, 0)
+
+
+def _route(dtype: torch.dtype, d: int) -> tuple[str, int]:
+    """``(kernel, padded head_dim)`` for inputs of ``dtype`` with head_dim
+    ``d``: bf16/fp16 to the wgmma kernel at 64, 128 or 256; f32 to the
+    3xTF32 kernel at 64 or 128, and above 128 to the CUDA-core kernel
+    unpadded.  Raises on a head_dim over ``MAX_HEAD_DIM`` or a type the
+    kernels do not take."""
+    if dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"the kernels take bf16, fp16 or f32, got {dtype}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head_dim up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if dtype != torch.float32:
+        return "flash_attn_fwd", next(p for p in KERNEL_HEAD_DIMS if d <= p)
+    if d <= max(TF32_HEAD_DIMS):
+        return "flash_attn_fwd_tf32", next(p for p in TF32_HEAD_DIMS if d <= p)
+    return "flash_attn_fwd_generic", d
 
 
 def _kernel_lib(name: str):
-    """Build (first use) and bind ``csrc/<name>.cu``; both kernels share the
-    C signature ``tos_<name>(q, k, v, o, lse, B, Sq, Sk, H, D, strides,
-    causal, kv_offset, sm_scale, dtype, stream)``."""
+    """Build (first use) and bind ``csrc/<name>.cu`` (``_ARGTYPES``)."""
     if name not in _LIBS:
         from tensorflowonspark_torch.ops.cuda_build import load_library
 
         lib = load_library(name)
         fn = getattr(lib, f"tos_{name}")
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
+        if name == "flash_attn_fwd_tf32":
+            lib.tos_flash_attn_fwd_tf32_scratch_bytes.argtypes = [ctypes.c_int] * 4
+            lib.tos_flash_attn_fwd_tf32_scratch_bytes.restype = ctypes.c_int64
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -197,59 +231,48 @@ def _check_inputs(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
-    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"the kernels take bf16, fp16 or f32 q/k/v of one "
-                         f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"the kernels take q/k/v of one type, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,Sq,H,D] and k, v [B,Sk,H,D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, _, h, d = q.shape
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernels take head_dim up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
 
 
 def _launch(name, q, k, v, causal, scale, kv_offset):
-    """Run ``csrc/<name>.cu`` on checked inputs; returns ``(out, lse)``."""
+    """Run ``csrc/<name>.cu`` on checked inputs its kernel can read in
+    place; returns ``(out, lse)``."""
     b, sq, h, d = q.shape
+    sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 12)(
         *(s for x in (q, k, v, out) for s in x.stride()[:3]))
-    fn = getattr(_kernel_lib(name), f"tos_{name}")
+    lib = _kernel_lib(name)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr()]
+    shape = (b, sq, sk, h, d, ctypes.cast(strides, ctypes.c_void_p),
+             int(bool(causal)), int(kv_offset), float(scale))
+    dtype_code = (_DTYPE_CODES[q.dtype],) if name == "flash_attn_fwd" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, sq, k.shape[1], h, d,
-                 ctypes.cast(strides, ctypes.c_void_p), int(bool(causal)),
-                 int(kv_offset), float(scale), _DTYPE_CODES[q.dtype], stream)
+        if name == "flash_attn_fwd_tf32":
+            # freed once the launch is queued: the caching allocator hands
+            # the block out again only to work queued later on this stream
+            scratch = torch.empty(
+                lib.tos_flash_attn_fwd_tf32_scratch_bytes(b, sk, h, d),
+                dtype=torch.uint8, device=q.device)
+            ptrs.append(scratch.data_ptr())
+        err = getattr(lib, f"tos_{name}")(*ptrs, *shape, *dtype_code, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    # both kernels' launches, as node processes report them to
+    LAUNCHES[name] += 1
+    # every kernel's launches, as node processes report them to
     # cluster.metrics()
     telemetry.counter("attn.flash_fwd_launches").inc()
     return out, lse
-
-
-def flash_attn_fwd_generic_cuda(q, k, v, *, causal: bool = True,
-                                sm_scale: float | None = None,
-                                kv_offset: int = 0):
-    """Launch the CUDA-core kernel (``csrc/flash_attn_fwd_generic.cu``);
-    returns ``(out, lse)``.  Inputs are CUDA tensors of one type, f32, bf16
-    or fp16, with head_dim up to 256; anything else raises.
-    ``flash_attn_fwd_generic_cuda.launches`` counts its launches."""
-    _check_inputs(q, k, v)
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        q, k, v = (x.contiguous() for x in (q, k, v))
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    out = _launch("flash_attn_fwd_generic", q, k, v, causal, scale, kv_offset)
-    flash_attn_fwd_generic_cuda.launches += 1
-    return out
-
-
-flash_attn_fwd_generic_cuda.launches = 0
 
 
 def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
@@ -258,28 +281,20 @@ def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
     are CUDA tensors of one type (bf16, fp16 or f32) with head_dim up to
     256; anything else raises.
 
-    bf16/fp16 with head_dim <= 128 launches the ``wgmma`` kernel, q, k and v
-    zero-padded along D to 64 or 128 when head_dim is neither (zero columns
-    change neither Q Kᵀ nor the first head_dim columns of P V; ``sm_scale``
-    defaults to ``1/sqrt`` of the unpadded head_dim) and O sliced back;
-    ``flash_attn_fwd_cuda.launches`` counts those launches.  f32, and
-    bf16/fp16 with head_dim > 128, go to ``flash_attn_fwd_generic_cuda``."""
+    ``_route`` picks the kernel and the head_dim it runs at: q, k and v are
+    zero-padded along D to it (zero columns change neither Q Kᵀ nor the
+    first head_dim columns of P V; ``sm_scale`` defaults to ``1/sqrt`` of
+    the unpadded head_dim), read in place where the kernel can, launched
+    (``LAUNCHES[kernel]`` counts it), and O is sliced back."""
     _check_inputs(q, k, v)
     d = q.shape[-1]
-    if q.dtype == torch.float32 or d > max(KERNEL_HEAD_DIMS):
-        return flash_attn_fwd_generic_cuda(q, k, v, causal=causal,
-                                           sm_scale=sm_scale, kv_offset=kv_offset)
+    name, padded = _route(q.dtype, d)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    padded = next(p for p in KERNEL_HEAD_DIMS if d <= p)
     if padded != d:
         q, k, v = (torch.nn.functional.pad(x, (0, padded - d)) for x in (q, k, v))
     q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
-    out, lse = _launch("flash_attn_fwd", q, k, v, causal, scale, kv_offset)
-    flash_attn_fwd_cuda.launches += 1
+    out, lse = _launch(name, q, k, v, causal, scale, kv_offset)
     return (out[..., :d] if padded != d else out), lse
-
-
-flash_attn_fwd_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

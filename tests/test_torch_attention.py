@@ -1,8 +1,11 @@
 """Port attention (``tensorflowonspark_torch.ops.attention``) against the JAX
 package's: plain versions against ``mha_reference`` and the Pallas kernel in
-interpret mode (CPU, f32, atol/rtol 1e-5), at the head dims both kernels
-take.  The kernels are held against their plain version on the card in
-``tests/test_torch_cuda.py``."""
+interpret mode (CPU, f32, atol/rtol 1e-5), at the head dims the kernels
+take; the kernel routing table; and the f32 kernel's 3xTF32 arithmetic,
+emulated in torch, against the same references.  The kernels are held
+against their plain version on the card in ``tests/test_torch_cuda.py``."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,12 +90,14 @@ def test_plain_version_at_the_kernels_head_dims_matches_jax(case):
     np.testing.assert_allclose(to.numpy()[seen], ref[seen], **TOL)
 
 
-@pytest.mark.parametrize("d, padded", [(32, 64), (96, 128), (80, 128)])
+@pytest.mark.parametrize("d, padded", [(32, 64), (96, 128), (80, 128),
+                                       (160, 256), (192, 256), (33, 64)])
 def test_zero_padding_the_head_dim_changes_nothing(d, padded):
-    """What ``flash_attn_fwd_cuda`` does for a bf16/fp16 head_dim the wgmma
-    kernel lacks: zero columns change neither Q Kᵀ nor the first d columns
-    of P V, so attention over inputs padded along D, at the unpadded
-    ``1/sqrt(d)`` scale and sliced back, is attention over the inputs."""
+    """What ``flash_attn_fwd_cuda`` does for a head_dim the tensor-core
+    kernels lack (bf16/fp16 to 64, 128 or 256, f32 to 64 or 128): zero
+    columns change neither Q Kᵀ nor the first d columns of P V, so
+    attention over inputs padded along D, at the unpadded ``1/sqrt(d)``
+    scale and sliced back, is attention over the inputs."""
     q, k, v = _t(*make_qkv(b=2, s=24, h=2, d=d, sk=31, seed=3))
     pad = [torch.nn.functional.pad(x, (0, padded - d)) for x in (q, k, v)]
     po, pl = ta.chunk_attention(*pad, causal=True, kv_offset=3,
@@ -101,6 +106,136 @@ def test_zero_padding_the_head_dim_changes_nothing(d, padded):
     assert not po[..., d:].any()
     np.testing.assert_allclose(po[..., :d].numpy(), o.numpy(), **TOL)
     np.testing.assert_allclose(pl.numpy(), lse.numpy(), **TOL)
+
+
+# _route(dtype, head_dim) -> (kernel, padded head_dim): bf16/fp16 on the
+# wgmma kernel at 64, 128 or 256; f32 on the 3xTF32 kernel at 64 or 128 and
+# on the CUDA-core kernel above 128; over 256 raises
+ROUTES = {
+    1: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
+    33: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
+    64: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
+    80: (("flash_attn_fwd", 128), ("flash_attn_fwd_tf32", 128)),
+    128: (("flash_attn_fwd", 128), ("flash_attn_fwd_tf32", 128)),
+    129: (("flash_attn_fwd", 256), ("flash_attn_fwd_generic", 129)),
+    160: (("flash_attn_fwd", 256), ("flash_attn_fwd_generic", 160)),
+    256: (("flash_attn_fwd", 256), ("flash_attn_fwd_generic", 256)),
+    257: (None, None),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("d", sorted(ROUTES))
+def test_route_table(d, dtype):
+    half, f32 = ROUTES[d]
+    want = f32 if dtype == "float32" else half
+    if want is None:
+        with pytest.raises(ValueError, match="256"):
+            ta._route(getattr(torch, dtype), d)
+    else:
+        assert ta._route(getattr(torch, dtype), d) == want
+
+
+def _tf32_hi(x):
+    """x with its low 13 mantissa bits cleared: what a .tf32 operand of the
+    tensor cores reads."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_round(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest, ties away."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _tf32_matmul(a, b, split: bool):
+    """a @ b as the tensor cores compute it from TF32 operands: one product
+    of the truncated operands, or (``split``) the kernel's 3xTF32,
+    a_lo.b_hi + a_hi.b_lo + a_hi.b_hi with x = hi + lo, lo = tf32(x - hi)."""
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32_round(a - ah), _tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _emulated_tf32_attention(q, k, v, *, causal, kv_offset, sm_scale,
+                             split=True, block_k=32):
+    """The arithmetic of ``csrc/flash_attn_fwd_tf32.cu`` in torch: key
+    blocks of 32, each product through ``_tf32_matmul``, and the kernel's
+    online softmax (exp2 with the scale folded in, the NEG_INF guards);
+    returns ``(out, lse)`` like ``chunk_attention``."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    c = math.log2(math.e) * sm_scale
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, D]
+    neg = ta.NEG_INF
+    m = torch.full((b, h, sq), neg)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, block_k):
+        kc, vc = kt[:, :, k0:k0 + block_k], vt[:, :, k0:k0 + block_k]
+        s = _tf32_matmul(qt, kc.transpose(-1, -2), split)
+        if causal:
+            kpos = kv_offset + k0 + torch.arange(kc.shape[2])[None, :]
+            s = torch.where(kpos <= qpos, s, neg)
+        mx = torch.maximum(m, s.amax(-1))
+        msafe = torch.clamp(mx, min=neg / 2)
+        alpha = torch.where(m <= neg / 2, 0.0, torch.exp2((m - msafe) * c))
+        p = torch.exp2(s * c - (msafe * c)[..., None])
+        l = l * alpha + p.sum(-1)
+        m = mx
+        acc = acc * alpha[..., None] + _tf32_matmul(p, vc, split)
+    lsafe = torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, torch.clamp(m, min=neg / 2) * c * math.log(2)
+                      + torch.log(lsafe), neg)
+    return (acc / lsafe[..., None]).transpose(1, 2), lse.transpose(1, 2)
+
+
+# (b, sq, h, d, sk, causal, kv_offset): the TF32 kernel's head dims, 64 and
+# 128, and 33 zero-padded to 64 as the wrapper pads it; ragged key tails
+# and offsets that cut key blocks
+TF32_CASES = {
+    "d128_causal": (1, 70, 2, 128, None, True, 0),
+    "d128_cross_noncausal": (2, 20, 2, 128, 75, False, 0),
+    "d64_kv_offset": (1, 40, 2, 64, 52, True, 9),
+    "d64_kv_offset_negative": (1, 17, 2, 64, 60, True, -30),
+    "d33_padded": (1, 36, 2, 33, 45, True, 0),
+}
+# 3xTF32 against the f32 references: each product is good to about 2^-20
+# relative (the dropped lo.lo term), so O and lse stay within the f32
+# tests' atol/rtol 1e-5 where one TF32 product (2^-11) would not
+TF32_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(TF32_CASES))
+def test_emulated_3xtf32_attention_matches_jax_f32(case):
+    """The 3xTF32 algorithm of the f32 kernel meets the f32 gate against
+    the JAX package's f32 reference (``mha_reference``, and the Pallas
+    kernel in interpret mode), while a single TF32 product does not."""
+    b, s, h, d, sk, causal, off = TF32_CASES[case]
+    q, k, v = make_qkv(b=b, s=s, h=h, d=d, sk=sk, seed=7)
+    jo, jl = ja._flash_fwd_pallas(*_j(q, k, v), causal=causal, sm_scale=None,
+                                  kv_offset=off, block_q=8, block_k=8,
+                                  interpret=True)
+    jo, jl = np.asarray(jo), np.asarray(jl)
+    tq, tk, tv = _t(q, k, v)
+    padded = 64 if d < 64 else d
+    if padded != d:  # as the wrapper pads: zeros, at the unpadded scale
+        tq, tk, tv = (torch.nn.functional.pad(x, (0, padded - d)) for x in (tq, tk, tv))
+    o, lse = _emulated_tf32_attention(tq, tk, tv, causal=causal, kv_offset=off,
+                                      sm_scale=d ** -0.5)
+    o = o[..., :d]
+    np.testing.assert_allclose(o.numpy(), jo, **TF32_TOL)
+    np.testing.assert_allclose(lse.numpy(), jl, **TF32_TOL)
+    ref = np.asarray(ja.mha_reference(*_j(q, k, v), causal=causal, kv_offset=off))
+    seen = lse.numpy() > ta.NEG_INF / 2
+    assert seen.any()
+    np.testing.assert_allclose(o.numpy()[seen], ref[seen], **TF32_TOL)
+    # the split is what buys the precision: one TF32 product misses the gate
+    o1, _ = _emulated_tf32_attention(tq, tk, tv, causal=causal, kv_offset=off,
+                                     sm_scale=d ** -0.5, split=False)
+    assert np.abs(o1[..., :d].numpy() - jo).max() > 10 * TF32_TOL["atol"]
 
 
 # (b, s, h, d, causal, kv_offset): q, k, v as strided views of one packed

@@ -1,6 +1,7 @@
-"""The attention kernels (the Hopper ``wgmma`` kernel, its zero-padded path
-and the CUDA-core kernel for f32 and head dims up to 256) against their
-plain PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
+"""The attention kernels (the Hopper ``wgmma`` kernel for bf16/fp16 at head
+dims up to 256 with its zero-padded path, the 3xTF32 ``wgmma`` kernel for
+f32 up to 128, the CUDA-core kernel for f32 above 128) against their plain
+PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py
 
@@ -66,21 +67,61 @@ def test_cuda_kernel_matches_plain_version(case):
         assert masked[:, :64].all() and not masked[:, 64:].any()
 
 
-# (b, sq, sk, h, d, causal, kv_offset, dtype, packed) for the CUDA-core
-# kernel (f32 at any head_dim, bf16/fp16 above 128) and the wgmma kernel's
-# zero-padded path (bf16/fp16 with head_dim < 128, not 64)
+# (b, sq, sk, h, d, causal, kv_offset, dtype, packed) for the routes other
+# than bf16/fp16 at 64 and 128: bf16/fp16 at 129-256 (the wgmma kernel at
+# D=256, zero-padded), bf16/fp16 below 128 (padded to 64 or 128), f32 up to
+# 128 (the 3xTF32 kernel, padded to 64 or 128) and f32 above 128 (the
+# CUDA-core kernel)
 GENERIC_CASES = {
     "f32_serving_shape": (4, 2048, 2048, 8, 128, True, 0, torch.float32, False),
     "f32_d64_ragged_kv_offset": (2, 100, 170, 3, 64, True, 37, torch.float32, False),
     "f32_d33_noncausal": (2, 70, 45, 2, 33, False, 0, torch.float32, False),
     "f32_d256_decode": (2, 1, 517, 4, 256, True, -516, torch.float32, False),
     "f32_packed_d80": (2, 130, 130, 3, 80, True, 0, torch.float32, True),
+    "f32_ragged_200_330": (2, 200, 330, 3, 128, False, 0, torch.float32, False),
+    "f32_kv_offset_masked_rows": (1, 100, 70, 2, 128, True, 37, torch.float32, False),
+    "f32_kv_offset_negative": (1, 64, 192, 2, 128, True, -64, torch.float32, False),
+    "f32_sq_1_decode": (2, 1, 517, 4, 128, True, -516, torch.float32, False),
+    "f32_packed_qkv_view": (2, 300, 300, 4, 128, True, 0, torch.float32, True),
+    # the first 64-row tile (the TF32 kernel's whole CTA) sees no key
+    "f32_first_tile_masked": (1, 128, 128, 4, 128, True, 64, torch.float32, False),
+    "f32_d160_generic": (1, 130, 200, 2, 160, True, 3, torch.float32, False),
+    # the shape of chip_smoke.py's head-dim-256 f32 train step
+    "f32_d256_train_step_shape": (2, 2048, 2048, 4, 256, True, 0, torch.float32, False),
     "bf16_d256": (2, 300, 300, 4, 256, True, 0, torch.bfloat16, False),
     "fp16_d200_ragged": (2, 77, 140, 2, 200, False, 0, torch.float16, False),
+    "bf16_d256_ragged_noncausal": (2, 200, 330, 3, 256, False, 0, torch.bfloat16, False),
+    "bf16_d256_kv_offset_masked_rows": (1, 100, 70, 2, 256, True, 37, torch.bfloat16, False),
+    "bf16_d256_kv_offset_negative": (1, 64, 192, 2, 256, True, -64, torch.bfloat16, False),
+    "fp16_d256_sq_1_decode": (2, 1, 517, 4, 256, True, -516, torch.float16, False),
+    "bf16_d256_packed_qkv_view": (2, 300, 300, 2, 256, True, 0, torch.bfloat16, True),
+    "bf16_d256_consumer_half_masked": (1, 128, 128, 4, 256, True, 64, torch.bfloat16, False),
+    "bf16_d160_padded": (2, 150, 150, 2, 160, True, 0, torch.bfloat16, False),
+    "fp16_d192_padded": (1, 90, 130, 2, 192, True, 5, torch.float16, False),
     "bf16_d32_padded": (2, 300, 300, 4, 32, True, 0, torch.bfloat16, False),
     "bf16_d96_padded": (2, 200, 330, 3, 96, True, 0, torch.bfloat16, False),
     "fp16_d80_padded_masked_rows": (1, 100, 70, 2, 80, True, 37, torch.float16, False),
 }
+
+
+def run_routed(q, k, v, causal, off):
+    """The kernel path and the plain version on the same inputs (the plain
+    version in full f32, no TF32), checking that exactly the kernel
+    ``_route`` names launched, once."""
+    route, _ = ta._route(q.dtype, q.shape[-1])
+    before = dict(ta.LAUNCHES)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        o, lse = ta.flash_attention_fwd(q, k, v, causal=causal, kv_offset=off,
+                                        impl="kernel")
+        po, pl = ta.chunk_attention(q, k, v, causal=causal, kv_offset=off)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for n, count in ta.LAUNCHES.items():
+        assert count - before[n] == int(n == route), (n, route)
+    return o, lse, po, pl
 
 
 @pytest.mark.parametrize("case", sorted(GENERIC_CASES))
@@ -90,22 +131,13 @@ def test_cuda_generic_and_padded_paths_match_plain_version(case):
     b, sq, sk, h, d, causal, off, dtype, packed = GENERIC_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = make_inputs(b, sq, sk, h, d, dtype, packed, g)
-    wgmma = ta.flash_attn_fwd_cuda.launches
-    generic = ta.flash_attn_fwd_generic_cuda.launches
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
-    try:
-        o, lse = ta.flash_attention_fwd(q, k, v, causal=causal, kv_offset=off,
-                                        impl="kernel")
-        po, pl = ta.chunk_attention(q, k, v, causal=causal, kv_offset=off)
-        torch.cuda.synchronize()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    to_generic = dtype == torch.float32 or d > 128
-    assert ta.flash_attn_fwd_generic_cuda.launches - generic == int(to_generic)
-    assert ta.flash_attn_fwd_cuda.launches - wgmma == int(not to_generic)
+    if packed and d in ta.KERNEL_HEAD_DIMS:  # read in place, not copied
+        assert ta._kernel_operand(q) is q
+    o, lse, po, pl = run_routed(q, k, v, causal, off)
     assert o.shape == q.shape and o.dtype == dtype
-    if dtype == torch.float32:  # f32 FMA on both sides, summed in other orders
+    if dtype == torch.float32:
+        # 3xTF32 products are good to about 2^-20 relative and the CUDA-core
+        # kernel is f32 FMA, against f32 einsums summed in other orders
         torch.testing.assert_close(o, po, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(lse, pl, atol=1e-4, rtol=1e-4)
     else:  # the plain version's logits and the output round to the input type
@@ -114,6 +146,23 @@ def test_cuda_generic_and_padded_paths_match_plain_version(case):
     masked = pl <= ta.NEG_INF / 2
     assert (lse[masked] == ta.NEG_INF).all() and (o[masked] == 0).all()
     assert torch.isfinite(o).all()
+    if case.endswith(("consumer_half_masked", "first_tile_masked")):
+        assert masked[:, :64].all() and not masked[:, 64:].any()
+
+
+def test_cuda_tf32_kernel_on_low_bit_heavy_inputs():
+    """f32 inputs whose low 13 mantissa bits are all set: the 3xTF32 kernel
+    reads K's hi part as the raw f32 and relies on the tensor cores reading
+    only its upper 19 bits; if they rounded instead, the split would be off
+    by up to 2^-11 relative and the 1e-4 gate would fail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = ((torch.randn((2, 300, 3, 128), generator=g, device="cuda")
+                .view(torch.int32) | 0x1FFF).view(torch.float32) for _ in range(3))
+    o, lse, po, pl = run_routed(q, k, v, True, 0)
+    torch.testing.assert_close(o, po, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, pl, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("bad", ["float64", "head_dim_320", "mixed_types"])
@@ -150,12 +199,12 @@ def test_cuda_attention_grads_kernel_forward_vs_plain_forward(case):
     grads, outs = [], []
     for attend in (ta.flash_attention, ta.blockwise_attention):
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        before = ta.flash_attn_fwd_cuda.launches
+        before = ta.LAUNCHES["flash_attn_fwd"]
         out = attend(*leaves, causal=causal, kv_offset=off)
-        launched = ta.flash_attn_fwd_cuda.launches - before
+        launched = ta.LAUNCHES["flash_attn_fwd"] - before
         assert launched == (1 if attend is ta.flash_attention else 0)
         out.backward(cot)
-        assert ta.flash_attn_fwd_cuda.launches - before == launched  # none in backward
+        assert ta.LAUNCHES["flash_attn_fwd"] - before == launched  # none in backward
         outs.append(out.float())
         grads.append([x.grad.float() for x in leaves])
     torch.cuda.synchronize()
@@ -182,8 +231,8 @@ def test_cuda_train_step_launches_per_layer(remat):
     opt = dp.adamw(model.parameters(), 1e-3)
     step = dp.make_train_step(tfm.make_loss_fn(model), opt)
     ids = torch.randint(0, 512, (2, 256), device="cuda")
-    before = ta.flash_attn_fwd_cuda.launches
+    before = ta.LAUNCHES["flash_attn_fwd"]
     _, metrics = step(dp.TrainState.create(model, opt), {"input_ids": ids})
     torch.cuda.synchronize()
     assert torch.isfinite(metrics["loss"])
-    assert ta.flash_attn_fwd_cuda.launches - before == 3 * (2 if remat else 1)
+    assert ta.LAUNCHES["flash_attn_fwd"] - before == 3 * (2 if remat else 1)
