@@ -7,32 +7,35 @@ Phases (any failure propagates and the script exits non-zero):
 
 1. device — the card's name and power limit (``nvidia-smi``) and
    ``torch.cuda.get_device_name``;
-2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu``,
-   ``flash_attn_fwd_tf32.cu`` and ``flash_attn_fwd_generic.cu`` from the
-   checkout (one ``nvcc`` each, in parallel) and prints, per instantiation
-   of the two ``wgmma`` kernels (D 64/128/256 x bf16/fp16; f32 as 3xTF32 at
-   D 64/128), the registers and spills ptxas reports, the dynamic shared
-   memory, and the counts of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
-   instructions in the SASS (``cuobjdump -sass``), failing if either is
-   missing or a spill shows; and the registers and spills of the 3xTF32
-   kernel's K/V pre-pass and of the CUDA-core kernel;
+2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` and
+   ``flash_attn_fwd_tf32.cu`` from the checkout (one ``nvcc`` each, in
+   parallel) and prints, per instantiation of the two ``wgmma`` kernels (D
+   64/128/256 and the wide route's slices of 64/128/256 x bf16/fp16; f32 as
+   3xTF32 at D 64/128 and the wide route's slices), the registers and
+   spills ptxas reports, the dynamic shared memory, and the counts of
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS
+   (``cuobjdump -sass``), failing if either is missing or a spill shows;
+   and the registers and spills of the 3xTF32 kernel's K/V and Q pre-passes;
 3. kernel — holds every route (``ops.attention._route``) against the plain
    PyTorch version (``chunk_attention``) on the card, O and lse, at the
    serving shape and at edge shapes (ragged tails, one query row,
    key-block-crossing offsets, strided q/k/v views of one packed tensor, a
    tile half fully masked), for bf16/fp16 at D 64/128 and at D=256 (and
-   129-255 padded to it), for f32 through the 3xTF32 kernel (and with every
-   low mantissa bit set) and through the CUDA-core kernel (D=256, at the
-   head-dim-256 f32 step's shape and one decode row), and the zero-padded
-   paths; each case launches its route's kernel once and no other
+   129-255 padded to it) and on the wide route at D 320 and 512, for f32
+   through the 3xTF32 kernel at D <= 128 (and with every low mantissa bit
+   set) and on its wide route at D 160, 256, 320 and 512 (the head-dim-256
+   f32 step's shape, the head-dim-512 steps' shapes, decode rows), and the
+   zero-padded paths; each case launches its route's kernel once and no other
    (``ops.attention.LAUNCHES``).  Times each as 50 launches back to back
    between two CUDA events, and the cases of ``REFERENCE_TIMED`` also
    against the plain version and ``F.scaled_dot_product_attention`` (the
-   yardstick only: the port never calls it); each bound names what it
-   bounds (``BOUND_BASIS``); at the f32 serving shape also the pre-pass and
-   the attention kernel apart (``torch.profiler``), the function's own
-   bound at the TF32 rate beside the 3xTF32 design's, and which SDPA
-   backends take f32;
+   yardstick only: the port never calls it, and the record names the SDPA
+   backend that answered); ``bound_ms`` is the function's own (its products
+   over the live pairs at the unpadded head dim at its type's tensor-core
+   rate, or its bytes), and ``bound_design_ms`` beside it what the route's
+   design does (padding, three TF32 products apiece, Q Kᵀ once per wide
+   slice); for f32 also the pre-passes and the attention kernel apart
+   (``torch.profiler``) and which SDPA backends take f32;
 4. slice — an LM serving replica at the width of the repo's chip LM
    configuration (vocab 32000, d_model 1024, 8 layers, 8 heads, bf16, 2048
    tokens), random weights from the seed in the JAX package's bundle layout:
@@ -77,8 +80,10 @@ Phases (any failure propagates and the script exits non-zero):
    gradients against plain attention;
 10. head dim 256 — the same step for the LM with 4 heads of 256 (depth cut
    to ``D256_LAYERS``), in bf16 (the ``wgmma`` kernel at D=256) and in f32
-   (the CUDA-core kernel): n_layers launches of the route's kernel, and
-   loss and gradients against plain attention.
+   (the 3xTF32 kernel's wide route): n_layers launches of the route's
+   kernel, and loss and gradients against plain attention;
+11. head dim 512 — the same two steps for the LM with 2 heads of 512 (depth
+   cut to ``D512_LAYERS``), both on the kernels' wide routes.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -103,7 +108,6 @@ WORK_DIR = os.path.join(ROOT, "chip_smoke_work")  # bundle files, removed at exi
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16/fp16 tensor-core rate
 PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
-PEAK_F32_FLOPS = 66.9e12  # H100 SXM f32 FMA rate outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 # O: P is rounded to bf16/fp16 for the P·V product on the tensor cores and O
 # is stored in bf16/fp16, while the plain version runs softmax and P·V in f32.
@@ -112,9 +116,8 @@ O_TOL = dict(atol=2e-2, rtol=2e-2)
 # the f32 softmax), the kernel's are accumulated in f32.
 LSE_TOL = dict(atol=1e-2, rtol=1e-2)
 # f32 inputs: the 3xTF32 kernel's products are good to about 2^-20 relative
-# (x = hi + lo split, the lo.lo term dropped) and the CUDA-core kernel is f32
-# FMA, against the plain version's f32 einsums (no TF32), summed in other
-# orders
+# (x = hi + lo split, the lo.lo term dropped), against the plain version's
+# f32 einsums (no TF32), summed in other orders
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # slice logits, served (kernel attention) vs plain attention: bf16 compute
 # rounds at different places over 8 layers; held to 5% of the largest logit
@@ -150,8 +153,8 @@ KERNEL_CASES = [
 # the other routes (ops.attention._route), same fields: f32 up to D=128 on
 # the 3xTF32 kernel (padded to 64 or 128), bf16/fp16 at D=256 on the wgmma
 # kernel (129-255 padded to 256) and below 128 padded to 64 or 128, f32
-# above 128 on the CUDA-core kernel; a name with "low_bits" sets every low
-# mantissa bit of the f32 inputs
+# above 128 and bf16/fp16 above 256 on the two kernels' wide routes; a name
+# with "low_bits" sets every low mantissa bit of the f32 inputs
 GENERIC_CASES = [
     ("f32_serving_shape", 4, 2048, 2048, 8, 128, True, 0, "float32", False),
     ("f32_d64_ragged_kv_offset", 2, 200, 330, 8, 64, True, 37, "float32", False),
@@ -179,11 +182,33 @@ GENERIC_CASES = [
     # the head-dim-256 f32 train step's own shape, and its decode edge
     ("f32_d256", 2, 2048, 2048, 4, 256, True, 0, "float32", False),
     ("f32_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float32", False),
+    # the wide routes: f32 at 160 (padded to 256), 320 and 512, each plain
+    # and as a one-row decode with a kv_offset
+    ("f32_d160_padded", 2, 300, 300, 4, 160, True, 0, "float32", False),
+    ("f32_d160_sq_1_causal_decode", 2, 1, 517, 4, 160, True, -516, "float32", False),
+    ("f32_d320", 2, 200, 330, 2, 320, True, 5, "float32", False),
+    ("f32_d320_sq_1_causal_decode", 2, 1, 517, 2, 320, True, -516, "float32", False),
+    ("f32_d512", 2, 2048, 2048, 2, 512, True, 0, "float32", False),
+    ("f32_d512_sq_1_causal_decode", 2, 1, 517, 2, 512, True, -516, "float32", False),
+    # bf16/fp16 at 320 (padded to 384: slices 256 + 128) and 512: ragged non-causal, masked
+    # rows, a negative kv_offset, a one-row decode, a packed-qkv view
+    ("bf16_d320_ragged_noncausal", 2, 200, 330, 2, 320, False, 0, "bfloat16", False),
+    ("fp16_d320_kv_offset_masked_rows", 1, 100, 70, 2, 320, True, 37, "float16", False),
+    ("bf16_d320_kv_offset_negative", 1, 64, 192, 2, 320, True, -64, "bfloat16", False),
+    ("fp16_d320_sq_1_causal_decode", 2, 1, 517, 2, 320, True, -516, "float16", False),
+    ("bf16_d320_packed_qkv_view", 2, 512, 512, 2, 320, True, 0, "bfloat16", True),
+    ("bf16_d512", 2, 2048, 2048, 2, 512, True, 0, "bfloat16", False),
+    ("fp16_d512_ragged_noncausal", 2, 200, 330, 2, 512, False, 0, "float16", False),
+    ("bf16_d512_kv_offset_masked_rows", 1, 100, 70, 2, 512, True, 37, "bfloat16", False),
+    ("fp16_d512_kv_offset_negative", 1, 64, 192, 2, 512, True, -64, "float16", False),
+    ("bf16_d512_sq_1_causal_decode", 2, 1, 517, 2, 512, True, -516, "bfloat16", False),
+    ("fp16_d512_packed_qkv_view", 2, 512, 512, 2, 512, True, 0, "float16", True),
+    ("bf16_d512_consumer_half_masked", 1, 128, 128, 2, 512, True, 64, "bfloat16", False),
 ]
 # cases timed against the plain version and the library call as well
 REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d256",
                    "bf16_d256_train_shape", "f32_d256", "bf16_d32_padded",
-                   "bf16_d96_padded")
+                   "bf16_d96_padded", "bf16_d512", "f32_d512")
 
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
@@ -204,6 +229,7 @@ SERVE_LOGIT_REL_TOL = 2.0 ** -8
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 64
 F32_TRAIN_BATCH = 2  # the f32 step: f32 products and an f32 recompute backward
 D256_HEADS, D256_LAYERS = 4, 2  # head dim 256 at the LM's width, depth cut
+D512_HEADS, D512_LAYERS = 2, 2  # head dim 512 at the LM's width, depth cut
 CLUSTER_ROWS = (4, 4, 3)  # gateway.predict requests; then one row over TCP
 CLUSTER_NODES = 2
 # SASS instructions that show the design: wgmma and TMA loads
@@ -279,27 +305,60 @@ def live_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
     return sum(min(sk, max(0, i - kv_offset + 1)) for i in range(sq))
 
 
-# what each route's bound_ms bounds: (peak FLOP/s, products done per
-# product of the function, the basis as the kernels record states it)
-BOUND_BASIS = {
-    "flash_attn_fwd": (PEAK_BF16_FLOPS, 1, "the function at the bf16/fp16 "
-                       "tensor-core rate (989 TFLOP/s)"),
-    "flash_attn_fwd_tf32": (PEAK_TF32_FLOPS, 3, "the 3xTF32 design: three TF32 "
-                            "products per f32 product at 495 TFLOP/s"),
-    "flash_attn_fwd_generic": (PEAK_F32_FLOPS, 1, "the CUDA-core design: f32 "
-                               "FMA at 66.9 TFLOP/s"),
+# the tensor-core rate of each route's input type (f32 at the TF32 rate)
+PEAK_FLOPS = {"flash_attn_fwd": PEAK_BF16_FLOPS, "flash_attn_fwd_tf32": PEAK_TF32_FLOPS}
+# what bound_ms bounds: the function's own work
+FUNCTION_BASIS = ("the function's own products over the live pairs at the "
+                  "unpadded head dim, at its type's tensor-core rate (989 TFLOP/s "
+                  "bf16/fp16, 495 TF32 for f32), or its bytes at 3.35 TB/s")
+# what bound_design_ms bounds: the work of the route's design on this input
+DESIGN_BASIS = {
+    "flash_attn_fwd": "the design: the products at the padded head dim at 989 TFLOP/s",
+    "flash_attn_fwd_tf32": ("the 3xTF32 design: three TF32 products per f32 "
+                            "product at the padded head dim at 495 TFLOP/s"),
 }
+WIDE_BASIS = "; on the wide route Q Kᵀ once per {} -column slice of O"
 
 
 def attention_bound(b, sq, sk, h, d, causal, kv_offset, itemsize,
-                    peak=PEAK_BF16_FLOPS, products=1):
+                    peak=PEAK_BF16_FLOPS, products=1, qk_times=1):
     """(bound_ms, bound_by): the larger of the time of ``products`` times
-    the two products over the live pairs at ``peak`` FLOP/s and the time to
-    move q, k, v, O and lse."""
-    flops = products * 4 * d * b * h * live_pairs(sq, sk, causal, kv_offset)
+    the two products over the live pairs at ``peak`` FLOP/s (Q Kᵀ done
+    ``qk_times`` times) and the time to move q, k, v, O and lse."""
+    flops = products * 2 * d * (qk_times + 1) * b * h * live_pairs(sq, sk, causal, kv_offset)
     nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * itemsize + b * sq * h * 4
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def design_bound(route, b, sq, sk, h, d, padded, causal, kv_offset, itemsize):
+    """(bound_ms, bound_by, basis) of ``route``'s design on this input: the
+    products at the ``padded`` head dim, three apiece on the 3xTF32 kernel,
+    and on a wide route Q Kᵀ once per slice of O's columns (the slice width
+    from the kernel's library).  Not the function's bound: this is what the
+    design must do, padding and recomputation included."""
+    from tensorflowonspark_torch.ops import attention as att
+
+    products = 3 if route == "flash_attn_fwd_tf32" else 1
+    basis, slices = DESIGN_BASIS[route], 1
+    if padded not in att._HEAD_DIMS[route]:
+        cols = getattr(att._kernel_lib(route), f"tos_{route}_slice_cols")()
+        slices = -(-padded // cols)
+        basis += WIDE_BASIS.format(cols)
+    return (*attention_bound(b, sq, sk, h, padded, causal, kv_offset, itemsize,
+                             PEAK_FLOPS[route], products, slices), basis)
+
+
+def sdpa_choice(q, k, v) -> str:
+    """The ``F.scaled_dot_product_attention`` backend PyTorch picks for a
+    causal call on these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
 
 
 def phase_device():
@@ -318,30 +377,33 @@ def phase_device():
     return smi[0]
 
 
-KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32", "flash_attn_fwd_generic")
-# the wgmma instantiations: (library, D, dtype name)
-WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt) for d in (64, 128, 256)
+KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32")
+# the wgmma instantiations: (library, D, dtype name); D "wideW" is the wide
+# route's kernel for slices W columns wide
+WIDE_SLICES = ("wide128", "wide256")
+WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt) for d in (64, 128, 256, *WIDE_SLICES)
                     for dt in ("bfloat16", "float16")]
-                   + [("flash_attn_fwd_tf32", d, "float32") for d in (64, 128)])
-# the 3xTF32 kernel's K/V pre-pass and the CUDA-core kernel (one
-# instantiation for every D <= 256, keyed 256), reported by ptxas only
+                   + [("flash_attn_fwd_tf32", d, "float32")
+                      for d in (64, 128, *WIDE_SLICES)])
+# the 3xTF32 kernel's K/V and Q pre-passes, reported by ptxas only
 OTHER_INSTANCES = (("flash_attn_fwd_tf32", "split_kv", "float32"),
-                   ("flash_attn_fwd_generic", 256, "float32"))
+                   ("flash_attn_fwd_tf32", "split_q", "float32"))
 
 
 def kernel_key(text: str):
     """``(library, D, dtype name)`` of the kernel instantiation a mangled
     name in ``text`` names, or None."""
-    m = re.search(r"flash_fwd_kernelILi(\d+)ELb([01])E", text)
+    m = re.search(r"flash_fwd_(wide_)?kernelILi(\d+)ELb([01])E", text)
     if m:
-        return ("flash_attn_fwd", int(m.group(1)),
-                "bfloat16" if m.group(2) == "1" else "float16")
-    m = re.search(r"flash_fwd_tf32_kernelILi(\d+)E", text)
+        d = f"wide{m.group(2)}" if m.group(1) else int(m.group(2))
+        return ("flash_attn_fwd", d, "bfloat16" if m.group(3) == "1" else "float16")
+    m = re.search(r"flash_fwd_tf32_(wide_)?kernelILi(\d+)E", text)
     if m:
-        return ("flash_attn_fwd_tf32", int(m.group(1)), "float32")
+        d = f"wide{m.group(2)}" if m.group(1) else int(m.group(2))
+        return ("flash_attn_fwd_tf32", d, "float32")
     if "split_kv_kernel" in text:
         return OTHER_INSTANCES[0]
-    if "flash_fwd_generic_kernel" in text:
+    if "split_q_kernel" in text:
         return OTHER_INSTANCES[1]
     return None
 
@@ -388,10 +450,10 @@ def sass_counts(lib_path) -> dict:
 
 
 def phase_build() -> dict:
-    """Build the three kernels from the checkout (one nvcc each, in
+    """Build the two kernels from the checkout (one nvcc each, in
     parallel); print and return what ptxas and the SASS say about each
     ``wgmma`` instantiation (failing on a spill or a missing HGMMA/UTMALDG)
-    and what ptxas says about the pre-pass and the CUDA-core kernel."""
+    and what ptxas says about the 3xTF32 kernel's pre-passes."""
     from tensorflowonspark_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -404,8 +466,7 @@ def phase_build() -> dict:
             if "error" in line or "warning" in line:
                 log(f"[build] nvcc {name}: {line.strip()}")
         ptxas.update(ptxas_report(text))
-        if name != "flash_attn_fwd_generic":
-            sass.update(sass_counts(cuda_build.library_path(name)))
+        sass.update(sass_counts(cuda_build.library_path(name)))
     info = {}
     for key in WGMMA_INSTANCES + list(OTHER_INSTANCES):
         lib_name, d, dt = key
@@ -413,10 +474,11 @@ def phase_build() -> dict:
         if not regs:
             raise AssertionError(f"no ptxas report for {key}")
         label = f"D={d}" if isinstance(d, int) else d
-        smem = 0 if d == "split_kv" else getattr(
-            libs[lib_name], f"tos_{lib_name}_smem_bytes")(d)
-        tag = {"flash_attn_fwd": "", "flash_attn_fwd_tf32": "tf32_",
-               "flash_attn_fwd_generic": "generic_"}[lib_name]
+        wide = isinstance(d, str)
+        smem = 0 if key in OTHER_INSTANCES else getattr(
+            libs[lib_name], f"tos_{lib_name}_smem_bytes")(
+                int(d[4:]) if wide else d, int(wide))
+        tag = {"flash_attn_fwd": "", "flash_attn_fwd_tf32": "tf32_"}[lib_name]
         info[f"{tag}{label.replace('=', '')}_{dt}"] = {**regs, "smem_bytes": smem, **ins}
         log(f"[build] {lib_name} {label} {dt}: {regs.get('registers')} registers, "
             f"{regs.get('spill_stores')} B spill stores, "
@@ -487,8 +549,7 @@ def sdpa_backends(q, k, v, smi: str) -> dict:
 
 def phase_kernel(seed: int, smi: str) -> list[dict]:
     """Every route against ``chunk_attention`` at every case; returns the
-    ``kernels`` records of the wgmma kernel, the 3xTF32 kernel and the
-    CUDA-core kernel."""
+    ``kernels`` records of the wgmma kernel and the 3xTF32 kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -507,9 +568,9 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
         dtype = getattr(torch, dtype_name)
         q, k, v = kernel_inputs(b, sq, sk, h, d, dtype, packed, gen,
                                 low_bits="low_bits" in name)
-        if packed and d in att.KERNEL_HEAD_DIMS and att._kernel_operand(q) is not q:
-            raise AssertionError(f"{name}: packed views were copied, not read in place")
         route, padded = att._route(dtype, d)
+        if packed and padded == d and att._kernel_operand(q) is not q:
+            raise AssertionError(f"{name}: packed views were copied, not read in place")
         before = dict(att.LAUNCHES)
         o, lse = att.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
         po, plse = att.chunk_attention(q, k, v, causal=causal, kv_offset=off)
@@ -534,14 +595,13 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
         ms, host_ms = time_ms(lambda: att.flash_attn_fwd_cuda(
             q, k, v, causal=causal, kv_offset=off))
         tf32 = route == "flash_attn_fwd_tf32"
-        peak, products, basis = BOUND_BASIS[route]
         bound_ms, bound_by = attention_bound(b, sq, sk, h, d, causal, off,
-                                             q.element_size(), peak, products)
+                                             q.element_size(), PEAK_FLOPS[route])
         tflops = 4 * d * b * h * live_pairs(sq, sk, causal, off) / (ms * 1e-3) / 1e12
         log(f"[kernel] {name}: ok ({route}, D {d} -> {padded}), max_abs_err "
             f"{err:.3e}, masked rows {int(masked.sum())}, {ms:.4f} ms, "
             f"{tflops:.1f} TFLOP/s, host {host_ms:.4f} ms per call (bound "
-            f"{bound_ms:.5f} ms, {bound_by}, on {basis}; share "
+            f"{bound_ms:.5f} ms, {bound_by}, the function's own; share "
             f"{bound_ms / ms:.3f})")
         if name in REFERENCE_TIMED:
             plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=causal),
@@ -549,39 +609,34 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))[0]
+            backend = sdpa_choice(qt, kt, vt)
+            design_ms, design_by, design_basis = design_bound(
+                route, b, sq, sk, h, d, padded, causal, off, q.element_size())
             rec = {"shape": f"B={b} S={sq} H={h} D={d} causal {dtype_name}",
+                   "padded_head_dim": padded,
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by, "bound_basis": basis,
-                   "library_ms": library_ms, "host_ms": host_ms, "tflops": tflops,
-                   "bound_share": bound_ms / ms}
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_basis": FUNCTION_BASIS, "bound_share": bound_ms / ms,
+                   "bound_design_ms": design_ms, "bound_design_by": design_by,
+                   "bound_design_basis": design_basis,
+                   "bound_design_share": design_ms / ms,
+                   "library_ms": library_ms, "library_backend": backend,
+                   "host_ms": host_ms, "tflops": tflops}
             log(f"[kernel] {name}: plain {plain_ms:.4f} ms, "
-                f"F.scaled_dot_product_attention {library_ms:.4f} ms, kernel / "
-                f"library {ms / library_ms:.3f} ({smi})")
+                f"F.scaled_dot_product_attention {library_ms:.4f} ms ({backend}), "
+                f"kernel / library {ms / library_ms:.3f}; bounds {bound_ms:.5f} ms "
+                f"the function's own (share {bound_ms / ms:.3f}), {design_ms:.5f} ms "
+                f"on {design_basis} (share {design_ms / ms:.3f}) ({smi})")
             if tf32:
                 parts = kernel_device_ms(lambda: att.flash_attn_fwd_cuda(
                     q, k, v, causal=causal, kv_offset=off))
-                rec["prepass_ms"] = sum(t for n, t in parts.items() if "split_kv" in n)
+                rec["prepass_ms"] = sum(t for n, t in parts.items() if "split_" in n)
                 rec["attention_kernel_ms"] = sum(
                     t for n, t in parts.items() if "flash_fwd_tf32" in n)
-                # the function's own FLOPs at the TF32 rate: what the card
-                # needs for this work on its fastest f32-input pipes
-                rec["bound_function_tf32_ms"] = attention_bound(
-                    b, sq, sk, h, d, causal, off, 4, PEAK_TF32_FLOPS)[0]
-                # the CUDA-core design's bound, which this kernel runs under:
-                # not a bound on the card, kept to compare the two designs
-                rec["cuda_core_design_bound_ms"] = attention_bound(
-                    b, sq, sk, h, d, causal, off, 4, PEAK_F32_FLOPS)[0]
                 rec["sdpa_backends"] = sdpa_backends(qt, kt, vt, smi)
                 log(f"[kernel] {name}: pre-pass {rec['prepass_ms']:.4f} ms + "
                     f"attention kernel {rec['attention_kernel_ms']:.4f} ms "
-                    f"(torch.profiler, device time per call); bounds: "
-                    f"{bound_ms:.5f} ms on the 3xTF32 design (bound_ms, share "
-                    f"{bound_ms / ms:.3f}), {rec['bound_function_tf32_ms']:.5f} "
-                    f"ms for the function's own FLOPs at "
-                    f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s (share "
-                    f"{rec['bound_function_tf32_ms'] / ms:.3f}); the CUDA-core "
-                    f"design's f32-FMA bound, {rec['cuda_core_design_bound_ms']:.5f}"
-                    f" ms, bounds that design only ({smi})")
+                    f"(torch.profiler, device time per call) ({smi})")
             timed[name] = rec
             del qt, kt, vt
         del q, k, v, o, lse, po, plse
@@ -597,9 +652,9 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
                    head_dim_64=timed["head_dim_64"], d256=timed["bf16_d256"],
                    d256_train_shape=timed["bf16_d256_train_shape"],
                    d32_padded=timed["bf16_d32_padded"],
-                   d96_padded=timed["bf16_d96_padded"]),
-            record("flash_attn_fwd_tf32", "f32_serving_shape"),
-            record("flash_attn_fwd_generic", "f32_d256")]
+                   d96_padded=timed["bf16_d96_padded"], d512=timed["bf16_d512"]),
+            record("flash_attn_fwd_tf32", "f32_serving_shape",
+                   d256=timed["f32_d256"], d512=timed["f32_d512"])]
 
 
 def make_lm_params(cfg: dict, seed: int) -> dict:
@@ -1365,17 +1420,32 @@ def phase_train_f32(seed: int, smi: str, device: str = "cuda") -> dict:
                               smi, device)
 
 
+def phase_train_heads(heads: int, layers: int, seed: int, smi: str,
+                      device: str = "cuda") -> dict:
+    """The LM at its width with ``heads`` heads (depth cut to ``layers``):
+    one bf16 step through the wgmma kernel and one f32 step through the
+    3xTF32 kernel, each against plain attention; returns each step's
+    numbers by route."""
+    cfg = {**LM_CONFIG, "n_heads": heads, "n_layers": layers}
+    tag = f"train-d{LM_CONFIG['d_model'] // heads}"
+    return {route: step_against_plain({**cfg, "bf16": bf16}, seed,
+                                      F32_TRAIN_BATCH, route, f"{tag}-{kind}", smi,
+                                      device)
+            for route, bf16, kind in (("flash_attn_fwd", True, "bf16"),
+                                      ("flash_attn_fwd_tf32", False, "f32"))}
+
+
 def phase_train_d256(seed: int, smi: str, device: str = "cuda") -> dict:
-    """The LM at its width with ``D256_HEADS`` heads of 256 (depth cut to
-    ``D256_LAYERS``): one bf16 step through the wgmma kernel at D=256 and
-    one f32 step through the CUDA-core kernel, each against plain
-    attention; returns each step's numbers by route."""
-    cfg = {**LM_CONFIG, "n_heads": D256_HEADS, "n_layers": D256_LAYERS}
-    return {route: step_against_plain({**cfg, "bf16": bf16}, seed + 13,
-                                      F32_TRAIN_BATCH, route, tag, smi, device)
-            for route, bf16, tag in (("flash_attn_fwd", True, "train-d256-bf16"),
-                                     ("flash_attn_fwd_generic", False,
-                                      "train-d256-f32"))}
+    """The head-dim-256 steps (``D256_HEADS`` heads, ``D256_LAYERS``
+    layers): bf16 on the wgmma kernel's D=256 configuration, f32 on the
+    3xTF32 kernel's wide route."""
+    return phase_train_heads(D256_HEADS, D256_LAYERS, seed + 13, smi, device)
+
+
+def phase_train_d512(seed: int, smi: str, device: str = "cuda") -> dict:
+    """The head-dim-512 steps (``D512_HEADS`` heads, ``D512_LAYERS``
+    layers): both on the kernels' wide routes."""
+    return phase_train_heads(D512_HEADS, D512_LAYERS, seed + 17, smi, device)
 
 
 def _leaves(tree):
@@ -1401,7 +1471,7 @@ def main() -> int:
     try:
         smi = phase_device()
         build = phase_build()
-        record, tf32, generic = phase_kernel(args.seed, smi)
+        record, tf32 = phase_kernel(args.seed, smi)
         record["build"] = build
         record["launches"] = phase_slice(args.seed, smi)
         cluster = phase_cluster(args.seed, smi)
@@ -1422,14 +1492,15 @@ def main() -> int:
         train_f32 = phase_train_f32(args.seed, smi)
         tf32["launches"] = train_f32.pop("launches")
         tf32["train_f32"] = train_f32
-        d256 = phase_train_d256(args.seed, smi)
-        record["d256_launches"] = d256["flash_attn_fwd"].pop("launches")
-        record["train_d256"] = d256["flash_attn_fwd"]
-        generic["launches"] = d256["flash_attn_fwd_generic"].pop("launches")
-        generic["train_d256_f32"] = d256["flash_attn_fwd_generic"]
+        for dim, phase in ((256, phase_train_d256), (512, phase_train_d512)):
+            steps = phase(args.seed, smi)
+            record[f"d{dim}_launches"] = steps["flash_attn_fwd"].pop("launches")
+            record[f"train_d{dim}"] = steps["flash_attn_fwd"]
+            tf32[f"d{dim}_launches"] = steps["flash_attn_fwd_tf32"].pop("launches")
+            tf32[f"train_d{dim}_f32"] = steps["flash_attn_fwd_tf32"]
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
-    print(json.dumps({"kernels": [record, tf32, generic]}))
+    print(json.dumps({"kernels": [record, tf32]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

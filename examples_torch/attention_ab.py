@@ -12,7 +12,10 @@ on the card:
   to back between two CUDA events behind a spin kernel, median of 5
   windows: ``chip_smoke.time_ms`` of this script's checkout), and reports
   the registers and spills (ptxas) and HGMMA/UTMALDG counts (SASS) of its
-  bf16/fp16 ``wgmma`` instantiations;
+  ``wgmma`` instantiations, bf16/fp16 and 3xTF32; where the checkout's
+  ``_launch`` takes ``wide``, it also times the wide route at one slice on
+  the cases of ``WIDE_ONE_SLICE`` (bf16 D=256, f32 D=128), held against the
+  plain version, beside the dedicated configuration of that head dim;
 - one runs that checkout's ``examples_torch/llm/train_lm.py`` in f32 at the
   LM width of ``chip_smoke.py`` (vocab 32000, d_model 1024, 8 layers of 8
   heads, B=2, S=2048) for ``--steps`` steps after one warm-up step, and
@@ -37,7 +40,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = (("serving_shape", 4, 2048, 8, 128, "bfloat16"),
          ("head_dim_64", 4, 2048, 16, 64, "bfloat16"),
          ("f32_serving_shape", 4, 2048, 8, 128, "float32"),
-         ("bf16_d256", 4, 2048, 4, 256, "bfloat16"))
+         ("bf16_d256", 4, 2048, 4, 256, "bfloat16"),
+         # the head-dim-256 f32 train step's shape
+         ("f32_d256", 2, 2048, 4, 256, "float32"))
+# cases also run on the wide route at one slice: whether it could take over
+# from the dedicated configuration of the same head dim
+WIDE_ONE_SLICE = ("bf16_d256", "f32_serving_shape")
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_ARGS = ("--vocab-size", "32000", "--d-model", "1024", "--n-layers", "8",
               "--n-heads", "8", "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH))
@@ -55,8 +63,10 @@ def _chip_smoke():
 
 def time_kernels(tree: str) -> dict:
     """In this process: ``tree``'s kernels timed at ``CASES``, and what
-    ptxas and the SASS say of its bf16/fp16 ``wgmma`` instantiations."""
+    ptxas and the SASS say of its ``wgmma`` instantiations."""
     sys.path.insert(0, tree)
+    import inspect
+
     import torch
 
     from tensorflowonspark_torch.ops import attention as att
@@ -69,12 +79,28 @@ def time_kernels(tree: str) -> dict:
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .to(getattr(torch, dtype_name)) for _ in range(3))
         out[name] = smoke.time_ms(lambda: att.flash_attn_fwd_cuda(q, k, v, causal=True))[0]
+        if name in WIDE_ONE_SLICE and "wide" in inspect.signature(att._launch).parameters:
+            route = att._route(q.dtype, d)[0]
+            tol = smoke.F32_TOL if dtype_name == "float32" else smoke.O_TOL
+
+            def wide():
+                return att._launch(route, q, k, v, True, d ** -0.5, 0, wide=True)
+
+            o, lse = wide()
+            po, plse = att.chunk_attention(q, k, v, causal=True)
+            torch.testing.assert_close(o.float(), po.float(), **tol)
+            out[f"{name}_wide_one_slice"] = {
+                "ms": smoke.time_ms(wide)[0],
+                "max_abs_err": (o.float() - po.float()).abs().max().item(),
+                "lse_max_abs_err": (lse - plse).abs().max().item()}
+            del o, lse, po, plse
         del q, k, v
-    report = smoke.ptxas_report(cuda_build.build_log("flash_attn_fwd"))
-    sass = smoke.sass_counts(cuda_build.library_path("flash_attn_fwd"))
-    out["build"] = {f"D{d}_{dt}": {**regs, **sass.get((lib, d, dt), {})}
-                    for (lib, d, dt), regs in sorted(report.items())
-                    if lib == "flash_attn_fwd"}
+    report, sass = {}, {}
+    for lib in ("flash_attn_fwd", "flash_attn_fwd_tf32"):
+        report.update(smoke.ptxas_report(cuda_build.build_log(lib)))
+        sass.update(smoke.sass_counts(cuda_build.library_path(lib)))
+    out["build"] = {f"{lib}_D{d}_{dt}": {**regs, **sass.get((lib, d, dt), {})}
+                    for (lib, d, dt), regs in sorted(report.items(), key=str)}
     return out
 
 

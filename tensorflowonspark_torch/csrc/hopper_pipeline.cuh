@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
 // flash_attn_fwd.cu (bf16/fp16 on wgmma) and flash_attn_fwd_tf32.cu (f32 as
 // 3xTF32 on wgmma): mbarriers, TMA tile loads, wgmma descriptors, fences and
-// accumulator operand lists, and the host-side tensor-map encoder
+// accumulator operand lists, the pipelined wgmma wait of the wide routes,
+// the masked online-softmax step of a key block, and the host-side
+// tensor-map encoder
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the libraries
 // do not link libcuda).
 
@@ -93,6 +95,13 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed wgmma groups are still in flight: the wide
+// routes keep one Q K^T chunk's group running while the stage of the one
+// before it is released.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving accumulator accesses between a wgmma
 // and its wait.
@@ -106,6 +115,75 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// One key block of the online softmax on S in the wgmma accumulator layout
+// (per warp w of the warpgroup and lane = 4g + t, d[4n + e] holds row
+// 16w + g + 8*(e >> 1), column 8n + 2t + (e & 1); r0 is the thread's first
+// row): keys j past Sk or, causal, with kv_offset + j past the row are
+// masked to kNegInf, only on blocks that straddle the diagonal of the rows
+// from q_first on or the Sk tail; then the running max m (of the raw
+// logits), the accumulator and the row sums l (this thread's share) are
+// rescaled, and S is overwritten by P = exp2(S * scale_log2 - m_safe *
+// scale_log2).  Every exp is guarded, so a row with every position masked
+// keeps l = 0 and O = 0.
+template <int BK, int NACC>
+__device__ __forceinline__ void online_softmax_block(
+    float (&sc)[BK / 2], float (&acc)[NACC], float (&m)[2], float (&l)[2],
+    int k0, int q_first, int r0, int t, int Sk, int causal, int kv_offset,
+    float scale_log2) {
+  if (k0 + BK > Sk || (causal && kv_offset + k0 + BK - 1 > q_first)) {
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + ((e >> 1) << 3);
+        const int j = k0 + n * 8 + 2 * t + (e & 1);
+        if (!(j < Sk && (!causal || kv_offset + j <= row)))
+          sc[4 * n + e] = kNegInf;
+      }
+    }
+  }
+  // exp2 with the scale folded in
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
+  }
+  float alpha[2];
+  float mscaled[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the four threads of a row group hold the row's BK columns
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // guard the max so exp(NEG_INF - NEG_INF) of a masked row isn't 1
+    const float msafe = fmaxf(mx[i], kHalfNegInf);
+    alpha[i] = m[i] <= kHalfNegInf ? 0.f : ex2((m[i] - msafe) * scale_log2);
+    mscaled[i] = msafe * scale_log2;
+    m[i] = mx[i];
+  }
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // a masked logit gives exp2(<= -6e28) = 0 exactly
+      const float p = ex2(fmaf(sc[4 * n + e], scale_log2, -mscaled[e >> 1]));
+      sc[4 * n + e] = p;
+      lsum[e >> 1] += p;
+    }
+  }
+  l[0] = l[0] * alpha[0] + lsum[0];
+  l[1] = l[1] * alpha[1] + lsum[1];
+#pragma unroll
+  for (int n = 0; n < NACC / 4; ++n) {
+    acc[4 * n + 0] *= alpha[0];
+    acc[4 * n + 1] *= alpha[0];
+    acc[4 * n + 2] *= alpha[1];
+    acc[4 * n + 3] *= alpha[1];
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -12,13 +12,14 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
   blocks;
 - ``flash_attention`` / ``flash_attention_fwd`` — the public entry.  A CUDA
   tensor goes to the kernels (through ``flash_attn_fwd_cuda``), a CPU
-  tensor to the plain version.  ``_route`` picks the kernel: bf16/fp16
-  with head_dim <= 256 runs the ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``),
-  zero-padded along D to 64, 128 or 256 as the TPU kernel pads to 128
-  lanes; f32 with head_dim <= 128 runs the 3xTF32 ``wgmma`` kernel
-  (``csrc/flash_attn_fwd_tf32.cu``), zero-padded to 64 or 128; f32 with
-  128 < head_dim <= 256 runs the CUDA-core kernel
-  (``csrc/flash_attn_fwd_generic.cu``).  head_dim > 256 raises.
+  tensor to the plain version.  ``_route`` picks the kernel for every head
+  dim, zero-padding D as the TPU kernel pads to 128 lanes: bf16/fp16 runs
+  the ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``) at 64, 128 or 256, and
+  above 256 its wide route; f32 runs the 3xTF32 ``wgmma`` kernel
+  (``csrc/flash_attn_fwd_tf32.cu``) at 64 or 128, and above 128 its wide
+  route.  A wide route puts O's columns in slices of 256 across CTAs, each
+  recomputing Q Kᵀ, with D padded to a multiple of 128 (as the TPU kernel
+  pads it).  Only a type the kernels do not take raises.
   ``LAUNCHES`` counts each kernel's launches.  A CUDA tensor whose kernel
   fails to build or launch raises: nothing falls back.
   When autograd records the call, it goes through ``FlashAttention``, the
@@ -153,25 +154,30 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# The kernels: csrc/flash_attn_fwd.cu, csrc/flash_attn_fwd_tf32.cu and
-# csrc/flash_attn_fwd_generic.cu, bound through ctypes.
+# The kernels: csrc/flash_attn_fwd.cu and csrc/flash_attn_fwd_tf32.cu, bound
+# through ctypes.
 # ---------------------------------------------------------------------------
 
 KERNEL_HEAD_DIMS = (64, 128, 256)  # the wgmma kernel's head dims (bf16/fp16)
 TF32_HEAD_DIMS = (64, 128)         # the 3xTF32 wgmma kernel's head dims (f32)
-MAX_HEAD_DIM = 256                 # the largest head_dim the kernels take
+# above these the kernels' wide routes: O's columns in slices across CTAs,
+# Q Kᵀ streamed in chunks of the head dim, D padded to a multiple of
+# WIDE_PAD_TO
+_HEAD_DIMS = {"flash_attn_fwd": KERNEL_HEAD_DIMS,
+              "flash_attn_fwd_tf32": TF32_HEAD_DIMS}
+WIDE_PAD_TO = 128
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}  # the wgmma kernel's
 _LIBS: dict = {}
 # C signatures: tos_<name>(q, k, v, o, lse, [scratch,] B, Sq, Sk, H, D,
-# strides, causal, kv_offset, sm_scale, [dtype,] stream): the 3xTF32 kernel
-# takes a scratch pointer, the wgmma kernel a dtype code
+# strides, causal, kv_offset, sm_scale, wide, [dtype,] stream): the 3xTF32
+# kernel takes a scratch pointer, the wgmma kernel a dtype code
 _SHAPE_ARGS = ([ctypes.c_int] * 5
-               + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float])
+               + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_int])
 _ARGTYPES = {
     "flash_attn_fwd": ([ctypes.c_void_p] * 5 + _SHAPE_ARGS
                        + [ctypes.c_int, ctypes.c_void_p]),
     "flash_attn_fwd_tf32": [ctypes.c_void_p] * 6 + _SHAPE_ARGS + [ctypes.c_void_p],
-    "flash_attn_fwd_generic": [ctypes.c_void_p] * 5 + _SHAPE_ARGS + [ctypes.c_void_p],
 }
 # each kernel's launches, by its name in _route; bumped only where _launch
 # has launched it
@@ -180,20 +186,19 @@ LAUNCHES = dict.fromkeys(_ARGTYPES, 0)
 
 def _route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     """``(kernel, padded head_dim)`` for inputs of ``dtype`` with head_dim
-    ``d``: bf16/fp16 to the wgmma kernel at 64, 128 or 256; f32 to the
-    3xTF32 kernel at 64 or 128, and above 128 to the CUDA-core kernel
-    unpadded.  Raises on a head_dim over ``MAX_HEAD_DIM`` or a type the
-    kernels do not take."""
+    ``d``: bf16/fp16 to the wgmma kernel at 64, 128 or 256, f32 to the
+    3xTF32 kernel at 64 or 128, and a wider head to the same kernel's wide
+    route at ``d`` rounded up to ``WIDE_PAD_TO``.  Raises on a type the
+    kernels do not take (or a head_dim below 1)."""
     if dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"the kernels take bf16, fp16 or f32, got {dtype}")
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernels take head_dim up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
-    if dtype != torch.float32:
-        return "flash_attn_fwd", next(p for p in KERNEL_HEAD_DIMS if d <= p)
-    if d <= max(TF32_HEAD_DIMS):
-        return "flash_attn_fwd_tf32", next(p for p in TF32_HEAD_DIMS if d <= p)
-    return "flash_attn_fwd_generic", d
+    if d < 1:
+        raise ValueError(f"head_dim must be at least 1, got {d}")
+    name = "flash_attn_fwd_tf32" if dtype == torch.float32 else "flash_attn_fwd"
+    dims = _HEAD_DIMS[name]
+    if d <= dims[-1]:
+        return name, next(p for p in dims if d <= p)
+    return name, -(-d // WIDE_PAD_TO) * WIDE_PAD_TO
 
 
 def _kernel_lib(name: str):
@@ -206,7 +211,7 @@ def _kernel_lib(name: str):
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         if name == "flash_attn_fwd_tf32":
-            lib.tos_flash_attn_fwd_tf32_scratch_bytes.argtypes = [ctypes.c_int] * 4
+            lib.tos_flash_attn_fwd_tf32_scratch_bytes.argtypes = [ctypes.c_int] * 6
             lib.tos_flash_attn_fwd_tf32_scratch_bytes.restype = ctypes.c_int64
         _LIBS[name] = lib
     return _LIBS[name]
@@ -242,10 +247,13 @@ def _check_inputs(q, k, v):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
 
 
-def _launch(name, q, k, v, causal, scale, kv_offset):
+def _launch(name, q, k, v, causal, scale, kv_offset, wide=None):
     """Run ``csrc/<name>.cu`` on checked inputs its kernel can read in
-    place; returns ``(out, lse)``."""
+    place; returns ``(out, lse)``.  ``wide`` picks the wide route; by
+    default it takes a head_dim the kernel has no configuration for."""
     b, sq, h, d = q.shape
+    if wide is None:
+        wide = d not in _HEAD_DIMS[name]
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
@@ -254,7 +262,7 @@ def _launch(name, q, k, v, causal, scale, kv_offset):
     lib = _kernel_lib(name)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr()]
     shape = (b, sq, sk, h, d, ctypes.cast(strides, ctypes.c_void_p),
-             int(bool(causal)), int(kv_offset), float(scale))
+             int(bool(causal)), int(kv_offset), float(scale), int(wide))
     dtype_code = (_DTYPE_CODES[q.dtype],) if name == "flash_attn_fwd" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -262,7 +270,8 @@ def _launch(name, q, k, v, causal, scale, kv_offset):
             # freed once the launch is queued: the caching allocator hands
             # the block out again only to work queued later on this stream
             scratch = torch.empty(
-                lib.tos_flash_attn_fwd_tf32_scratch_bytes(b, sk, h, d),
+                lib.tos_flash_attn_fwd_tf32_scratch_bytes(b, sq, sk, h, d,
+                                                          int(wide)),
                 dtype=torch.uint8, device=q.device)
             ptrs.append(scratch.data_ptr())
         err = getattr(lib, f"tos_{name}")(*ptrs, *shape, *dtype_code, stream)
@@ -278,8 +287,8 @@ def _launch(name, q, k, v, causal, scale, kv_offset):
 def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
                         sm_scale: float | None = None, kv_offset: int = 0):
     """Run attention on the card's kernels; returns ``(out, lse)``.  Inputs
-    are CUDA tensors of one type (bf16, fp16 or f32) with head_dim up to
-    256; anything else raises.
+    are CUDA tensors of one type (bf16, fp16 or f32), any head_dim; another
+    type, or tensors off the card, raise.
 
     ``_route`` picks the kernel and the head_dim it runs at: q, k and v are
     zero-padded along D to it (zero columns change neither Q Kᵀ nor the

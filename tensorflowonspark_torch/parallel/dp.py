@@ -52,6 +52,21 @@ class TrainState(NamedTuple):
                optimizer: torch.optim.Optimizer) -> "TrainState":
         return cls(model=model, optimizer=optimizer, step=0)
 
+    def tree(self) -> dict:
+        """The checkpoint tree of this state (the reference's
+        ``jax.device_get(state)._asdict()``): ``{"model": state dict,
+        "optimizer": state dict, "step": step}``."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "step": int(self.step)}
+
+    def restore(self, tree: dict) -> "TrainState":
+        """Load a checkpoint ``tree`` into this state's model and optimizer
+        (in place, onto their devices); returns the state at its step (the
+        reference's ``TrainState(**tree)``)."""
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        return self._replace(step=int(tree["step"]))
+
 
 def _to_device(batch: Any, device) -> Any:
     if isinstance(batch, dict):

@@ -1,8 +1,11 @@
 """Port attention (``tensorflowonspark_torch.ops.attention``) against the JAX
 package's: plain versions against ``mha_reference`` and the Pallas kernel in
 interpret mode (CPU, f32, atol/rtol 1e-5), at the head dims the kernels
-take; the kernel routing table; and the f32 kernel's 3xTF32 arithmetic,
-emulated in torch, against the same references.  The kernels are held
+take; the kernel routing table; and the kernels' arithmetic emulated in
+torch — the f32 kernel's 3xTF32, and both kernels' wide routes (Q Kᵀ
+summed over the kernels' chunks of the head dim, O in slices of 256) —
+against the same
+references.  The kernels are held
 against their plain version on the card in ``tests/test_torch_cuda.py``."""
 
 import math
@@ -63,9 +66,9 @@ def test_plain_kernel_version_matches_pallas_interpret(case):
 
 
 # (b, sq, h, d, sk, causal, kv_offset): the head dims the card's kernels
-# take besides 64 and 128 — 32 and 96 through the zero-padded wgmma path
-# (bf16/fp16), 256 through the CUDA-core kernel, all of them in f32 through
-# the CUDA-core kernel — at ragged lengths and a nonzero kv_offset
+# take besides 64 and 128 — 32 and 96 zero-padded (to 64 / 128), 256 on
+# the wgmma kernel's D=256 configuration (bf16/fp16) and the 3xTF32 kernel's
+# wide route (f32) — at ragged lengths and a nonzero kv_offset
 HEAD_DIM_CASES = {
     "d32_ragged_causal_offset": (2, 20, 2, 32, 37, True, 5),
     "d96_noncausal": (1, 24, 2, 96, 40, False, 0),
@@ -91,10 +94,12 @@ def test_plain_version_at_the_kernels_head_dims_matches_jax(case):
 
 
 @pytest.mark.parametrize("d, padded", [(32, 64), (96, 128), (80, 128),
-                                       (160, 256), (192, 256), (33, 64)])
+                                       (160, 256), (192, 256), (33, 64),
+                                       (257, 384), (448, 512)])
 def test_zero_padding_the_head_dim_changes_nothing(d, padded):
     """What ``flash_attn_fwd_cuda`` does for a head_dim the tensor-core
-    kernels lack (bf16/fp16 to 64, 128 or 256, f32 to 64 or 128): zero
+    kernels lack (to 64, 128 or 256, and on the wide routes to a multiple
+    of 128, ``_route``): zero
     columns change neither Q Kᵀ nor the first d columns of P V, so
     attention over inputs padded along D, at the unpadded ``1/sqrt(d)``
     scale and sliced back, is attention over the inputs."""
@@ -109,18 +114,23 @@ def test_zero_padding_the_head_dim_changes_nothing(d, padded):
 
 
 # _route(dtype, head_dim) -> (kernel, padded head_dim): bf16/fp16 on the
-# wgmma kernel at 64, 128 or 256; f32 on the 3xTF32 kernel at 64 or 128 and
-# on the CUDA-core kernel above 128; over 256 raises
+# wgmma kernel at 64, 128 or 256 and above 256 on its wide route; f32 on the
+# 3xTF32 kernel at 64 or 128 and above 128 on its wide route.  A wide route
+# runs at a multiple of 128, as the TPU kernel pads its head dim.
 ROUTES = {
     1: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
     33: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
     64: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
     80: (("flash_attn_fwd", 128), ("flash_attn_fwd_tf32", 128)),
     128: (("flash_attn_fwd", 128), ("flash_attn_fwd_tf32", 128)),
-    129: (("flash_attn_fwd", 256), ("flash_attn_fwd_generic", 129)),
-    160: (("flash_attn_fwd", 256), ("flash_attn_fwd_generic", 160)),
-    256: (("flash_attn_fwd", 256), ("flash_attn_fwd_generic", 256)),
-    257: (None, None),
+    129: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 256)),
+    160: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 256)),
+    256: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 256)),
+    257: (("flash_attn_fwd", 384), ("flash_attn_fwd_tf32", 384)),
+    320: (("flash_attn_fwd", 384), ("flash_attn_fwd_tf32", 384)),
+    448: (("flash_attn_fwd", 512), ("flash_attn_fwd_tf32", 512)),
+    512: (("flash_attn_fwd", 512), ("flash_attn_fwd_tf32", 512)),
+    1000: (("flash_attn_fwd", 1024), ("flash_attn_fwd_tf32", 1024)),
 }
 
 
@@ -128,12 +138,13 @@ ROUTES = {
 @pytest.mark.parametrize("d", sorted(ROUTES))
 def test_route_table(d, dtype):
     half, f32 = ROUTES[d]
-    want = f32 if dtype == "float32" else half
-    if want is None:
-        with pytest.raises(ValueError, match="256"):
-            ta._route(getattr(torch, dtype), d)
-    else:
-        assert ta._route(getattr(torch, dtype), d) == want
+    assert ta._route(getattr(torch, dtype), d) == (f32 if dtype == "float32" else half)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int32"])
+def test_route_refuses_only_types_the_kernels_do_not_take(dtype):
+    with pytest.raises(ValueError, match="bf16, fp16 or f32"):
+        ta._route(getattr(torch, dtype), 64)
 
 
 def _tf32_hi(x):
@@ -158,38 +169,75 @@ def _tf32_matmul(a, b, split: bool):
     return al @ bh + ah @ bl + ah @ bh
 
 
-def _emulated_tf32_attention(q, k, v, *, causal, kv_offset, sm_scale,
-                             split=True, block_k=32):
-    """The arithmetic of ``csrc/flash_attn_fwd_tf32.cu`` in torch: key
-    blocks of 32, each product through ``_tf32_matmul``, and the kernel's
-    online softmax (exp2 with the scale folded in, the NEG_INF guards);
-    returns ``(out, lse)`` like ``chunk_attention``."""
+def _emulated_attention(q, k, v, *, causal, kv_offset, sm_scale, qk, pv,
+                        block_k, chunk=None, slice_cols=None):
+    """A kernel's arithmetic in torch: key blocks of ``block_k``, S = Q Kᵀ
+    through ``qk`` (summed over ``chunk``-column pieces of the head dim in
+    order, as the wide routes stream it), the kernels' online softmax (exp2
+    with the scale folded in, the NEG_INF guards) and O += ``pv(P, V)``;
+    with ``slice_cols``, O in slices of that many columns, each slice
+    running the whole loop again as a CTA of the wide route does, and lse
+    from slice 0.  Returns ``(out, lse)`` like ``chunk_attention``, in f32."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     c = math.log2(math.e) * sm_scale
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, D]
     neg = ta.NEG_INF
-    m = torch.full((b, h, sq), neg)
-    l = torch.zeros((b, h, sq))
-    acc = torch.zeros((b, h, sq, d))
     qpos = torch.arange(sq)[:, None]
-    for k0 in range(0, sk, block_k):
-        kc, vc = kt[:, :, k0:k0 + block_k], vt[:, :, k0:k0 + block_k]
-        s = _tf32_matmul(qt, kc.transpose(-1, -2), split)
-        if causal:
-            kpos = kv_offset + k0 + torch.arange(kc.shape[2])[None, :]
-            s = torch.where(kpos <= qpos, s, neg)
-        mx = torch.maximum(m, s.amax(-1))
-        msafe = torch.clamp(mx, min=neg / 2)
-        alpha = torch.where(m <= neg / 2, 0.0, torch.exp2((m - msafe) * c))
-        p = torch.exp2(s * c - (msafe * c)[..., None])
-        l = l * alpha + p.sum(-1)
-        m = mx
-        acc = acc * alpha[..., None] + _tf32_matmul(p, vc, split)
-    lsafe = torch.clamp(l, min=1e-30)
-    lse = torch.where(l > 0, torch.clamp(m, min=neg / 2) * c * math.log(2)
-                      + torch.log(lsafe), neg)
-    return (acc / lsafe[..., None]).transpose(1, 2), lse.transpose(1, 2)
+    chunks = [slice(0, d)] if chunk is None else [
+        slice(c0, c0 + chunk) for c0 in range(0, d, chunk)]
+    outs, lses = [], []
+    for c0 in range(0, d, slice_cols or d):
+        cols = slice(c0, c0 + (slice_cols or d))
+        m = torch.full((b, h, sq), neg)
+        l = torch.zeros((b, h, sq))
+        acc = torch.zeros((b, h, sq, vt[..., cols].shape[-1]))
+        for k0 in range(0, sk, block_k):
+            kc, vc = kt[:, :, k0:k0 + block_k], vt[:, :, k0:k0 + block_k, cols]
+            s = 0.0
+            for part in chunks:
+                s = s + qk(qt[..., part], kc[..., part].transpose(-1, -2))
+            if causal:
+                kpos = kv_offset + k0 + torch.arange(kc.shape[2])[None, :]
+                s = torch.where(kpos <= qpos, s, neg)
+            mx = torch.maximum(m, s.amax(-1))
+            msafe = torch.clamp(mx, min=neg / 2)
+            alpha = torch.where(m <= neg / 2, 0.0, torch.exp2((m - msafe) * c))
+            p = torch.exp2(s * c - (msafe * c)[..., None])
+            l = l * alpha + p.sum(-1)
+            m = mx
+            acc = acc * alpha[..., None] + pv(p, vc)
+        lsafe = torch.clamp(l, min=1e-30)
+        outs.append(acc / lsafe[..., None])
+        lses.append(torch.where(l > 0, torch.clamp(m, min=neg / 2) * c * math.log(2)
+                                + torch.log(lsafe), neg))
+    return torch.cat(outs, -1).transpose(1, 2), lses[0].transpose(1, 2)
+
+
+def _emulated_tf32_attention(q, k, v, *, causal, kv_offset, sm_scale,
+                             split=True, block_k=32, **wide):
+    """The arithmetic of ``csrc/flash_attn_fwd_tf32.cu``: key blocks of 32
+    (64 on the wide route), each product through ``_tf32_matmul``
+    (``wide``: the wide route's chunks and slices)."""
+    def mm(a, b):
+        return _tf32_matmul(a, b, split)
+
+    return _emulated_attention(q, k, v, causal=causal, kv_offset=kv_offset,
+                               sm_scale=sm_scale, qk=mm, pv=mm, block_k=block_k,
+                               **wide)
+
+
+def _emulated_wgmma_attention(q, k, v, *, causal, kv_offset, sm_scale, dtype):
+    """The arithmetic of the wide route of ``csrc/flash_attn_fwd.cu`` on
+    inputs of ``dtype`` (bf16/fp16): key blocks of 64, exact products of the
+    16-bit operands summed in f32 over 64-column chunks, P rounded to
+    ``dtype`` for P V, O in slices of 256, stored in ``dtype``."""
+    out, lse = _emulated_attention(
+        *(x.to(dtype).float() for x in (q, k, v)), causal=causal,
+        kv_offset=kv_offset, sm_scale=sm_scale, qk=torch.matmul,
+        pv=lambda p, vc: p.to(dtype).float() @ vc, block_k=64, chunk=64,
+        slice_cols=SLICE_COLS)
+    return out.to(dtype), lse
 
 
 # (b, sq, h, d, sk, causal, kv_offset): the TF32 kernel's head dims, 64 and
@@ -236,6 +284,79 @@ def test_emulated_3xtf32_attention_matches_jax_f32(case):
     o1, _ = _emulated_tf32_attention(tq, tk, tv, causal=causal, kv_offset=off,
                                      sm_scale=d ** -0.5, split=False)
     assert np.abs(o1[..., :d].numpy() - jo).max() > 10 * TF32_TOL["atol"]
+
+
+# (b, sq, h, sk, kv_offset) per head dim of the wide routes' test: ragged key
+# tails, offsets that cut key blocks (a negative one too); 160 runs padded to
+# 256, 320 padded to 384 as slices of 256 + 128, 512 as two slices of 256
+WIDE_CASES = {160: (1, 24, 2, 45, 5), 256: (1, 20, 2, 70, 9),
+              320: (1, 17, 2, 60, -30), 512: (1, 40, 1, 52, 4)}
+# the bf16 tolerance of this file (test_bf16_plain_version_close_to_f32)
+BF16_TOL = dict(atol=3e-2, rtol=3e-2)
+# the wide routes' slices of O's columns (kSliceCols in both kernels'
+# sources; the last slice is 128 where the padded head dim is an odd
+# multiple of 128)
+SLICE_COLS = 256
+
+
+def _wide_case(d, causal, dtype=None):
+    """Inputs of a wide-route case (rounded to ``dtype`` and back to f32,
+    so that the f32 references see what the kernel sees), the JAX Pallas
+    kernel's ``(out, lse)`` in interpret mode and ``mha_reference``."""
+    b, s, h, sk, off = WIDE_CASES[d]
+    q, k, v = make_qkv(b=b, s=s, h=h, d=d, sk=sk, seed=8)
+    if dtype is not None:
+        q, k, v = (torch.from_numpy(x).to(dtype).float().numpy() for x in (q, k, v))
+    jo, jl = ja._flash_fwd_pallas(*_j(q, k, v), causal=causal, sm_scale=None,
+                                  kv_offset=off, block_q=8, block_k=8,
+                                  interpret=True)
+    ref = np.asarray(ja.mha_reference(*_j(q, k, v), causal=causal, kv_offset=off))
+    return (q, k, v), off, np.asarray(jo), np.asarray(jl), ref
+
+
+def _pad_as_routed(dtype, d, *xs):
+    """``xs`` zero-padded along D to the head dim ``_route`` runs ``d`` at."""
+    padded = ta._route(dtype, d)[1]
+    return [torch.nn.functional.pad(x, (0, padded - d)) for x in xs]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", sorted(WIDE_CASES))
+def test_emulated_wide_3xtf32_route_matches_jax_f32(d, causal):
+    """The f32 wide route — 3xTF32 with Q Kᵀ summed over 32-column chunks in
+    the kernel's order and O in slices of 256, each slice recomputing S —
+    meets the f32 gate against the JAX package's f32 references."""
+    (q, k, v), off, jo, jl, ref = _wide_case(d, causal)
+    tq, tk, tv = _pad_as_routed(torch.float32, d, *_t(q, k, v))
+    o, lse = _emulated_tf32_attention(tq, tk, tv, causal=causal, kv_offset=off,
+                                      sm_scale=d ** -0.5, block_k=64, chunk=32,
+                                      slice_cols=SLICE_COLS)
+    o = o[..., :d].numpy()
+    np.testing.assert_allclose(o, jo, **TF32_TOL)
+    np.testing.assert_allclose(lse.numpy(), jl, **TF32_TOL)
+    seen = lse.numpy() > ta.NEG_INF / 2
+    assert seen.any()
+    np.testing.assert_allclose(o[seen], ref[seen], **TF32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", sorted(WIDE_CASES))
+def test_emulated_wide_wgmma_route_matches_jax(d, causal):
+    """The bf16 wide route — 16-bit products summed in f32 over 64-column
+    chunks, P rounded to bf16, O in slices of 256 stored in bf16 — within
+    the bf16 tolerance of the JAX package's f32 references on the same
+    (bf16-rounded) inputs; fp16 likewise."""
+    for dtype in (torch.bfloat16, torch.float16):
+        (q, k, v), off, jo, jl, ref = _wide_case(d, causal, dtype)
+        tq, tk, tv = _pad_as_routed(dtype, d, *_t(q, k, v))
+        o, lse = _emulated_wgmma_attention(tq, tk, tv, causal=causal, kv_offset=off,
+                                           sm_scale=d ** -0.5, dtype=dtype)
+        assert o.dtype == dtype
+        o = o[..., :d].float().numpy()
+        np.testing.assert_allclose(o, jo, **BF16_TOL)
+        np.testing.assert_allclose(lse.numpy(), jl, **BF16_TOL)
+        seen = lse.numpy() > ta.NEG_INF / 2
+        np.testing.assert_allclose(o[seen], ref[seen], **BF16_TOL)
 
 
 # (b, s, h, d, causal, kv_offset): q, k, v as strided views of one packed

@@ -1,7 +1,7 @@
 """The attention kernels (the Hopper ``wgmma`` kernel for bf16/fp16 at head
-dims up to 256 with its zero-padded path, the 3xTF32 ``wgmma`` kernel for
-f32 up to 128, the CUDA-core kernel for f32 above 128) against their plain
-PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
+dims up to 256 with its zero-padded path and above 256 on its wide route,
+the 3xTF32 ``wgmma`` kernel for f32 up to 128 and above 128 on its wide
+route) against their plain PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py
 
@@ -69,9 +69,10 @@ def test_cuda_kernel_matches_plain_version(case):
 
 # (b, sq, sk, h, d, causal, kv_offset, dtype, packed) for the routes other
 # than bf16/fp16 at 64 and 128: bf16/fp16 at 129-256 (the wgmma kernel at
-# D=256, zero-padded), bf16/fp16 below 128 (padded to 64 or 128), f32 up to
-# 128 (the 3xTF32 kernel, padded to 64 or 128) and f32 above 128 (the
-# CUDA-core kernel)
+# D=256, zero-padded), bf16/fp16 below 128 (padded to 64 or 128), bf16/fp16
+# above 256 (the wgmma kernel's wide route, slices of 256), f32 up to 128
+# (the 3xTF32 kernel, padded to 64 or 128) and f32 above 128 (its wide
+# route, padded to a multiple of 128, slices of 256)
 GENERIC_CASES = {
     "f32_serving_shape": (4, 2048, 2048, 8, 128, True, 0, torch.float32, False),
     "f32_d64_ragged_kv_offset": (2, 100, 170, 3, 64, True, 37, torch.float32, False),
@@ -101,6 +102,24 @@ GENERIC_CASES = {
     "bf16_d32_padded": (2, 300, 300, 4, 32, True, 0, torch.bfloat16, False),
     "bf16_d96_padded": (2, 200, 330, 3, 96, True, 0, torch.bfloat16, False),
     "fp16_d80_padded_masked_rows": (1, 100, 70, 2, 80, True, 37, torch.float16, False),
+    # the wide routes, slices of 256: f32 and bf16/fp16 at 320 (padded to
+    # 384), 384 (256 + 128), 448 (padded to 512) and 512
+    "f32_d320": (2, 200, 330, 2, 320, True, 5, torch.float32, False),
+    "f32_d384_ragged_noncausal": (1, 100, 150, 2, 384, False, 0, torch.float32, False),
+    "f32_d448_padded_kv_offset_negative": (1, 64, 192, 2, 448, True, -64,
+                                           torch.float32, False),
+    "f32_d320_decode": (2, 1, 517, 2, 320, True, -516, torch.float32, False),
+    "f32_d512_noncausal": (1, 150, 230, 2, 512, False, 0, torch.float32, False),
+    "f32_d512_decode": (2, 1, 300, 2, 512, True, -299, torch.float32, False),
+    "f32_d256_first_tile_masked": (1, 128, 128, 2, 256, True, 64, torch.float32, False),
+    "bf16_d320_ragged_noncausal": (2, 200, 330, 2, 320, False, 0, torch.bfloat16, False),
+    "fp16_d320_kv_offset_negative": (1, 64, 192, 2, 320, True, -64, torch.float16, False),
+    "bf16_d384_causal": (2, 300, 300, 2, 384, True, 0, torch.bfloat16, False),
+    "fp16_d448_padded": (1, 90, 130, 2, 448, True, 5, torch.float16, False),
+    "bf16_d512_kv_offset_masked_rows": (1, 100, 70, 2, 512, True, 37, torch.bfloat16, False),
+    "fp16_d512_sq_1_decode": (2, 1, 517, 2, 512, True, -516, torch.float16, False),
+    "bf16_d512_packed_qkv_view": (2, 300, 300, 2, 512, True, 0, torch.bfloat16, True),
+    "bf16_d512_consumer_half_masked": (1, 128, 128, 2, 512, True, 64, torch.bfloat16, False),
 }
 
 
@@ -131,13 +150,16 @@ def test_cuda_generic_and_padded_paths_match_plain_version(case):
     b, sq, sk, h, d, causal, off, dtype, packed = GENERIC_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = make_inputs(b, sq, sk, h, d, dtype, packed, g)
-    if packed and d in ta.KERNEL_HEAD_DIMS:  # read in place, not copied
+    if packed and d in ta.KERNEL_HEAD_DIMS + (512,):  # read in place, not copied
         assert ta._kernel_operand(q) is q
+    # f32 at every head dim on the 3xTF32 kernel, bf16/fp16 on the wgmma one
+    assert ta._route(dtype, d)[0] == ("flash_attn_fwd_tf32" if dtype == torch.float32
+                                      else "flash_attn_fwd")
     o, lse, po, pl = run_routed(q, k, v, causal, off)
     assert o.shape == q.shape and o.dtype == dtype
     if dtype == torch.float32:
-        # 3xTF32 products are good to about 2^-20 relative and the CUDA-core
-        # kernel is f32 FMA, against f32 einsums summed in other orders
+        # 3xTF32 products are good to about 2^-20 relative, against f32
+        # einsums summed in other orders
         torch.testing.assert_close(o, po, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(lse, pl, atol=1e-4, rtol=1e-4)
     else:  # the plain version's logits and the output round to the input type
@@ -165,15 +187,14 @@ def test_cuda_tf32_kernel_on_low_bit_heavy_inputs():
     torch.testing.assert_close(lse, pl, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("bad", ["float64", "head_dim_320", "mixed_types"])
+@pytest.mark.parametrize("bad", ["float64", "k_on_the_cpu", "mixed_types"])
 def test_cuda_kernel_raises_on_what_it_does_not_take(bad):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    d = 320 if bad == "head_dim_320" else 64
     dtype = torch.float64 if bad == "float64" else torch.bfloat16
-    q = torch.zeros((1, 8, 2, d), device="cuda", dtype=dtype)
-    k = q.half() if bad == "mixed_types" else q
-    with pytest.raises(ValueError, match="256" if bad == "head_dim_320" else None):
+    q = torch.zeros((1, 8, 2, 64), device="cuda", dtype=dtype)
+    k = q.half() if bad == "mixed_types" else q.cpu() if bad == "k_on_the_cpu" else q
+    with pytest.raises(ValueError, match="CUDA" if bad == "k_on_the_cpu" else None):
         ta.flash_attention_fwd(q, k, q, impl="kernel")
 
 

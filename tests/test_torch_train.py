@@ -346,15 +346,29 @@ def test_train_lm_defaults_to_cuda_and_raises_without_it():
 
 
 def test_train_lm_f32_on_the_card_raises(monkeypatch):
-    # f32 runs on the card through the CUDA-core kernel now; what it cannot
-    # take is a head dim over the kernels' 256, and the run says so before
-    # building anything rather than route attention to the plain version
+    """An explicit ``--device cuda`` f32 run at a head dim over 256 (320,
+    on the 3xTF32 kernel's wide route) on a machine without a card raises
+    where torch first touches CUDA: it neither refuses the head dim up
+    front nor falls back to the CPU.  (A card would train it.)"""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the run would train")
     from tensorflowonspark_torch import gpu_info
 
+    # past the device check, so that the run reaches torch's CUDA init
     monkeypatch.setattr(gpu_info, "default_device", lambda d: torch.device(d))
     wide = ["--d-model", "640", "--n-heads", "2"]  # the later flags win
-    with pytest.raises(ValueError, match="head dim 320 .* limit of 256"):
+    # torch built without CUDA raises AssertionError("Torch not compiled
+    # with CUDA enabled") from torch.cuda._lazy_init; a CUDA build without
+    # a card raises RuntimeError there
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         _train_lm().main(TINY + wide + ["--device", "cuda", "--steps", "1"])
+
+
+def test_train_lm_takes_a_head_dim_over_256_on_cpu():
+    """Head dims over 256 (320 here) train: the run no longer refuses them."""
+    wide = ["--d-model", "640", "--n-heads", "2", "--n-layers", "1"]
+    out = _train_lm().main(TINY + wide + ["--device", "cpu", "--steps", "2"])
+    assert np.isfinite(out["loss"])
 
 
 def test_cross_entropy_loss_and_accuracy_match_jax():
