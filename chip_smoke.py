@@ -83,7 +83,27 @@ Phases (any failure propagates and the script exits non-zero):
    (the 3xTF32 kernel's wide route): n_layers launches of the route's
    kernel, and loss and gradients against plain attention;
 11. head dim 512 — the same two steps for the LM with 2 heads of 512 (depth
-   cut to ``D512_LAYERS``), both on the kernels' wide routes.
+   cut to ``D512_LAYERS``), both on the kernels' wide routes;
+12. resnet50 — ResNet-50 training at full width, the JAX bench's setup (224
+   px, 1000 classes, bf16 compute over f32 masters, bf16 BN outputs, SGD
+   Nesterov 0.9 at lr 0.1, L2 1e-4, batch 256, one batch resident on the
+   card): 3 warm-up and 20 timed steps; step ms, images/s, the model-FLOPs
+   share (3 x the forward FLOPs counted from the conv and dense shapes),
+   peak memory, the forward / backward / optimizer split and a
+   ``torch.profiler`` census of one step; gate: finite losses that fall;
+13. bn-card-vs-cpu — one ``make_bn_train_step`` step of a small f32
+   ``resnet_cifar`` from the same weights on the card and on the CPU: loss,
+   gradients, running statistics, parameters, with cuDNN's TF32 off (held
+   per parameter) and on (PyTorch's default; held as whole vectors);
+14. inception — the Inception-v3 serving forward, bf16 at 299 px, batch 32,
+   through ``build_apply``: ms per batch, images/s; two images' logits in
+   f32 and in bf16 against the f32 model on the CPU;
+15. image clusters — ``examples_torch``'s ``mnist_dist`` (STREAMING train at
+   the published widths on 2 executors, export, ``inference_fun``),
+   ``mnist_tfr`` and ``cifar10_train`` (DIRECT, each exporting a bundle)
+   and ``inception_infer`` (64 images, exactly 64 results in order), node
+   processes on the card, host-clock times.  No image model reaches an
+   attention kernel: the phases check that none launched.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -234,6 +254,36 @@ CLUSTER_ROWS = (4, 4, 3)  # gateway.predict requests; then one row over TCP
 CLUSTER_NODES = 2
 # SASS instructions that show the design: wgmma and TMA loads
 DESIGN_SASS = ("HGMMA", "UTMALDG")
+# ResNet-50 training, the JAX bench's setup (bench.py:49-110)
+RESNET_CONFIG = {"model": "resnet50", "num_classes": 1000, "bf16": True}
+RESNET_BATCH, RESNET_SIZE = 256, 224
+RESNET_LR, RESNET_WD = 0.1, 1e-4
+RESNET_WARMUP, RESNET_TIMED = 3, 20
+# one BN step, card against CPU, f32 resnet_cifar (phase_bn_card_vs_cpu).
+# cuDNN in f32: the CPU's own f32 gradients stray at most 6.3e-6 (relative
+# L2 per parameter) from float64 ones at this model and batch; cuDNN may
+# pick Winograd or FFT algorithms, whose f32 error is larger than a direct
+# sum's, so per parameter 1e-3, the gradients as one vector 1e-4, the loss
+# and updated parameters 1e-5, the running statistics 1e-4.  TF32 rounds
+# each product to 2^-11, 8192x f32's 2^-24: the loss and the running
+# statistics (means of many products) to 2e-3, the gradients and updated
+# parameters as whole vectors to 2e-2
+BN_CHECK_CONFIG = {"model": "resnet_cifar", "depth_blocks": 1, "width": 16, "bf16": False}
+BN_CHECK_BATCH = 32
+BN_F32_TOL = {"loss": 1e-5, "stats": 1e-4, "grads_all": 1e-4, "params_all": 1e-5,
+              "grad_worst": 1e-3}
+BN_TF32_TOL = {"loss": 2e-3, "stats": 2e-3, "grads_all": 2e-2, "params_all": 2e-2}
+# Inception-v3 serving forward (BASELINE config 5): bf16 at 299 px
+INCEPTION_CONFIG = {"model": "inception_v3", "num_classes": 1001, "bf16": True}
+INCEPTION_BATCH, INCEPTION_SIZE = 32, 299
+# the card's f32 forward (TF32 off) against the CPU's: f32 sums in other
+# orders, cuDNN's algorithms included, through 94 conv/BN layers.  In bf16
+# a random-init net this deep strays from f32 by about a fifth of the
+# largest logit on the CPU as well (rounding at each of 94 layers, nothing
+# trained to absorb it), so the card's bf16 forward is held to twice the
+# CPU's own bf16 error against the same f32 logits
+INCEPTION_F32_TOL = 1e-3
+MNIST_SAMPLES, CIFAR_SAMPLES = 1920, 512  # the image clusters' synthetic sets
 
 
 def log(msg: str) -> None:
@@ -1448,6 +1498,483 @@ def phase_train_d512(seed: int, smi: str, device: str = "cuda") -> dict:
     return phase_train_heads(D512_HEADS, D512_LAYERS, seed + 17, smi, device)
 
 
+# -- the image families (BASELINE configs 1, 2, 3 and 5) ----------------------
+
+
+def conv_dense_flops(model, image) -> tuple[float, int]:
+    """Forward FLOPs of ``model`` on ``image`` (a one-image NHWC batch),
+    counted from the shapes of every ``Conv`` and ``Dense`` it runs (2 per
+    multiply-add; batch norm, pooling and activations are not counted), and
+    the number of layers counted."""
+    import torch
+
+    from tensorflowonspark_torch.models import layers
+
+    counted = []
+
+    def hook(module, inputs, out):
+        if isinstance(module, layers.Conv):
+            counted.append(2 * out.numel() * module.weight[0].numel())
+        else:
+            counted.append(2 * out.numel() * module.weight.shape[1])
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (layers.Conv, layers.Dense))]
+    training = model.training
+    try:
+        with torch.inference_mode():
+            model.eval()(image)
+    finally:
+        model.train(training)
+        for h in handles:
+            h.remove()
+    return float(sum(counted)), len(counted)
+
+
+CENSUS_ELEMENTWISE = ("add", "add_", "mul", "mul_", "div", "div_", "sub", "neg",
+                      "relu", "relu_", "clamp_min", "threshold_backward", "copy_",
+                      "_to_copy", "clone", "fill_", "zero_", "square", "pow", "where",
+                      "constant_pad_nd")  # relu runs as clamp_min on the card
+
+
+def census_category(op: str) -> str:
+    name = op.removeprefix("aten::")
+    if "conv" in name:
+        return "convolution"
+    if "batch_norm" in name:
+        return "batch_norm"
+    if name.startswith("_foreach") or "sgd" in name.lower():
+        return "optimizer"
+    if name in CENSUS_ELEMENTWISE:
+        return "elementwise"
+    return "other"
+
+
+def profile_census(fn) -> dict:
+    """Device time of one ``fn()`` by category of the op that launched each
+    kernel (``torch.profiler`` self device time): convolutions, batch norm,
+    elementwise ops, the optimizer, the rest (with its largest ops)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    totals: dict = {}
+    others: dict = {}
+    for e in prof.key_averages():
+        # the kernels' own entries repeat the device time of the op that
+        # launched them: count each kernel once, under its op
+        if e.device_type != DeviceType.CPU:
+            continue
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        cat = census_category(e.key)
+        totals[cat] = totals.get(cat, 0.0) + us / 1e3
+        if cat == "other":
+            others[e.key] = others.get(e.key, 0.0) + us / 1e3
+    top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:6])
+    return {"ms": totals, "device_ms": sum(totals.values()), "top_other_ms": top}
+
+
+def phase_resnet50(seed: int, smi: str) -> dict:
+    """ResNet-50 training at full width on the card, the JAX bench's setup
+    (``bench.py:49-110``): 224 px, 1000 classes, bf16 compute over f32
+    master weights, bf16 BN outputs, SGD with Nesterov momentum 0.9 at lr
+    0.1, L2 1e-4, batch 256, one synthetic batch resident on the card;
+    ``RESNET_WARMUP`` warm-up and ``RESNET_TIMED`` timed steps (CUDA
+    events).  Gate: every loss finite and the last below the first."""
+    import torch
+
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.parallel import dp
+
+    with torch.device("cuda"):
+        model = resnet.build_resnet50(RESNET_CONFIG)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    optimizer = torch.optim.SGD(model.parameters(), lr=RESNET_LR, momentum=0.9,
+                                nesterov=True)
+    loss_fn = resnet.make_loss_fn(model, weight_decay=RESNET_WD)
+    step = dp.make_bn_train_step(loss_fn, optimizer)
+    state = dp.BNTrainState.create(model, optimizer)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    batch = {"image": torch.rand(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3,
+                                 generator=gen, device="cuda"),
+             "label": torch.arange(RESNET_BATCH, device="cuda", dtype=torch.int32)
+             % RESNET_CONFIG["num_classes"]}
+    fwd_flops, n_layers = conv_dense_flops(model, batch["image"][:1])
+    step_flops = 3 * fwd_flops * RESNET_BATCH
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[resnet50] {n_params / 1e6:.2f} M f32 master params, bf16 compute and BN "
+        f"output, channels_last, B={RESNET_BATCH} at {RESNET_SIZE} px, SGD nesterov "
+        f"lr {RESNET_LR}, L2 {RESNET_WD}; forward {fwd_flops / 1e9:.3f} GFLOP per image "
+        f"over {n_layers} conv/dense layers")
+    losses = []
+    for _ in range(RESNET_WARMUP):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    for _ in range(RESNET_TIMED):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    end.record()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / RESNET_TIMED  # queueing only
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / RESNET_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    log("[resnet50] losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("a ResNet-50 loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the ResNet-50 loss did not fall on a repeated batch: "
+                             f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    images_s = RESNET_BATCH / step_ms * 1e3
+    mfu = step_flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS
+    split = train_split(model, optimizer, loss_fn, batch)
+    census = profile_census(lambda: step(state, batch))
+    busy = census["device_ms"] / step_ms
+    log(f"[resnet50] step {step_ms:.2f} ms on the card (CUDA events over "
+        f"{RESNET_TIMED} steps; host queues a step in {host_ms:.2f} ms) ({smi})")
+    log(f"[resnet50] {images_s:.1f} images/s on the card ({smi})")
+    log(f"[resnet50] model FLOPs share: 3 x {fwd_flops / 1e9:.3f} GFLOP x {RESNET_BATCH} "
+        f"= {step_flops / 1e12:.3f} TFLOP per step over {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s: {mfu:.4f} ({smi})")
+    log(f"[resnet50] peak memory {peak_gb:.2f} GB ({smi})")
+    log(f"[resnet50] split forward {split['fwd_ms']:.2f} / backward {split['bwd_ms']:.2f} / "
+        f"optimizer {split['opt_ms']:.2f} ms (median of {SPLIT_STEPS}) ({smi})")
+    log(f"[resnet50] census of one step (torch.profiler, device ms by the op that "
+        f"launched the kernel): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(census["ms"].items()))
+        + f"; total {census['device_ms']:.2f} ms = {busy:.3f} of the step; largest "
+        f"'other': " + ", ".join(f"{k} {v:.2f}" for k, v in census["top_other_ms"].items())
+        + f" ({smi})")
+    del model, optimizer, state, batch
+    return {"step_ms": step_ms, "host_ms": host_ms, "images_per_s": images_s,
+            "forward_gflop_per_image": fwd_flops / 1e9, "model_tflop_per_step":
+            step_flops / 1e12, "mfu": mfu, "peak_gb": peak_gb, **split,
+            "census_ms": census["ms"], "device_busy_share": busy,
+            "first_loss": losses[0], "last_loss": losses[-1]}
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float().cpu() - want.float().cpu()).norm()
+            / want.float().cpu().norm().clamp_min(1e-30)).item()
+
+
+def bn_step_numbers(batch: dict, weights: dict, device: str) -> dict:
+    """One ``make_bn_train_step`` step of ``BN_CHECK_CONFIG`` from
+    ``weights`` on ``device``: its loss, gradients and updated state."""
+    import torch
+
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.parallel import dp
+
+    with torch.device(device):
+        model = resnet.build_resnet_cifar(BN_CHECK_CONFIG)
+    model.load_state_dict(weights)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, nesterov=True)
+    grads = {}
+    update = opt.step
+
+    def capture_then_update():
+        # copies: the foreach SGD on the card adds the Nesterov term to the
+        # gradients in place
+        grads.update({n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters()})
+        return update()
+
+    opt.step = capture_then_update
+    step = dp.make_bn_train_step(resnet.make_loss_fn(model, weight_decay=1e-4), opt)
+    _, m = step(dp.BNTrainState.create(model, opt), batch)
+    return {"loss": m["loss"].item(), "grads": grads,
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def rel_l2_all(got: dict, want: dict) -> float:
+    """The relative L2 error of a dict of tensors taken as one vector."""
+    num = sum(((got[k].float() - w.float()) ** 2).sum().item() for k, w in want.items())
+    den = sum((w.float() ** 2).sum().item() for w in want.values())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def phase_bn_card_vs_cpu(seed: int, smi: str) -> dict:
+    """One ``make_bn_train_step`` step of a small f32 ``resnet_cifar`` from
+    the same weights on the card and on the CPU: loss, gradients, updated
+    running statistics and parameters; twice on the card.
+
+    With cuDNN's TF32 off, the card computes the CPU's function in f32: each
+    gradient per parameter, the loss and the updated state are held to the
+    f32 tolerances.  With TF32 on, PyTorch's default and what the port's
+    f32 configurations run on the card (as the JAX package's default
+    precision gives f32 convolutions on a GPU), each product is rounded to
+    2^-11: the loss, the running statistics, and the gradients and the
+    updated parameters taken as whole vectors are held to the TF32
+    tolerances; a gradient per parameter is reported, not held: one that
+    mostly cancels (a bias feeding a train-mode BN, which removes the mean
+    of what it is fed) keeps TF32's 2^-11 of its terms, far more than
+    2^-11 of itself."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.models import resnet
+
+    rng = np.random.RandomState(seed + 3)
+    batch = {"image": rng.rand(BN_CHECK_BATCH, 32, 32, 3).astype(np.float32),
+             "label": (np.arange(BN_CHECK_BATCH) % 10).astype(np.int32)}
+    weights = resnet.build_resnet_cifar(BN_CHECK_CONFIG).init_weights(
+        torch.Generator().manual_seed(seed)).state_dict()
+    cpu = bn_step_numbers(batch, weights, "cpu")
+    stats = [k for k in cpu["state"] if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in cpu["state"] if k not in stats]
+    previous = torch.backends.cudnn.allow_tf32
+    out = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            card = bn_step_numbers(batch, weights, "cuda")
+            errs = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                    "stats": max(rel_l2(card["state"][k], cpu["state"][k]) for k in stats),
+                    "grads_all": rel_l2_all(card["grads"], cpu["grads"]),
+                    "params_all": rel_l2_all({k: card["state"][k] for k in params},
+                                             {k: cpu["state"][k] for k in params})}
+            per = {n: rel_l2(card["grads"][n], g) for n, g in cpu["grads"].items()}
+            worst = max(per, key=per.get)
+            errs["grad_worst"] = per[worst]
+            mode = "tf32" if tf32 else "f32"
+            tol = BN_TF32_TOL if tf32 else BN_F32_TOL
+            log(f"[bn-card-vs-cpu] one BN step of resnet_cifar f32 (depth_blocks "
+                f"{BN_CHECK_CONFIG['depth_blocks']}, width {BN_CHECK_CONFIG['width']}, B="
+                f"{BN_CHECK_BATCH}), cuDNN convs in {mode.upper()}: loss {card['loss']:.6f} vs "
+                f"CPU {cpu['loss']:.6f}; errors "
+                + ", ".join(f"{k} {v:.2e} (limit {tol[k]})" for k, v in errs.items()
+                            if k in tol)
+                + f"; worst gradient per parameter {per[worst]:.2e} at {worst}"
+                + (" (not held)" if "grad_worst" not in tol else "") + f" ({smi})")
+            bad = {k: v for k, v in errs.items() if k in tol and not v <= tol[k]}
+            if bad:
+                raise AssertionError(f"the BN step on the card in {mode} disagrees with "
+                                     f"the CPU's: {bad}")
+            out[mode] = errs
+    finally:
+        torch.backends.cudnn.allow_tf32 = previous
+    return out
+
+
+def inception_bundle(seed: int, path: str, device: str = "cuda") -> None:
+    """Export a random-init Inception-v3 bundle (``INCEPTION_CONFIG``, the
+    JAX package's layout) whose BN running statistics are a batch's own:
+    one train-mode forward over 32 synthetic images with momentum 0.  With
+    the init's statistics (mean 0, var 1) every image gets the same class;
+    with these the class depends on the image, so the order of served
+    results can be checked."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.checkpoint import export_bundle
+    from tensorflowonspark_torch.convert import torch_to_flax
+    from tensorflowonspark_torch.models import inception, layers
+
+    model = inception.build_inception_v3(INCEPTION_CONFIG).init_weights(
+        torch.Generator().manual_seed(seed)).to(device)
+    norms = [m for m in model.modules() if isinstance(m, layers.BatchNorm)]
+    for m in norms:
+        m.momentum = 0.0
+    x = np.stack(inception.synthetic_images(32, INCEPTION_SIZE, seed=seed + 6))
+    with torch.no_grad():
+        model.train()(torch.from_numpy(x).to(device))
+    for m in norms:
+        m.momentum = 0.9997
+    export_bundle(path, torch_to_flax(model.state_dict(), config=INCEPTION_CONFIG),
+                  INCEPTION_CONFIG)
+
+
+def phase_inception(seed: int, smi: str) -> dict:
+    """The Inception-v3 serving forward on the card, bf16 at 299 px, batch
+    32, through ``build_apply`` over ``inception_bundle``'s: ms per batch and
+    images/s (CUDA events); two images' logits against the f32 model on the
+    CPU, from the card in f32 and in bf16 (``INCEPTION_F32_TOL`` says
+    how each is held)."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.checkpoint import load_bundle
+    from tensorflowonspark_torch.models.registry import build_apply
+
+    path = os.path.join(WORK_DIR, "inception_bundle")
+    inception_bundle(seed, path)
+    variables, config = load_bundle(path)
+    apply = build_apply(config)
+    x = torch.from_numpy(np.random.RandomState(seed + 4).rand(
+        INCEPTION_BATCH, INCEPTION_SIZE, INCEPTION_SIZE, 3).astype(np.float32)).cuda()
+    logits = apply(variables, x)
+    if logits.shape != (INCEPTION_BATCH, INCEPTION_CONFIG["num_classes"]) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"Inception-v3 logits {tuple(logits.shape)} not finite")
+    x2 = x[:2].cpu()
+    f32 = build_apply({**config, "bf16": False}, device="cpu")(variables, x2)
+
+    def off(t):  # share of the largest f32 logit
+        return (t.float().cpu() - f32).abs().max().item() / f32.abs().max().item()
+
+    err_f32 = off(build_apply({**config, "bf16": False})(variables, x2))  # TF32 off here
+    err = off(logits[:2])
+    err_cpu = off(build_apply(config, device="cpu")(variables, x2))
+    ms, host_ms = time_ms(lambda: apply(variables, x), reps=10, windows=3)
+    images_s = INCEPTION_BATCH / ms * 1e3
+    fwd_flops, _ = conv_dense_flops(apply.model, x[:1])
+    log(f"[inception] forward bf16 B={INCEPTION_BATCH} at {INCEPTION_SIZE} px: {ms:.2f} ms "
+        f"per batch, {images_s:.1f} images/s on the card (CUDA events; host {host_ms:.2f} "
+        f"ms per call); {fwd_flops / 1e9:.3f} GFLOP per image, share of "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s {fwd_flops * INCEPTION_BATCH / (ms * 1e-3) / PEAK_BF16_FLOPS:.4f}; "
+        f"logits against the f32 model on the CPU, as shares of its largest: the card "
+        f"in f32 {err_f32:.2e} (limit {INCEPTION_F32_TOL}), the card in bf16 {err:.2e}, "
+        f"the CPU in bf16 {err_cpu:.2e} (the card's bf16 limit: twice the CPU's) ({smi})")
+    if err_f32 > INCEPTION_F32_TOL or err > 2 * err_cpu:
+        raise AssertionError("Inception-v3 on the card disagrees with the CPU's")
+    return {"ms": ms, "images_per_s": images_s, "f32_logit_rel_err": err_f32,
+            "bf16_logit_rel_err": err, "cpu_bf16_logit_rel_err": err_cpu,
+            "forward_gflop_per_image": fwd_flops / 1e9}
+
+
+def phase_image_clusters(seed: int, smi: str, device: str = "cuda") -> dict:
+    """The BASELINE image examples through the port's cluster, node
+    processes on the card, host-clock times: ``mnist_dist`` STREAMING train
+    at the published widths on 2 executors, its export, and
+    ``inference_fun`` (ordered, exactly counted, accuracy > 0.5, as
+    ``tests/test_mnist_e2e.py``); ``mnist_tfr`` and ``cifar10_train``
+    DIRECT, each exporting a bundle; ``inception_infer`` over 64 images
+    (exactly 64 results, in order: each the argmax that ``build_apply``
+    gives that image in a batch of 32 on the card).  ``device="cpu"``
+    rehearses it on the CPU."""
+    import numpy as np
+
+    import tensorflowonspark_torch as tos
+    from examples_torch.cifar10 import cifar10_train
+    from examples_torch.imagenet import inception_infer
+    from examples_torch.mnist import mnist_dist, mnist_tfr
+    from tensorflowonspark_torch.checkpoint import latest_step_dir, load_bundle
+    from tensorflowonspark_torch.models.inception import synthetic_images
+    from tensorflowonspark_torch.models.mnist import synthetic_mnist
+    from tensorflowonspark_torch.models.registry import build_apply
+
+    out = {}
+    logs = os.path.join(WORK_DIR, "image_logs")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        return result
+
+    args = {"batch_size": 64, "lr": 0.05, "model_dir": os.path.join(WORK_DIR, "mnist_model"),
+            "export_dir": os.path.join(WORK_DIR, "mnist_export"), "checkpoint_every": 10,
+            "device": device}
+
+    def mnist_train():
+        cluster = tos.run(mnist_dist.main_fun, args, num_executors=2,
+                          input_mode=tos.InputMode.STREAMING, log_dir=logs,
+                          reservation_timeout=300)
+        try:
+            cluster.train(tos.PartitionedDataset.from_iterable(
+                synthetic_mnist(MNIST_SAMPLES), 8), num_epochs=2)
+        finally:
+            cluster.shutdown(timeout=300)
+
+    timed("mnist_dist_train", mnist_train)
+    step = int(latest_step_dir(args["model_dir"]).rsplit("_", 1)[1])
+    samples = synthetic_mnist(64, seed=9)
+
+    def mnist_infer():
+        cluster = tos.run(mnist_dist.inference_fun, args, num_executors=2,
+                          input_mode=tos.InputMode.STREAMING, log_dir=logs,
+                          reservation_timeout=300)
+        try:
+            return cluster.inference([list(p) for p in (samples[:20], samples[20:45],
+                                                        samples[45:])])
+        finally:
+            cluster.shutdown(timeout=300)
+
+    preds = timed("mnist_dist_inference", mnist_infer)
+    labels = [label for _, label in samples]
+    acc = sum(p == label for p, label in zip(preds, labels)) / len(labels)
+    variables, config = load_bundle(args["export_dir"])
+    images = np.stack([img for img, _ in samples])
+    want = build_apply(config, device)(variables, images).argmax(-1).cpu().tolist()
+    # the nodes run f32 convs in TF32 (PyTorch's default), this process in
+    # full f32 (phase_device), so a near tie may flip: 95% must agree
+    agree = sum(p == w for p, w in zip(preds, want)) / len(want)
+    log(f"[mnist_dist] STREAMING train, 2 executors on the card, features (32, 64), "
+        f"dense 256, {MNIST_SAMPLES} samples x 2 epochs: {out['mnist_dist_train_s']:.1f} s "
+        f"(the chief's step {step}); inference_fun over 64 images: "
+        f"{out['mnist_dist_inference_s']:.1f} s, {len(preds)} results, accuracy {acc:.3f}, "
+        f"{agree:.3f} equal in order to build_apply's (host clock; {smi})")
+    if len(preds) != 64 or acc <= 0.5 or agree < 0.95:
+        raise AssertionError(f"mnist_dist inference: {len(preds)} results, accuracy "
+                             f"{acc}, {agree} in order")
+    out.update(mnist_accuracy=acc, mnist_steps=step)
+
+    tfr = os.path.join(WORK_DIR, "mnist_tfr")
+    mnist_tfr.prepare_data(tfr, samples=MNIST_SAMPLES, partitions=4)
+    tfr_export = os.path.join(WORK_DIR, "mnist_tfr_export")
+
+    def direct(main_fun, fn_args, executors):
+        cluster = tos.run(main_fun, fn_args, num_executors=executors,
+                          input_mode=tos.InputMode.DIRECT, log_dir=logs,
+                          reservation_timeout=300)
+        cluster.shutdown(timeout=600)
+
+    timed("mnist_tfr", lambda: direct(mnist_tfr.main_fun, {
+        "data_dir": tfr, "export_dir": tfr_export, "epochs": 1, "batch_size": 64,
+        "device": device}, 2))
+    variables, config = load_bundle(tfr_export)
+    logits = build_apply(config, device)(variables, images)
+    tfr_acc = (logits.argmax(-1).cpu().numpy() == np.asarray(labels)).mean()
+    log(f"[mnist_tfr] DIRECT train from {MNIST_SAMPLES} TFRecord rows, 2 executors: "
+        f"{out['mnist_tfr_s']:.1f} s; its bundle scores {tfr_acc:.3f} on the 64 images "
+        f"(host clock; {smi})")
+    if not np.isfinite(logits.cpu().numpy()).all():
+        raise AssertionError("mnist_tfr's bundle gives non-finite logits")
+
+    cifar = os.path.join(WORK_DIR, "cifar_tfr")
+    cifar10_train.prepare_data(cifar, samples=CIFAR_SAMPLES, partitions=2)
+    cifar_export = os.path.join(WORK_DIR, "cifar_export")
+    timed("cifar10_train", lambda: direct(cifar10_train.main_fun, {
+        "data_dir": cifar, "export_dir": cifar_export, "epochs": 1, "batch_size": 64,
+        "device": device}, 2))
+    variables, config = load_bundle(cifar_export)
+    moved = not np.allclose(variables["batch_stats"]["bn_init"]["var"], 1.0)
+    log(f"[cifar10_train] DIRECT train of resnet_cifar (ResNet-29, bf16) from "
+        f"{CIFAR_SAMPLES} TFRecord rows, 2 executors: {out['cifar10_train_s']:.1f} s; "
+        f"bundle holds {sorted(variables)}, running variance moved: {moved} "
+        f"(host clock; {smi})")
+    if set(variables) != {"params", "batch_stats"} or not moved:
+        raise AssertionError("cifar10_train exported no trained BN bundle")
+
+    inc = os.path.join(WORK_DIR, "inception_bundle")  # phase_inception's
+    preds = timed("inception_infer", lambda: inception_infer.main(
+        ["--images", "64", "--export-dir", inc, "--log-dir", logs, "--device", device]))
+    variables, config = load_bundle(inc)
+    apply = build_apply(config, device)
+    imgs = synthetic_images(64, 299)
+    want = [p for i in range(0, 64, 32)
+            for p in apply(variables, np.stack(imgs[i:i + 32])).argmax(-1).cpu().tolist()]
+    log(f"[inception_infer] 64 images at 299 px, 1 executor, batch 32: "
+        f"{out['inception_infer_s']:.1f} s, {len(preds)} results, equal in order to "
+        f"build_apply's: {preds == want} (host clock; {smi})")
+    if preds != want:
+        raise AssertionError("inception_infer's results are not the images' own, in order")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1498,6 +2025,23 @@ def main() -> int:
             record[f"train_d{dim}"] = steps["flash_attn_fwd"]
             tf32[f"d{dim}_launches"] = steps["flash_attn_fwd_tf32"].pop("launches")
             tf32[f"train_d{dim}_f32"] = steps["flash_attn_fwd_tf32"]
+        # the image families: no image model reaches either kernel
+        torch.cuda.empty_cache()
+        t_images = time.perf_counter()
+        reset_launches()
+        images = {"resnet50": phase_resnet50(args.seed, smi)}
+        torch.cuda.empty_cache()
+        images["bn_card_vs_cpu"] = phase_bn_card_vs_cpu(args.seed, smi)
+        images["inception"] = phase_inception(args.seed, smi)
+        torch.cuda.empty_cache()
+        images["clusters"] = phase_image_clusters(args.seed, smi)
+        from tensorflowonspark_torch.ops import attention as att
+
+        if any(att.LAUNCHES.values()):
+            raise AssertionError(f"an image phase launched an attention kernel: "
+                                 f"{att.LAUNCHES}")
+        log(f"[images] the image phases took {time.perf_counter() - t_images:.1f} s "
+            f"(host clock; {smi}); summary {json.dumps(images)}")
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(json.dumps({"kernels": [record, tf32]}))

@@ -14,7 +14,11 @@ recompute backward, the blockwise cross-entropy (``ops.xent``), the loss
 (``models.transformer.greedy_generate``); and the cluster around them — the
 coordinator, node processes, launchers, data plane and supervisor
 (``run`` → ``TorchCluster``: ``train``, ``inference``, ``serve``) and the
-online-serving gateway (``serving``: ``ServingGateway``, ``GatewayClient``).
+online-serving gateway (``serving``: ``ServingGateway``, ``GatewayClient``);
+and the image families of the BASELINE configs — the MNIST CNN, the ResNets
+and Inception-v3 (``models.mnist``, ``models.resnet``,
+``models.inception`` on the flax-semantics layers of ``models.layers``)
+with the BatchNorm train step (``parallel.dp.make_bn_train_step``).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
 """

@@ -21,6 +21,25 @@ is a bundle the serving slice loads).
 
 The linear model (``models/linear.py``): ``w`` [in, out] is ``weight``
 [out, in], ``b`` [out] is ``bias`` [out].
+
+The conv families (``mnist_cnn``, ``resnet50``, ``resnet18``,
+``resnet_cifar``, ``inception_v3``) name their submodules as flax does
+(``Conv_0``, ``BatchNorm_3``, ``BottleneckBlock_7``, ``InceptionA_1``,
+``ConvBN_2``, ``conv_init``, ``bn_init``, ``head``), so a tree path
+``a/b/Conv_0/kernel`` is the state-dict key ``a.b.Conv_0.weight``, leaf
+by leaf:
+
+| JAX variable                    | shape            | port leaf / shape              |
+| ------------------------------- | ---------------- | ------------------------------ |
+| ``params/…/Conv_*/kernel``      | [kh, kw, in, out] | ``weight`` [out, in, kh, kw]  |
+| ``params/…/Dense_*/kernel``     | [in, out]        | ``weight`` [out, in]           |
+| ``params/…/*/bias``             | [out]            | ``bias`` [out]                 |
+| ``params/…/BatchNorm_*/scale``  | [C]              | ``weight`` [C]                 |
+| ``batch_stats/…/mean``          | [C]              | ``running_mean`` [C]           |
+| ``batch_stats/…/var``           | [C]              | ``running_var`` [C]            |
+
+Which layout applies is decided by the bundle's model config
+(``{"model": ...}``), never by the keys of the tree.
 """
 
 from __future__ import annotations
@@ -46,10 +65,31 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
-    """JAX ``Transformer`` (or ``linear``) params → the port model's state
-    dict (CPU tensors in the tree's dtype; ``load_state_dict`` casts them)."""
-    if set(params) == {"w", "b"}:
+_CONV_FAMILIES = frozenset({"mnist_cnn", "resnet50", "resnet18", "resnet_cifar",
+                            "inception_v3"})
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+_FROM_BN_STATS = {v: k for k, v in _BN_STATS.items()}
+
+
+def _model(config: dict | None) -> str:
+    return (config or {}).get("model", "transformer")
+
+
+def flax_to_torch(variables: dict, config: dict | None = None) -> dict[str, torch.Tensor]:
+    """JAX variables → the port model's state dict (CPU tensors in the
+    tree's dtype; ``load_state_dict`` casts them).
+
+    ``variables`` is a bare param tree or ``{"params": ...}`` with, for the
+    BN families, ``"batch_stats"`` beside it.  ``config`` is the model
+    config whose ``"model"`` picks the layout; ``None`` is the transformer.
+    """
+    if not (isinstance(variables, dict) and "params" in variables):
+        variables = {"params": variables}
+    model = _model(config)
+    if model in _CONV_FAMILIES:
+        return _conv_flax_to_torch(variables)
+    params = variables["params"]
+    if model == "linear":
         return {"weight": _tensor(params["w"]).T.contiguous(),
                 "bias": _tensor(params["b"])}
     out = {"embed.weight": _tensor(params["embed"]["embedding"])}
@@ -76,11 +116,21 @@ def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def torch_to_flax(state: dict, n_heads: int | None = None) -> dict:
-    """Port state dict → JAX param tree (numpy; 16-bit floats widen to f32).
-    ``n_heads`` splits the transformer's attention projections; the linear
-    model needs none."""
-    if set(state) == {"weight", "bias"}:
+def torch_to_flax(state: dict, n_heads: int | None = None,
+                  config: dict | None = None) -> dict:
+    """Port state dict → JAX variables (numpy; 16-bit floats widen to f32).
+
+    ``config`` picks the layout as in ``flax_to_torch``.  The transformer
+    (``config`` ``None``) gives its bare param tree, and ``n_heads`` splits
+    its attention projections; the linear model gives ``{"w", "b"}``; a
+    conv family gives ``{"params": ...}``, with ``"batch_stats"`` where the
+    state holds running statistics, the tree the JAX ``build_apply`` and
+    ``export_bundle`` take.  A ``{name: grad}`` dict converts the same way.
+    """
+    model = _model(config)
+    if model in _CONV_FAMILIES:
+        return _conv_torch_to_flax(state)
+    if model == "linear":
         return {"w": np.ascontiguousarray(_numpy(state["weight"]).T),
                 "b": _numpy(state["bias"])}
     tree: dict = {"embed": {"embedding": _numpy(state["embed.weight"])}}
@@ -107,3 +157,59 @@ def torch_to_flax(state: dict, n_heads: int | None = None) -> dict:
     tree["lm_head"] = {"kernel": np.ascontiguousarray(
         _numpy(state["lm_head.weight"]).T)}
     return tree
+
+
+def _walk(tree: dict, path: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _conv_flax_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(variables["params"]):
+        *mod, name = path
+        t = _tensor(leaf)
+        if name == "kernel":
+            t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.T      # [out, in, ...]
+            out[".".join(mod + ["weight"])] = t.contiguous()
+        elif name == "scale":
+            out[".".join(mod + ["weight"])] = t
+        elif name == "bias":
+            out[".".join(mod + ["bias"])] = t
+        else:
+            raise KeyError(f"unknown param leaf {'/'.join(path)}")
+    for path, leaf in _walk(variables.get("batch_stats", {})):
+        *mod, name = path
+        out[".".join(mod + [_BN_STATS[name]])] = _tensor(leaf)
+    return out
+
+
+def _set(tree: dict, path: list, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _conv_torch_to_flax(state: dict) -> dict:
+    params: dict = {}
+    stats: dict = {}
+    for key, t in state.items():
+        *mod, name = key.split(".")
+        a = _numpy(t)
+        if name in _FROM_BN_STATS:
+            _set(stats, mod + [_FROM_BN_STATS[name]], a)
+        elif name == "weight":
+            if a.ndim == 4:                                       # conv kernel
+                _set(params, mod + ["kernel"], np.ascontiguousarray(a.transpose(2, 3, 1, 0)))
+            elif a.ndim == 2:                                     # dense kernel
+                _set(params, mod + ["kernel"], np.ascontiguousarray(a.T))
+            else:                                                 # BN scale
+                _set(params, mod + ["scale"], a)
+        elif name == "bias":
+            _set(params, mod + ["bias"], a)
+        else:
+            raise KeyError(f"unknown state-dict entry {key}")
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}

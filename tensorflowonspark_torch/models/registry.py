@@ -13,7 +13,7 @@ import torch
 logger = logging.getLogger(__name__)
 
 _REGISTRY: dict[str, Callable] = {}
-_FAMILIES = ("transformer", "linear")  # the model modules ported so far
+_FAMILIES = ("transformer", "linear", "mnist", "resnet", "inception")
 
 
 def register(name: str):
@@ -39,13 +39,17 @@ def build(config: dict) -> torch.nn.Module:
 def build_apply(config: dict, device=None) -> Callable:
     """Build ``apply(variables, x) -> tensor`` for a bundle config.
 
-    ``variables`` is the bundle's param tree in the JAX package's layout
-    (flax names, numpy arrays), bare or as ``{"params": ...}``.  Its first
-    call with a given tree converts it and loads it onto ``device`` — once,
-    casting the matrices to the compute type there (``cast_matrices_``, so
-    the model's cast at each use is a no-op) — and later calls with the
-    same tree reuse the loaded weights.  The model runs in ``eval()`` under
-    ``torch.inference_mode()``; ``x`` may be numpy or a tensor.  The loaded
+    ``variables`` is the bundle's tree in the JAX package's layout (flax
+    names, numpy arrays): a bare param tree, or ``{"params": ...}`` with
+    ``"batch_stats"`` beside it for the BN families (``convert.py`` maps
+    the whole tree, running statistics included).  Its first call with a
+    given tree converts it and loads it onto ``device`` — once, casting the
+    matrices to the compute type there (``cast_matrices_``, so the model's
+    cast at each use is a no-op) — and later calls with the same tree reuse
+    the loaded weights.  The model runs in ``eval()`` (BatchNorm on its
+    running statistics, the JAX ``train=False``) under
+    ``torch.inference_mode()``; ``x`` may be numpy or a tensor, and the
+    image families take it NHWC, as the JAX package does.  The loaded
     module is ``apply.model`` (the decode path, ``greedy_generate``, takes
     it).
 
@@ -58,14 +62,12 @@ def build_apply(config: dict, device=None) -> Callable:
     with torch.device("meta"):
         model = build(config).cast_matrices_()
     model = model.to_empty(device=dev).eval()
-    loaded: list = [None]  # the param tree whose weights the model holds
+    loaded: list = [None]  # the tree whose weights the model holds
 
     def apply_fn(variables, x):
-        params = variables.get("params", variables) if isinstance(variables, dict) \
-            else variables
-        if loaded[0] is not params:
-            model.load_state_dict(flax_to_torch(params), strict=True)
-            loaded[0] = params
+        if loaded[0] is not variables:
+            model.load_state_dict(flax_to_torch(variables, config), strict=True)
+            loaded[0] = variables
         with torch.inference_mode():
             return model(torch.as_tensor(x, device=dev))
 

@@ -11,11 +11,15 @@ Usage::
         state, metrics = step(state, batch)
 
 ``loss_fn(model, batch) -> (loss, aux_metrics)`` is the user contract (the
-module takes the place of the JAX package's ``params``).  The step updates
-the model's parameters in place and returns the state with ``step + 1``.
+module takes the place of the JAX package's ``params``).  The step puts the
+model in ``train()`` mode, updates its parameters in place and returns the
+state with ``step + 1``.  A model with BatchNorm trains through the same
+step (``make_bn_train_step``): its running statistics are module buffers
+that the train-mode forward moves, and they travel in
+``model.state_dict()``.
 
-Not ported yet: the mesh (``mesh=``, ``replicate``, sharded batches) and the
-BN train state, ROADMAP.md queue 1 (e) and (d).
+Not ported yet: the mesh (``mesh=``, ``replicate``, sharded batches),
+ROADMAP.md queue 1 (e).
 """
 
 from __future__ import annotations
@@ -114,7 +118,7 @@ def make_train_step(
     def step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         if state.optimizer is not optimizer:
             raise ValueError("the state holds another optimizer than this step's")
-        model = state.model
+        model = state.model.train()
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         for _, p in named:
             p.grad = None
@@ -140,6 +144,25 @@ def make_train_step(
         return state._replace(step=state.step + 1), msum
 
     return step
+
+
+# The JAX package's BN train state carries ``batch_stats`` beside the params;
+# here they are buffers in ``model.state_dict()``, so ``TrainState.tree()``
+# and ``restore()`` round-trip them and the BN state is the plain one.
+BNTrainState = TrainState
+
+
+def make_bn_train_step(
+    loss_fn: Callable[[torch.nn.Module, Any], tuple[torch.Tensor, dict]],
+    optimizer: torch.optim.Optimizer,
+) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
+    """Train step for models with BatchNorm — the counterpart of the JAX
+    package's ``make_bn_train_step``, whose ``loss_fn`` returns the mutated
+    ``batch_stats``.  Here ``loss_fn(model, batch) -> (loss, aux)`` runs the
+    model in ``train()`` mode, where the forward normalises with the batch
+    statistics and moves the running averages in place (flax's
+    ``mutable=["batch_stats"]``), so this is ``make_train_step``."""
+    return make_train_step(loss_fn, optimizer)
 
 
 def make_eval_step(apply_fn: Callable[..., Any]) -> Callable[..., Any]:

@@ -257,3 +257,92 @@ def test_cuda_train_step_launches_per_layer(remat):
     torch.cuda.synchronize()
     assert torch.isfinite(metrics["loss"])
     assert ta.LAUNCHES["flash_attn_fwd"] - before == 3 * (2 if remat else 1)
+
+
+def _bn_step(device, weights, batch, config):
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.parallel import dp
+
+    with torch.device(device):
+        model = resnet.build_resnet_cifar(config)
+    model.load_state_dict(weights)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, nesterov=True)
+    grads = {}
+    update = opt.step
+
+    def capture_then_update():  # the foreach SGD changes .grad in place
+        grads.update({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
+        return update()
+
+    opt.step = capture_then_update
+    step = dp.make_bn_train_step(resnet.make_loss_fn(model), opt)
+    _, metrics = step(dp.BNTrainState.create(model, opt), batch)
+    return (metrics["loss"].item(), grads,
+            {k: v.cpu() for k, v in model.state_dict().items()})
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_cuda_bn_train_step_matches_cpu(tf32):
+    """One BN train step of an f32 ``resnet_cifar`` from the same weights on
+    the card and on the CPU (``chip_smoke.py``'s ``BN_*_TOL`` state the
+    reasons).  With cuDNN's TF32 off every gradient is held per parameter
+    (1e-3 relative L2), the loss to 1e-5; with TF32 on (PyTorch's default)
+    the loss to 2e-3 and the gradients as one vector to 2e-2, since a
+    gradient that mostly cancels (a bias feeding a train-mode BN) keeps
+    TF32's 2^-11 of its terms.  The gradients are copied before the update:
+    the foreach SGD on the card adds the Nesterov term to them in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from tensorflowonspark_torch.models import resnet
+
+    config = {"model": "resnet_cifar", "depth_blocks": 1, "width": 16, "bf16": False}
+    rng = np.random.RandomState(0)
+    batch = {"image": rng.rand(32, 32, 32, 3).astype(np.float32),
+             "label": (np.arange(32) % 10).astype(np.int32)}
+    weights = resnet.build_resnet_cifar(config).init_weights(
+        torch.Generator().manual_seed(0)).state_dict()
+    cpu = _bn_step("cpu", weights, batch, config)
+    previous = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        card = _bn_step("cuda", weights, batch, config)
+    finally:
+        torch.backends.cudnn.allow_tf32 = previous
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    assert abs(card[0] - cpu[0]) <= (2e-3 if tf32 else 1e-5) * abs(cpu[0])
+    if tf32:
+        names = list(cpu[1])
+        assert rel(torch.cat([card[1][n].flatten() for n in names]),
+                   torch.cat([cpu[1][n].flatten() for n in names])) <= 2e-2
+    else:
+        for name, g in cpu[1].items():
+            assert rel(card[1][name], g) <= 1e-3, name
+
+
+@pytest.mark.parametrize("model_name,size", [("resnet50", 64), ("inception_v3", 75),
+                                             ("mnist_cnn", 28)])
+def test_cuda_bf16_image_forward_close_to_cpu_f32(model_name, size):
+    """The serving forward of each image family in bf16 on the card against
+    the f32 model on the CPU, the same random-init bundle: within 5% of the
+    largest logit (the bf16 bound of the CPU parity tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from tensorflowonspark_torch.convert import torch_to_flax
+    from tensorflowonspark_torch.models.registry import build, build_apply
+
+    channels = 1 if model_name == "mnist_cnn" else 3
+    config = {"model": model_name, "num_classes": 10, "bf16": True}
+    model = build({**config, "bf16": False}).init_weights(torch.Generator().manual_seed(0))
+    variables = torch_to_flax(model.state_dict(), config=config)
+    x = np.random.RandomState(0).rand(4, size, size, channels).astype(np.float32)
+    got = build_apply(config)(variables, x).float().cpu()
+    want = build_apply({**config, "bf16": False}, device="cpu")(variables, x)
+    assert got.shape == want.shape == (4, 10)
+    assert (got - want).abs().max() <= 0.05 * want.abs().max()
