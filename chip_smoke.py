@@ -104,6 +104,29 @@ Phases (any failure propagates and the script exits non-zero):
    and ``inception_infer`` (64 images, exactly 64 results in order), node
    processes on the card, host-clock times.  No image model reaches an
    attention kernel: the phases check that none launched.
+16. wide_deep — BASELINE config 4's model at the JAX example's widths (26 x
+   100_003 hash buckets, embed 16, MLP (256, 128, 64), batch 512, optax's
+   Adagrad at lr 0.01, one batch resident on the card), in f32 and in bf16:
+   3 warm-up and 20 timed steps; step ms, rows/s, forward-only scoring
+   rows/s, peak memory, a ``torch.profiler`` census of one step (the
+   optimizer, the embedding backward, the gather, the matmuls, the rest)
+   and the step's bytes bound over the tables; gate: finite losses that
+   fall;
+17. wide_deep card-vs-cpu — one Adagrad step of a small f32 wide_deep from
+   the same weights on the card and on the CPU;
+18. wide_deep sync — ``train(mode="sync")`` on 2 node processes sharing the
+   card, the group's ``grad_fn`` as the step's ``cross_host_grad_fn``,
+   gradients on the card: equal final parameter digests, ms and bytes per
+   ``all_reduce_tree``;
+19. criteo pipeline — ``examples_torch/criteo/criteo_wide_deep.py``:
+   ``TorchEstimator.fit`` (4096 rows, 2 executors, 2 epochs) then
+   ``TorchModel.transform`` of 256 rows, exactly counted and in order;
+20. criteo sharded — the sharded tier at full width: a sync
+   ``TorchEstimator`` with the fused table range-sharded over 2 nodes, 20
+   steps, the sharded export, and a 2-replica serve cluster on the card
+   answering through the gateway's lookup fan-out, held against the dense
+   apply over the reassembled table.  No config-4 path reaches an attention
+   kernel: the phases check that none launched in this process.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -284,6 +307,28 @@ INCEPTION_BATCH, INCEPTION_SIZE = 32, 299
 # CPU's own bf16 error against the same f32 logits
 INCEPTION_F32_TOL = 1e-3
 MNIST_SAMPLES, CIFAR_SAMPLES = 1920, 512  # the image clusters' synthetic sets
+# BASELINE config 4, wide-and-deep on Criteo, at the JAX example's widths
+# (examples/criteo/criteo_wide_deep.py): 26 x 100_003 hash buckets,
+# embed 16, MLP (256, 128, 64), batch 512, optax's Adagrad at lr 0.01
+WD_CONFIG = {"model": "wide_deep", "vocab_size": 100_003, "embed_dim": 16,
+             "hidden": (256, 128, 64)}
+WD_BATCH, WD_LR = 512, 0.01
+WD_WARMUP, WD_TIMED = 3, 20
+# one Adagrad step of a small f32 wide_deep, card against CPU: the MLP in
+# full f32 on both (phase_device turns TF32 off for matmuls, PyTorch's
+# default too), the card's embedding backward sums duplicate ids in another
+# order: loss, each gradient and each updated parameter to 1e-5 relative L2
+WD_CHECK_CONFIG = {"model": "wide_deep", "vocab_size": 1009, "embed_dim": 4,
+                   "hidden": (8, 4), "bf16": False}
+WD_CHECK_TOL = 1e-5
+SYNC_STEPS = 6                     # 2 nodes x 6 lockstep steps of WD_BATCH rows
+CRITEO_ROWS, CRITEO_EPOCHS, CRITEO_SCORED = 4096, 2, 256
+SHARDED_STEPS, SHARDED_LR = 20, 0.125
+SHARDED_REQUESTS, SHARDED_REQUEST_ROWS = 8, 64
+# served logits (replicas on the card) against the dense apply over the
+# reassembled table on the CPU, both f32 with TF32 off: sums of 429
+# products in other orders
+SHARDED_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def log(msg: str) -> None:
@@ -1975,6 +2020,415 @@ def phase_image_clusters(seed: int, smi: str, device: str = "cuda") -> dict:
     return out
 
 
+def wide_deep_table_bytes(config: dict) -> int:
+    """Bytes of the two f32 tables (``embeddings`` [26V, D] and
+    ``wide_weights`` [26V, 1]), from the config's shapes."""
+    from tensorflowonspark_torch.models.wide_deep import table_total_rows
+
+    return table_total_rows(config) * (config["embed_dim"] + 1) * 4
+
+
+WD_CENSUS = ("optimizer", "embedding_backward", "gather", "matmul", "rest")
+
+
+def wide_deep_category(names: list) -> str:
+    """The census category of a kernel from the ops that launched it,
+    innermost first: the optimizer's step, the embedding backward, the
+    gather, the matmuls, the rest."""
+    chain = " ".join(names)
+    if "Optimizer.step" in chain:
+        return "optimizer"
+    if "embedding_dense_backward" in chain or "EmbeddingBackward" in chain:
+        return "embedding_backward"
+    if "aten::embedding" in chain:
+        return "gather"
+    if any(n.removeprefix("aten::") in ("mm", "addmm", "bmm", "linear", "matmul")
+           for n in names[:1]):
+        return "matmul"
+    return "rest"
+
+
+def wide_deep_census(fn) -> dict:
+    """Device time of one ``fn()`` by ``WD_CENSUS`` category
+    (``torch.profiler``; each kernel counted once, under the chain of ops
+    that launched it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(WD_CENSUS, 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0:
+            continue
+        names, node = [], e
+        while node is not None:
+            names.append(node.name)
+            node = node.cpu_parent
+        totals[wide_deep_category(names)] += us / 1e3
+    return {"ms": totals, "device_ms": sum(totals.values())}
+
+
+def wide_deep_host_split(model, optimizer, loss_fn, batch) -> dict:
+    """Host-clock ms of a step's parts, median of ``SPLIT_STEPS`` steps: the
+    time the host takes to queue the forward, the backward and the
+    optimizer's update (a part that waits for the card inside, such as a
+    device-to-host read, counts that wait too), then the wait for the card
+    to finish.  These steps update the model too."""
+    import torch
+
+    times = {"forward": [], "backward": [], "optimizer": [], "wait": []}
+    for _ in range(SPLIT_STEPS):
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        loss, _ = loss_fn(model, batch)
+        t.append(time.perf_counter())
+        loss.backward()
+        t.append(time.perf_counter())
+        optimizer.step()
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for key, (a, b) in zip(times, zip(t, t[1:])):
+            times[key].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_wide_deep(seed: int, smi: str) -> dict:
+    """Monolithic wide-and-deep training at full width on the card
+    (``WD_CONFIG``, batch ``WD_BATCH``, optax's Adagrad at ``WD_LR``, one
+    synthetic Criteo batch resident on the card), in f32 (what the example
+    trains) and in bf16 (the registry default): ``WD_WARMUP`` warm-up and
+    ``WD_TIMED`` timed steps (CUDA events); step ms, rows/s, forward-only
+    scoring rows/s, peak memory, a census of one step, and the step's bytes
+    bound: the dense table gradient written once and the Adagrad update
+    reading parameter, gradient and accumulator and writing two of them,
+    six passes over the tables at ``PEAK_BYTES``.  Gate: every loss finite
+    and the last below the first."""
+    import torch
+
+    from tensorflowonspark_torch.models import wide_deep
+    from tensorflowonspark_torch.optim import Adagrad
+    from tensorflowonspark_torch.parallel import dp
+
+    table = wide_deep_table_bytes(WD_CONFIG)
+    bound_ms = 6 * table / PEAK_BYTES * 1e3
+    batch = wide_deep.batch_to_arrays(wide_deep.synthetic_criteo(WD_BATCH, seed=seed))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    out = {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        config = {**WD_CONFIG, "bf16": bf16}
+        torch.cuda.reset_peak_memory_stats()
+        with torch.device("cuda"):
+            model = wide_deep.build_wide_deep(config)
+        wide_deep.init_params(model, torch.Generator("cuda").manual_seed(seed))
+        optimizer = Adagrad(model.parameters(), WD_LR)
+        state = dp.TrainState.create(model, optimizer)
+        step = dp.make_train_step(wide_deep.make_loss_fn(model), optimizer)
+        losses = []
+        for _ in range(WD_WARMUP):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t_host = time.perf_counter()
+        start.record()
+        for _ in range(WD_TIMED):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        end.record()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / WD_TIMED  # queueing only
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / WD_TIMED
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [x.item() for x in losses]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"wide-and-deep {name}: losses not finite or not "
+                                 f"falling on a repeated batch: {losses}")
+        census = wide_deep_census(lambda: step(state, batch))
+        host = wide_deep_host_split(model, optimizer, wide_deep.make_loss_fn(model), batch)
+        model.eval()
+        fwd_ms, fwd_host_ms = time_ms(
+            lambda: dp.make_eval_step(model)(batch["features"]), reps=20)
+        model.train()
+        rec = {"step_ms": step_ms, "host_ms": host_ms,
+               "rows_per_s": WD_BATCH / step_ms * 1e3,
+               "score_ms": fwd_ms, "score_host_ms": fwd_host_ms,
+               "score_rows_per_s": WD_BATCH / fwd_ms * 1e3, "peak_gb": peak_gb,
+               "bound_ms": bound_ms, "bound_share": bound_ms / step_ms,
+               "census_ms": census["ms"], "census_device_ms": census["device_ms"],
+               "host_split_ms": host, "first_loss": losses[0], "last_loss": losses[-1]}
+        out[name] = rec
+        log(f"[wide_deep-{name}] vocab {WD_CONFIG['vocab_size']} x 26, embed "
+            f"{WD_CONFIG['embed_dim']}, hidden {WD_CONFIG['hidden']}, batch {WD_BATCH}, "
+            f"Adagrad lr {WD_LR}: losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+        log(f"[wide_deep-{name}] step {step_ms:.4f} ms on the card (CUDA events over "
+            f"{WD_TIMED} steps; the host queues a step in {host_ms:.4f} ms), "
+            f"{rec['rows_per_s']:.0f} rows/s; forward-only scoring {fwd_ms:.4f} ms, "
+            f"{rec['score_rows_per_s']:.0f} rows/s (host {fwd_host_ms:.4f} ms); peak "
+            f"memory {peak_gb:.3f} GB ({smi})")
+        log(f"[wide_deep-{name}] bytes bound: 6 passes over the {table / 1e6:.1f} MB "
+            f"of f32 tables (gradient write; Adagrad reads parameter, gradient, "
+            f"accumulator, writes two) = {6 * table / 1e9:.3f} GB at "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s: {bound_ms:.4f} ms, {rec['bound_share']:.3f} "
+            f"of the step ({smi})")
+        log(f"[wide_deep-{name}] census of one step (torch.profiler, device ms by "
+            f"the ops that launched each kernel): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in census["ms"].items())
+            + f"; total {census['device_ms']:.4f} ms ({smi})")
+        log(f"[wide_deep-{name}] host split of a step (host clock, median of "
+            f"{SPLIT_STEPS}; each part's queueing, then the wait for the card): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in host.items()) + f" ms ({smi})")
+        del model, optimizer, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_deep_card_vs_cpu(seed: int, smi: str) -> dict:
+    """One Adagrad step of ``WD_CHECK_CONFIG`` from the same weights on the
+    card and on the CPU: loss, gradients and updated parameters, each to
+    ``WD_CHECK_TOL`` relative L2, with TF32 off for matmuls
+    (``phase_device``)."""
+    import torch
+
+    from tensorflowonspark_torch.models import wide_deep
+    from tensorflowonspark_torch.optim import Adagrad
+    from tensorflowonspark_torch.parallel import dp
+
+    weights = wide_deep.build_wide_deep(WD_CHECK_CONFIG).init_weights(
+        torch.Generator().manual_seed(seed)).state_dict()
+    batch = wide_deep.batch_to_arrays(wide_deep.synthetic_criteo(64, seed=seed + 1))
+
+    def one_step(device):
+        with torch.device(device):
+            model = wide_deep.build_wide_deep(WD_CHECK_CONFIG)
+        model.load_state_dict(weights)
+        opt = Adagrad(model.parameters(), WD_LR)
+        grads = {}
+
+        def keep(g):
+            grads.update({n: t.detach().cpu().clone() for n, t in g.items()})
+            return g
+
+        step = dp.make_train_step(wide_deep.make_loss_fn(model), opt,
+                                  cross_host_grad_fn=keep)
+        _, m = step(dp.TrainState.create(model, opt), batch)
+        return m["loss"].item(), grads, {k: v.cpu() for k, v in model.state_dict().items()}
+
+    cpu, card = one_step("cpu"), one_step("cuda")
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    grad_err = {n: rel_l2(card[1][n], g) for n, g in cpu[1].items()}
+    param_err = {n: rel_l2(card[2][n], p) for n, p in cpu[2].items()}
+    worst = max(loss_err, *grad_err.values(), *param_err.values())
+    log(f"[wide_deep card-vs-cpu] one Adagrad step of vocab 1009, embed 4, hidden "
+        f"(8, 4), f32, TF32 for matmuls {torch.backends.cuda.matmul.allow_tf32}: loss "
+        f"{loss_err:.2e}, worst gradient {max(grad_err.values()):.2e}, worst updated "
+        f"parameter {max(param_err.values()):.2e} (relative L2; tolerance "
+        f"{WD_CHECK_TOL}) ({smi})")
+    if worst > WD_CHECK_TOL:
+        raise AssertionError(f"wide-and-deep on the card disagrees with the CPU: "
+                             f"{loss_err}, {grad_err}, {param_err}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": max(grad_err.values()),
+            "param_rel_err": max(param_err.values())}
+
+
+def import_test_mapfuns():
+    """``tests/torch_mapfuns.py``, the map_funs of the collective and
+    sharded phases, imported by its file's directory: node processes take
+    this process's ``sys.path``, and a package named ``tests`` elsewhere on
+    the path must not shadow it."""
+    tests_dir = os.path.join(ROOT, "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import torch_mapfuns
+
+    return torch_mapfuns
+
+
+def phase_wide_deep_sync(seed: int, smi: str, device: str = "cuda") -> dict:
+    """``train(mode="sync")`` of the full-width wide-and-deep on 2 node
+    processes sharing the card: ``ctx.collective_group().grad_fn()`` is the
+    step's ``cross_host_grad_fn`` and the gradients live on the card
+    (``tests/torch_mapfuns.py:train_wide_deep_sync``).  Gate: the two
+    nodes' final parameter digests are equal; prints ms per
+    ``all_reduce_tree`` and the bytes it carried a step (host clock)."""
+    import tensorflowonspark_torch as tos
+    from tensorflowonspark_torch.models import wide_deep
+
+    torch_mapfuns = import_test_mapfuns()
+    config = {**WD_CONFIG, "bf16": False}
+    rows = wide_deep.synthetic_criteo(2 * SYNC_STEPS * WD_BATCH, seed=seed)
+    t0 = time.perf_counter()
+    cluster = tos.run(torch_mapfuns.train_wide_deep_sync,
+                      {"model_config": config, "batch_size": WD_BATCH, "lr": WD_LR,
+                       "device": device},
+                      num_executors=2, input_mode=tos.InputMode.STREAMING,
+                      log_dir=os.path.join(WORK_DIR, "sync_logs"),
+                      reservation_timeout=300)
+    try:
+        cluster.train(tos.PartitionedDataset.from_iterable(rows, 4), mode="sync")
+    finally:
+        cluster.shutdown(timeout=300)
+    wall_s = time.perf_counter() - t0
+    metas = [m.get("sync_wide_deep") for m in cluster.coordinator.cluster_info()]
+    if any(m is None for m in metas):
+        raise AssertionError(f"a sync node published nothing: {metas}")
+    ms = sorted(1e3 * x for m in metas for x in m["reduce_secs"])
+    rec = {"steps": metas[0]["steps"], "reduce_ms_median": statistics.median(ms),
+           "reduce_ms_min": ms[0], "reduce_bytes": metas[0]["reduce_bytes"][0],
+           "wall_s": wall_s, "grad_device": metas[0]["grad_device"],
+           "digests_equal": metas[0]["digest"] == metas[1]["digest"]}
+    log(f"[wide_deep-sync] 2 nodes on one {device}, {rec['steps']} lockstep steps of "
+        f"{WD_BATCH} rows each, gradients on {rec['grad_device']}: all_reduce_tree "
+        f"{rec['reduce_ms_median']:.1f} ms a step (median, min {ms[0]:.1f}; host clock, "
+        f"the backward finished first), {rec['reduce_bytes'] / 1e6:.1f} MB of gradients "
+        f"a step; final parameter digests equal: {rec['digests_equal']}; "
+        f"{wall_s:.1f} s with start-up ({smi})")
+    if not rec["digests_equal"] or rec["steps"] != SYNC_STEPS:
+        raise AssertionError(f"sync wide-and-deep: {metas}")
+    if not all(m["finite"] for m in metas) or not rec["grad_device"].startswith(device):
+        raise AssertionError(f"sync wide-and-deep: losses or gradient device {metas}")
+    return rec
+
+
+def phase_criteo_pipeline(seed: int, smi: str, device: str = "cuda") -> dict:
+    """Config 4 as ``examples_torch/criteo/criteo_wide_deep.py`` runs it:
+    ``TorchEstimator.fit`` over ``CRITEO_ROWS`` synthetic rows, 2 executors,
+    STREAMING, ``CRITEO_EPOCHS`` epochs, batch 512, full width, then
+    ``TorchModel.transform`` over ``CRITEO_SCORED`` rows.  Gate: exactly
+    that many results, in input order, each with a prediction."""
+    import numpy as np
+
+    from examples_torch.criteo import criteo_wide_deep
+    from tensorflowonspark_torch.models import wide_deep
+
+    ran = criteo_wide_deep.main([
+        "--num-executors", "2", "--epochs", str(CRITEO_EPOCHS),
+        "--batch-size", str(WD_BATCH), "--rows", str(CRITEO_ROWS),
+        "--vocab-size", str(WD_CONFIG["vocab_size"]), "--device", device,
+        "--export-dir", os.path.join(WORK_DIR, "criteo_export"),
+        "--log-dir", os.path.join(WORK_DIR, "criteo_logs")])
+    rows = wide_deep.synthetic_criteo(CRITEO_ROWS, seed=0)[:CRITEO_SCORED]
+    out = ran["scored"]
+    in_order = len(out) == len(rows) and all(
+        np.array_equal(np.asarray(r["features"]), q["features"]) for r, q in zip(out, rows))
+    finite = all("prediction" in r and np.isfinite(float(r["prediction"])) for r in out)
+    log(f"[criteo-pipeline] TorchEstimator.fit: {CRITEO_ROWS} rows x {CRITEO_EPOCHS} "
+        f"epochs on 2 executors ({device}), batch {WD_BATCH}, full width: "
+        f"{ran['fit_s']:.1f} s; TorchModel.transform of {CRITEO_SCORED} rows: "
+        f"{ran['transform_s']:.1f} s, {len(out)} results, in input order {in_order}, "
+        f"finite predictions {finite} (host clock, cluster start-up included; {smi})")
+    if not (in_order and finite):
+        raise AssertionError("config 4's transform is not exactly counted, ordered "
+                             "and finite")
+    return {"fit_s": ran["fit_s"], "transform_s": ran["transform_s"],
+            "scored": len(out)}
+
+
+def phase_criteo_sharded(seed: int, smi: str, device: str = "cuda") -> dict:
+    """Config 4 sharded, the path of ``tests/test_embedding.py:418`` at full
+    width: ``TorchEstimator`` in ``train_mode="sync"`` with the fused table
+    (26 x 100_003 rows of [embed 16 | wide weight]) range-sharded over 2
+    nodes (host numpy, as in the JAX package), ``SHARDED_STEPS`` steps of
+    batch 512, the sharded export, then a fresh 2-replica serve cluster on
+    the card answering through the gateway's lookup fan-out.  Gate:
+    predictions equal the dense apply over the reassembled table
+    (``SHARDED_TOL``) and both nodes sent ids over the sparse wire."""
+    import numpy as np
+
+    import tensorflowonspark_torch as tos
+    from tensorflowonspark_torch.checkpoint import load_bundle, restore_embedding_shard
+    from tensorflowonspark_torch.embedding import ShardPlan
+    from tensorflowonspark_torch.embedding.serve import build_sharded_apply
+    from tensorflowonspark_torch.models import wide_deep
+
+    torch_mapfuns = import_test_mapfuns()
+    config = {**WD_CONFIG, "model": "wide_deep_dense", "bf16": False}
+    dim = config["embed_dim"] + 1
+    plan = ShardPlan.even("wide_deep", wide_deep.table_total_rows(config), dim, 2)
+    export = os.path.join(WORK_DIR, "sharded_export")
+    logs = os.path.join(WORK_DIR, "sharded_logs")
+    rows = wide_deep.synthetic_criteo(2 * SHARDED_STEPS * WD_BATCH, seed=seed + 3)
+    est = tos.TorchEstimator(torch_mapfuns.estimator_wide_deep_sharded,
+                             {"model_config": config, "lr": SHARDED_LR,
+                              "device": device})
+    est.setNumExecutors(2).setEpochs(1).setBatchSize(WD_BATCH).setSteps(SHARDED_STEPS)
+    est.set("export_dir", export).set("log_dir", logs).set("train_mode", "sync")
+    est.set("embedding_plan", plan.to_manifest()).set("reservation_timeout", 300)
+    t0 = time.perf_counter()
+    est.fit(tos.PartitionedDataset.from_iterable(rows, 4))
+    fit_s = time.perf_counter() - t0
+    metas = [m.get("sharded_train") for m in est.last_cluster_info]
+    if any(m is None for m in metas):
+        raise AssertionError(f"a sharded node published nothing: {metas}")
+    step_ms = statistics.median(1e3 * s for m in metas for s in m["step_secs"][1:])
+    # wire bytes a step, both nodes, from the tables' counters: an id is 8 B,
+    # a row 4 * dim B; a lookup sends ids and gets ids and rows back, a
+    # gradient push sends ids and rows
+    steps = metas[0]["steps"]
+    wire = sum(st["ids_sent"] * (8 + 8 + 4 * dim) + st["grad_rows_sent"] * (8 + 4 * dim)
+               for st in (m["stats"] for m in metas)) / steps
+    log(f"[criteo-sharded] TorchEstimator sync, table {plan.total_rows} x {dim} f32 "
+        f"sharded over 2 nodes (host numpy), dense half on {device}: {steps} steps of "
+        f"{WD_BATCH} rows, {step_ms:.1f} ms a step (median host clock, first step "
+        f"excluded), sparse wire {wire / 1e6:.3f} MB a step (both nodes, from the "
+        f"table counters), ids sent {[m['stats']['ids_sent'] for m in metas]}; fit "
+        f"{fit_s:.1f} s with start-up ({smi})")
+    if steps != SHARDED_STEPS or not all(m["stats"]["ids_sent"] > 0 for m in metas):
+        raise AssertionError(f"sharded train: {metas}")
+
+    with open(os.path.join(export, "bundle.json")) as f:
+        block = json.load(f)["sharded_embedding"]
+    full = restore_embedding_shard(export, "wide_deep", block["step"], 0,
+                                   plan.total_rows, dim)
+    params, _cfg = load_bundle(export)
+    queries = [np.asarray(r["features"], np.float32) for r in
+               wide_deep.synthetic_criteo(SHARDED_REQUESTS * SHARDED_REQUEST_ROWS,
+                                          seed=seed + 99)]
+    serve = tos.run(tos.serving_loop, {"export_dir": export, "max_batch": SHARDED_REQUEST_ROWS,
+                                       "device": device},
+                    num_executors=2, input_mode=tos.InputMode.STREAMING,
+                    queues=("input", "output", "error", "embed", "embed_out"),
+                    log_dir=logs, reservation_timeout=300)
+    try:
+        gw = serve.serve(export, max_batch=SHARDED_REQUEST_ROWS, max_delay_ms=2.0,
+                         reload_poll_secs=0)
+        got, req_ms = [], []
+        for i in range(SHARDED_REQUESTS):
+            t0 = time.perf_counter()
+            got += gw.predict(queries[i * SHARDED_REQUEST_ROWS:(i + 1) * SHARDED_REQUEST_ROWS],
+                              timeout=300)
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+        counters = serve.metrics().get("counters") or {}
+    finally:
+        serve.shutdown(timeout=300)
+    feats = np.stack(queries)
+    emb = full[wide_deep.flat_categorical_ids(feats, config["vocab_size"])]
+    want = build_sharded_apply(config, device="cpu")(params, feats, emb).numpy()
+    got = np.asarray([float(o) for o in got], np.float32)
+    err = float(np.abs(got - want).max())
+    ok = len(got) == len(want) and np.allclose(got, want, **SHARDED_TOL)
+    log(f"[criteo-sharded] 2 serve replicas on {device}, {SHARDED_REQUESTS} requests of "
+        f"{SHARDED_REQUEST_ROWS} rows through the gateway's lookup fan-out: "
+        f"{statistics.median(req_ms[1:]):.1f} ms a request (median host clock, first "
+        f"excluded; first {req_ms[0]:.1f}), {len(got)} results, largest difference from "
+        f"the dense apply over the reassembled table {err:.2e} ({SHARDED_TOL}), "
+        f"gateway fan-outs {counters.get('serve.embed_fanouts', 0)} ({smi})")
+    if not ok or counters.get("serve.embed_fanouts", 0) < SHARDED_REQUESTS:
+        raise AssertionError(f"sharded serving disagrees: {err}, {counters}")
+    return {"step_ms": step_ms, "wire_mb_per_step": wire / 1e6, "fit_s": fit_s,
+            "request_ms": statistics.median(req_ms[1:]), "max_abs_err": err}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2042,6 +2496,20 @@ def main() -> int:
                                  f"{att.LAUNCHES}")
         log(f"[images] the image phases took {time.perf_counter() - t_images:.1f} s "
             f"(host clock; {smi}); summary {json.dumps(images)}")
+        # BASELINE config 4: no wide-and-deep path reaches either kernel
+        torch.cuda.empty_cache()
+        t_criteo = time.perf_counter()
+        reset_launches()
+        criteo = {"wide_deep": phase_wide_deep(args.seed, smi)}
+        criteo["card_vs_cpu"] = phase_wide_deep_card_vs_cpu(args.seed, smi)
+        criteo["sync"] = phase_wide_deep_sync(args.seed, smi)
+        criteo["pipeline"] = phase_criteo_pipeline(args.seed, smi)
+        criteo["sharded"] = phase_criteo_sharded(args.seed, smi)
+        if any(att.LAUNCHES.values()):
+            raise AssertionError(f"a config-4 phase launched an attention kernel: "
+                                 f"{att.LAUNCHES}")
+        log(f"[criteo] the config-4 phases took {time.perf_counter() - t_criteo:.1f} s "
+            f"(host clock; {smi}); summary {json.dumps(criteo)}")
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(json.dumps({"kernels": [record, tf32]}))

@@ -18,13 +18,21 @@ online-serving gateway (``serving``: ``ServingGateway``, ``GatewayClient``);
 and the image families of the BASELINE configs — the MNIST CNN, the ResNets
 and Inception-v3 (``models.mnist``, ``models.resnet``,
 ``models.inception`` on the flax-semantics layers of ``models.layers``)
-with the BatchNorm train step (``parallel.dp.make_bn_train_step``).
+with the BatchNorm train step (``parallel.dp.make_bn_train_step``); and
+BASELINE config 4 — wide-and-deep on Criteo (``models.wide_deep``, with
+optax's Adagrad in ``optim``) through the ML pipeline (``pipeline``:
+``TorchEstimator.fit`` → ``TorchModel.transform``), the cross-host
+collective group behind ``train(mode="sync")`` (``collective``, reached as
+``ctx.collective_group()``), and the sharded embedding tier
+(``embedding``: range-sharded tables over the group's sparse collectives,
+served through the gateway's lookup fan-out).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
 """
 
 __version__ = "0.1.0"
 
+from tensorflowonspark_torch import collective, pipeline  # noqa: F401
 from tensorflowonspark_torch import telemetry  # noqa: F401 - metrics/span API
 from tensorflowonspark_torch.cluster import InputMode, TorchCluster, run  # noqa: F401
 from tensorflowonspark_torch.checkpoint import (  # noqa: F401
@@ -41,9 +49,19 @@ from tensorflowonspark_torch.launcher import (  # noqa: F401
 )
 from tensorflowonspark_torch.marker import EndOfFeed, EndPartition  # noqa: F401
 from tensorflowonspark_torch.models.registry import build, build_apply  # noqa: F401
+from tensorflowonspark_torch.pipeline import (  # noqa: F401
+    Namespace,
+    TorchEstimator,
+    TorchModel,
+    TorchParams,
+)
 from tensorflowonspark_torch.serving import (  # noqa: F401
     GatewayClient,
     ServingGateway,
     serving_loop,
 )
-TFCluster = TorchCluster  # drop-in alias for TensorFlowOnSpark users, as in the JAX package
+# drop-in aliases for TensorFlowOnSpark users, as in the JAX package
+TFCluster = TorchCluster
+TFEstimator = TorchEstimator
+TFModel = TorchModel
+TFParams = TorchParams

@@ -33,6 +33,12 @@ their dtype names under the reserved ``_param_dtypes`` key of
 ``bundle.json``; the port reads them as unsigned integers viewed as the
 torch dtype, so it needs no ``ml_dtypes``.
 
+**Embedding-shard checkpoints** (the reference's ``:506-614``, a copy):
+each node of a sharded embedding table commits its own row range as
+``<model_dir>/embed_<table>/step_<N>/shard_<lo>_<hi>.npz``, and
+``restore_embedding_shard`` reassembles any ``[lo, hi)`` from whatever
+shard files cover it (the layout is shared with the JAX package).
+
 The orbax bundle layout (a ``params/`` checkpoint directory, written by the
 JAX package for cross-process-sharded params) is not read by the port yet.
 """
@@ -513,3 +519,111 @@ def invalidate_bundle(export_dir: str | None = None) -> None:
         key = os.path.abspath(resolve_uri(export_dir))
         _BUNDLE_CACHE.pop(key, None)
         _BUNDLE_GEN[key] = _BUNDLE_GEN.get(key, 0) + 1
+
+
+# ---------------------------------------------------------------------------
+# Embedding shard checkpoints (sharded embedding tier)
+#
+# One logical table's rows are range-sharded across the training world; the
+# full-tree checkpoints above never see them.  Each node instead commits its
+# own resident range as a single npz under
+#
+#     <model_dir>/embed_<table>/step_<N>/shard_<lo>_<hi>.npz
+#
+# (atomic tmp-write + os.replace, matching export_bundle).  Restore is by
+# RANGE, not by file: any requested [lo, hi) is reassembled from whatever
+# shard files cover it, so a re-shard — eviction shrinking the world, a
+# serve fleet sized differently from the train world — restores new bounds
+# from old files without a repartition pass.
+# ---------------------------------------------------------------------------
+
+
+def _embed_step_dir(model_dir: str, table: str, step: int) -> str:
+    return os.path.join(resolve_uri(model_dir), f"embed_{table}",
+                        f"step_{int(step)}")
+
+
+def save_embedding_shard(model_dir: str, table: str, step: int,
+                         lo: int, hi: int, rows) -> str:
+    """Atomically commit one shard's rows ``[lo, hi)`` at ``step``."""
+    d = _embed_step_dir(model_dir, table, step)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"shard_{int(lo)}_{int(hi)}.npz")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, lo=np.int64(lo), hi=np.int64(hi),
+                 rows=np.ascontiguousarray(np.asarray(rows, np.float32)))
+    os.replace(tmp, path)
+    return path
+
+
+def _embed_shard_files(model_dir: str, table: str,
+                       step: int) -> list[tuple[int, int, str]]:
+    """(lo, hi, path) triples at ``step``, sorted by lo; [] if none."""
+    d = _embed_step_dir(model_dir, table, step)
+    out = []
+    try:
+        names = os.listdir(d)
+    except FileNotFoundError:
+        return out
+    for name in names:
+        if not (name.startswith("shard_") and name.endswith(".npz")):
+            continue
+        try:
+            lo_s, hi_s = name[len("shard_"):-len(".npz")].split("_")
+            out.append((int(lo_s), int(hi_s), os.path.join(d, name)))
+        except ValueError:
+            continue
+    out.sort()
+    return out
+
+
+def restore_embedding_shard(model_dir: str, table: str, step: int,
+                            lo: int, hi: int, dim: int):
+    """Reassemble the row range ``[lo, hi)`` from the shard files at
+    ``step``.  Raises ``FileNotFoundError`` if the files present do not
+    fully cover the range (a partial checkpoint must not restore silently)."""
+    out = np.empty((int(hi) - int(lo), int(dim)), np.float32)
+    need = int(lo)
+    for f_lo, f_hi, path in _embed_shard_files(model_dir, table, step):
+        if f_hi <= need or f_lo >= hi:
+            continue
+        if f_lo > need:
+            break  # gap before this file — range not covered
+        with np.load(path) as z:
+            rows = z["rows"]
+        take_lo, take_hi = need, min(f_hi, int(hi))
+        out[take_lo - int(lo):take_hi - int(lo)] = \
+            rows[take_lo - f_lo:take_hi - f_lo]
+        need = take_hi
+        if need >= hi:
+            break
+    if need < hi:
+        raise FileNotFoundError(
+            f"embedding checkpoint for table {table!r} step {step} covers "
+            f"only up to row {need}, need [{lo}, {hi}) under {model_dir}")
+    return out
+
+
+def embedding_steps(model_dir: str, table: str) -> list[int]:
+    """All step numbers with at least one shard file, ascending."""
+    base = os.path.join(resolve_uri(model_dir), f"embed_{table}")
+    steps = []
+    try:
+        names = os.listdir(base)
+    except FileNotFoundError:
+        return steps
+    for name in names:
+        if name.startswith("step_"):
+            try:
+                steps.append(int(name[len("step_"):]))
+            except ValueError:
+                continue
+    steps.sort()
+    return steps
+
+
+def latest_embedding_step(model_dir: str, table: str) -> int | None:
+    """Newest checkpointed step for ``table``, or None."""
+    steps = embedding_steps(model_dir, table)
+    return steps[-1] if steps else None

@@ -38,6 +38,18 @@ by leaf:
 | ``batch_stats/…/mean``          | [C]              | ``running_mean`` [C]           |
 | ``batch_stats/…/var``           | [C]              | ``running_var`` [C]            |
 
+Wide-and-deep (``wide_deep``, and ``wide_deep_dense`` without the two
+tables) keeps flax's names too, leaf by leaf:
+
+| JAX param                  | shape        | port key / shape               |
+| -------------------------- | ------------ | ------------------------------ |
+| ``embeddings``             | [26·V, D]    | ``embeddings`` [26·V, D]       |
+| ``wide_weights``           | [26·V, 1]    | ``wide_weights`` [26·V, 1]     |
+| ``wide_numeric/kernel``    | [13, 1]      | ``wide_numeric.weight`` [1, 13] |
+| ``Dense_{i}/kernel``       | [in, out]    | ``Dense_{i}.weight`` [out, in] |
+| ``deep_head/kernel``       | [in, 1]      | ``deep_head.weight`` [1, in]   |
+| ``*/bias``                 | [out]        | ``*.bias`` [out]               |
+
 Which layout applies is decided by the bundle's model config
 (``{"model": ...}``), never by the keys of the tree.
 """
@@ -67,6 +79,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 _CONV_FAMILIES = frozenset({"mnist_cnn", "resnet50", "resnet18", "resnet_cifar",
                             "inception_v3"})
+_WIDE_DEEP = frozenset({"wide_deep", "wide_deep_dense"})
+_TABLES = frozenset({"embeddings", "wide_weights"})  # same name and layout
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
 _FROM_BN_STATS = {v: k for k, v in _BN_STATS.items()}
 
@@ -86,8 +100,8 @@ def flax_to_torch(variables: dict, config: dict | None = None) -> dict[str, torc
     if not (isinstance(variables, dict) and "params" in variables):
         variables = {"params": variables}
     model = _model(config)
-    if model in _CONV_FAMILIES:
-        return _conv_flax_to_torch(variables)
+    if model in _CONV_FAMILIES or model in _WIDE_DEEP:
+        return _leafwise_flax_to_torch(variables)
     params = variables["params"]
     if model == "linear":
         return {"weight": _tensor(params["w"]).T.contiguous(),
@@ -122,14 +136,17 @@ def torch_to_flax(state: dict, n_heads: int | None = None,
 
     ``config`` picks the layout as in ``flax_to_torch``.  The transformer
     (``config`` ``None``) gives its bare param tree, and ``n_heads`` splits
-    its attention projections; the linear model gives ``{"w", "b"}``; a
+    its attention projections; the linear model gives ``{"w", "b"}``, and
+    wide-and-deep its bare param tree; a
     conv family gives ``{"params": ...}``, with ``"batch_stats"`` where the
     state holds running statistics, the tree the JAX ``build_apply`` and
     ``export_bundle`` take.  A ``{name: grad}`` dict converts the same way.
     """
     model = _model(config)
     if model in _CONV_FAMILIES:
-        return _conv_torch_to_flax(state)
+        return _leafwise_torch_to_flax(state)
+    if model in _WIDE_DEEP:
+        return _leafwise_torch_to_flax(state)["params"]
     if model == "linear":
         return {"w": np.ascontiguousarray(_numpy(state["weight"]).T),
                 "b": _numpy(state["bias"])}
@@ -167,12 +184,14 @@ def _walk(tree: dict, path: tuple = ()):
             yield path + (k,), v
 
 
-def _conv_flax_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+def _leafwise_flax_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for path, leaf in _walk(variables["params"]):
         *mod, name = path
         t = _tensor(leaf)
-        if name == "kernel":
+        if not mod and name in _TABLES:
+            out[name] = t
+        elif name == "kernel":
             t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.T      # [out, in, ...]
             out[".".join(mod + ["weight"])] = t.contiguous()
         elif name == "scale":
@@ -193,13 +212,15 @@ def _set(tree: dict, path: list, value) -> None:
     tree[path[-1]] = value
 
 
-def _conv_torch_to_flax(state: dict) -> dict:
+def _leafwise_torch_to_flax(state: dict) -> dict:
     params: dict = {}
     stats: dict = {}
     for key, t in state.items():
         *mod, name = key.split(".")
         a = _numpy(t)
-        if name in _FROM_BN_STATS:
+        if not mod and name in _TABLES:
+            params[name] = a
+        elif name in _FROM_BN_STATS:
             _set(stats, mod + [_FROM_BN_STATS[name]], a)
         elif name == "weight":
             if a.ndim == 4:                                       # conv kernel

@@ -322,12 +322,31 @@ class DataServer:
                 msg, was_vec = _recv_frame(conn)
                 if isinstance(msg, tuple) and msg \
                         and msg[0] == "collective_attach":
-                    # Collective wire op (the JAX package hands the
-                    # connection to its collective layer): not ported yet,
-                    # so the peer gets an error reply, not a hang.
-                    _send(conn, ("err", "the collective transport is not "
-                                 "ported yet: ROADMAP.md queue 1 (j)"),
+                    # Collective wire op: hand this (already-authenticated)
+                    # connection to the collective layer — after the ok
+                    # reply it becomes a one-way stream of ``cchunk``
+                    # frames a peer node's ring neighbor pumps gradient
+                    # chunks down (collective/transport.py).  The receive
+                    # loop runs on THIS connection thread, which is what
+                    # makes peer sends deadlock-free: every node's inbound
+                    # wire drains independently of its compute thread.
+                    from tensorflowonspark_torch.collective import (
+                        transport as _ctransport,
+                    )
+
+                    # frame: (op, group, src_rank, generation[, src_eid]) —
+                    # the eid rider keys the connection for membership
+                    # severing (gray-failure hard fencing); older 4-tuple
+                    # senders key as -1 (never severed by membership)
+                    src_eid = int(msg[4]) if len(msg) > 4 else -1
+                    err = _ctransport.attach_error(str(msg[1]), src_eid,
+                                                   int(msg[3]))
+                    _send(conn, ("ok",) if err is None else ("err", err),
                           wire=2 if was_vec else 1)
+                    if err is None:
+                        _ctransport.serve_attached(conn, str(msg[1]),
+                                                   int(msg[2]), int(msg[3]),
+                                                   src_eid)
                     return
                 try:
                     reply = self._handle(msg)

@@ -13,7 +13,7 @@ import torch
 logger = logging.getLogger(__name__)
 
 _REGISTRY: dict[str, Callable] = {}
-_FAMILIES = ("transformer", "linear", "mnist", "resnet", "inception")
+_FAMILIES = ("transformer", "linear", "mnist", "resnet", "inception", "wide_deep")
 
 
 def register(name: str):
@@ -51,7 +51,10 @@ def build_apply(config: dict, device=None) -> Callable:
     ``torch.inference_mode()``; ``x`` may be numpy or a tensor, and the
     image families take it NHWC, as the JAX package does.  The loaded
     module is ``apply.model`` (the decode path, ``greedy_generate``, takes
-    it).
+    it).  A ``wide_deep`` bundle takes the single ``[B, 39]`` feature
+    batch; the dense half of a sharded one (``wide_deep_dense``) needs the
+    gathered table rows too and is applied through
+    ``embedding.serve.build_sharded_apply``.
 
     ``device`` defaults to ``cuda`` and raises when there is no card.
     """

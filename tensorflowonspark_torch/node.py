@@ -294,11 +294,36 @@ class NodeContext:
 
     def collective_group(self, name: str = "train", world: int | None = None,
                          timeout: float | None = None):
-        """Cluster-wide tensor collectives over the cluster wire (the JAX
-        package's ``collective.CollectiveGroup``); not ported yet."""
-        raise NotImplementedError(
-            "ctx.collective_group is not ported yet: ROADMAP.md queue 1 (j), "
-            "the collective layer")
+        """Handle for cluster-wide tensor collectives (ring all-reduce /
+        broadcast / all-gather on numpy arrays, and trees of tensors through
+        ``all_reduce_tree``) — the gradient-exchange plane of
+        ``cluster.train(..., mode="sync")``.
+
+        Call :meth:`~tensorflowonspark_torch.collective.CollectiveGroup.form`
+        before the first collective; on a supervised restart pass the
+        restored checkpoint step so the group's ``sync_state`` can level
+        everyone (``ctx.is_restart`` is the cue).  ``world`` defaults to
+        the data nodes (the evaluator sidecar never joins collectives —
+        same exclusion as ``all_done``/``barrier(group='data')``).  Peer
+        traffic rides each node's registered data-plane port; the
+        rendezvous and generation barriers ride a dedicated coordinator
+        connection, so incarnation fencing applies end to end.
+        """
+        from tensorflowonspark_torch.collective import CollectiveGroup
+
+        me = next((m for m in self.cluster_info
+                   if m["executor_id"] == self.executor_id), None)
+        if me is None or not me.get("data_port"):
+            raise RuntimeError(
+                "this node has no registered data_port; collective groups "
+                "ride the data-plane wire and need one")
+        return CollectiveGroup(
+            coordinator_addr=self._config.coordinator_addr,
+            authkey=self._config.authkey,
+            executor_id=self.executor_id,
+            world=int(world) if world else self.num_data_nodes,
+            host=me["host"], data_port=int(me["data_port"]),
+            name=name, incarnation=self.incarnation, timeout=timeout)
 
     def any_done(self, done: bool, timeout: float = 300.0) -> bool:
         name = self._client.next_collective_name("any_done")

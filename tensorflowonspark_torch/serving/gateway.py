@@ -286,10 +286,12 @@ class ServingGateway:
         return laggards
 
     def _refresh_embed_plan(self) -> None:
-        """Read the active export's bundle config: a ``sharded_embedding``
-        block would put the router into fan-out mode, which the port does
-        not have yet (``set_embed_plan`` raises, as ``serving_loop`` does
-        for such bundles).  An unreadable config leaves dense routing."""
+        """Read the active export's bundle config and (re)arm the router's
+        sharded-embedding fan-out when it carries a ``sharded_embedding``
+        block — called at construction and after every fleet-wide reload
+        (a newer export may have moved the table's final step or
+        geometry).  Never raises: a malformed block degrades to plain
+        dense routing with a warning."""
         import json
         import os
 
@@ -298,13 +300,15 @@ class ServingGateway:
         try:
             with open(os.path.join(resolve_uri(self.export_dir),
                                    "bundle.json")) as f:
-                block = json.load(f).get("sharded_embedding")
-        except (OSError, ValueError, AttributeError):
-            logger.warning("could not read the bundle config of %s",
-                           self.export_dir, exc_info=True)
-            return
-        if block:
-            self._router.set_embed_plan(block, None)
+                config = json.load(f)
+            block = config.get("sharded_embedding")
+            if block:
+                from tensorflowonspark_torch.embedding.serve import make_id_fn
+
+                self._router.set_embed_plan(block, make_id_fn(config))
+        except Exception:  # noqa: BLE001 - degrade to dense routing
+            logger.warning("could not arm sharded-embedding routing from "
+                           "%s", self.export_dir, exc_info=True)
 
     def _export_signature(self) -> tuple:
         """Change signature of the active export (see

@@ -15,6 +15,13 @@ result per input row, in order.
   item carries, marking the bundle a rollout ``candidate``); the ack echoes
   the active export_dir and its on-disk bundle signature.
 
+A bundle whose config carries a ``sharded_embedding`` block (the sharded
+wide-and-deep export) keeps its table outside the bundle: the replica loads
+its own range of the table, answers the router's id lookups on the
+``embed``/``embed_out`` queue pair from a responder thread, and scores
+``sharded_batch`` control rounds (raw rows plus the rows the router
+gathered) with the dense half of the model.
+
 Termination is the standard feed contract: ``EndOfFeed`` or the driver's
 stop signal ends the loop.
 """
@@ -63,10 +70,29 @@ def serving_loop(args, ctx) -> None:
     builder = functools.partial(build_apply, device=_arg(args, "device"))
 
     variables, config, apply_fn = load_bundle_cached(export_dir, builder)
+    # sharded-embedding bundles: load THIS replica's range of the table
+    # (re-sharded over the serve world) and the dense-half apply, and answer
+    # the router's lookup fan-out on the embed queue pair from a responder
+    # thread.  Scoring batches then arrive as one-item `sharded_batch`
+    # control rounds carrying the rows the router already gathered.
+    embed_shard = None
+    sharded_apply = None
     if config.get("sharded_embedding"):
-        raise NotImplementedError(
-            "sharded-embedding bundles are not served by the port yet: "
-            "ROADMAP.md queue 1 (d), wide_deep and the sharded embedding tier")
+        import threading
+
+        from tensorflowonspark_torch.embedding.serve import (
+            build_sharded_apply,
+            embed_responder_loop,
+            load_serving_shard,
+        )
+
+        _, embed_shard = load_serving_shard(
+            export_dir, config["sharded_embedding"], ctx.executor_id,
+            ctx.num_executors)
+        sharded_apply = build_sharded_apply(config, device=_arg(args, "device"))
+        threading.Thread(
+            target=embed_responder_loop, args=(ctx, embed_shard),
+            daemon=True, name=f"embed-responder-{ctx.executor_id}").start()
     # True while this replica serves a rollout CANDIDATE bundle (set by the
     # reload ctl's `candidate` bit): the bad_model chaos hook fires only then
     serving_candidate = False
@@ -79,11 +105,39 @@ def serving_loop(args, ctx) -> None:
             continue
         if len(items) == 1 and isinstance(items[0], dict) and CTL_KEY in items[0]:
             op = items[0][CTL_KEY]
+            if op == "sharded_batch":
+                # one wrapped scoring batch: raw rows + the fused-table rows
+                # the router's fan-out gathered; one result item back keeps
+                # the exactly-count invariant (the router unwraps it)
+                rows = items[0]["rows"]
+                emb = np.asarray(items[0]["emb"], np.float32)
+                with ctx.metrics.timed("serve.node_batch_secs"), \
+                        ttrace.span("serve.node_compute",
+                                    parent=getattr(feed, "last_trace", None)):
+                    x = rows_to_features(list(rows), input_mapping)
+                    out = to_host(sharded_apply(variables, x, emb))
+                batches.inc()
+                rows_served.inc(len(rows))
+                feed.batch_results([{CTL_KEY: "sharded_results",
+                                     "results": batch_results(out, len(rows),
+                                                              postprocess)}],
+                                   chunk=True)
+                continue
             if op == "reload":
                 export_dir = str(items[0].get("export_dir") or export_dir)
                 serving_candidate = bool(items[0].get("candidate"))
                 invalidate_bundle(export_dir)
                 variables, config, apply_fn = load_bundle_cached(export_dir, builder)
+                if embed_shard is not None and config.get("sharded_embedding"):
+                    # newer export: swap the resident range in place (the
+                    # responder thread reads shard.rows, so the swap is
+                    # visible to in-flight lookups atomically per request)
+                    _, fresh = load_serving_shard(
+                        export_dir, config["sharded_embedding"],
+                        ctx.executor_id, ctx.num_executors)
+                    embed_shard.rows = fresh.rows
+                    sharded_apply = build_sharded_apply(
+                        config, device=_arg(args, "device"))
                 ctx.metrics.counter("serve.node_reloads").inc()
                 feed.batch_results([{CTL_KEY: "reloaded",
                                      "export_dir": export_dir,

@@ -67,6 +67,14 @@ from tensorflowonspark_torch.telemetry import trace as ttrace
 logger = logging.getLogger(__name__)
 
 
+class EmbedLookupError(RuntimeError):
+    """A sharded-embedding fan-out round failed (a shard OWNER was
+    unreachable or timed out).  Deliberately distinct from a scoring-
+    replica transport error: the scoring replica is healthy and must not
+    be fenced for another node's shard being dark — the batch retries
+    (the owner may have recovered) and then fails its waiters."""
+
+
 class _Replica:
     __slots__ = ("executor_id", "queue", "inflight", "healthy", "client",
                  "client_inc", "pending_ctl", "thread", "last_pick",
@@ -141,6 +149,17 @@ class ReplicaRouter:
         self._shed_fn = lambda: 0  # batcher brownout level (sheds mirrors)
         self._replicas: dict[int, _Replica] = {
             eid: _Replica(eid) for eid in cluster._feed_ids}
+        # sharded-embedding fan-out state (set_embed_plan): owner plan over
+        # the serve fleet, the id-extraction fn from the bundle config, and
+        # one DEDICATED DataClient per shard owner on the embed queue pair
+        # — reusing rep.client would interleave lookup results into batch
+        # rounds and break their exactly-count collection.  Per-owner locks
+        # serialize rounds per connection for the same reason.
+        self._embed_plan = None
+        self._embed_id_fn = None
+        self._embed_owners: list[int] = []
+        self._embed_clients: dict[int, Any] = {}
+        self._embed_locks: dict[int, Any] = {}
         # journal-backed serving registry (ISSUE 13): this router's healthy
         # replica set, published to the coordinator whenever it changes so
         # a control-plane failover restores who was serving
@@ -296,18 +315,41 @@ class ReplicaRouter:
             t0 = _monotonic()
             try:
                 client = self._client_for(rep)
+                wire_rows = batch.rows
+                wrapped = False
+                if self._embed_plan is not None:
+                    # sharded-embedding mode: gather the batch's fused-table
+                    # rows from the owner shards first, then ship ONE
+                    # wrapped item — the scoring replica answers with one
+                    # result item the unwrap below opens (exactly-count: 1)
+                    with ttrace.span("serve.embed_fanout",
+                                     parent=batch.trace):
+                        emb = self._gather_embeddings(batch.rows)
+                    wire_rows = [{CTL_KEY: "sharded_batch",
+                                  "rows": list(batch.rows), "emb": emb}]
+                    wrapped = True
                 with telemetry.timed("serve.batch_secs"), \
                         ttrace.span("serve.wire", parent=batch.trace,
                                     tags={"executor": rep.executor_id}) as ws:
                     results = client.infer_round(
-                        batch.rows, self.qname_in, self.qname_out,
+                        wire_rows, self.qname_in, self.qname_out,
                         trace=ws.ctx)
+                if wrapped:
+                    ack = results[0] if results else None
+                    if not (isinstance(ack, dict)
+                            and ack.get(CTL_KEY) == "sharded_results"):
+                        raise RuntimeError(
+                            f"sharded batch round answered {type(ack)}")
+                    results = list(ack["results"])
             except Exception as e:  # noqa: BLE001 - retried/surfaced below
                 error = e
             rerouted: list[MicroBatch] = []
             with self._cond:
                 rep.inflight -= 1
-                if error is not None and not self._stop:
+                if (error is not None and not self._stop
+                        and not isinstance(error, EmbedLookupError)):
+                    # a failed LOOKUP owner is not this replica's failure —
+                    # fence nothing; the retry redoes the fan-out
                     rerouted = self._mark_unhealthy_locked(rep)
                 self._update_outstanding_locked()
                 self._cond.notify_all()
@@ -426,15 +468,108 @@ class ReplicaRouter:
             rep.client_inc = inc
         return rep.client
 
-    # -- sharded-embedding fan-out (not ported) -------------------------------
+    # -- sharded-embedding fan-out (gateway.set via set_embed_plan) ----------
 
     def set_embed_plan(self, block: dict, id_fn) -> None:
-        """Enter sharded-embedding mode (the JAX package gathers each
-        batch's table rows from the owner replicas first).  Not ported yet,
-        like ``serving_loop`` for such bundles."""
-        raise NotImplementedError(
-            "sharded-embedding serving is not ported yet: ROADMAP.md queue 1 "
-            "(d), wide_deep and the sharded embedding tier")
+        """Enter sharded-embedding mode: the bundle's table (``block`` is
+        its ``"sharded_embedding"`` config) is resident range-sharded over
+        the serve fleet, and every scoring batch is preceded by a fan-out
+        that gathers its unique fused-table rows from the owner replicas.
+        ``id_fn(features) -> [B, C] int64`` extracts the table ids from a
+        stacked feature batch (model-specific; the gateway builds it from
+        the bundle config)."""
+        from tensorflowonspark_torch.embedding.sharding import ShardPlan
+        from tensorflowonspark_torch.utils.locks import tos_named_lock
+
+        with self._cond:
+            owners = sorted(self._replicas)
+            if owners != list(range(len(owners))):
+                # replica ranks must mirror the node-side shard loading
+                # (rank = executor_id, world = num_executors)
+                logger.warning(
+                    "sharded embeddings over a non-contiguous replica set "
+                    "%s; shard ownership assumes rank == executor id",
+                    owners)
+            self._embed_plan = ShardPlan.even(
+                str(block["name"]), int(block["total_rows"]),
+                int(block["dim"]), len(owners))
+            self._embed_id_fn = id_fn
+            self._embed_owners = owners
+            self._embed_locks = {
+                eid: tos_named_lock(f"router._embed[{eid}]")
+                for eid in owners}
+
+    def clear_embed_plan(self) -> None:
+        with self._cond:
+            self._embed_plan = None
+            self._embed_id_fn = None
+            clients, self._embed_clients = self._embed_clients, {}
+        for client in clients.values():
+            with contextlib.suppress(Exception):
+                client.close()
+
+    def _gather_embeddings(self, rows: list):
+        """One fan-out round: rows -> stacked features -> unique table ids
+        -> per-owner lookup sub-requests -> assembled ``[B, C, dim]`` fused
+        rows.  Any owner failure raises :class:`EmbedLookupError`."""
+        import numpy as np
+
+        from tensorflowonspark_torch.inference import rows_to_features
+
+        plan, id_fn = self._embed_plan, self._embed_id_fn
+        ids = id_fn(rows_to_features(list(rows), None))
+        flat = np.asarray(ids, np.int64).reshape(-1)
+        uniq, inv = np.unique(flat, return_inverse=True)
+        idx = plan.partition(uniq)
+        out = np.empty((uniq.size, plan.dim), np.float32)
+        for r, eid in enumerate(self._embed_owners):
+            if not idx[r].size:
+                continue
+            got = self._embed_lookup_round(eid, uniq[idx[r]])
+            out[idx[r]] = got
+        telemetry.counter("serve.embed_fanouts").inc()
+        telemetry.counter("serve.embed_rows_fetched").inc(int(uniq.size))
+        return out[inv].reshape(ids.shape + (plan.dim,))
+
+    def _embed_lookup_round(self, eid: int, ids):
+        """One id-lookup sub-request to the shard owner ``eid`` over its
+        dedicated embed-queue client (dialed lazily, serialized by the
+        per-owner lock, torn down on failure so the next round redials)."""
+        from tensorflowonspark_torch.embedding.serve import (
+            EMBED_QNAME_IN,
+            EMBED_QNAME_OUT,
+        )
+        from tensorflowonspark_torch.utils.envtune import env_float
+
+        timeout = env_float("TOS_EMBED_LOOKUP_TIMEOUT", 30.0)
+        lock = self._embed_locks.get(eid)
+        if lock is None:
+            raise EmbedLookupError(f"no embed lock for owner {eid}")
+        with lock:
+            client = self._embed_clients.get(eid)
+            try:
+                if client is None:
+                    from tensorflowonspark_torch.dataserver import DataClient
+
+                    meta = self._cluster._fresh_meta(eid)
+                    client = DataClient(
+                        meta["host"], meta["data_port"],
+                        self._cluster.authkey,
+                        call_timeout=timeout + 30.0, stall_timeout=timeout,
+                        connect_timeout=5.0)
+                    self._embed_clients[eid] = client
+                got = client.infer_round(
+                    [{"ids": ids}], EMBED_QNAME_IN, EMBED_QNAME_OUT,
+                    wait=timeout)
+                return got[0]["rows"]
+            except Exception as e:  # noqa: BLE001 - wrapped for the worker
+                stale = self._embed_clients.pop(eid, None)
+                if stale is not None:
+                    with contextlib.suppress(Exception):
+                        stale.abort()
+                raise EmbedLookupError(
+                    f"embedding lookup to shard owner {eid} failed: "
+                    f"{e}") from e
 
     # -- recovery ------------------------------------------------------------
 
@@ -843,6 +978,11 @@ class ReplicaRouter:
                 with contextlib.suppress(Exception):
                     rep.client.close()
                 rep.client = None
+        with self._cond:
+            embed_clients, self._embed_clients = self._embed_clients, {}
+        for client in embed_clients.values():
+            with contextlib.suppress(Exception):
+                client.close()
         self._recovery.join(timeout=10.0)
         # retract this router's registry entry: a closed gateway must not
         # keep presenting healthy replicas in statz / post-failover replay

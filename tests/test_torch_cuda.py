@@ -346,3 +346,72 @@ def test_cuda_bf16_image_forward_close_to_cpu_f32(model_name, size):
     want = build_apply({**config, "bf16": False}, device="cpu")(variables, x)
     assert got.shape == want.shape == (4, 10)
     assert (got - want).abs().max() <= 0.05 * want.abs().max()
+
+
+def test_cuda_wide_deep_step_matches_cpu():
+    """One optax-Adagrad step of a small f32 wide-and-deep (vocab 1009,
+    embed 4, hidden (8, 4)) from the same weights on the card and on the
+    CPU: the loss to 1e-5, every gradient and updated parameter to 1e-5
+    relative L2.  PyTorch leaves TF32 off for matmuls by default
+    (``torch.backends.cuda.matmul.allow_tf32``), and this test asserts it:
+    the MLP runs in full f32 on both sides; the card's embedding backward
+    sums duplicate ids in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from tensorflowonspark_torch.models import wide_deep
+    from tensorflowonspark_torch.optim import Adagrad
+    from tensorflowonspark_torch.parallel import dp as tdp
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    config = {"model": "wide_deep", "vocab_size": 1009, "embed_dim": 4,
+              "hidden": [8, 4], "bf16": False}
+    weights = wide_deep.build_wide_deep(config).init_weights(
+        torch.Generator().manual_seed(0)).state_dict()
+    batch = wide_deep.batch_to_arrays(wide_deep.synthetic_criteo(64, seed=1))
+
+    def one_step(device):
+        model = wide_deep.build_wide_deep(config)
+        model.load_state_dict(weights)
+        model.to(device)
+        opt = Adagrad(model.parameters(), 0.01)
+        grads = {}
+
+        def keep(g):
+            grads.update({n: t.detach().cpu().clone() for n, t in g.items()})
+            return g
+
+        step = tdp.make_train_step(wide_deep.make_loss_fn(model), opt,
+                                   cross_host_grad_fn=keep)
+        _, metrics = step(tdp.TrainState.create(model, opt), batch)
+        return (metrics["loss"].item(), grads,
+                {k: v.cpu() for k, v in model.state_dict().items()})
+
+    cpu, card = one_step("cpu"), one_step("cuda")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    for name in cpu[1]:
+        assert rel(card[1][name], cpu[1][name]) <= 1e-5, name
+        assert rel(card[2][name], cpu[2][name]) <= 1e-5, name
+
+
+def test_cuda_all_reduce_tree_returns_cuda_tensors():
+    """``all_reduce_tree`` hands back each CUDA leaf as a CUDA tensor in
+    its own dtype (the train step assigns them to ``p.grad``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch_mapfuns  # pytest puts tests/ on the path
+
+    with torch_mapfuns.world1_group() as group:
+        tree = {"w": torch.arange(6.0, device="cuda").reshape(2, 3),
+                "h": torch.ones(5, device="cuda", dtype=torch.bfloat16),
+                "cpu": torch.zeros(2)}
+        out = group.all_reduce_tree(tree)
+    assert out["w"].device.type == "cuda" and out["w"].dtype == torch.float32
+    assert out["h"].device.type == "cuda" and out["h"].dtype == torch.bfloat16
+    assert out["cpu"].device.type == "cpu"
+    torch.testing.assert_close(out["w"], tree["w"], rtol=0, atol=0)

@@ -34,7 +34,10 @@ SEQ = 24
 
 
 class _Ctx:
-    """The slice of the node context a map_fun uses: its feed and metrics."""
+    """The slice of the node context a map_fun uses: its feed and metrics
+    (and its place in a one-replica world)."""
+
+    executor_id, num_executors = 0, 1
 
     def __init__(self, queues):
         self.queues = queues
@@ -134,10 +137,15 @@ def test_bundle_inference_loop_serves_jax_bundle(tmp_path):
 
 
 def test_serving_loop_refuses_sharded_embedding_bundle(tmp_path):
+    """A sharded-embedding bundle is served from its table's shard files
+    (the loop loads this replica's range of the table); one whose shard
+    files are missing is refused before the loop takes a batch, as the JAX
+    package's loop refuses it (a partial table must not serve silently)."""
     export = str(tmp_path / "bundle")
-    jckpt.export_bundle(export, _params(), {**CFG, "sharded_embedding": {"t": 1}})
+    block = {"name": "t", "total_rows": 12, "dim": 3, "step": 1}
+    jckpt.export_bundle(export, _params(), {**CFG, "sharded_embedding": block})
     tckpt.invalidate_bundle()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="covers only up to row 0"):
         _run(serving_loop, {"export_dir": export, "device": "cpu"}, [])
 
 
