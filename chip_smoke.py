@@ -84,27 +84,51 @@ Phases (any failure propagates and the script exits non-zero):
    kernel, and loss and gradients against plain attention;
 11. head dim 512 — the same two steps for the LM with 2 heads of 512 (depth
    cut to ``D512_LAYERS``), both on the kernels' wide routes;
-12. resnet50 — ResNet-50 training at full width, the JAX bench's setup (224
+12. moe-slice — the MoE LM at the same width with top-2 of 8 experts
+   (``MOE_CONFIG``: Mixtral 8x7B's routing, capacity factor 1.25, the sort
+   dispatch; about 0.97 B parameters), random weights from the seed in the
+   JAX package's bundle layout, through ``export_bundle`` →
+   ``serving_loop`` exactly as the slice (batches of 4, 4 and 3 rows, the
+   last padded, so its pad rows take expert capacity; a ping and a
+   reload): ordered, exactly-count, finite results, 8 launches a batch,
+   the logits against plain attention on the padded batch at the kernel
+   path's routing, and with the routing free the share of tokens a layer
+   that the two paths send to other experts within a bound (in bf16 and
+   f32; a control fault's share reported); one forward's time, a
+   ``torch.profiler`` census (dispatch/combine, expert matmuls, the
+   attention kernel, the rest) and the peak memory;
+13. moe-train — ``make_train_step`` with AdamW on that model, B=8, 3
+   warm-up and 10 timed steps: finite losses, aux and router-z losses, a
+   falling loss, 8 launches a step; step ms, tokens/s, the model-FLOPs
+   share (top-2 of 8 experts active), the peak memory; one step's loss and
+   gradients against plain attention at the kernel step's routing, and
+   the share of tokens re-routed with the routing free within the bound;
+14. ring — ring attention's hop loop (``parallel.sp.ring_hops``) at the
+   serving shape cut into 4 sequence shards held in one process: 16
+   launches at the ring's offsets (zero, negative, fully masked), O and
+   lse against one causal kernel call, the gradients of q, k, v through O
+   and lse against the plain version's, the loop's time;
+15. resnet50 — ResNet-50 training at full width, the JAX bench's setup (224
    px, 1000 classes, bf16 compute over f32 masters, bf16 BN outputs, SGD
    Nesterov 0.9 at lr 0.1, L2 1e-4, batch 256, one batch resident on the
    card): 3 warm-up and 20 timed steps; step ms, images/s, the model-FLOPs
    share (3 x the forward FLOPs counted from the conv and dense shapes),
    peak memory, the forward / backward / optimizer split and a
    ``torch.profiler`` census of one step; gate: finite losses that fall;
-13. bn-card-vs-cpu — one ``make_bn_train_step`` step of a small f32
+16. bn-card-vs-cpu — one ``make_bn_train_step`` step of a small f32
    ``resnet_cifar`` from the same weights on the card and on the CPU: loss,
    gradients, running statistics, parameters, with cuDNN's TF32 off (held
    per parameter) and on (PyTorch's default; held as whole vectors);
-14. inception — the Inception-v3 serving forward, bf16 at 299 px, batch 32,
+17. inception — the Inception-v3 serving forward, bf16 at 299 px, batch 32,
    through ``build_apply``: ms per batch, images/s; two images' logits in
    f32 and in bf16 against the f32 model on the CPU;
-15. image clusters — ``examples_torch``'s ``mnist_dist`` (STREAMING train at
+18. image clusters — ``examples_torch``'s ``mnist_dist`` (STREAMING train at
    the published widths on 2 executors, export, ``inference_fun``),
    ``mnist_tfr`` and ``cifar10_train`` (DIRECT, each exporting a bundle)
    and ``inception_infer`` (64 images, exactly 64 results in order), node
    processes on the card, host-clock times.  No image model reaches an
    attention kernel: the phases check that none launched.
-16. wide_deep — BASELINE config 4's model at the JAX example's widths (26 x
+19. wide_deep — BASELINE config 4's model at the JAX example's widths (26 x
    100_003 hash buckets, embed 16, MLP (256, 128, 64), batch 512, optax's
    Adagrad at lr 0.01, one batch resident on the card), in f32 and in bf16:
    3 warm-up and 20 timed steps; step ms, rows/s, forward-only scoring
@@ -112,16 +136,16 @@ Phases (any failure propagates and the script exits non-zero):
    optimizer, the embedding backward, the gather, the matmuls, the rest)
    and the step's bytes bound over the tables; gate: finite losses that
    fall;
-17. wide_deep card-vs-cpu — one Adagrad step of a small f32 wide_deep from
+20. wide_deep card-vs-cpu — one Adagrad step of a small f32 wide_deep from
    the same weights on the card and on the CPU;
-18. wide_deep sync — ``train(mode="sync")`` on 2 node processes sharing the
+21. wide_deep sync — ``train(mode="sync")`` on 2 node processes sharing the
    card, the group's ``grad_fn`` as the step's ``cross_host_grad_fn``,
    gradients on the card: equal final parameter digests, ms and bytes per
    ``all_reduce_tree``;
-19. criteo pipeline — ``examples_torch/criteo/criteo_wide_deep.py``:
+22. criteo pipeline — ``examples_torch/criteo/criteo_wide_deep.py``:
    ``TorchEstimator.fit`` (4096 rows, 2 executors, 2 epochs) then
    ``TorchModel.transform`` of 256 rows, exactly counted and in order;
-20. criteo sharded — the sharded tier at full width: a sync
+23. criteo sharded — the sharded tier at full width: a sync
    ``TorchEstimator`` with the fused table range-sharded over 2 nodes, 20
    steps, the sharded export, and a 2-replica serve cluster on the card
    answering through the gateway's lookup fan-out, held against the dense
@@ -136,6 +160,7 @@ with 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -329,6 +354,40 @@ SHARDED_REQUESTS, SHARDED_REQUEST_ROWS = 8, 64
 # reassembled table on the CPU, both f32 with TF32 off: sums of 429
 # products in other orders
 SHARDED_TOL = dict(rtol=1e-4, atol=1e-5)
+# the MoE LM: the chip LM's width with top-2 of 8 experts, Mixtral 8x7B's
+# routing (arXiv:2401.04088 §2.1), and the JAX package's capacity_factor
+# 1.25 and sort dispatch; served like the slice (batches of BATCH_ROWS) and
+# trained like the LM (AdamW, MOE_WARMUP + MOE_TIMED steps)
+MOE_CONFIG = {**LM_CONFIG, "n_experts": 8, "moe_top_k": 2}
+MOE_TRAIN_BATCH = 8
+MOE_WARMUP, MOE_TIMED = 3, 10
+MOE_STAGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+# the kernel path and plain attention round at different places, a router
+# logit near a top-2 boundary crosses it, and the token goes to another
+# expert, so the served logits and one step's gradients are held against
+# plain attention at the kernel path's routing (MoEMLP.replay) with
+# LOGIT_REL_TOL / GRAD_REL_TOL.  The routing left free is gated on its own:
+# the share of tokens a layer whose top-2 set differs between the two
+# paths.  Sound readings (H100, seed 0): bf16 served 0.6-13.2% of 8192
+# tokens a layer (growing with depth), bf16 train step 0.4-4.8% of 16384;
+# f32 (3xTF32 against plain f32) 0-5 of 8192.  Bounds: bf16 20%, f32 0.5%
+# (41 tokens).  A control fault, plain attention that also sees the next
+# token (a causal mask off by one), is run with the routing free and its
+# share reported beside them (PERF.md)
+MOE_BF16_REROUTE_MAX = 0.20
+MOE_F32_REROUTE_MAX = 0.005
+# the f32 bundle at one routing (3xTF32 against plain f32, about 2^-20
+# relative, sums in other orders through 8 layers): logits within 1e-3 of
+# the largest
+MOE_F32_LOGIT_REL_TOL = 1e-3
+# ring attention's hop loop at the serving shape (B, S, H, D; causal bf16),
+# the sequence cut into RING_SHARDS shards held in one process: every hop
+# is one kernel launch, RING_SHARDS² in all.  Held against one causal
+# kernel call over the whole sequence with O_TOL and LSE_TOL (each hop's O
+# is rounded to bf16 by the kernel before the f32 merge), and its gradients
+# through O and lse against the plain version's with GRAD_REL_TOL
+RING_SHAPE = (4, 2048, 8, 128)
+RING_SHARDS = 4
 
 
 def log(msg: str) -> None:
@@ -754,7 +813,9 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
 
 def make_lm_params(cfg: dict, seed: int) -> dict:
     """Random f32 weights in the JAX package's bundle layout (flax names),
-    normal with std 1/sqrt(fan_in); norm scales 1."""
+    normal with std 1/sqrt(fan_in); norm scales 1.  With ``n_experts`` each
+    block has ``moe`` (router ``[D, E]``, expert stacks ``[E, D, F]`` and
+    ``[E, F, D]``, fan-in per expert matrix) in place of ``mlp``."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -775,27 +836,25 @@ def make_lm_params(cfg: dict, seed: int) -> dict:
             "attn": {**{n: {"kernel": w((d, h, dh), d)}
                         for n in ("q_proj", "k_proj", "v_proj")},
                      "o_proj": {"kernel": w((h, dh, d), d)}},
-            "mlp": {"gate_proj": {"kernel": w((d, f), d)},
-                    "up_proj": {"kernel": w((d, f), d)},
-                    "down_proj": {"kernel": w((f, d), f)}},
         }
+        e = cfg.get("n_experts", 0)
+        if e:
+            params[f"block_{i}"]["moe"] = {
+                "router": {"kernel": w((d, e), d)},
+                "experts_gate": w((e, d, f), d), "experts_up": w((e, d, f), d),
+                "experts_down": w((e, f, d), f)}
+        else:
+            params[f"block_{i}"]["mlp"] = {
+                "gate_proj": {"kernel": w((d, f), d)},
+                "up_proj": {"kernel": w((d, f), d)},
+                "down_proj": {"kernel": w((f, d), f)}}
     return params
 
 
 def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
     """Drive the replica on ``device``; returns the kernel's launches in
     that run."""
-    import numpy as np
-    import torch
-
-    from tensorflowonspark_torch import telemetry
-    from tensorflowonspark_torch.checkpoint import export_bundle, invalidate_bundle
-    from tensorflowonspark_torch.feeding import DataFeed, FeedQueues
-    from tensorflowonspark_torch.marker import EndOfFeed, EndPartition, ResultChunk
-    from tensorflowonspark_torch.models.registry import build_apply
-    from tensorflowonspark_torch.ops import attention as att
-    from tensorflowonspark_torch.serving.batcher import CTL_KEY
-    from tensorflowonspark_torch.serving.loop import serving_loop
+    from tensorflowonspark_torch.checkpoint import export_bundle
 
     t0 = time.perf_counter()
     params = make_lm_params(LM_CONFIG, seed)
@@ -805,9 +864,36 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
     del params
     log(f"[slice] exported {n_params / 1e6:.1f} M f32 params in "
         f"{time.perf_counter() - t0:.1f} s")
+    launches, batches = serve_and_check(export, LM_CONFIG, seed, "slice", smi, device)
+    if device == "cuda":
+        log_breakdown(export, batches[0], device, smi)
+    return launches
+
+
+def serve_and_check(export: str, cfg: dict, seed: int, tag: str, smi: str,
+                    device: str = "cuda", reference=None) -> tuple[int, list]:
+    """Drive ``serving_loop`` over ``export`` with the request batches of
+    ``BATCH_ROWS`` (the last one partial, padded by the loop as the gateway
+    pads it), a ping and a reload; check ordered, exactly counted, finite
+    results, n_layers kernel launches per batch, and the logits against the
+    same bundle with plain attention on the padded batch (``reference(params,
+    padded) -> logits``, by default ``build_apply`` with ``attn_impl:
+    xla``).  Returns the launches (every count set to 0 just before the
+    loop, read just after) and the request batches."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import telemetry
+    from tensorflowonspark_torch.checkpoint import invalidate_bundle
+    from tensorflowonspark_torch.feeding import DataFeed, FeedQueues
+    from tensorflowonspark_torch.marker import EndOfFeed, EndPartition, ResultChunk
+    from tensorflowonspark_torch.models.registry import build_apply
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.serving.batcher import CTL_KEY
+    from tensorflowonspark_torch.serving.loop import serving_loop
 
     rng = np.random.default_rng(seed + 1)
-    batches = [[rng.integers(0, LM_CONFIG["vocab_size"], SEQ_LEN, dtype=np.int32)
+    batches = [[rng.integers(0, cfg["vocab_size"], SEQ_LEN, dtype=np.int32)
                 for _ in range(n)] for n in BATCH_ROWS]
     queues = FeedQueues(capacity=1024)
     q = queues.get_queue("input")
@@ -848,7 +934,7 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
                  Ctx())
     wall = time.perf_counter() - t0
     launches = att.LAUNCHES["flash_attn_fwd"]
-    log(f"[slice] serving_loop finished in {wall:.1f} s; flash_attn_fwd "
+    log(f"[{tag}] serving_loop finished in {wall:.1f} s; flash_attn_fwd "
         f"launches {launches}")
 
     out = []
@@ -862,12 +948,12 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
     served, acks = out[:n_rows], out[n_rows:]
     if acks[0] != {CTL_KEY: "pong", "nonce": seed} or acks[1].get(CTL_KEY) != "reloaded":
         raise AssertionError(f"bad control acks: {acks}")
-    want = LM_CONFIG["n_layers"] * len(BATCH_ROWS)
+    want = cfg["n_layers"] * len(BATCH_ROWS) if device == "cuda" else 0
     if launches != want:
-        raise AssertionError(f"kernel launches {launches} != n_layers x scored "
-                             f"batches = {want}")
+        raise AssertionError(f"[{tag}] kernel launches {launches} != n_layers x "
+                             f"scored batches = {want}")
     for r in served:
-        if r.shape != (SEQ_LEN, LM_CONFIG["vocab_size"]) or r.dtype != np.float32 \
+        if r.shape != (SEQ_LEN, cfg["vocab_size"]) or r.dtype != np.float32 \
                 or not np.isfinite(r).all():
             raise AssertionError("served logits not finite f32 [S, V]")
 
@@ -876,13 +962,17 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
     from tensorflowonspark_torch.checkpoint import load_bundle
 
     ref_params, _ = load_bundle(export)
-    ref_apply = build_apply({**LM_CONFIG, "attn_impl": "xla"}, device=device)
+    if reference is None:
+        reference = build_apply({**cfg, "attn_impl": "xla"}, device=device)
     start = 0
     worst = 0.0
     agree = []
     for rows in batches:
         padded = rows + [rows[-1]] * (MAX_BATCH - len(rows))
-        ref = ref_apply(ref_params, np.stack(padded))[:len(rows)]
+        before = att.LAUNCHES["flash_attn_fwd"]
+        ref = reference(ref_params, np.stack(padded))[:len(rows)]
+        if att.LAUNCHES["flash_attn_fwd"] != before:
+            raise AssertionError("the plain-attention reference launched the kernel")
         got = torch.from_numpy(np.stack(served[start:start + len(rows)])).to(device)
         scale = ref.abs().max().item()
         err = (got - ref).abs().max().item()
@@ -892,18 +982,14 @@ def phase_slice(seed: int, smi: str, device: str = "cuda") -> int:
             raise AssertionError(f"served logits differ from plain attention by "
                                  f"{err:.4f} > {LOGIT_REL_TOL} x {scale:.3f}")
         start += len(rows)
-    if att.LAUNCHES["flash_attn_fwd"] != launches:
-        raise AssertionError("the plain-attention reference launched the kernel")
-    log(f"[slice] logits vs plain attention: worst max_abs_err/max|logit| "
+    log(f"[{tag}] logits vs plain attention: worst max_abs_err/max|logit| "
         f"{worst:.4f} (limit {LOGIT_REL_TOL}), argmax agreement "
         f"{', '.join(f'{a:.4f}' for a in agree)}")
     for i, (secs, rows) in enumerate(zip(round_secs, BATCH_ROWS)):
-        log(f"[slice] batch {i}: {rows} rows x {SEQ_LEN} tokens, "
+        log(f"[{tag}] batch {i}: {rows} rows x {SEQ_LEN} tokens, "
             f"{secs * 1e3:.1f} ms, {rows * SEQ_LEN / secs:.0f} tokens/s "
             f"({smi})")
-    if device == "cuda":
-        log_breakdown(export, batches[0], device, smi)
-    return launches
+    return launches, batches
 
 
 def phase_cluster(seed: int, smi: str, device: str = "cuda") -> dict:
@@ -1544,6 +1630,497 @@ def phase_train_d512(seed: int, smi: str, device: str = "cuda") -> dict:
 
 
 # -- the image families (BASELINE configs 1, 2, 3 and 5) ----------------------
+
+
+def moe_census(fn) -> dict:
+    """Device time of one ``fn()`` (``torch.profiler``): the attention
+    kernel's (its launches have no aten op, so its kernels are counted by
+    name), each MoE stage's (the self device time of the aten ops inside
+    the ``moe.*`` labels, with each stage's three costliest ops) and the
+    rest (every other aten op's self device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # the labels' host-side ranges (the trace repeats each on the card's
+    # timeline, where the ops' host start times do not fall)
+    labels = [(e.time_range.start, e.time_range.end, e.name) for e in events
+              if e.name in MOE_STAGES and e.device_type == DeviceType.CPU]
+    ms = dict.fromkeys(MOE_STAGES + ("rest",), 0.0)
+    ops: dict = {name: {} for name in MOE_STAGES}
+    attention = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            if "flash_fwd" in e.name:
+                attention += e.time_range.elapsed_us() / 1e3
+            continue
+        us = e.self_device_time_total
+        if e.name in MOE_STAGES or us <= 0:
+            continue
+        stage = next((n for a, b, n in labels if a <= e.time_range.start < b), "rest")
+        ms[stage] += us / 1e3
+        if stage != "rest":
+            ops[stage][e.name] = ops[stage].get(e.name, 0.0) + us / 1e3
+    top = {k: dict(sorted(v.items(), key=lambda kv: -kv[1])[:3]) for k, v in ops.items()}
+    return {"device_ms": attention + sum(ms.values()), "attention_kernel_ms": attention,
+            "dispatch_combine_ms": ms["moe.route"] + ms["moe.dispatch"] + ms["moe.combine"],
+            "expert_matmuls_ms": ms["moe.experts"], "rest_ms": ms["rest"],
+            "stages_ms": {k: ms[k] for k in MOE_STAGES}, "top_ops_ms": top}
+
+
+def phase_moe_slice(seed: int, smi: str, device: str = "cuda") -> dict:
+    """The MoE LM at full width (``MOE_CONFIG``, random weights from the seed
+    in the JAX package's bundle layout) through ``export_bundle`` →
+    ``serving_loop``: batches of 4, 4 and 3 rows (the last padded: the pad
+    rows take expert capacity, as the JAX package's do), a ping and a
+    reload; ordered, exactly counted, finite results, n_layers launches a
+    batch, the logits against plain attention on the padded batch at the
+    kernel path's routing; with the routing free, the share of tokens a
+    layer the two paths route otherwise within ``MOE_BF16_REROUTE_MAX``
+    (the control fault's share and both paths' capacity drops reported);
+    in f32 the same (``moe_f32_agreement``).  On the card: one forward's
+    time, its census and the peak memory."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.checkpoint import export_bundle, load_bundle
+    from tensorflowonspark_torch.models.registry import build_apply
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.parallel.ep import capacity_of
+
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    params = make_lm_params(MOE_CONFIG, seed)
+    n_params = sum(a.size for blk in params.values() for a in _leaves(blk))
+    export = os.path.join(WORK_DIR, "moe_bundle")
+    export_bundle(export, params, MOE_CONFIG)
+    del params
+    log(f"[moe-slice] exported {n_params / 1e6:.1f} M f32 params "
+        f"({MOE_CONFIG['n_experts']} experts, top-{MOE_CONFIG['moe_top_k']}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    kernel = build_apply(MOE_CONFIG, device=device)
+    plain = build_apply({**MOE_CONFIG, "attn_impl": "xla"}, device=device)
+    k_routes, p_routes = RoutingRecorder(kernel.model), RoutingRecorder(plain.model)
+    seen: dict = {"flips": [], "drops": [], "free_drops": [], "control": None}
+
+    def replayed(variables, x):
+        """Plain attention at the kernel path's routing: the kernel path on
+        the padded batch (as served) gives each layer's ``top_idx``; the
+        plain path runs free once (and, on the first batch, with the
+        control fault), then replays it."""
+        before = att.LAUNCHES["flash_attn_fwd"]
+        kernel(variables, x)
+        att.LAUNCHES["flash_attn_fwd"] = before  # a reference run, not the path's
+        routing = list(k_routes.last)
+        plain(variables, x)
+        seen["flips"].append(routing_flips(routing, p_routes.last))
+        seen["drops"].append(drops_of(routing, MOE_CONFIG))
+        seen["free_drops"].append(drops_of(p_routes.last, MOE_CONFIG))
+        if seen["control"] is None:
+            with causal_leak(plain.model):
+                plain(variables, x)
+            seen["control"] = routing_flips(routing, p_routes.last)
+        set_replay(plain.model, routing)
+        out = plain(variables, x)
+        set_replay(plain.model, None)
+        return out
+
+    launches, batches = serve_and_check(export, MOE_CONFIG, seed, "moe-slice", smi,
+                                        device, reference=replayed)
+    k_routes.remove()
+    p_routes.remove()
+    tokens = MAX_BATCH * SEQ_LEN
+    capacity = capacity_of(tokens, 1.25, MOE_CONFIG["moe_top_k"], MOE_CONFIG["n_experts"])
+    worst = max(max(f) for f in seen["flips"]) / tokens
+    log(f"[moe-slice] capacity {capacity} slots per expert at n = {tokens}; routing "
+        f"free in bf16: tokens with another top-2 set per batch and layer "
+        f"{seen['flips']} (worst share {worst:.4f}, limit {MOE_BF16_REROUTE_MAX}); "
+        f"control (plain attention seeing the next token), batch 0: {seen['control']}; "
+        f"dropped pairs, kernel path {seen['drops']}, plain attention "
+        f"{seen['free_drops']}")
+    if worst > MOE_BF16_REROUTE_MAX:
+        raise AssertionError(f"the kernel path routes {worst:.4f} of a layer's tokens "
+                             f"otherwise than plain attention in bf16")
+    variables, _ = load_bundle(export)
+    record = {"launches": launches, "capacity": capacity, "drops": seen["drops"],
+              "bf16_route_flips": seen["flips"], "bf16_control_flips": seen["control"]}
+    if cuda:
+        x = np.stack(batches[0])
+        fwd_ms = time_ms(lambda: kernel(variables, x), reps=5, windows=3, warmup=1)[0]
+        census = moe_census(lambda: kernel(variables, x))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[moe-slice] one forward, {MAX_BATCH} x {SEQ_LEN}: {fwd_ms:.2f} ms on "
+            f"the card (CUDA events); census {json.dumps(census)}; peak memory "
+            f"{peak_gb:.2f} GB ({smi})")
+        record.update(fwd_ms=fwd_ms, census=census, peak_gb=peak_gb)
+    del kernel, plain
+    if cuda:
+        torch.cuda.empty_cache()
+    record["f32"] = moe_f32_agreement(variables, batches[-1], device)
+    return record
+
+
+class RoutingRecorder:
+    """Each MoE block's ``top_idx`` of the last forward (``last``), from a
+    forward hook on its router, which sees the f32 logits of the routed
+    tokens; ``remove`` takes the hooks off (before a timed run)."""
+
+    def __init__(self, model):
+        import torch
+
+        from tensorflowonspark_torch.parallel.ep import top_k
+
+        self.last: list = [None] * len(model.blocks)
+
+        def hook(i, k):
+            def record(module, args, logits):
+                self.last[i] = top_k(torch.softmax(logits, dim=-1), k)[1]
+            return record
+
+        self.handles = [blk.moe.router.register_forward_hook(hook(i, blk.moe.top_k))
+                        for i, blk in enumerate(model.blocks)]
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+def drops_of(routing: list, config: dict) -> list:
+    """Each layer's dropped pairs (``keep`` false) under ``routing``, at the
+    capacity of its token count."""
+    import torch
+
+    from tensorflowonspark_torch.parallel.ep import _sorted_dispatch, capacity_of
+
+    out = []
+    for top_idx in routing:
+        n, k = top_idx.shape
+        cap = capacity_of(n, 1.25, k, config["n_experts"])
+        keep = _sorted_dispatch(top_idx, torch.ones(top_idx.shape, device=top_idx.device),
+                                cap, config["n_experts"])[3]
+        out.append(int((~keep).sum()))
+    return out
+
+
+def set_replay(model, routing) -> None:
+    for i, blk in enumerate(model.blocks):
+        blk.moe.replay = None if routing is None else routing[i]
+
+
+@contextlib.contextmanager
+def causal_leak(model):
+    """The control fault: every block's attention replaced by plain
+    attention whose causal mask is off by one (each query also sees the
+    next token)."""
+    from tensorflowonspark_torch.ops.attention import blockwise_attention
+
+    saved = [blk.attn.attend for blk in model.blocks]
+    for blk in model.blocks:
+        blk.attn.attend = functools.partial(blockwise_attention, kv_offset=-1)
+    try:
+        yield
+    finally:
+        for blk, attend in zip(model.blocks, saved):
+            blk.attn.attend = attend
+
+
+def routing_flips(a: list, b: list) -> list:
+    """Per layer, the tokens whose top-k expert sets differ."""
+    return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, y in zip(a, b)]
+
+
+def moe_f32_agreement(variables, rows: list, device: str) -> dict:
+    """The same bundle in f32 (``bf16: false``: the 3xTF32 kernel on the
+    card against plain f32 attention) on one padded batch: with the routing
+    free, the share of tokens a layer routed otherwise within
+    ``MOE_F32_REROUTE_MAX`` (the control fault's reported), and the logits
+    at the kernel path's routing within ``MOE_F32_LOGIT_REL_TOL`` of the
+    largest."""
+    import numpy as np
+
+    from tensorflowonspark_torch.models.registry import build_apply
+
+    x = np.stack(rows + [rows[-1]] * (MAX_BATCH - len(rows)))
+    kernel = build_apply({**MOE_CONFIG, "bf16": False}, device=device)
+    k_routes = RoutingRecorder(kernel.model)
+    lk = kernel(variables, x)
+    routing = list(k_routes.last)
+    del kernel, k_routes
+    plain = build_apply({**MOE_CONFIG, "bf16": False, "attn_impl": "xla"}, device=device)
+    p_routes = RoutingRecorder(plain.model)
+    plain(variables, x)
+    flips = routing_flips(routing, p_routes.last)
+    drops, free_drops = drops_of(routing, MOE_CONFIG), drops_of(p_routes.last, MOE_CONFIG)
+    with causal_leak(plain.model):
+        plain(variables, x)
+    control = routing_flips(routing, p_routes.last)
+    set_replay(plain.model, routing)
+    lp = plain(variables, x)
+    del plain, p_routes
+    scale = lp.abs().max().item()
+    err = (lk - lp).abs().max().item()
+    worst = max(flips) / x.size
+    log(f"[moe-slice] f32 (3xTF32 kernel vs plain attention): routing free, tokens "
+        f"with another top-2 set per layer {flips} (worst share {worst:.5f}, limit "
+        f"{MOE_F32_REROUTE_MAX}), control {control}, drops {drops} vs {free_drops}; "
+        f"at the kernel's routing max logit err {err:.2e} of {scale:.3f} (limit "
+        f"{MOE_F32_LOGIT_REL_TOL} x)")
+    if worst > MOE_F32_REROUTE_MAX:
+        raise AssertionError(f"the f32 kernel path routes {worst:.5f} of a layer's "
+                             f"tokens otherwise than plain attention")
+    if err > MOE_F32_LOGIT_REL_TOL * scale:
+        raise AssertionError("the f32 MoE paths part at one routing")
+    return {"free_route_flips": flips, "control_flips": control, "drops": drops,
+            "free_drops": free_drops, "logit_rel_err": err / scale}
+
+
+def moe_flops(model, batch: int) -> tuple[float, str]:
+    """Model FLOPs of one train step of the MoE LM at ``batch`` x
+    ``SEQ_LEN``: 6 x the parameters a token is routed through (all but the
+    embedding, with ``top_k / n_experts`` of the expert stacks; the lm_head
+    counted) x tokens, plus the attention's as in ``model_flops``."""
+    s, n_layers = SEQ_LEN, len(model.blocks)
+    h, dh = model.n_heads, model.d_head
+    moe = model.blocks[0].moe
+    share = moe.top_k / moe.n_experts
+    active = 0.0
+    for n, p in model.named_parameters():
+        if n.startswith("embed."):
+            continue
+        active += p.numel() * (share if ".moe.experts_" in n else 1.0)
+    pairs = live_pairs(s, s, True, 0)
+    attn = 3 * 4 * batch * h * dh * pairs * n_layers
+    formula = (f"6 x {active:.0f} active params (non-embedding, experts at "
+               f"top-{moe.top_k}/{moe.n_experts}, lm_head) x {batch * s} tokens + "
+               f"3 x 4 x B {batch} x H {h} x Dh {dh} x {pairs} causal pairs x "
+               f"{n_layers} layers")
+    return 6 * active * batch * s + attn, formula
+
+
+def phase_moe_train(seed: int, smi: str, device: str = "cuda") -> dict:
+    """``make_train_step`` with AdamW on the MoE LM at full width, B =
+    ``MOE_TRAIN_BATCH``, one batch resident: ``MOE_WARMUP`` + ``MOE_TIMED``
+    steps; finite losses, aux and router-z losses, a falling loss, n_layers
+    launches a step; step ms, tokens/s, the FLOPs share (active
+    parameters), peak memory; one step's loss and gradients against plain
+    attention."""
+    import numpy as np
+    import torch
+
+    from examples_torch.llm.train_lm import synthetic_ids
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.parallel import dp
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = make_train_model(MOE_CONFIG, seed + 21, device)
+    optimizer = dp.adamw(model.parameters(), TRAIN_LR)
+    loss_fn = tfm.make_loss_fn(model)
+    step = dp.make_train_step(loss_fn, optimizer)
+    state = dp.TrainState.create(model, optimizer)
+    ids = synthetic_ids(MOE_TRAIN_BATCH, SEQ_LEN, MOE_CONFIG["vocab_size"], seed)
+    batch = {"input_ids": torch.from_numpy(ids).to(device)}
+    n_steps = MOE_WARMUP + MOE_TIMED
+    log(f"[moe-train] {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M f32 "
+        f"master params, bf16 compute, B={MOE_TRAIN_BATCH} S={SEQ_LEN}, AdamW lr "
+        f"{TRAIN_LR}, {MOE_WARMUP} warm-up + {MOE_TIMED} timed steps")
+    metrics = []
+    reset_launches()
+    for i in range(n_steps):
+        if i == MOE_WARMUP and cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t_host = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append(m)
+    if cuda:
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / MOE_TIMED
+    launches = att.LAUNCHES["flash_attn_fwd"]
+    want = MOE_CONFIG["n_layers"] * n_steps if cuda else 0
+    series = {k: [m[k].item() for m in metrics] for k in ("loss", "aux_loss", "router_z_loss")}
+    log("[moe-train] losses: " + ", ".join(f"{x:.4f}" for x in series["loss"]))
+    log(f"[moe-train] aux_loss {series['aux_loss'][0]:.4f} -> {series['aux_loss'][-1]:.4f}, "
+        f"router_z_loss {series['router_z_loss'][0]:.4f} -> {series['router_z_loss'][-1]:.4f}")
+    if not all(np.isfinite(v).all() for v in series.values()):
+        raise AssertionError("a MoE loss, aux loss or router-z loss is not finite")
+    if not series["loss"][-1] < series["loss"][0]:
+        raise AssertionError(f"MoE loss did not fall: {series['loss'][0]:.4f} -> "
+                             f"{series['loss'][-1]:.4f}")
+    if launches != want:
+        raise AssertionError(f"[moe-train] launches {launches}, expected {want}")
+    record = {"launches": launches, "batch": MOE_TRAIN_BATCH, **series}
+    if cuda:
+        step_ms = start.elapsed_time(end) / MOE_TIMED
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tokens = MOE_TRAIN_BATCH * SEQ_LEN
+        flops, formula = moe_flops(model, MOE_TRAIN_BATCH)
+        mfu = flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS
+        log(f"[moe-train] step {step_ms:.2f} ms on the card (CUDA events over "
+            f"{MOE_TIMED} steps; host {host_ms:.2f} ms per step), "
+            f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
+            f"model FLOPs {flops / 1e12:.3f} TFLOP = {formula}; share of "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s: {mfu:.4f} ({smi})")
+        split = train_split(model, optimizer, loss_fn, batch)
+        backward = backward_top_ops(model, loss_fn, batch)
+        log(f"[moe-train] split forward {split['fwd_ms']:.2f} / backward "
+            f"{split['bwd_ms']:.2f} / optimizer {split['opt_ms']:.2f} ms (median of "
+            f"{SPLIT_STEPS}); the backward's costliest ops by self device time "
+            f"(torch.profiler) {json.dumps(backward)} ({smi})")
+        split["backward_top_ops_ms"] = backward
+        record.update(step_ms=step_ms, host_ms=host_ms, tokens_per_s=tokens / step_ms * 1e3,
+                      peak_gb=peak_gb, model_tflop=flops / 1e12, mfu=mfu, **split)
+    del optimizer, state, step
+    k_routes = RoutingRecorder(model)
+    loss, grads = loss_and_grads(model, loss_fn, batch)
+    routing = list(k_routes.last)
+    with torch.device(device):
+        plain = tfm.build_transformer({**MOE_CONFIG, "attn_impl": "xla"})
+    plain.load_state_dict(model.state_dict())
+    del model, k_routes
+    plain_fn = tfm.make_loss_fn(plain)
+    p_routes = RoutingRecorder(plain)
+    free_loss, free_grads = loss_and_grads(plain, plain_fn, batch)
+    flips = routing_flips(routing, p_routes.last)
+    p_routes.remove()
+    worst_share = max(flips) / ids.size
+    free_err = grad_disagreement(free_grads, grads)[0]
+    del free_grads
+    set_replay(plain, routing)  # plain attention at the kernel step's routing
+    plain_loss, plain_grads = loss_and_grads(plain, plain_fn, batch)
+    del plain
+    loss_err = abs(plain_loss - loss) / abs(loss)
+    grad_err, worst = grad_disagreement(grads, plain_grads)
+    log(f"[moe-train] one step, plain attention at the kernel step's routing vs "
+        f"the kernel's: loss {plain_loss:.5f} vs {loss:.5f} (rel {loss_err:.2e}, limit "
+        f"{LOSS_REL_TOL}); worst gradient rel L2 error {grad_err:.3e} at {worst} "
+        f"(limit {GRAD_REL_TOL}); routing free: tokens with another top-2 set per "
+        f"layer {flips} (worst share {worst_share:.4f}, limit {MOE_BF16_REROUTE_MAX}), "
+        f"loss {free_loss:.5f}, worst gradient rel L2 error {free_err:.3e}")
+    if loss_err > LOSS_REL_TOL or grad_err > GRAD_REL_TOL:
+        raise AssertionError("the MoE step with the kernel disagrees with plain attention")
+    if worst_share > MOE_BF16_REROUTE_MAX:
+        raise AssertionError(f"the kernel step routes {worst_share:.4f} of a layer's "
+                             f"tokens otherwise than plain attention")
+    record.update(grad_rel_err=grad_err, free_route_flips=flips, free_grad_rel_err=free_err)
+    return record
+
+
+def backward_top_ops(model, loss_fn, batch, n: int = 8) -> dict:
+    """The ``n`` aten ops of one backward with the most self device time
+    (ms, ``torch.profiler``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = loss_fn(model, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    ops = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0}
+    for p in model.parameters():
+        p.grad = None
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1])[:n])
+
+
+def phase_ring_hops(seed: int, smi: str, device: str = "cuda") -> dict:
+    """Ring attention's hop loop (``parallel.sp.ring_hops``, the loop
+    ``ring_attention`` runs over a ``torch.distributed`` ring) at the
+    serving shape cut into ``RING_SHARDS`` sequence shards held in one
+    process: every hop is one kernel launch at the ring's global
+    ``kv_offset`` (zero, negative, and fully masked future chunks), merged
+    in f32.  O and lse against one causal kernel call over the whole
+    sequence; the gradients of q, k and v through O and lse against the
+    plain version's (``chunk_attention`` over the whole sequence)."""
+    import torch
+
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.parallel.sp import ring_hops
+
+    cuda = device == "cuda"
+    b, s, h, d = RING_SHAPE
+    n = RING_SHARDS
+    gen = torch.Generator(device=device).manual_seed(seed + 17)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+               for _ in range(3))
+
+    def run(q, k, v):
+        qs, ks, vs = (x.chunk(n, dim=1) for x in (q, k, v))
+        outs, lses = [], []
+        for i in range(n):
+            o, lse = ring_hops(qs[i], lambda hop, i=i: (ks[(i - hop) % n], vs[(i - hop) % n]),
+                               i, n, causal=True)
+            outs.append(o)
+            lses.append(lse)
+        return torch.cat(outs, 1), torch.cat(lses, 1)
+
+    reset_launches()
+    with torch.no_grad():
+        out, lse = run(q, k, v)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = att.LAUNCHES["flash_attn_fwd"]
+    want = n * n if cuda else 0
+    if launches != want or att.LAUNCHES["flash_attn_fwd_tf32"]:
+        raise AssertionError(f"[ring] launches {att.LAUNCHES}, expected {want} of "
+                             "flash_attn_fwd")
+    with torch.no_grad():
+        ref_o, ref_lse = att.flash_attention_fwd(q, k, v, causal=True)
+    o_err = (out.float() - ref_o.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    torch.testing.assert_close(out.float(), ref_o.float(), **O_TOL)
+    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+
+    g_o = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+    g_l = torch.randn((b, s, h), generator=gen, device=device)
+    grads = {}
+    for name in ("ring", "plain"):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        if name == "ring":
+            before = att.LAUNCHES["flash_attn_fwd"]
+            o2, l2 = run(*xs)
+            grad_launches = att.LAUNCHES["flash_attn_fwd"] - before
+        else:
+            o2, l2 = att.chunk_attention(*xs, causal=True)
+        ((o2.float() * g_o.float()).sum() + (l2 * g_l).sum()).backward()
+        grads[name] = {c: x.grad for c, x in zip("qkv", xs)}
+    grad_err, worst = grad_disagreement(grads["ring"], grads["plain"])
+    log(f"[ring] {n} shards of {s // n} (B={b} H={h} D={d} causal bf16): {launches} "
+        f"launches ({grad_launches} more under autograd); O max err {o_err:.4f}, lse "
+        f"{lse_err:.4f} against one causal kernel call; gradients through O and lse "
+        f"against the plain version: worst rel L2 {grad_err:.3e} at {worst} (limit "
+        f"{GRAD_REL_TOL})")
+    if grad_err > GRAD_REL_TOL:
+        raise AssertionError("ring gradients disagree with the plain version's")
+    record = {"launches": launches, "o_max_err": o_err, "lse_max_err": lse_err,
+              "grad_rel_err": grad_err}
+    if cuda:
+        with torch.no_grad():
+            ring_ms = time_ms(lambda: run(q, k, v), reps=5, windows=3, warmup=1)[0]
+            full_ms = time_ms(lambda: att.flash_attention_fwd(q, k, v, causal=True),
+                              reps=10, windows=3, warmup=1)[0]
+        log(f"[ring] the {n * n} hops with their merges {ring_ms:.3f} ms against "
+            f"one call over the whole sequence {full_ms:.3f} ms (CUDA events; {smi})")
+        record.update(ring_ms=ring_ms, full_ms=full_ms)
+    return record
 
 
 def conv_dense_flops(model, image) -> tuple[float, int]:
@@ -2479,6 +3056,22 @@ def main() -> int:
             record[f"train_d{dim}"] = steps["flash_attn_fwd"]
             tf32[f"d{dim}_launches"] = steps["flash_attn_fwd_tf32"].pop("launches")
             tf32[f"train_d{dim}_f32"] = steps["flash_attn_fwd_tf32"]
+        # the MoE LM served and trained, and ring attention's hops
+        torch.cuda.empty_cache()
+        t_moe = time.perf_counter()
+        moe = phase_moe_slice(args.seed, smi)
+        record["moe_launches"] = moe.pop("launches")
+        record["moe"] = moe
+        torch.cuda.empty_cache()
+        moe_train = phase_moe_train(args.seed, smi)
+        record["moe_train_launches"] = moe_train.pop("launches")
+        record["moe_train"] = moe_train
+        torch.cuda.empty_cache()
+        ring = phase_ring_hops(args.seed, smi)
+        record["ring_launches"] = ring.pop("launches")
+        record["ring"] = ring
+        log(f"[moe] the MoE and ring phases took {time.perf_counter() - t_moe:.1f} s "
+            f"(host clock; {smi})")
         # the image families: no image model reaches either kernel
         torch.cuda.empty_cache()
         t_images = time.perf_counter()

@@ -43,7 +43,7 @@ def main(argv=None) -> dict:
     if args.fsdp > 1:
         raise NotImplementedError(
             "--fsdp > 1 (sharded parameters) is not ported yet: ROADMAP.md "
-            "queue 1 (e), the torch device mesh with MoE and parallel/*")
+            "queue 1 (l), pipeline parallelism and SPMD scoring over a mesh")
     if args.profile_dir:
         raise NotImplementedError(
             "--profile-dir is not ported yet: ROADMAP.md queue 1 (f), "

@@ -353,7 +353,8 @@ def chief_save(ctx, manager: CheckpointManager, step: int, tree: Any,
     just written.
 
     The reference's second regime, a collective save of state sharded across
-    processes, comes with ROADMAP.md queue 1 (e) (DTensor/FSDP2).
+    processes, is not ported (ROADMAP.md queue 1 (l)): a ``shard_model``-ed
+    model saves through ``parallel.tp.full_parameters`` gathered whole.
     """
     if ctx.executor_id == 0:
         manager.save(step, tree)

@@ -12,6 +12,11 @@ The transformer:
 | ``lm_head/kernel``             | [D, V]     | ``lm_head.weight`` [V, D]           |
 | ``embed/embedding``            | [V, D]     | ``embed.weight`` [V, D]             |
 | ``*_norm/scale``               | [D]        | ``*_norm.scale`` [D]                |
+| ``moe/router/kernel``          | [D, E]     | ``moe.router.weight`` [E, D]        |
+| ``moe/experts_{gate,up}``      | [E, D, F]  | ``moe.experts_{gate,up}`` [E, D, F] |
+| ``moe/experts_down``           | [E, F, D]  | ``moe.experts_down`` [E, F, D]      |
+
+A MoE block (``n_experts > 0``) has ``moe`` where a dense one has ``mlp``.
 
 ``block_{i}`` in the tree is ``blocks.{i}`` in the state dict.  A
 ``{name: grad}`` dict of a trained model converts like its state dict, so
@@ -61,6 +66,7 @@ import torch
 
 _QKV = ("q_proj", "k_proj", "v_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
+_EXPERTS = ("experts_gate", "experts_up", "experts_down")  # flax's layout both sides
 
 
 def _tensor(x) -> torch.Tensor:
@@ -110,18 +116,21 @@ def flax_to_torch(variables: dict, config: dict | None = None) -> dict[str, torc
     i = 0
     while f"block_{i}" in params:
         blk = params[f"block_{i}"]
-        if "moe" in blk:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet: ROADMAP.md queue 1 (e)")
         pre = f"blocks.{i}."
         for name in _QKV:
             w = _tensor(blk["attn"][name]["kernel"])                # [D, H, Dh]
             out[pre + f"attn.{name}.weight"] = w.reshape(w.shape[0], -1).T.contiguous()
         w = _tensor(blk["attn"]["o_proj"]["kernel"])                # [H, Dh, D]
         out[pre + "attn.o_proj.weight"] = w.reshape(-1, w.shape[-1]).T.contiguous()
-        for name in _MLP:
-            out[pre + f"mlp.{name}.weight"] = \
-                _tensor(blk["mlp"][name]["kernel"]).T.contiguous()
+        if "moe" in blk:
+            moe = blk["moe"]
+            out[pre + "moe.router.weight"] = _tensor(moe["router"]["kernel"]).T.contiguous()
+            for name in _EXPERTS:
+                out[pre + f"moe.{name}"] = _tensor(moe[name])
+        else:
+            for name in _MLP:
+                out[pre + f"mlp.{name}.weight"] = \
+                    _tensor(blk["mlp"][name]["kernel"]).T.contiguous()
         for norm in ("attn_norm", "mlp_norm"):
             out[pre + f"{norm}.scale"] = _tensor(blk[norm]["scale"])
         i += 1
@@ -164,11 +173,18 @@ def torch_to_flax(state: dict, n_heads: int | None = None,
             w.T.reshape(n_heads, -1, w.shape[0]))}
         tree[f"block_{i}"] = {
             "attn": attn,
-            "mlp": {name: {"kernel": np.ascontiguousarray(
-                _numpy(state[pre + f"mlp.{name}.weight"]).T)} for name in _MLP},
             "attn_norm": {"scale": _numpy(state[pre + "attn_norm.scale"])},
             "mlp_norm": {"scale": _numpy(state[pre + "mlp_norm.scale"])},
         }
+        if pre + "moe.router.weight" in state:
+            tree[f"block_{i}"]["moe"] = {
+                "router": {"kernel": np.ascontiguousarray(
+                    _numpy(state[pre + "moe.router.weight"]).T)},
+                **{name: _numpy(state[pre + f"moe.{name}"]) for name in _EXPERTS}}
+        else:
+            tree[f"block_{i}"]["mlp"] = {
+                name: {"kernel": np.ascontiguousarray(
+                    _numpy(state[pre + f"mlp.{name}.weight"]).T)} for name in _MLP}
         i += 1
     tree["final_norm"] = {"scale": _numpy(state["final_norm.scale"])}
     tree["lm_head"] = {"kernel": np.ascontiguousarray(

@@ -17,11 +17,25 @@ recompute backward) for ``attn_impl`` in ``auto``/``pallas``/
 ``forward`` selects the decode path (``Attention._decode_step``: plain
 einsum attention over the cache, as in the JAX package).  Parameter names
 follow the flax module names (``convert.py`` maps them).
+
+``n_experts > 0`` replaces each block's SwiGLU by ``parallel.ep.MoEMLP``
+(top-``moe_top_k`` routing); its two auxiliary losses come back through
+``forward(..., aux_loss={})`` (the JAX package's ``aux_loss`` collection),
+and ``make_loss_fn`` weights them.  Under a mesh (``mesh=``, and the
+parameters cut by ``parallel.tp.shard_model``) the layers issue the
+collectives of their sharding: heads, the MLP's ``F`` and the vocab over
+``tp`` (Megatron), experts over ``ep``, the MoE routing the global batch
+as the JAX package does (``parallel/ep.py``); with ``attn_impl`` ``ring`` or
+``ulysses`` the sequence is split over ``sp`` at the embedding, RoPE takes
+the global positions, attention goes round the ``sp`` group
+(``parallel/sp.py``) and the logits are gathered whole again (the loss
+takes each rank's own block of them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -38,6 +52,10 @@ from tensorflowonspark_torch.ops.attention import (
     mha_reference,
 )
 from tensorflowonspark_torch.ops.xent import blockwise_cross_entropy
+from tensorflowonspark_torch.parallel import mesh as meshlib
+from tensorflowonspark_torch.parallel.ep import MoEMLP
+from tensorflowonspark_torch.parallel.sp import sequence_parallel_attention
+from tensorflowonspark_torch.parallel.tp import P, constrain, copy_to, gather_from, reduce_from
 
 _ATTN = {
     "auto": flash_attention,
@@ -78,14 +96,27 @@ class Dense(nn.Linear):
 
 
 class Embed(nn.Embedding):
-    """``nn.Embedding`` whose rows come out in ``compute_dtype``."""
+    """``nn.Embedding`` whose rows come out in ``compute_dtype``.  Under
+    ``tp`` it holds a block of the vocab: ids outside it give zero rows and
+    the blocks' rows are summed over ``tp``."""
+
+    tp_group = None  # set by parallel.tp.shard_model
 
     def __init__(self, vocab: int, dim: int, compute_dtype):
         super().__init__(vocab, dim)
         self.compute_dtype = compute_dtype
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight).to(self.compute_dtype)
+        if self.tp_group is None:
+            return F.embedding(ids, self.weight).to(self.compute_dtype)
+        import torch.distributed as dist
+
+        rows = self.weight.shape[0]
+        local = ids.long() - dist.get_rank(self.tp_group) * rows
+        inside = (local >= 0) & (local < rows)
+        x = F.embedding(torch.where(inside, local, 0), self.weight)
+        x = torch.where(inside[..., None], x, 0.0)
+        return reduce_from(x, self.tp_group).to(self.compute_dtype)
 
 
 class RMSNorm(nn.Module):
@@ -101,39 +132,55 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
+    """Under ``tp`` the projections hold this rank's heads (the q/k/v rows,
+    the o_proj columns): the input's gradient is summed over ``tp`` and
+    the output's partial sums too."""
+
+    tp_group = None  # set by parallel.tp.shard_model
+
     def __init__(self, d_model: int, n_heads: int, d_head: int,
                  rope_theta: float = 10000.0, attn_impl: str = "auto",
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, mesh=None):
         super().__init__()
         if attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r} (sequence parallelism) is not ported "
-                "yet: ROADMAP.md queue 1 (e), MoE and parallel/*")
-        if attn_impl not in _ATTN:
+            if mesh is None:
+                raise ValueError("ring/ulysses attention needs mesh=")
+            self.attend = functools.partial(sequence_parallel_attention, mesh,
+                                            impl=attn_impl)
+        elif attn_impl in _ATTN:
+            self.attend = _ATTN[attn_impl]
+        else:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         self.n_heads, self.d_head = n_heads, d_head
         self.rope_theta = rope_theta
         self.compute_dtype = compute_dtype
-        self.attend = _ATTN[attn_impl]
+        # this rank's block of the sequence (its first token's global
+        # position is sp_index · S_local)
+        self.sp_index = (meshlib.axis_index(mesh, "sp")
+                         if attn_impl in ("ring", "ulysses") else 0)
         width = n_heads * d_head
         self.q_proj = Dense(d_model, width, compute_dtype)
         self.k_proj = Dense(d_model, width, compute_dtype)
         self.v_proj = Dense(d_model, width, compute_dtype)
         self.o_proj = Dense(width, d_model, compute_dtype)
 
+    def local_heads(self) -> int:
+        return self.q_proj.weight.shape[0] // self.d_head
+
     def forward(self, x, kv=None):
         b, s, _ = x.shape
-        shape = (b, s, self.n_heads, self.d_head)
+        x = copy_to(x, self.tp_group)
+        shape = (b, s, self.local_heads(), self.d_head)
         q = self.q_proj(x).view(shape)
         k = self.k_proj(x).view(shape)
         v = self.v_proj(x).view(shape)
         if kv is not None:
             return self._decode_step(q, k, v, *kv)
-        positions = torch.arange(s, device=x.device)
+        positions = self.sp_index * s + torch.arange(s, device=x.device)
         q = apply_rope(q, positions, self.rope_theta)
         k = apply_rope(k, positions, self.rope_theta)
         out = self.attend(q, k, v, causal=True)
-        return self.o_proj(out.reshape(b, s, -1))
+        return reduce_from(self.o_proj(out.reshape(b, s, -1)), self.tp_group)
 
     def _decode_step(self, q, k, v, cache_k, cache_v, cur: int):
         """``s`` tokens through the static ``[B, L, H, D]`` cache: writes
@@ -152,10 +199,15 @@ class Attention(nn.Module):
         keep = torch.arange(cur + s, device=q.device)[None, :] <= pos[:, None]
         logits = torch.where(keep, logits, NEG_INF)
         out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), values)
-        return self.o_proj(out.to(self.compute_dtype).reshape(b, s, -1))
+        return reduce_from(self.o_proj(out.to(self.compute_dtype).reshape(b, s, -1)),
+                           self.tp_group)
 
 
 class SwiGLU(nn.Module):
+    """Under ``tp``: gate/up column-parallel, down row-parallel."""
+
+    tp_group = None  # set by parallel.tp.shard_model
+
     def __init__(self, d_model: int, d_ff: int, compute_dtype=torch.bfloat16):
         super().__init__()
         self.gate_proj = Dense(d_model, d_ff, compute_dtype)
@@ -163,23 +215,39 @@ class SwiGLU(nn.Module):
         self.down_proj = Dense(d_ff, d_model, compute_dtype)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = copy_to(x, self.tp_group)
+        return reduce_from(self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
+                           self.tp_group)
 
 
 class Block(nn.Module):
+    """Pre-norm attention and FFN; ``forward`` returns ``(x, aux)``, with
+    ``aux`` the MoE's auxiliary losses (``None`` for a dense block)."""
+
     def __init__(self, d_model: int, n_heads: int, d_head: int, d_ff: int,
                  rope_theta: float = 10000.0, attn_impl: str = "auto",
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, n_experts: int = 0,
+                 moe_top_k: int = 2, mesh=None):
         super().__init__()
         self.attn_norm = RMSNorm(d_model)
         self.attn = Attention(d_model, n_heads, d_head, rope_theta, attn_impl,
-                              compute_dtype)
+                              compute_dtype, mesh)
         self.mlp_norm = RMSNorm(d_model)
-        self.mlp = SwiGLU(d_model, d_ff, compute_dtype)
+        if n_experts:
+            # under a mesh the MoE routes the global batch (its token group)
+            self.moe = MoEMLP(d_model, d_ff, n_experts, moe_top_k,
+                              compute_dtype=compute_dtype, mesh=mesh,
+                              seq_parallel=attn_impl in ("ring", "ulysses"))
+        else:
+            self.mlp = SwiGLU(d_model, d_ff, compute_dtype)
 
     def forward(self, x, kv=None):
         x = x + self.attn(self.attn_norm(x), kv)
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if not hasattr(self, "moe"):
+            return x + self.mlp(h), None
+        y, aux = self.moe(h)
+        return x + y, aux
 
 
 @dataclasses.dataclass
@@ -195,7 +263,8 @@ class KVCache:
 
     @classmethod
     def empty(cls, model: "Transformer", batch: int, max_len: int, device=None):
-        shape = (batch, max_len, model.n_heads, model.d_head)
+        # this rank's heads under tp
+        shape = (batch, max_len, model.blocks[0].attn.local_heads(), model.d_head)
         dev = device if device is not None else model.embed.weight.device
 
         def buf():
@@ -218,48 +287,80 @@ class Transformer(nn.Module):
     ``remat`` recomputes each block's activations in the backward
     (``torch.utils.checkpoint``, the JAX package's ``nn.remat``).
     Parameters are created f32 with torch's default init; ``init_weights``
-    draws flax's distributions from a ``torch.Generator``."""
+    draws flax's distributions from a ``torch.Generator``.
+
+    ``aux_loss``: a dict that ``forward`` fills with the MoE blocks'
+    auxiliary losses, ``{"load_balance": [one per block], "router_z":
+    [...]}`` (block outputs, so a remat recompute adds nothing).  Under
+    ``mesh`` with ``sp > 1`` (``attn_impl`` ``ring``/``ulysses``) a rank
+    takes its rows' whole sequence and returns whole logits
+    (``gather_seq=False``: its own block of the sequence, as the loss
+    takes them); the vocab split over ``tp`` is gathered."""
+
+    tp_group = None  # set by parallel.tp.shard_model (the lm_head's vocab split)
 
     def __init__(self, vocab_size: int, d_model: int, n_layers: int,
                  n_heads: int, d_head: int = 0, d_ff: int = 0,
-                 n_experts: int = 0, rope_theta: float = 10000.0,
-                 attn_impl: str = "auto", compute_dtype=torch.bfloat16,
-                 remat: bool = False):
+                 n_experts: int = 0, moe_top_k: int = 2,
+                 rope_theta: float = 10000.0, attn_impl: str = "auto",
+                 mesh=None, compute_dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
-        if n_experts:
-            raise NotImplementedError(
-                "n_experts > 0 (MoE) is not ported yet: ROADMAP.md queue 1 (e), "
-                "MoE and parallel/*")
         self.n_heads = n_heads
         self.d_head = d_head or d_model // n_heads
+        self.n_experts = n_experts
         self.compute_dtype = compute_dtype
         self.remat = remat
+        self.mesh = mesh
+        self.seq_parallel = attn_impl in ("ring", "ulysses")
+        if meshlib.axis_size(mesh, "sp") > 1 and not self.seq_parallel:
+            raise ValueError("a mesh with sp > 1 needs attn_impl ring or ulysses")
+        self.sp_group = meshlib.group(mesh, "sp") if self.seq_parallel else None
         dff = d_ff or 4 * d_model
         self.embed = Embed(vocab_size, d_model, compute_dtype)
         self.blocks = nn.ModuleList(
             Block(d_model, n_heads, self.d_head, dff, rope_theta, attn_impl,
-                  compute_dtype)
+                  compute_dtype, n_experts, moe_top_k, mesh)
             for _ in range(n_layers))
         self.final_norm = RMSNorm(d_model)
         self.lm_head = Dense(d_model, vocab_size, compute_dtype)
 
     def forward(self, input_ids, cache: KVCache | None = None, *,
-                return_hidden: bool = False):
-        x = self.embed(input_ids)
+                return_hidden: bool = False, aux_loss: dict | None = None,
+                gather_seq: bool = True):
+        terms = []
         if cache is not None:
+            if self.sp_group is not None:
+                raise ValueError("the decode path does not split the sequence "
+                                 "(sp > 1)")
+            x = self.embed(input_ids)
             s = input_ids.shape[1]
             if cache.index + s > cache.max_len:
                 raise ValueError(f"cache holds {cache.max_len} positions; "
                                  f"{cache.index} used, {s} more asked")
             for i, block in enumerate(self.blocks):
-                x = block(x, (cache.k[i], cache.v[i], cache.index))
+                x, aux = block(x, (cache.k[i], cache.v[i], cache.index))
+                terms.append(aux)
             cache.index += s
         else:
+            x = self.embed(constrain(input_ids, P(None, "sp"), self.mesh)
+                           if self.sp_group is not None else input_ids)
             remat = self.remat and torch.is_grad_enabled()
             for block in self.blocks:
-                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+                x, aux = (checkpoint(block, x, use_reentrant=False) if remat
+                          else block(x))
+                terms.append(aux)
+        if aux_loss is not None:
+            for aux in terms:
+                for key, value in (aux or {}).items():
+                    aux_loss.setdefault(key, []).append(value)
         x = self.final_norm(x)
-        out = x if return_hidden else self.lm_head(x).float()
+        if return_hidden:
+            out = gather_from(x, 1, self.sp_group)
+        else:
+            logits = self.lm_head(copy_to(x, self.tp_group)).float()
+            out = gather_from(logits, -1, self.tp_group)
+            if gather_seq:
+                out = gather_from(out, 1, self.sp_group)
         return out if cache is None else (out, cache)
 
     @torch.no_grad()
@@ -267,9 +368,12 @@ class Transformer(nn.Module):
         """flax's initialisers, drawn from ``generator`` (on the weights'
         device): ``Dense``/``DenseGeneral`` kernels ``lecun_normal`` (std
         1/sqrt(fan_in), fan_in = H·Dh for ``o_proj``), ``Embed`` a normal of
-        std 1/sqrt(d_model), norm scales 1."""
+        std 1/sqrt(d_model), norm scales 1; the MoE's as
+        ``MoEMLP.init_weights``."""
         for module in self.modules():
-            if isinstance(module, Dense):
+            if isinstance(module, MoEMLP):
+                module.init_weights(generator)
+            elif isinstance(module, Dense):
                 std = module.weight.shape[1] ** -0.5 / _TRUNC_STD
                 nn.init.trunc_normal_(module.weight, std=std, a=-2 * std,
                                       b=2 * std, generator=generator)
@@ -281,11 +385,13 @@ class Transformer(nn.Module):
         return self
 
     def cast_matrices_(self) -> "Transformer":
-        """Cast the matrices (not the norm scales) to the compute type in
-        place: serving's cast-once-at-load."""
+        """Cast the matrices (not the norm scales, not the MoE's f32
+        router) to the compute type in place: serving's cast-once-at-load."""
         for module in self.modules():
             if isinstance(module, (Dense, Embed)):
                 module.to(self.compute_dtype)
+            elif isinstance(module, MoEMLP):
+                module.cast_experts_()
         return self
 
 
@@ -299,6 +405,7 @@ def build_transformer(config: dict) -> Transformer:
         d_head=int(config.get("d_head", 0)),
         d_ff=int(config.get("d_ff", 0)),
         n_experts=int(config.get("n_experts", 0)),
+        moe_top_k=int(config.get("moe_top_k", 2)),
         rope_theta=float(config.get("rope_theta", 10000.0)),
         attn_impl=config.get("attn_impl", "auto"),
         compute_dtype=torch.bfloat16 if config.get("bf16", True) else torch.float32,
@@ -415,38 +522,75 @@ def make_loss_fn(model: Transformer, aux_loss_coef: float = 0.01,
     optional ``"loss_mask"`` ``[B, S]`` over which the loss is averaged.
 
     ``vocab_chunk > 0`` fuses the lm_head product into
-    ``blockwise_cross_entropy``: the ``[B, S, V]`` logits are never made.
-    ``metrics`` holds ``lm_loss``, ``aux_loss`` and ``router_z_loss``; the
-    two MoE terms (weighted by ``aux_loss_coef`` and ``router_z_coef``) are
-    zero until MoE is ported (ROADMAP.md queue 1 (e))."""
+    ``blockwise_cross_entropy``: the ``[B, S, V]`` logits are never made
+    (not under ``tp`` or ``sp``, whose logits are split).  Under ``sp``
+    each rank takes the logits of its own block of the sequence, and the
+    nll sums are added over ``sp`` (``_seq_sharded``).  ``metrics``
+    holds ``lm_loss``, ``aux_loss`` and ``router_z_loss``: the MoE blocks'
+    ``load_balance`` terms summed (weighted by ``aux_loss_coef``) and their
+    ``router_z`` terms summed (by ``router_z_coef``), zero for a dense
+    model."""
     if not isinstance(model, Transformer):
         raise TypeError(f"make_loss_fn takes a Transformer, got {type(model).__name__}")
+    if vocab_chunk and (model.tp_group is not None or model.sp_group is not None):
+        raise ValueError("vocab_chunk fuses an unsplit lm_head; under tp or sp "
+                         "use the dense loss")
 
-    def _reduce(nll, batch):
+    def _reduce(nll, batch, collected):
+        """``nll`` [B, S-1], or already the lm loss (a scalar)."""
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=nll.device)[:, 1:].float()
             loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
         else:
-            loss = nll.mean()
-        aux = z = nll.new_zeros(())  # MoE's load-balance and router-z sums
+            loss = nll.mean()  # a scalar is its own mean
+        zero = nll.new_zeros(())
+        aux = sum(collected.get("load_balance", []), zero)
+        z = sum(collected.get("router_z", []), zero)
         total = loss + aux_loss_coef * aux + router_z_coef * z
         return total, {"lm_loss": loss, "aux_loss": aux, "router_z_loss": z}
 
     def loss_fn(m: Transformer, batch):
         ids = torch.as_tensor(batch["input_ids"], device=m.embed.weight.device)
         targets = ids[:, 1:].long()
+        collected: dict = {}
         if vocab_chunk:
-            h = m(ids, return_hidden=True)
+            h = m(ids, return_hidden=True, aux_loss=collected)
             b, s, d = h.shape
             kernel = m.lm_head.weight.to(h.dtype).t()              # [D, V]
             nll = blockwise_cross_entropy(h[:, :-1].reshape(b * (s - 1), d),
                                           kernel, targets.reshape(-1),
                                           chunk=vocab_chunk)
-            return _reduce(nll.view(b, s - 1), batch)
-        logits = m(ids)[:, :-1]
+            return _reduce(nll.view(b, s - 1), batch, collected)
+        if m.sp_group is not None:
+            return _seq_sharded(m, ids, batch, collected)
+        logits = m(ids, aux_loss=collected)[:, :-1]
         nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                               targets.reshape(-1), reduction="none")
-        return _reduce(nll.view(targets.shape), batch)
+        return _reduce(nll.view(targets.shape), batch, collected)
+
+    def _seq_sharded(m, ids, batch, collected):
+        """Under ``sp``: the logits of this rank's block of the sequence
+        only, its positions' nll summed over ``sp`` (each rank's gradient
+        is its own positions', which the train step sums over ``sp``)
+        and divided by the global count."""
+        import torch.distributed as dist
+
+        logits = m(ids, aux_loss=collected, gather_seq=False)
+        s_loc = logits.shape[1]
+        start = dist.get_rank(m.sp_group) * s_loc
+        targets = ids[:, start + 1:start + s_loc + 1].long()  # the last position has none
+        n_t = targets.shape[1]
+        nll = F.cross_entropy(logits[:, :n_t].reshape(-1, logits.shape[-1]),
+                              targets.reshape(-1), reduction="none").view(targets.shape)
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=nll.device)[:, 1:].float()
+            count = mask.sum().clamp(min=1.0)
+            nll = nll * mask[:, start:start + n_t]
+        else:
+            count = ids.shape[0] * (ids.shape[1] - 1)
+        loss = reduce_from(nll.sum(), m.sp_group) / count
+        return _reduce(loss, {}, collected)
 
     return loss_fn

@@ -207,13 +207,15 @@ class NodeContext:
 
     # -- mesh / SPMD ---------------------------------------------------------
 
-    def make_mesh(self, **axis_sizes: int):
-        """A named device mesh over this process's devices — the JAX
-        package's ``parallel.mesh.make_mesh``.  The torch device mesh is
-        not ported yet (ROADMAP.md queue 1 (e), MoE and ``parallel/*``)."""
-        raise NotImplementedError(
-            "ctx.make_mesh is not ported yet: ROADMAP.md queue 1 (e), the "
-            "torch device mesh with MoE and parallel/*")
+    def make_mesh(self, device=None, **axis_sizes: int):
+        """A named ``DeviceMesh`` over the ``torch.distributed`` world
+        (``run(torch_distributed=True)`` forms it, one device per node
+        process), or over this process's device alone without one — the
+        JAX package's ``parallel.mesh.make_mesh``.  ``device`` as
+        ``parallel.mesh.make_mesh`` takes it (default ``cuda``)."""
+        from tensorflowonspark_torch.parallel.mesh import make_mesh
+
+        return make_mesh(device, **axis_sizes)
 
     # -- global consensus (sync SPMD end-of-data, SURVEY.md §7.3-1) ----------
 

@@ -26,7 +26,7 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
   counterpart of the JAX package's ``custom_vjp`` ``_flash_attention_tpu``:
   the same forward, and a backward that recomputes through
   ``blockwise_attention`` from the saved ``q, k, v`` (there is no backward
-  kernel, in the reference either).
+  kernel, in the reference either), through ``out`` and ``lse`` both.
 
 All softmax accumulation is float32 whatever the input type.
 """
@@ -130,9 +130,11 @@ def _online_block(o, m, l, q, kc, vc, start, *, causal, scale, kv_offset):
 
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         sm_scale: float | None = None, block_k: int = 512,
-                        kv_offset: int = 0):
+                        kv_offset: int = 0, return_lse: bool = False):
     """Online-softmax attention as a loop over key blocks: memory stays
-    O(Sq·block_k) instead of O(Sq·Sk).
+    O(Sq·block_k) instead of O(Sq·Sk).  ``return_lse`` returns ``(out,
+    lse)`` with ``lse`` as ``chunk_attention`` gives it (``[B, Sq, H]``
+    f32, ``NEG_INF`` on a fully masked row), differentiable too.
 
     Each block step runs under ``torch.utils.checkpoint`` (the JAX scan's
     ``jax.checkpoint``): when autograd records the loop, only the carries
@@ -149,8 +151,12 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
             _online_block, o, m, l, q, k[:, start:start + block_k],
             v[:, start:start + block_k], start, use_reentrant=False,
             causal=causal, scale=scale, kv_offset=kv_offset)
-    o = o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
-    return o.to(q.dtype)
+    l_safe = torch.clamp(l, min=1e-30)
+    o = (o / l_safe.transpose(1, 2)[..., None]).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(l > 0.0, m + torch.log(l_safe), NEG_INF)
+    return o, lse.transpose(1, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -328,26 +334,35 @@ class FlashAttention(torch.autograd.Function):
 
     Forward: the kernel for a CUDA tensor, ``chunk_attention`` for a CPU
     tensor; it saves only ``q, k, v``.  Backward: the VJP of
-    ``blockwise_attention`` with ``block_k=BWD_BLOCK_K`` and the same
-    ``causal``, ``sm_scale`` and ``kv_offset``, each block checkpointed, so
-    its memory is O(Sq·block_k).  ``lse`` carries no gradient."""
+    ``blockwise_attention`` (``block_k=BWD_BLOCK_K``, the same ``causal``,
+    ``sm_scale`` and ``kv_offset``, each block checkpointed, so its memory
+    is O(Sq·block_k)) through ``out`` and through ``lse`` — ring attention
+    merges chunks by their ``lse``, and ``d lse / d logits`` is the row's
+    softmax.  A cotangent nobody produced (``lse`` unused, the usual
+    case) costs nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, kv_offset, impl):
         out, lse = _forward(q, k, v, causal, sm_scale, kv_offset, impl)
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, sm_scale, kv_offset)
-        ctx.mark_non_differentiable(lse)
+        ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
-    def backward(ctx, g_out, _g_lse):
+    def backward(ctx, g_out, g_lse):
         causal, sm_scale, kv_offset = ctx.args
         q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
         with torch.enable_grad():
-            out = blockwise_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                      block_k=BWD_BLOCK_K, kv_offset=kv_offset)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g_out)
+            out, lse = blockwise_attention(q, k, v, causal=causal,
+                                           sm_scale=sm_scale, block_k=BWD_BLOCK_K,
+                                           kv_offset=kv_offset, return_lse=True)
+            pairs = [(t, g) for t, g in ((out, g_out), (lse, g_lse)) if g is not None]
+            if not pairs:
+                return None, None, None, None, None, None, None
+            # v is unused when only lse has a cotangent
+            dq, dk, dv = torch.autograd.grad([t for t, _ in pairs], (q, k, v),
+                                             [g for _, g in pairs], allow_unused=True)
         return dq, dk, dv, None, None, None, None
 
 

@@ -1,3 +1,5 @@
-"""Training steps and their data feed — counterpart of
-``tensorflowonspark_tpu/parallel``.  Ported so far: ``dp`` on one device
-(``mesh``, ``tp``, ``sp``, ``ep`` and ``pp`` wait for ROADMAP.md queue 1 (e))."""
+"""Training steps, their data feed and the device mesh — counterpart of
+``tensorflowonspark_tpu/parallel``: ``dp`` (train steps, over a mesh too),
+``mesh`` (a ``DeviceMesh`` named by ``AXES``), ``tp`` (Megatron layouts and
+their collectives, ``shard_model``), ``sp`` (ring and Ulysses attention) and
+``ep`` (the MoE FFN).  ``pp`` is not ported yet (ROADMAP.md queue 1 (l))."""

@@ -1,5 +1,5 @@
 """Training step, eval step and batch feed — counterpart of
-``tensorflowonspark_tpu/parallel/dp.py`` on one device.
+``tensorflowonspark_tpu/parallel/dp.py``.
 
 Usage::
 
@@ -18,8 +18,17 @@ step (``make_bn_train_step``): its running statistics are module buffers
 that the train-mode forward moves, and they travel in
 ``model.state_dict()``.
 
-Not ported yet: the mesh (``mesh=``, ``replicate``, sharded batches),
-ROADMAP.md queue 1 (e).
+Over a device mesh (``parallel/mesh.py``): ``replicate`` puts the model
+(or a tree) on the mesh's device with rank 0's values everywhere,
+``make_batch_iterator(mesh=...)`` hands each rank its own rows
+(``shard_batch``), and ``make_train_step(..., mesh=mesh)`` sums each
+gradient over the ranks that computed parts of it (``dp``, ``fsdp`` unless
+the parameter is sharded there, ``sp``) and divides by the batch ranks, so
+the step equals the single-device step over the global batch::
+
+    mesh = make_mesh(dp=-1, tp=2)
+    model = shard_model(replicate(model, mesh), mesh)
+    step = make_train_step(loss_fn, optimizer, mesh=mesh)
 """
 
 from __future__ import annotations
@@ -72,6 +81,77 @@ class TrainState(NamedTuple):
         return self._replace(step=int(tree["step"]))
 
 
+def replicate(tree: Any, mesh) -> Any:
+    """Place a model or a ``{name: tensor}`` tree on the mesh's device,
+    every rank holding global rank 0's values (a broadcast over the world
+    when the mesh spans processes).  A module's parameters and buffers move
+    in place (``p.data``), so an optimizer built on them stays valid; a
+    tree comes back as fresh tensors."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_torch.parallel.mesh import device_of, is_multiprocess
+
+    dev = device_of(mesh)
+    spread = is_multiprocess(mesh)
+    if isinstance(tree, torch.nn.Module):
+        with torch.no_grad():
+            for t in list(tree.parameters()) + list(tree.buffers()):
+                t.data = t.data.to(dev)
+                if spread:
+                    dist.broadcast(t.data, src=0)
+        return tree
+    out = {k: torch.as_tensor(v).to(dev).clone() for k, v in tree.items()}
+    if spread:
+        for t in out.values():
+            dist.broadcast(t, src=0)
+    return out
+
+
+def _mesh_grad_sync(model: torch.nn.Module, mesh, named: list) -> None:
+    """Each gradient summed over the ranks that computed parts of it — the
+    batch ranks (``dp``, and ``fsdp`` unless the parameter is sharded
+    there, where its gather's backward has summed already) and the ``sp``
+    ranks (each saw part of the sequence) — and divided by the number of
+    batch ranks (each loss is its own rows' mean).  ``tp`` and ``ep``
+    shards, and the parameters replicated over them, come out of the
+    backward whole."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_torch.parallel.mesh import axis_size, group
+    from tensorflowonspark_torch.parallel.tp import param_name
+
+    shardings = getattr(model, "tos_shardings", {})
+    n = axis_size(mesh, "dp", "fsdp")
+    for name, p in named:
+        if p.grad is None:
+            continue
+        s = shardings.get(param_name(name))
+        on_fsdp = s is not None and any("fsdp" in s.axes_of(d) for d in range(p.dim()))
+        grp = group(mesh, *(("dp", "sp") if on_fsdp else ("dp", "fsdp", "sp")))
+        if grp is not None:
+            dist.all_reduce(p.grad, group=grp)
+        if n > 1:
+            p.grad /= n
+
+
+def _mesh_metrics(metrics: dict, mesh) -> dict:
+    """Metrics averaged over the batch ranks (each rank's are its rows')."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_torch.parallel.mesh import axis_size, group
+
+    grp = group(mesh, "dp", "fsdp")
+    if grp is None:
+        return metrics
+    n = axis_size(mesh, "dp", "fsdp")
+    out = {}
+    for k, v in metrics.items():
+        v = v.detach().float().clone()
+        dist.all_reduce(v, group=grp)
+        out[k] = v / n
+    return out
+
+
 def _to_device(batch: Any, device) -> Any:
     if isinstance(batch, dict):
         return {k: _to_device(v, device) for k, v in batch.items()}
@@ -94,6 +174,7 @@ def make_train_step(
     optimizer: torch.optim.Optimizer,
     accum_steps: int = 1,
     cross_host_grad_fn: Callable[[dict], dict] | None = None,
+    mesh=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """Build the train step ``step(state, batch) -> (state, metrics)``.
 
@@ -111,6 +192,15 @@ def make_train_step(
     ``cross_host_grad_fn`` is applied to the ``{name: grad}`` dict between
     the backward and the update (e.g. an all-reduce across hosts); the
     gradients it returns are the ones applied.
+
+    ``mesh``: the batch is this rank's rows (``shard_batch``) and the model
+    may be cut by ``tp.shard_model``; after the backward each gradient is
+    summed over the ranks that computed parts of it and divided by the
+    batch ranks (``_mesh_grad_sync``), and the metrics are averaged over
+    the batch ranks, so a dp × tp × fsdp (× sp, × ep) step equals the
+    single-device step over the concatenated batch (for a plain mean loss;
+    a ``loss_mask`` with uneven counts across ranks weights as
+    ``accum_steps`` does).
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -136,6 +226,9 @@ def make_train_step(
                 if p.grad is not None:
                     p.grad /= accum_steps
             msum = {k: v / accum_steps for k, v in msum.items()}
+        if mesh is not None:
+            _mesh_grad_sync(model, mesh, named)
+            msum = _mesh_metrics(msum, mesh)
         if cross_host_grad_fn is not None:
             grads = cross_host_grad_fn({n: p.grad for n, p in named})
             for n, p in named:
@@ -213,19 +306,31 @@ def make_batch_iterator(
     Weighting caveat: padded rows and filler rows enter the loss mean like
     real rows; use ``n`` to weight or skip such updates.
 
-    ``mesh=`` (batches sharded over a device mesh) is not ported yet.
+    ``mesh``: each batch goes through ``mesh.shard_batch`` (this rank's
+    rows on the mesh's device; ranks that differ only off the batch axes
+    take the first one's) on the consumer's thread, since collectives must
+    keep one order on every rank; ``lockstep`` defaults to whether the mesh
+    spans processes.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (sharded batches) is not ported yet: parallel/mesh.py is "
-            "ROADMAP.md queue 1 (e), MoE and parallel/*")
+    if lockstep is None and mesh is not None:
+        from tensorflowonspark_torch.parallel.mesh import is_multiprocess
+
+        lockstep = is_multiprocess(mesh)
     inner = _batch_iterator(feed, batch_size, to_arrays, ctx, pad_to_batch,
                             -1 if max_steps is None else int(max_steps),
                             lockstep)
-    if prefetch <= 0:
+    if prefetch > 0:
+        inner = _prefetch_iterator(inner, prefetch)
+    if mesh is None:
         yield from inner
         return
-    yield from _prefetch_iterator(inner, prefetch)
+    from tensorflowonspark_torch.parallel.mesh import shard_batch
+
+    try:
+        for batch, n in inner:
+            yield shard_batch(mesh, batch), n
+    finally:
+        inner.close()
 
 
 def _prefetch_iterator(inner, depth: int):

@@ -21,7 +21,7 @@ reference used for its per-executor SavedModel singleton.
 
 Not ported yet: DIRECT ``fit`` onto the ledger-driven ingest feed (the
 ingest tier, ROADMAP.md queue 1 (i)), and ``scoring="sharded"`` (SPMD
-scoring over one device mesh, queue 1 (e)); both raise
+scoring over one device mesh, queue 1 (l)); both raise
 ``NotImplementedError``.
 """
 
@@ -442,7 +442,7 @@ class TorchModel(TorchParams):
 
         ``scoring="sharded"`` (the JAX package's SPMD scorer over one global
         mesh, ``sharded_bundle_inference_loop``) is not ported yet and
-        raises ``NotImplementedError`` (ROADMAP.md queue 1 (e)).
+        raises ``NotImplementedError`` (ROADMAP.md queue 1 (l)).
         """
         from tensorflowonspark_torch.inference import bundle_inference_loop
 
@@ -466,7 +466,7 @@ class TorchModel(TorchParams):
             raise NotImplementedError(
                 "scoring='sharded' (SPMD scoring over one device mesh, "
                 "sharded_bundle_inference_loop) is not ported yet: ROADMAP.md "
-                "queue 1 (e), MoE and parallel/*")
+                "queue 1 (l), pipeline parallelism and SPMD scoring over a mesh")
         # One-pass input read: capture rows WHILE they stream to the scoring
         # nodes, so partitions are consumed exactly once (no double IO on
         # file-backed datasets; consume-once generator partitions work).

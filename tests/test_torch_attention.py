@@ -505,12 +505,14 @@ def test_attention_function_forward_saves_only_qkv_and_inference_skips_it():
     q, k, v = (x.requires_grad_() for x in _t(*make_qkv(b=1, s=24, h=2, d=8)))
     out, lse = ta.flash_attention_fwd(q, k, v, causal=True)
     assert len(out.grad_fn.saved_tensors) == 3
-    assert not lse.requires_grad  # lse carries no gradient
+    # lse carries its gradient too (ring attention merges chunks by it),
+    # through the same node of the graph
+    assert lse.requires_grad and lse.grad_fn is out.grad_fn
     with torch.no_grad():
         o2, l2 = ta.flash_attention_fwd(q, k, v, causal=True)
     assert o2.grad_fn is None
     np.testing.assert_array_equal(o2.numpy(), out.detach().numpy())
-    np.testing.assert_array_equal(l2.numpy(), lse.numpy())
+    np.testing.assert_array_equal(l2.numpy(), lse.detach().numpy())
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -526,3 +528,50 @@ def test_checkpointed_blockwise_grads_match_jax_blockwise(causal):
     ta.blockwise_attention(tq, tk, tv, causal=causal, block_k=16).sum().backward()
     for tgrad, jgrad in zip((tq.grad, tk.grad, tv.grad), jgrads):
         np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), **GRAD_TOL)
+
+
+LSE_GRAD_CASES = {**GRAD_CASES, "all_future": (1, 8, 2, 8, 8, True, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(LSE_GRAD_CASES))
+def test_attention_grads_through_out_and_lse_match_jax_chunk(case):
+    """``FlashAttention``'s backward takes the ``lse`` cotangent: gradients
+    of a loss on both outputs equal those of the JAX package's plain,
+    differentiable ``chunk_attention`` (what its ring attention merges),
+    fully masked chunks included (their ``lse`` is NEG_INF, and a finite
+    cotangent on it moves nothing)."""
+    import jax
+
+    b, s, h, d, sk, causal, off = LSE_GRAD_CASES[case]
+    q, k, v = make_qkv(b=b, s=s, h=h, d=d, sk=sk, seed=8)
+    rng = np.random.RandomState(9)
+    g_o = rng.randn(*q.shape).astype(np.float32)
+    g_l = rng.randn(b, s, h).astype(np.float32)
+
+    def jloss(q, k, v):
+        o, lse = ja.chunk_attention(q, k, v, causal=causal, kv_offset=off)
+        return (o * g_o).sum() + (jnp.maximum(lse, -1e4) * g_l).sum()
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    o, lse = ta.flash_attention_fwd(tq, tk, tv, causal=causal, kv_offset=off)
+    assert "FlashAttention" in type(lse.grad_fn).__name__
+    ((o * torch.from_numpy(g_o)).sum()
+     + (lse.clamp(min=-1e4) * torch.from_numpy(g_l)).sum()).backward()
+    for tgrad, jgrad in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), **GRAD_TOL)
+
+
+def test_lse_only_cotangent_is_the_softmax_weighted_keys():
+    """A loss on ``lse`` alone (no ``out`` cotangent): d lse / d q is the
+    row's softmax over ``scale · k``, held against autograd of the dense
+    logsumexp."""
+    q, k, v = _t(*make_qkv(b=1, s=12, h=2, d=8, seed=10))
+    q.requires_grad_()
+    _, lse = ta.flash_attention_fwd(q, k, v, causal=True)
+    lse.sum().backward()
+    q2 = q.detach().clone().requires_grad_()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q2, k) / math.sqrt(8)
+    keep = torch.arange(12)[None, :] <= torch.arange(12)[:, None]
+    torch.logsumexp(torch.where(keep, logits, -torch.inf), dim=-1).sum().backward()
+    np.testing.assert_allclose(q.grad.numpy(), q2.grad.numpy(), **GRAD_TOL)

@@ -415,3 +415,53 @@ def test_cuda_all_reduce_tree_returns_cuda_tensors():
     assert out["h"].device.type == "cuda" and out["h"].dtype == torch.bfloat16
     assert out["cpu"].device.type == "cpu"
     torch.testing.assert_close(out["w"], tree["w"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,k,e,cap", [(8192, 2, 8, 2560), (16384, 2, 8, 5120),
+                                       (4096, 2, 8, 600), (333, 1, 4, 40)])
+def test_cuda_moe_dispatch_matches_cpu(n, k, e, cap):
+    """``_sorted_dispatch`` on the card gives the CPU's slots, source tokens,
+    gates and keep flags exactly, at the MoE slice's shapes (n = B·S at
+    B=4 and 8, S=2048; capacity 2560 and 5120) and with forced overflow."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tensorflowonspark_torch.parallel import ep
+
+    g = torch.Generator().manual_seed(n + cap)
+    logits = torch.randn((n, e), generator=g) * 2
+    # a few exact ties too: rows of equal logits
+    logits[: n // 16] = 0.0
+    top_p, top_idx = ep.top_k(torch.softmax(logits, -1), k)
+    want = ep._sorted_dispatch(top_idx, top_p, cap, e)
+    # the card's own top-k picks the same experts (its softmax may differ
+    # from the CPU's in the last bit, never across a tie: ties are exact)
+    _, cuda_idx = ep.top_k(torch.softmax(logits.cuda(), -1), k)
+    torch.testing.assert_close(cuda_idx.cpu(), top_idx, rtol=0, atol=0)
+    got = ep._sorted_dispatch(top_idx.cuda(), top_p.cuda(), cap, e)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("off", [0, -64, 64])
+def test_cuda_lse_gradient_matches_plain_version(off):
+    """The kernel's autograd function carries the lse cotangent: gradients
+    of a loss on O and lse (a ring hop's use of them) against autograd of
+    the plain ``chunk_attention``, including a fully masked chunk (off 64
+    at S=64) and a chunk of the past (off -64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((2, 64, 4, 128), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    g_o = torch.randn((2, 64, 4, 128), generator=g, device="cuda").to(torch.bfloat16)
+    g_l = torch.randn((2, 64, 4), generator=g, device="cuda")
+    grads = []
+    for fn in (ta.flash_attention_fwd, ta.chunk_attention):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        o, lse = fn(*xs, causal=True, kv_offset=off)
+        ((o.float() * g_o.float()).sum() + (lse.clamp(min=-1e4) * g_l).sum()).backward()
+        grads.append([x.grad.float() for x in xs])
+    # the kernel's forward rounds P and O to bf16 where the plain one
+    # keeps f32; both backwards are the same recompute: 2% relative L2
+    for a, b in zip(*grads):
+        assert (a - b).norm().item() <= 2e-2 * b.norm().item() + 1e-6

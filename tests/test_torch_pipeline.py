@@ -150,7 +150,7 @@ class TestFitTransform:
         m = pipeline.TorchModel()
         m.set("export_dir", "/nonexistent")
         m.setNumExecutors(2).setScoring("sharded")
-        with pytest.raises(NotImplementedError, match=r"queue 1 \(e\)"):
+        with pytest.raises(NotImplementedError, match=r"queue 1 \(l\)"):
             m.transform(PartitionedDataset.from_iterable(list(range(8)), 2))
 
     def test_estimator_requires_export_dir(self):

@@ -280,10 +280,18 @@ def test_batch_iterator_prefetch_abandoned_consumer_unblocks():
     assert threading.active_count() <= before, "prefetch thread leaked"
 
 
+class _FourRankMesh:
+    """Stands for a mesh over 4 processes (``mesh.is_multiprocess``)."""
+
+    mesh = torch.arange(4)
+
+
+# the ids are the cases' names from before the mesh was ported, when a mesh
+# raised NotImplementedError; a mesh over processes now needs ctx, as lockstep
 @pytest.mark.parametrize("kwargs,exc,match", [
-    ({"mesh": object()}, NotImplementedError, "queue 1 \\(e\\)"),
+    ({"mesh": _FourRankMesh()}, ValueError, "requires ctx"),
     ({"lockstep": True}, ValueError, "requires ctx"),
-])
+], ids=["kwargs0-NotImplementedError-queue 1 \\(e\\)", "kwargs1-ValueError-requires ctx"])
 def test_batch_iterator_refuses_what_it_cannot_do(kwargs, exc, match):
     with pytest.raises(exc, match=match):
         next(tdp.make_batch_iterator(feed_with([1, 2]), 2, np.asarray,
@@ -330,12 +338,30 @@ def test_train_lm_example_runs_on_cpu(capsys):
     assert np.isfinite(out["loss"]) and out["generated"].shape == (1, 11)
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--sp", "2"], ["--ep", "2"],
-                                  ["--pp", "2"], ["--n-experts", "4"],
-                                  ["--profile-dir", "x"]])
-def test_train_lm_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+# --pp and --profile-dir are not ported (their ROADMAP items); --tp, --sp
+# and --ep are, and refuse a mesh the world of one process cannot hold, as
+# the JAX example does on one device; --n-experts is, and refuses top-2 of 1
+@pytest.mark.parametrize("flag,exc,match", [
+    (["--tp", "2"], ValueError, "1 devices not divisible"),
+    (["--sp", "2"], ValueError, "1 devices not divisible"),
+    (["--ep", "2"], ValueError, "1 devices not divisible"),
+    (["--pp", "2"], NotImplementedError, "ROADMAP.md queue 1 \\(l\\)"),
+    (["--n-experts", "1"], ValueError, "top_k 2"),
+    (["--profile-dir", "x"], NotImplementedError, "ROADMAP.md queue 1 \\(f\\)"),
+], ids=[f"flag{i}" for i in range(6)])
+def test_train_lm_unported_flags_raise(flag, exc, match):
+    with pytest.raises(exc, match=match):
         _train_lm().main(TINY + ["--device", "cpu"] + flag)
+
+
+def test_train_lm_moe_runs_on_cpu(capsys):
+    """``--n-experts``: the MoE LM trains, its aux losses reported."""
+    out = _train_lm().main(TINY + ["--device", "cpu", "--steps", "3",
+                                   "--n-experts", "4", "--generate", "2"])
+    text = capsys.readouterr().out
+    assert "aux_loss=" in text and out["aux_loss"] > 0 and out["router_z_loss"] > 0
+    assert np.isfinite(out["loss"]) and out["loss"] < out["first_loss"]
+    assert out["generated"].shape == (1, 10)
 
 
 def test_train_lm_defaults_to_cuda_and_raises_without_it():

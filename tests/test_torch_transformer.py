@@ -1,7 +1,7 @@
 """Port ``Transformer`` against the JAX package's (``attn_impl=
 "pallas_interpret"``, so the JAX side runs its Pallas kernel), weights moved
-through ``convert.py``; plus the converter's round trip and the NotImplemented
-edges of the slice.  The decode path is held against JAX in
+through ``convert.py``; plus the converter's round trip and the options
+``build_transformer`` refuses.  The decode path is held against JAX in
 ``tests/test_torch_decode.py``."""
 
 import jax
@@ -117,13 +117,17 @@ def test_pad_and_pack_batch_match_jax():
         np.testing.assert_array_equal(a[key], b[key])
 
 
+# MoE and sequence parallelism are ported (tests/test_torch_moe.py and
+# tests/test_torch_parallel.py); what build_transformer still refuses is what
+# the JAX package refuses: top-2 routing over one expert, and ring or
+# Ulysses attention without a mesh.  The ids are the cases' old names.
 @pytest.mark.parametrize("cfg,match", [
-    ({"n_experts": 4}, "MoE"),
-    ({"attn_impl": "ring"}, "sequence parallelism"),
-    ({"attn_impl": "ulysses"}, "sequence parallelism"),
-])
+    ({"n_experts": 1}, "top_k 2"),
+    ({"attn_impl": "ring"}, "needs mesh="),
+    ({"attn_impl": "ulysses"}, "needs mesh="),
+], ids=["cfg0-MoE", "cfg1-sequence parallelism", "cfg2-sequence parallelism"])
 def test_unported_options_raise_not_implemented(cfg, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         ttfm.build_transformer({**SMALL, **cfg})
 
 
