@@ -151,6 +151,22 @@ Phases (any failure propagates and the script exits non-zero):
    answering through the gateway's lookup fan-out, held against the dense
    apply over the reassembled table.  No config-4 path reaches an attention
    kernel: the phases check that none launched in this process.
+24. pp — the LM at full width (``LM_CONFIG``) cut into 4 pipeline stages
+   of 2 blocks (``examples_torch/llm/train_lm.PipelinedLM``, the 1F1B
+   schedule of ``parallel.pp`` with every stage in this process), B=8 in
+   4 microbatches: its loss and the stage, head and embedding gradients
+   against the sequential step of the same weights (``make_loss_fn``), the
+   kernel's launches (a forward and a recompute per block per microbatch,
+   2·n_layers·m), the same pipeline with plain attention (``attn_impl:
+   xla``), then AdamW steps timed (ms a step, tokens/s, the GPipe bubble
+   share, peak memory); and an f32 pipeline at 2 layers of the same width
+   (through the 3xTF32 kernel) against its sequential step within 1e-4;
+25. sharded scoring — ``TorchModel.transform(scoring="sharded")`` on a
+   one-node ``torch_distributed`` cluster: the full-width LM bundle
+   (``inference.sharded_bundle_inference_loop``) scores 16 rows of 2048
+   ids in batches of 4 with ``postprocess="argmax"``, every row's ids
+   equal to ``scoring="task"``'s on the same bundle; the node's kernel
+   launches (n_layers a batch) and each transform's seconds.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -388,6 +404,21 @@ MOE_F32_LOGIT_REL_TOL = 1e-3
 # through O and lse against the plain version's with GRAD_REL_TOL
 RING_SHAPE = (4, 2048, 8, 128)
 RING_SHARDS = 4
+# pipeline parallelism: the LM at full width in PP_STAGES stages of
+# n_layers / PP_STAGES blocks, PP_BATCH rows in PP_MICRO microbatches, the
+# 1F1B schedule with every stage in this process.  Pipeline and sequential
+# step see the same rows and round in bf16 at other places (microbatches
+# of 2 rows against one batch of 8): loss within LOSS_REL_TOL, each group's
+# gradients (stages, head, embedding) within GRAD_REL_TOL (relative L2).
+# The f32 run (PP_F32_LAYERS layers, the 3xTF32 kernel) holds them to
+# PP_F32_TOL: only the order of f32 sums differs.
+PP_STAGES, PP_BATCH, PP_MICRO = 4, 8, 4
+PP_WARMUP, PP_TIMED = 1, 3
+PP_F32_LAYERS, PP_F32_BATCH, PP_F32_MICRO = 2, 4, 2
+PP_F32_TOL = 1e-4
+# sharded scoring: SCORE_ROWS rows of SEQ_LEN ids in SCORE_PARTS partitions
+# through TorchModel.transform on one node, batches of SCORE_BATCH rows
+SCORE_ROWS, SCORE_PARTS, SCORE_BATCH = 16, 4, 4
 
 
 def log(msg: str) -> None:
@@ -2123,6 +2154,236 @@ def phase_ring_hops(seed: int, smi: str, device: str = "cuda") -> dict:
     return record
 
 
+def pp_named_grads(grads: dict, per_stage: int) -> dict:
+    """``PipelinedLM.loss_and_grads``'s gradients under the whole model's
+    parameter names."""
+    out = {**grads["head"], "embed.weight": grads["embed"]}
+    for name, g in grads["stages"].items():
+        _, j, rest = name.split(".", 2)
+        for i in range(g.shape[0]):
+            out[f"blocks.{i * per_stage + int(j)}.{rest}"] = g[i]
+    return out
+
+
+def group_rel_l2(got: dict, want: dict) -> dict:
+    """The relative L2 error of each group of gradients (the stages'
+    blocks, the head, the embedding) over all its parameters at once."""
+    groups = {"stages": lambda n: n.startswith("blocks."),
+              "head": lambda n: n in ("final_norm.scale", "lm_head.weight"),
+              "embed": lambda n: n == "embed.weight"}
+    out = {}
+    for group, member in groups.items():
+        names = [n for n in want if member(n)]
+        num = sum(((got[n].float() - want[n].float()).norm() ** 2).item() for n in names)
+        den = sum((want[n].float().norm() ** 2).item() for n in names)
+        out[group] = math.sqrt(num / max(den, 1e-60))
+    return out
+
+
+def pp_against_sequential(cfg: dict, seed: int, rows: int, stages: int, micro: int,
+                          route: str, device: str) -> dict:
+    """One 1F1B pass of ``cfg`` (``PipelinedLM`` on a one-rank mesh: every
+    stage in this process) against the sequential loss and gradients of the
+    same weights; every count set to 0 just before the pipelined pass and
+    read just after (2·n_layers·micro launches of ``route`` on the card).
+    Returns the numbers and ``(lm, ids)`` for timing."""
+    import torch
+
+    from examples_torch.llm.train_lm import PipelinedLM, synthetic_ids
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.parallel.mesh import make_mesh
+
+    model = make_train_model(cfg, seed, device)
+    ids = torch.from_numpy(synthetic_ids(rows, SEQ_LEN, cfg["vocab_size"], seed)).to(device)
+    seq_loss, seq_grads = loss_and_grads(model, tfm.make_loss_fn(model), {"input_ids": ids})
+    lm = PipelinedLM(model, make_mesh(device), stages, micro, lr=TRAIN_LR)
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = lm.loss_and_grads(ids)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    launched = dict(att.LAUNCHES)
+    want = 2 * cfg["n_layers"] * micro if device == "cuda" else 0  # no kernel on the CPU
+    if launched != {n: want if n == route else 0 for n in att.LAUNCHES}:
+        raise AssertionError(f"pp pass: launches {launched}, expected {want} of {route} "
+                             "(a forward and a recompute per block per microbatch)")
+    loss = loss.item()
+    if not math.isfinite(loss):
+        raise AssertionError(f"pp pass: loss {loss}")
+    named = pp_named_grads(grads, cfg["n_layers"] // stages)
+    if set(named) != set(seq_grads):
+        raise AssertionError(f"pp gradients name {sorted(set(named) ^ set(seq_grads))}")
+    out = {"launches": launched[route], "loss": loss, "seq_loss": seq_loss,
+           "loss_rel_err": abs(loss - seq_loss) / abs(seq_loss),
+           "grad_rel_err": group_rel_l2(named, seq_grads),
+           "worst_param": grad_disagreement(named, seq_grads), "pass_ms": pass_s * 1e3}
+    del seq_grads, grads, named
+    return {**out, "model": model, "lm": lm, "ids": ids}
+
+
+def phase_pp(seed: int, smi: str, device: str = "cuda") -> dict:
+    """Pipeline parallelism at the LM's full width (module docstring, 24)."""
+    import torch
+
+    from examples_torch.llm.train_lm import PipelinedLM
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.parallel.mesh import make_mesh
+
+    cuda = device == "cuda"
+    cfg = LM_CONFIG
+    s, m = PP_STAGES, PP_MICRO
+    run = pp_against_sequential(cfg, seed + 23, PP_BATCH, s, m, "flash_attn_fwd", device)
+    model, lm, ids = run.pop("model"), run.pop("lm"), run.pop("ids")
+    errs = run["grad_rel_err"]
+    bubble = (s - 1) / (m + s - 1)
+    log(f"[pp] 1F1B, {s} stages of {cfg['n_layers'] // s} blocks in one process, B={PP_BATCH} "
+        f"S={SEQ_LEN} in {m} microbatches (bubble {bubble:.4f}): {run['launches']} launches "
+        f"of flash_attn_fwd (2 x {cfg['n_layers']} layers x {m}); loss {run['loss']:.5f} "
+        f"against the sequential step's {run['seq_loss']:.5f} (rel {run['loss_rel_err']:.2e}, "
+        f"limit {LOSS_REL_TOL}); gradients rel L2 stages {errs['stages']:.3e}, head "
+        f"{errs['head']:.3e}, embedding {errs['embed']:.3e} (limit {GRAD_REL_TOL}; worst "
+        f"parameter {run['worst_param'][0]:.3e} at {run['worst_param'][1]}); one pass "
+        f"{run['pass_ms']:.1f} ms host clock ({smi})")
+    if run["loss_rel_err"] > LOSS_REL_TOL or max(errs.values()) > GRAD_REL_TOL:
+        raise AssertionError("the pipelined step disagrees with the sequential one")
+
+    # the same pipeline with plain attention: no launch, the same numbers
+    with torch.device(device):
+        plain = tfm.build_transformer({**cfg, "attn_impl": "xla"})
+    plain.load_state_dict(model.state_dict())
+    plain_lm = PipelinedLM(plain, make_mesh(device), s, m, lr=TRAIN_LR)
+    del plain
+    reset_launches()
+    p_loss, p_grads = plain_lm.loss_and_grads(ids)
+    if any(att.LAUNCHES.values()):
+        raise AssertionError(f"the plain pipeline launched a kernel: {att.LAUNCHES}")
+    _, k_grads = lm.loss_and_grads(ids)
+    per = cfg["n_layers"] // s
+    p_errs = group_rel_l2(pp_named_grads(k_grads, per), pp_named_grads(p_grads, per))
+    p_loss = p_loss.item()
+    p_loss_err = abs(run["loss"] - p_loss) / abs(p_loss)
+    del plain_lm, p_grads, k_grads
+    log(f"[pp] against plain attention (attn_impl xla) through the same pipeline: loss "
+        f"{p_loss:.5f} (rel {p_loss_err:.2e}), gradients rel L2 stages "
+        f"{p_errs['stages']:.3e}, head {p_errs['head']:.3e}, embedding {p_errs['embed']:.3e}")
+    if p_loss_err > LOSS_REL_TOL or max(p_errs.values()) > GRAD_REL_TOL:
+        raise AssertionError("the pipelined step disagrees with plain attention")
+    record = {**run, "bubble": bubble, "stages": s, "microbatches": m, "batch": PP_BATCH,
+              "plain_loss_rel_err": p_loss_err, "plain_grad_rel_err": p_errs}
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(PP_WARMUP):
+            lm.step(ids)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_launches()
+        losses = []
+        start.record()
+        t_host = time.perf_counter()
+        for _ in range(PP_TIMED):
+            losses.append(lm.step(ids))
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / PP_TIMED
+        per_step = att.LAUNCHES["flash_attn_fwd"] / PP_TIMED
+        step_ms = start.elapsed_time(end) / PP_TIMED
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tokens = PP_BATCH * SEQ_LEN
+        losses = [x.item() for x in losses]
+        log(f"[pp] AdamW steps: {step_ms:.2f} ms a step (CUDA events over {PP_TIMED} "
+            f"steps; host {host_ms:.2f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, bubble "
+            f"{bubble:.4f}, peak memory {peak_gb:.2f} GB, {per_step:g} launches a step; "
+            "losses " + ", ".join(f"{x:.4f}" for x in losses) + f" ({smi})")
+        if per_step != run["launches"] or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"pp steps: {per_step} launches a step, losses {losses}")
+        # the card's busy time in one step (torch.profiler), against the step
+        census = profile_census(lambda: lm.step(ids))
+        idle = max(0.0, 1.0 - census["device_ms"] / step_ms)
+        log(f"[pp] one step's kernels: {census['device_ms']:.2f} ms of device time, idle "
+            f"share {idle:.4f} of the step; costliest ops (ms) "
+            + json.dumps({k: round(v, 2) for k, v in census["top_other_ms"].items()}))
+        record.update(step_ms=step_ms, host_ms=host_ms, tokens_per_s=tokens / step_ms * 1e3,
+                      peak_gb=peak_gb, launches_per_step=per_step, step_losses=losses,
+                      device_busy_ms=census["device_ms"], idle_share=idle,
+                      top_ops_ms=census["top_other_ms"])
+    del lm
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # f32 at PP_F32_LAYERS layers of the same width, through the 3xTF32 kernel
+    f32_cfg = {**cfg, "n_layers": PP_F32_LAYERS, "bf16": False}
+    f32 = pp_against_sequential(f32_cfg, seed + 29, PP_F32_BATCH, PP_F32_LAYERS,
+                                PP_F32_MICRO, "flash_attn_fwd_tf32", device)
+    for key in ("model", "lm", "ids"):
+        f32.pop(key)
+    log(f"[pp-f32] {PP_F32_LAYERS} stages of 1 block, B={PP_F32_BATCH} in {PP_F32_MICRO} "
+        f"microbatches: {f32['launches']} launches of flash_attn_fwd_tf32; loss rel "
+        f"{f32['loss_rel_err']:.2e}, gradients rel L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in f32["grad_rel_err"].items())
+        + f" (limit {PP_F32_TOL}) ({smi})")
+    if f32["loss_rel_err"] > PP_F32_TOL or max(f32["grad_rel_err"].values()) > PP_F32_TOL:
+        raise AssertionError("the f32 pipelined step disagrees with the sequential one")
+    record["f32"] = f32
+    return record
+
+
+def phase_sharded_scoring(seed: int, smi: str, device: str = "cuda") -> dict:
+    """``TorchModel.transform`` with ``scoring="sharded"`` against
+    ``scoring="task"`` (module docstring, 25), on the bundle the slice
+    phase left (the cluster phase's reloaded weights)."""
+    import numpy as np
+
+    from examples_torch.llm.train_lm import synthetic_ids
+    from tensorflowonspark_torch.data import PartitionedDataset
+    from tensorflowonspark_torch.pipeline import TorchModel
+
+    export = os.path.join(WORK_DIR, "lm_bundle")
+    ids = synthetic_ids(SCORE_ROWS, SEQ_LEN, LM_CONFIG["vocab_size"], seed + 31)
+    rows = [{"input_ids": ids[i]} for i in range(SCORE_ROWS)]
+    per_batch = LM_CONFIG["n_layers"] if device == "cuda" else 0  # no kernel on the CPU
+    batches = SCORE_ROWS // SCORE_BATCH
+    out, record = {}, {}
+    for scoring in ("sharded", "task"):
+        model = TorchModel(tf_args={"device": device, "postprocess": "argmax"})
+        model.set("export_dir", export).set("torch_distributed", scoring == "sharded")
+        model.set("input_mapping", {"input_ids": "input_ids"})
+        model.setNumExecutors(1).setBatchSize(SCORE_BATCH).setScoring(scoring)
+        model.set("reservation_timeout", 300.0)
+        t0 = time.perf_counter()
+        scored = list(model.transform(PartitionedDataset.from_iterable(rows, SCORE_PARTS)))
+        secs = time.perf_counter() - t0
+        nodes = {k: v for k, v in model.last_cluster_metrics["nodes"].items() if k != "driver"}
+        launches = sum((v.get("counters") or {}).get("attn.flash_fwd_launches", 0)
+                       for v in nodes.values())
+        preds = np.stack([np.asarray(r["prediction"]) for r in scored])
+        log(f"[sharded-scoring] scoring={scoring}: {len(scored)} rows of {SEQ_LEN} ids in "
+            f"{SCORE_PARTS} partitions, batches of {SCORE_BATCH}, argmax: {secs:.2f} s "
+            f"host clock; {launches} kernel launches on the node ({per_batch} a batch) "
+            f"({smi})")
+        if len(scored) != SCORE_ROWS or preds.shape != (SCORE_ROWS, SEQ_LEN):
+            raise AssertionError(f"scoring={scoring}: {len(scored)} rows, ids {preds.shape}")
+        if not all(np.array_equal(r["input_ids"], ids[i]) for i, r in enumerate(scored)):
+            raise AssertionError(f"scoring={scoring}: rows out of order")
+        if preds.min() < 0 or preds.max() >= LM_CONFIG["vocab_size"]:
+            raise AssertionError(f"scoring={scoring}: ids outside the vocab")
+        if launches != per_batch * batches:
+            raise AssertionError(f"scoring={scoring}: {launches} launches, expected "
+                                 f"{per_batch} x {batches} batches")
+        out[scoring] = preds
+        record[scoring] = {"seconds": secs, "launches": launches}
+    if not np.array_equal(out["sharded"], out["task"]):
+        raise AssertionError("sharded scoring's ids differ from task scoring's")
+    log("[sharded-scoring] every row's ids equal between sharded and task scoring")
+    record["launches"] = record["sharded"]["launches"]
+    return record
+
+
 def conv_dense_flops(model, image) -> tuple[float, int]:
     """Forward FLOPs of ``model`` on ``image`` (a one-image NHWC batch),
     counted from the shapes of every ``Conv`` and ``Dense`` it runs (2 per
@@ -3071,6 +3332,21 @@ def main() -> int:
         record["ring_launches"] = ring.pop("launches")
         record["ring"] = ring
         log(f"[moe] the MoE and ring phases took {time.perf_counter() - t_moe:.1f} s "
+            f"(host clock; {smi})")
+        # pipeline parallelism and sharded scoring
+        torch.cuda.empty_cache()
+        t_pp = time.perf_counter()
+        pp = phase_pp(args.seed, smi)
+        f32_pp = pp.pop("f32")
+        record["pp_launches"] = pp.pop("launches")
+        record["pp"] = pp
+        tf32["pp_f32_launches"] = f32_pp.pop("launches")
+        tf32["pp_f32"] = f32_pp
+        torch.cuda.empty_cache()
+        scoring = phase_sharded_scoring(args.seed, smi)
+        record["sharded_scoring_launches"] = scoring.pop("launches")
+        record["sharded_scoring"] = scoring
+        log(f"[pp] the pp and sharded-scoring phases took {time.perf_counter() - t_pp:.1f} s "
             f"(host clock; {smi})")
         # the image families: no image model reaches either kernel
         torch.cuda.empty_cache()

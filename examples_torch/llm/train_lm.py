@@ -35,8 +35,20 @@ the model's parameters are cut by ``parallel.tp.shard_model`` and, with
   python examples_torch/llm/train_lm.py --bf16 --n-experts 8 --vocab-size 32000 \
       --d-model 1024 --n-layers 8 --seq-len 2048 --batch 8 --steps 10
 
-``--pp`` (ROADMAP.md queue 1 (l)) and ``--profile-dir`` (queue 1 (f)) are
-not ported yet and raise.
+Pipeline parallelism (``--pp N``, ``--pp-microbatches``): the blocks are
+``N`` stages of ``n_layers / N`` each, trained by ``parallel.pp``'s 1F1B
+schedule; the embedding and the loss head (final norm, lm_head and the
+shifted cross-entropy, blockwise with ``--vocab-chunk``) stay outside the
+pipe, and AdamW updates stages, head and embedding (``PipelinedLM``).  The
+world is ``dp × pp`` ranks, ``pp`` innermost::
+
+  torchrun --nproc-per-node 2 examples_torch/llm/train_lm.py --device cpu \
+      --pp 2 --n-layers 4 --d-model 64 --n-heads 4 --seq-len 128 --batch 16 \
+      --vocab-size 256
+
+On one card every stage runs in this process (``chip_smoke.py``'s pp phase
+drives ``PipelinedLM`` so).  ``--profile-dir`` (ROADMAP.md queue 1 (f)) is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -75,6 +87,8 @@ def parse_args(argv=None):
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--ep", type=int, default=1)
     p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--pp-microbatches", type=int, default=4,
+                   help="microbatches per step per dp row under --pp")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--vocab-chunk", type=int, default=0,
                    help=">0 fuses the lm_head into a blockwise cross-entropy "
@@ -107,11 +121,6 @@ def _init_world(device: str | None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.pp > 1:
-        raise NotImplementedError(
-            "--pp > 1 (pipeline parallelism, parallel/pp.py) is not ported "
-            "yet: ROADMAP.md queue 1 (l), pipeline parallelism and SPMD "
-            "scoring over a mesh")
     if args.profile_dir:
         raise NotImplementedError(
             "--profile-dir is not ported yet: profiling.py is ROADMAP.md "
@@ -127,6 +136,8 @@ def main(argv=None) -> dict:
 
     formed = _init_world(args.device)
     try:
+        if args.pp > 1:
+            return _train_pipelined(args)
         mesh = meshlib.make_mesh(args.device, dp=-1, tp=args.tp, sp=args.sp,
                                  ep=args.ep)
         dev = meshlib.device_of(mesh)
@@ -194,6 +205,138 @@ def main(argv=None) -> dict:
     finally:
         if formed:
             dist.destroy_process_group()
+
+
+class PipelinedLM:
+    """The LM cut for ``parallel.pp`` (the JAX package's
+    ``_train_pipelined``): this rank's stage of the blocks (every stage on
+    a mesh whose ``pp`` axis is 1), the head and the embedding, as
+    parameters of one AdamW.  ``loss_and_grads(ids)`` runs the 1F1B step
+    on this rank's rows; the embedding's gradient comes from ``dx``
+    (scattered by id, summed over ``dp``)."""
+
+    def __init__(self, model, mesh, n_stages: int, n_microbatches: int,
+                 vocab_chunk: int = 0, lr: float = 3e-4):
+        import torch
+
+        from tensorflowonspark_torch.models import transformer as tfm
+        from tensorflowonspark_torch.parallel import dp as dplib
+        from tensorflowonspark_torch.parallel import mesh as meshlib
+        from tensorflowonspark_torch.parallel import pp as pplib
+
+        self.mesh, self.m = mesh, n_microbatches
+        self.dtype = model.compute_dtype
+        self.stage_fn, stacked, head, emb = tfm.pipeline_parts(model, n_stages)
+        stacked = meshlib.shard_tree(mesh, stacked, pplib.stage_shardings(mesh, stacked))
+        dev = meshlib.device_of(mesh)
+
+        def param(t):
+            return torch.nn.Parameter(t.to(dev))
+
+        self.stages = {k: param(v) for k, v in stacked.items()}
+        self.head = {k: param(v) for k, v in head.items()}
+        self.embed = param(emb)
+        self.head_loss = tfm.pipeline_head_loss(model, vocab_chunk)
+        self.optimizer = dplib.adamw([*self.stages.values(), *self.head.values(),
+                                      self.embed], lr)
+
+    def loss_and_grads(self, ids) -> tuple:
+        """``(loss, {"stages", "head", "embed"} grads)`` for this rank's
+        ``ids`` ``[B, S]``."""
+        import torch
+        import torch.nn.functional as F
+
+        from tensorflowonspark_torch.parallel import mesh as meshlib
+        from tensorflowonspark_torch.parallel import pp as pplib
+        from tensorflowonspark_torch.parallel.tp import reduce_from
+
+        ids = torch.as_tensor(ids, device=self.embed.device)
+        x = F.embedding(ids, self.embed.detach()).to(self.dtype)
+        loss, g_s, g_h, dx = pplib.pipeline_1f1b(
+            self.stage_fn, self.stages, x, self.head_loss, mesh=self.mesh,
+            n_microbatches=self.m, targets=ids, head_params=self.head,
+            with_input_grad=True)
+        g_e = torch.zeros(self.embed.shape, dtype=torch.float32, device=self.embed.device)
+        g_e.index_add_(0, ids.reshape(-1).long(), dx.reshape(-1, dx.shape[-1]).float())
+        g_e = reduce_from(g_e, meshlib.group(self.mesh, "dp"))
+        return loss, {"stages": g_s, "head": g_h, "embed": g_e}
+
+    def step(self, ids):
+        """One AdamW step over stages, head and embedding; returns the loss."""
+        loss, grads = self.loss_and_grads(ids)
+        for p, g in zip([*self.stages.values(), *self.head.values(), self.embed],
+                        [*grads["stages"].values(), *grads["head"].values(), grads["embed"]]):
+            p.grad = g.to(p.dtype)
+        self.optimizer.step()
+        return loss
+
+
+def _train_pipelined(args) -> dict:
+    """1F1B pipeline-parallel LM training (``--pp N``) over a ``dp × pp``
+    world, with the JAX example's refusals."""
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.parallel import mesh as meshlib
+
+    if args.tp != 1 or args.sp != 1 or args.ep != 1 or args.n_experts:
+        raise SystemExit("--pp composes with dp only; set tp=sp=ep=1, n_experts=0")
+    if args.generate or args.accum_steps != 1:
+        raise SystemExit("--pp does not support --generate/--accum-steps "
+                         "(decode uses the non-pp path; 1F1B already "
+                         "microbatches every step)")
+    if args.remat:
+        raise SystemExit("--remat is implicit under --pp: 1F1B saves only "
+                         "stage inputs and recomputes stage forwards")
+    if args.n_layers % args.pp:
+        raise SystemExit(f"--n-layers {args.n_layers} not divisible by --pp {args.pp}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < args.pp:
+        raise SystemExit(f"--pp {args.pp} needs {args.pp} ranks, have {world}")
+
+    # dp over the remaining ranks: each dp row runs its own pipeline on its
+    # rows, the grads averaged (pipeline_1f1b's data_axis path)
+    mesh = meshlib.make_mesh(args.device, dp=-1, pp=args.pp)
+    dev = meshlib.device_of(mesh)
+    dp_size = meshlib.axis_size(mesh, "dp")
+    m = args.pp_microbatches
+    if args.batch % (dp_size * m):
+        raise SystemExit(f"--batch {args.batch} not divisible by dp x "
+                         f"--pp-microbatches = {dp_size} x {m}")
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    per_stage = args.n_layers // args.pp
+    bubble = (args.pp - 1) / (m + args.pp - 1)
+    if lead:
+        print(f"mesh: dp={dp_size} pp={args.pp} on {dev}; {per_stage} blocks/stage, "
+              f"{m} microbatches/row, bubble {bubble:.0%}")
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    with torch.device(dev):
+        model = tfm.Transformer(vocab_size=args.vocab_size, d_model=args.d_model,
+                                n_layers=args.n_layers, n_heads=args.n_heads,
+                                compute_dtype=dtype)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    if lead:
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"model: {n_params / 1e6:.2f}M params, 1F1B pipeline")
+    lm = PipelinedLM(model, mesh, args.pp, m, args.vocab_chunk, args.lr)
+    ids = synthetic_ids(args.batch, args.seq_len, args.vocab_size)
+    rows = args.batch // dp_size
+    mine = torch.from_numpy(ids[meshlib.axis_index(mesh, "dp") * rows:][:rows])
+
+    first = float(lm.step(mine))
+    if lead:
+        print(f"step 0: loss={first:.4f}")
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        loss = lm.step(mine)
+    loss = float(loss)  # fetch = sync
+    dt = time.perf_counter() - t0
+    tokens = args.batch * args.seq_len * args.steps
+    if lead:
+        print(f"step {args.steps}: loss={loss:.4f} ({tokens / dt:,.0f} tokens/sec)")
+    return {"first_loss": first, "loss": loss, "tokens_per_sec": tokens / dt,
+            "mesh": meshlib.spec(mesh)}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,20 @@ raising the save's error if it failed.  ``restore_for_restart`` is the elastic-r
 restartable map_fun calls first (``ctx.is_restart``); ``chief_save`` is the
 multi-node save.
 
+**State sharded across processes** (the reference's collective orbax
+save, ``:227-263``, and its host-side restore, ``:86-120``).  A tree whose
+leaves include ``Shard``s (this rank's block of a tensor, its whole shape
+and offset: ``parallel.dp.TrainState.tree()`` of a ``shard_model``-ed
+model) is saved by every rank of the ``torch.distributed`` world together,
+synchronously: each rank writes its blocks as ``shards_<rank>.pt`` into one
+temporary directory, rank 0 writes ``tree.pt`` (the tree with a
+``{"__shard__": shape}`` marker in each block's place) and commits by
+rename, and nobody returns before the commit.  ``restore_checkpoint``
+reassembles each marked tensor from the blocks: with a target it hands
+back each target ``Shard`` with this rank's block read from disk, without
+one the whole tensor (a single process reads a checkpoint the ranks wrote
+together).
+
 **Inference bundles.**  A bundle is a directory holding ``params.npz`` (the
 flat param tree, keys ``a/b/c``, committed by atomic rename) and
 ``bundle.json`` (the model config).  The format is shared with the JAX
@@ -46,6 +60,8 @@ JAX package for cross-process-sharded params) is not read by the port yet.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import glob
 import itertools
 import json
 import logging
@@ -160,6 +176,148 @@ def wait_for_saves() -> None:
                                f"failed: {save.error!r}") from save.error
 
 
+@dataclasses.dataclass
+class Shard:
+    """This rank's block of a tensor sharded across processes: ``local`` is
+    the block, ``shape`` the whole tensor's and ``offset`` the block's first
+    index along each dim."""
+
+    local: torch.Tensor
+    shape: tuple
+    offset: tuple
+
+    @classmethod
+    def of(cls, local: torch.Tensor, sharding) -> "Shard":
+        """The block ``local`` of ``sharding`` (a ``parallel.mesh.Sharding``)
+        on this rank."""
+        from tensorflowonspark_torch.parallel.mesh import axis_index, axis_size
+
+        shape, offset = [], []
+        for d, n_local in enumerate(local.shape):
+            axes = sharding.axes_of(d)
+            n = axis_size(sharding.mesh, *axes) if axes else 1
+            shape.append(n_local * n)
+            offset.append(axis_index(sharding.mesh, *axes) * n_local if n > 1 else 0)
+        return cls(local, tuple(shape), tuple(offset))
+
+
+_SHARD_KEY = "__shard__"  # a Shard's place in tree.pt: {_SHARD_KEY: whole shape}
+
+
+def _map_leaves(tree: Any, fn: Callable, path: str = "") -> Any:
+    """``tree`` with each leaf replaced by ``fn(leaf, path)`` (paths as
+    ``_leaves`` writes them)."""
+    if isinstance(tree, dict) and set(tree) != {_SHARD_KEY}:
+        return {k: _map_leaves(v, fn, f"{path}/{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [_map_leaves(v, fn, f"{path}/{i}") for i, v in enumerate(tree)]
+        return tuple(items) if isinstance(tree, tuple) else items
+    return fn(tree, path or "/")
+
+
+def has_shards(tree: Any) -> bool:
+    """Whether ``tree`` holds ``Shard`` leaves (its save is then a
+    collective of every rank)."""
+    found = []
+    _map_leaves(tree, lambda leaf, _: found.append(isinstance(leaf, Shard)))
+    return any(found)
+
+
+def _rank_world() -> tuple[int, int]:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    if _rank_world()[1] > 1:
+        torch.distributed.barrier()
+
+
+def _collective_save(local: str, tree: Any) -> None:
+    """Every rank's blocks into one temporary directory, rank 0's
+    ``tree.pt`` and the commit by rename; returns on every rank once
+    committed."""
+    rank, world = _rank_world()
+    parent, name = os.path.split(local.rstrip(os.sep))
+    tmp = os.path.join(parent, f".{name}.tmp-collective")
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    _barrier()
+    blocks: dict = {}
+
+    def strip(leaf, path):
+        if not isinstance(leaf, Shard):
+            return leaf
+        blocks[path] = {"local": leaf.local.detach().to("cpu", copy=True),
+                        "offset": list(leaf.offset)}
+        return {_SHARD_KEY: list(leaf.shape)}
+
+    skeleton = _map_leaves(tree, strip)
+    try:
+        torch.save(blocks, os.path.join(tmp, f"shards_{rank}.pt"))
+        _barrier()  # every block written
+        if rank == 0:
+            torch.save(_snapshot(skeleton), os.path.join(tmp, _TREE_FILE))
+            if os.path.exists(local):
+                old = f"{tmp}.old"
+                os.replace(local, old)
+                shutil.rmtree(old, ignore_errors=True)
+            os.replace(tmp, local)
+    finally:
+        _barrier()  # committed (or failed) before anyone returns
+    if not os.path.isdir(local) and world > 1:
+        raise RuntimeError(f"the collective checkpoint save to {local} did not commit")
+
+
+def _assemble(local: str, raw: Any) -> Any:
+    """``raw`` with each shard marker replaced by ``(whole tensor)`` built
+    from every rank's blocks."""
+    blocks: dict = {}
+    for f in sorted(glob.glob(os.path.join(local, "shards_*.pt"))):
+        for path, b in torch.load(f, map_location="cpu", weights_only=True).items():
+            blocks.setdefault(path, []).append(b)
+
+    def whole(leaf, path):
+        if not (isinstance(leaf, dict) and set(leaf) == {_SHARD_KEY}):
+            return leaf
+        shape = tuple(int(n) for n in leaf[_SHARD_KEY])
+        parts = blocks.get(path, [])
+        if not parts:
+            raise ValueError(f"checkpoint at {local} holds no blocks of {path}")
+        out = torch.empty(shape, dtype=parts[0]["local"].dtype)
+        covered = torch.zeros(shape, dtype=torch.bool)
+        for b in parts:
+            idx = tuple(slice(o, o + n) for o, n in zip(b["offset"], b["local"].shape))
+            out[idx] = b["local"]
+            covered[idx] = True
+        if not bool(covered.all()):
+            raise ValueError(f"checkpoint at {local}: the blocks of {path} do not cover "
+                             f"its shape {shape}")
+        return out
+
+    return _map_leaves(raw, whole)
+
+
+def _cut(raw: Any, target: Any) -> Any:
+    """Each whole tensor of ``raw`` where ``target`` holds a ``Shard``
+    replaced by a ``Shard`` of the target's block."""
+    if isinstance(target, Shard):
+        if tuple(raw.shape) != tuple(target.shape):
+            return raw  # the shape check below names it
+        idx = tuple(slice(o, o + n) for o, n in zip(target.offset, target.local.shape))
+        return Shard(raw[idx].clone(), target.shape, target.offset)
+    if isinstance(target, dict) and isinstance(raw, dict):
+        return {k: _cut(v, target[k]) if k in target else v for k, v in raw.items()}
+    if (isinstance(target, (list, tuple)) and isinstance(raw, (list, tuple))
+            and len(target) == len(raw)):
+        items = [_cut(v, t) for v, t in zip(raw, target)]
+        return tuple(items) if isinstance(raw, tuple) else items
+    return raw
+
+
 def save_checkpoint(path: str, tree: Any, force: bool = True,
                     async_save: bool = False) -> str:
     """Save a tree checkpoint to a (possibly hdfs://-mapped) path.
@@ -170,11 +328,19 @@ def save_checkpoint(path: str, tree: Any, force: bool = True,
     counts on that); call ``wait_for_saves()`` (or
     ``CheckpointManager.wait()``) before reading it back.
     ``force=False`` refuses to replace an existing checkpoint at ``path``.
+
+    A tree holding ``Shard``s is saved collectively and synchronously:
+    every rank of the world calls this with its own blocks (module
+    docstring).
     """
     global _IN_FLIGHT
     local = os.path.abspath(resolve_uri(path))
     if not force and os.path.exists(local):
         raise FileExistsError(f"checkpoint {path} exists (force=False)")
+    if has_shards(tree):
+        wait_for_saves()
+        _collective_save(local, tree)
+        return local
     snapshot = _snapshot(tree)
     if async_save:
         wait_for_saves()  # one save in flight, as orbax's async saver
@@ -225,10 +391,18 @@ def restore_checkpoint(path: str, target: Any | None = None) -> Any:
     checkpoint does not belong to this model, and raises ``ValueError``
     naming ``path``.  An empty dict in the target (a torch optimizer's
     lazily built state) matches whatever the checkpoint holds there.
+
+    A checkpoint saved collectively (``Shard`` leaves) comes back whole
+    without a target; where the target holds a ``Shard``, the result holds
+    a ``Shard`` of the same block read from disk.
     """
     local = os.path.abspath(resolve_uri(path))
     raw = _unsnapshot(torch.load(os.path.join(local, _TREE_FILE),
                                  map_location="cpu", weights_only=True))
+    if glob.glob(os.path.join(local, "shards_*.pt")):
+        raw = _assemble(local, raw)
+        if target is not None:
+            raw = _cut(raw, target)
     if target is None:
         return raw
     got, want = _leaves(_prune_lazy(raw, target)), _leaves(target)
@@ -344,19 +518,25 @@ def restore_for_restart(ctx, manager: CheckpointManager,
 
 def chief_save(ctx, manager: CheckpointManager, step: int, tree: Any,
                timeout: float = 600.0) -> None:
-    """Multi-node save coordination, host-local regime: every process holds
-    full values (the port has no state sharded across processes yet), so
-    executor 0 saves and waits for the commit, then every data node meets
-    at a barrier.  N nodes writing the same bytes would race on the commit
-    rename.  The barrier releases only after the save has committed, so a
-    node that crashes right after this call can still restart from the step
-    just written.
+    """Multi-node save coordination.
 
-    The reference's second regime, a collective save of state sharded across
-    processes, is not ported (ROADMAP.md queue 1 (l)): a ``shard_model``-ed
-    model saves through ``parallel.tp.full_parameters`` gathered whole.
+    Two regimes, selected by the tree:
+
+    - **host-local state** (each process holds full values: pure data
+      parallelism, or independent single-process models): executor 0 saves
+      and waits for the commit.  N nodes writing the same bytes would race
+      on the commit rename.
+    - **state sharded across processes** (``Shard`` leaves: the
+      ``TrainState.tree()`` of a ``shard_model``-ed model over a
+      ``torch.distributed`` world of the data nodes, e.g. fsdp): the save
+      is a collective, so EVERY data node calls it; each writes its own
+      blocks and rank 0 commits atomically.
+
+    Either way every data node then meets at a barrier, which releases only
+    after the save has committed, so a node that crashes right after this
+    call can still restart from the step just written.
     """
-    if ctx.executor_id == 0:
+    if has_shards(tree) or ctx.executor_id == 0:
         manager.save(step, tree)
         manager.wait()
     # Data-node scope: the evaluator role never trains and never calls this,

@@ -115,28 +115,55 @@ def flax_to_torch(variables: dict, config: dict | None = None) -> dict[str, torc
     out = {"embed.weight": _tensor(params["embed"]["embedding"])}
     i = 0
     while f"block_{i}" in params:
-        blk = params[f"block_{i}"]
-        pre = f"blocks.{i}."
-        for name in _QKV:
-            w = _tensor(blk["attn"][name]["kernel"])                # [D, H, Dh]
-            out[pre + f"attn.{name}.weight"] = w.reshape(w.shape[0], -1).T.contiguous()
-        w = _tensor(blk["attn"]["o_proj"]["kernel"])                # [H, Dh, D]
-        out[pre + "attn.o_proj.weight"] = w.reshape(-1, w.shape[-1]).T.contiguous()
-        if "moe" in blk:
-            moe = blk["moe"]
-            out[pre + "moe.router.weight"] = _tensor(moe["router"]["kernel"]).T.contiguous()
-            for name in _EXPERTS:
-                out[pre + f"moe.{name}"] = _tensor(moe[name])
-        else:
-            for name in _MLP:
-                out[pre + f"mlp.{name}.weight"] = \
-                    _tensor(blk["mlp"][name]["kernel"]).T.contiguous()
-        for norm in ("attn_norm", "mlp_norm"):
-            out[pre + f"{norm}.scale"] = _tensor(blk[norm]["scale"])
+        out.update(_block_to_torch(params[f"block_{i}"], f"blocks.{i}."))
         i += 1
     out["final_norm.scale"] = _tensor(params["final_norm"]["scale"])
     out["lm_head.weight"] = _tensor(params["lm_head"]["kernel"]).T.contiguous()
     return out
+
+
+def _block_to_torch(blk: dict, pre: str) -> dict[str, torch.Tensor]:
+    """One transformer ``Block``'s params → its state-dict entries under
+    ``pre``."""
+    out = {}
+    for name in _QKV:
+        w = _tensor(blk["attn"][name]["kernel"])                    # [D, H, Dh]
+        out[pre + f"attn.{name}.weight"] = w.reshape(w.shape[0], -1).T.contiguous()
+    w = _tensor(blk["attn"]["o_proj"]["kernel"])                    # [H, Dh, D]
+    out[pre + "attn.o_proj.weight"] = w.reshape(-1, w.shape[-1]).T.contiguous()
+    if "moe" in blk:
+        moe = blk["moe"]
+        out[pre + "moe.router.weight"] = _tensor(moe["router"]["kernel"]).T.contiguous()
+        for name in _EXPERTS:
+            out[pre + f"moe.{name}"] = _tensor(moe[name])
+    else:
+        for name in _MLP:
+            out[pre + f"mlp.{name}.weight"] = \
+                _tensor(blk["mlp"][name]["kernel"]).T.contiguous()
+    for norm in ("attn_norm", "mlp_norm"):
+        out[pre + f"{norm}.scale"] = _tensor(blk[norm]["scale"])
+    return out
+
+
+def stages_to_torch(stacked: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's stage-stacked tree of transformer ``Block`` params
+    (``parallel.pp.stack_stages`` over per-stage stacks of blocks: every
+    leaf ``[n_stages, blocks_per_stage, …]``, numpy) → the port's
+    stage-stacked tree for ``parallel.pp``: ``{"blocks.{j}.…": [n_stages,
+    …]}``, the names of ``models.transformer.Stage``."""
+    def take(tree, idx):
+        return ({k: take(v, idx) for k, v in tree.items()} if isinstance(tree, dict)
+                else np.asarray(tree)[idx])
+
+    lead = next(v for _, v in _walk(stacked))
+    n_stages, per_stage = np.shape(lead)[:2]
+    stages = []
+    for i in range(n_stages):
+        stage: dict = {}
+        for j in range(per_stage):
+            stage.update(_block_to_torch(take(stacked, (i, j)), f"blocks.{j}."))
+        stages.append(stage)
+    return {k: torch.stack([s[k] for s in stages]) for k in stages[0]}
 
 
 def torch_to_flax(state: dict, n_heads: int | None = None,

@@ -1,9 +1,12 @@
-"""Streaming inference map_fun — counterpart of
-``tensorflowonspark_tpu/inference.py`` (task-parallel half).
+"""Streaming inference map_funs — counterpart of
+``tensorflowonspark_tpu/inference.py``.
 
-Every node holds the whole model and scores its own partitions: one result
-per input item, in order.  Each feed batch is padded to the static
-``batch_size`` and the padding dropped before emission, so the
+``bundle_inference_loop`` is task-parallel: every node holds the whole
+model and scores its own partitions, one result per input item, in order.
+``sharded_bundle_inference_loop`` scores over one device mesh of the data
+nodes: the model's parameters sharded over it, one forward of every rank
+per round, each rank emitting its own rows.  Each feed batch is padded to
+the static ``batch_size`` and the padding dropped before emission, so the
 exactly-count invariant holds.
 """
 
@@ -76,7 +79,9 @@ def to_host(out):
 
 
 def batch_results(out, n: int, postprocess: str | None) -> list:
-    """The first ``n`` rows of a host output as one result per row."""
+    """The first ``n`` rows of a host output as one result per row;
+    ``postprocess="argmax"`` gives each row's class id (an int), or for a
+    sequence model's ``[B, S, V]`` logits each row's ``[S]`` ids."""
     if isinstance(out, dict):
         if postprocess == "argmax":
             raise ValueError("postprocess='argmax' needs a single-output "
@@ -86,8 +91,101 @@ def batch_results(out, n: int, postprocess: str | None) -> list:
         return [{k: v[i] for k, v in cols.items()} for i in range(n)]
     preds = np.asarray(out)[:n]
     if postprocess == "argmax":
-        return [int(p) for p in preds.argmax(axis=-1)]
+        return [int(p) if np.ndim(p) == 0 else p for p in preds.argmax(axis=-1)]
     return list(preds)
+
+
+# the mesh axes other than the batch axes: ranks that differ only along
+# them compute on the same rows
+_PEER_AXES = ("tp", "sp", "ep", "pp")
+
+
+def _peer_batch(mesh, batch) -> torch.Tensor:
+    """The batches of this rank's peers (the ranks that differ from it only
+    off the batch axes, ``tp``) concatenated in peer order on the mesh's
+    device: they compute on the same rows, so each of them scores them all
+    and keeps its own (``_local_rows``).  ``make_batch_iterator(mesh=)``
+    would instead broadcast the first peer's batch, which suits training
+    but would drop the other peers' streamed rows here."""
+    from tensorflowonspark_torch.parallel.mesh import device_of, group
+    from tensorflowonspark_torch.parallel.tp import gather_from
+
+    x = torch.as_tensor(batch).to(device_of(mesh))
+    return gather_from(x, 0, group(mesh, *_PEER_AXES))
+
+
+def _local_rows(out, mesh):
+    """This rank's rows of a forward over its peers' concatenated batches
+    (``_peer_batch``), in order: the block at its index among the peers.
+    Every peer holds the whole output; taking each its own block keeps a
+    row from coming out twice (the JAX package dedupes addressable shards
+    by batch offset for the same reason)."""
+    from tensorflowonspark_torch.parallel.mesh import axis_index, axis_size
+
+    if isinstance(out, dict):
+        return {k: _local_rows(v, mesh) for k, v in out.items()}
+    n = axis_size(mesh, *_PEER_AXES)
+    return out if n == 1 else out.chunk(n)[axis_index(mesh, *_PEER_AXES)]
+
+
+def sharded_bundle_inference_loop(args, ctx) -> None:
+    """map_fun: model-parallel STREAMING inference over one mesh of the
+    data nodes (``run(torch_distributed=True)``, one device per node).
+
+    ``bundle_inference_loop`` is task-parallel: every node holds the whole
+    model.  Here the model's parameters are sharded over
+    ``ctx.make_mesh(**mesh_axes)`` (``tp.shard_model``: ``fsdp`` blocks
+    gathered at each use, ``tp`` heads), every round is one forward of
+    every rank over its rows, and each rank emits predictions for its OWN
+    streamed rows only, so the ordered exactly-count contract holds end to
+    end.  Rounds run in lockstep (``make_batch_iterator`` with ``ctx``):
+    a rank whose share ran out joins with filler batches (``n == 0``),
+    whose forward still runs — the fsdp gathers are collectives — and
+    emits nothing.
+
+    Args: ``export_dir`` (bundle), ``batch_size`` (per node), optional
+    ``mesh_axes`` (default ``{"fsdp": -1}``: parameters sharded over every
+    node; batch axes and ``tp`` only), ``postprocess``/``input_mapping`` as
+    in ``bundle_inference_loop``, ``device`` (default ``cuda``).
+
+    Driver contract: ``cluster.inference(..., eof_when_done=True)`` (a
+    node whose share ran out must learn it is done while its peers still
+    score) and at least one partition per data node; ``TorchModel.
+    transform(scoring="sharded")`` does both.
+    """
+    from tensorflowonspark_torch.checkpoint import load_bundle
+    from tensorflowonspark_torch.convert import flax_to_torch
+    from tensorflowonspark_torch.models.registry import build
+    from tensorflowonspark_torch.parallel import dp as dplib
+    from tensorflowonspark_torch.parallel.mesh import axis_size, device_of, is_multiprocess
+    from tensorflowonspark_torch.parallel.tp import shard_model
+
+    export_dir = _arg(args, "export_dir")
+    if not export_dir:
+        raise ValueError("sharded_bundle_inference_loop requires args.export_dir")
+    batch_size = int(_arg(args, "batch_size", 64) or 64)
+    postprocess = _arg(args, "postprocess")
+    input_mapping = _arg(args, "input_mapping")
+    mesh_axes = dict(_arg(args, "mesh_axes") or {"fsdp": -1})
+
+    mesh = ctx.make_mesh(_arg(args, "device"), **mesh_axes)
+    if axis_size(mesh, "sp", "ep", "pp") > 1:
+        raise ValueError(f"sharded scoring splits the batch axes and tp; got {mesh_axes}")
+    variables, config = load_bundle(export_dir)
+    with torch.device("meta"):
+        model = build(config).cast_matrices_()
+    model = model.to_empty(device=device_of(mesh)).eval()
+    model.load_state_dict(flax_to_torch(variables, config), strict=True)
+    shard_model(model, mesh)  # every node loaded the same bundle
+    feed = ctx.get_data_feed(train_mode=False)
+    for batch, n in dplib.make_batch_iterator(
+            feed, batch_size, lambda items: rows_to_features(items, input_mapping),
+            ctx=ctx, lockstep=is_multiprocess(mesh)):
+        with torch.inference_mode():
+            out = _local_rows(model(_peer_batch(mesh, batch)), mesh)
+        if not n:
+            continue  # filler round: joined the collectives, nothing to emit
+        feed.batch_results(batch_results(to_host(out), n, postprocess))
 
 
 def bundle_inference_loop(args, ctx) -> None:

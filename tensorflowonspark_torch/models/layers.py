@@ -19,6 +19,13 @@ Where flax and torch differ:
   variance, where torch's takes the unbiased one; statistics are float32
   whatever the input type, and the output is the layer's ``dtype``.
 - flax's ``avg_pool`` divides by the whole window, pad cells included.
+
+Over a mesh whose batch axes (``dp``, ``fsdp``) span several ranks, the
+JAX package's step normalises over the global batch (one SPMD program over
+the global array).  ``parallel.dp.replicate`` and ``parallel.tp.shard_model``
+then give each ``BatchNorm`` the batch axes' group (``batch_group``), and
+training mode all-reduces the per-channel sum and sum of squares over it
+(the gradient too, ``tp.all_reduce_sum``).
 """
 
 from __future__ import annotations
@@ -114,7 +121,15 @@ class BatchNorm(nn.Module):
     channel.
     The output is ``dtype``; an input narrower than ``dtype`` is widened
     first, since flax normalises in float32 and rounds only the output.
+
+    With ``batch_group`` set (the ranks of the batch axes, by the mesh's
+    placement) the training-mode statistics are the global batch's: the
+    per-channel sum and sum of squares, at least float32, are summed over
+    the group, the variance is flax's ``E[x²] - E[x]²`` (clipped at 0) and
+    the running averages move with it; every rank holds as many rows.
     """
+
+    batch_group = None  # set by parallel.dp.replicate / parallel.tp.shard_model
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-5, dtype: torch.dtype = torch.float32):
@@ -132,6 +147,8 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                              self.bias, False, 0.0, self.epsilon)
             return y.to(self.dtype)
+        if self.batch_group is not None:
+            return self._global_batch(x)
         # the op moves a copy of running_var (autograd keeps what the op was
         # given, so it must not change after the call); the buffer, still
         # the old value, then takes flax's average
@@ -142,6 +159,26 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             self.running_var.mul_(self.momentum / n).add_(moved, alpha=(n - 1) / n)
         return y.to(self.dtype)
+
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        from tensorflowonspark_torch.parallel.tp import all_reduce_sum
+
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [d for d in range(x.dim()) if d != 1]
+        n = x.numel() // x.shape[1] * dist.get_world_size(self.batch_group)
+        sums = all_reduce_sum(torch.stack([x.sum(dims), (x * x).sum(dims)]), self.batch_group)
+        mean = sums[0] / n
+        var = (sums[1] / n - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach().to(self.running_mean.dtype), alpha=1 - m)
+            self.running_var.mul_(m).add_(var.detach().to(self.running_var.dtype), alpha=1 - m)
+        view = [1, -1] + [1] * (x.dim() - 2)
+        y = (x - mean.view(view)) * (torch.rsqrt(var + self.epsilon) * self.weight).view(view)
+        return (y + self.bias.view(view)).to(self.dtype)
 
 
 def max_pool(x: torch.Tensor, window: tuple, strides: tuple,

@@ -159,7 +159,10 @@ def make_loss_fn(model: ResNet, weight_decay: float = 1e-4):
     def loss_fn(model, batch):
         logits = model(batch["image"])
         loss = cross_entropy_loss(logits, batch["label"])
-        l2 = sum(p.square().sum() for p in model.parameters() if p.ndim > 1)
+        # the kernels as the layers use them: whole under fsdp, where the
+        # parameters are this rank's blocks
+        l2 = sum(m.weight.square().sum() for m in model.modules()
+                 if isinstance(m, (layers.Conv, layers.Dense)))
         return (loss + weight_decay * 0.5 * l2,
                 {"accuracy": accuracy(logits, batch["label"])})
 

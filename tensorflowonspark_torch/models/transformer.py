@@ -250,6 +250,22 @@ class Block(nn.Module):
         return x + y, aux
 
 
+class Stage(nn.Module):
+    """Consecutive dense blocks as one pipeline stage (``parallel/pp.py``):
+    ``forward(x) -> x``.  Its parameter names are the model's
+    (``blocks.{j}.…``), so ``torch.func.functional_call`` runs it with any
+    stage's slice of the stage-stacked tree."""
+
+    def __init__(self, blocks):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x):
+        for block in self.blocks:
+            x, _ = block(x)
+        return x
+
+
 @dataclasses.dataclass
 class KVCache:
     """The decode path's state, passed to ``Transformer.forward`` and
@@ -592,5 +608,55 @@ def make_loss_fn(model: Transformer, aux_loss_coef: float = 0.01,
             count = ids.shape[0] * (ids.shape[1] - 1)
         loss = reduce_from(nll.sum(), m.sp_group) / count
         return _reduce(loss, {}, collected)
+
+    return loss_fn
+
+
+def pipeline_parts(model: Transformer, n_stages: int) -> tuple:
+    """``model`` cut for ``parallel/pp.py`` as the JAX package's
+    ``_train_pipelined`` cuts it: ``n_layers / n_stages`` dense blocks a
+    stage, the embedding and the head outside the pipe.  Returns
+    ``(stage_fn, stacked, head, embedding)``: ``stage_fn`` runs a ``Stage``
+    of the model's first blocks through ``functional_call`` with any
+    stage's parameters; ``stacked`` is ``{"blocks.{j}.…": [n_stages, …]}``,
+    ``head`` ``{"final_norm.scale", "lm_head.weight"}`` and ``embedding``
+    the table, all detached copies of the model's parameters."""
+    from tensorflowonspark_torch.parallel.pp import module_stage_fn, stack_stages
+
+    n_layers = len(model.blocks)
+    if model.n_experts or n_layers % n_stages:
+        raise ValueError(f"a pipeline cuts {n_layers} dense blocks into {n_stages} "
+                         "equal stages")
+    per = n_layers // n_stages
+    stacked = stack_stages([
+        {f"blocks.{j}.{name}": p.detach()
+         for j in range(per) for name, p in model.blocks[i * per + j].named_parameters()}
+        for i in range(n_stages)])
+    head = {"final_norm.scale": model.final_norm.scale.detach().clone(),
+            "lm_head.weight": model.lm_head.weight.detach().clone()}
+    return (module_stage_fn(Stage(model.blocks[:per])), stacked, head,
+            model.embed.weight.detach().clone())
+
+
+def pipeline_head_loss(model: Transformer, vocab_chunk: int = 0):
+    """The pipelined LM's ``loss_fn(head, h, ids)`` for ``pipeline_1f1b``:
+    the final norm, the lm_head and the mean next-token cross-entropy of
+    one microbatch (``blockwise_cross_entropy`` with ``vocab_chunk``), as
+    ``make_loss_fn`` computes it on the whole model."""
+    from torch.func import functional_call
+
+    dtype = model.compute_dtype
+
+    def loss_fn(head, h, ids):
+        final = functional_call(model.final_norm, {"scale": head["final_norm.scale"]}, (h,))
+        targets = ids[:, 1:].long().reshape(-1)
+        kernel = head["lm_head.weight"].to(dtype)
+        if vocab_chunk:
+            d = final.shape[-1]
+            return blockwise_cross_entropy(final[:, :-1].reshape(-1, d),
+                                           kernel.to(final.dtype).t(), targets,
+                                           chunk=vocab_chunk).mean()
+        logits = F.linear(final.to(dtype), kernel).float()[:, :-1]
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets)
 
     return loss_fn

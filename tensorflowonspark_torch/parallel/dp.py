@@ -68,24 +68,103 @@ class TrainState(NamedTuple):
     def tree(self) -> dict:
         """The checkpoint tree of this state (the reference's
         ``jax.device_get(state)._asdict()``): ``{"model": state dict,
-        "optimizer": state dict, "step": step}``."""
-        return {"model": self.model.state_dict(),
+        "optimizer": state dict, "step": step}``.  A parameter that
+        ``tp.shard_model`` split across processes, and the optimizer state
+        of its shape, are ``checkpoint.Shard``s (the saver writes each
+        rank's block, as orbax writes a global array's shards)."""
+        tree = {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(), "step": int(self.step)}
+        split = _split_parameters(self.model)
+        if not split:
+            return tree
+        from tensorflowonspark_torch.checkpoint import Shard
+
+        for name, p in self.model.named_parameters():
+            if id(p) in split and name in tree["model"]:
+                tree["model"][name] = Shard.of(tree["model"][name], split[id(p)])
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        state = tree["optimizer"]["state"]
+        for i, entry in list(state.items()):
+            s = split.get(id(params[i]))
+            if s is not None:  # a new dict: the optimizer's own must not change
+                state[i] = {k: Shard.of(v, s) if isinstance(v, torch.Tensor)
+                            and v.shape == params[i].shape else v for k, v in entry.items()}
+        return tree
 
     def restore(self, tree: dict) -> "TrainState":
         """Load a checkpoint ``tree`` into this state's model and optimizer
         (in place, onto their devices); returns the state at its step (the
-        reference's ``TrainState(**tree)``)."""
+        reference's ``TrainState(**tree)``).  Each leaf goes back to the
+        placement the live state has: a ``Shard`` gives its block, and a
+        whole tensor of a parameter split across processes (or of its
+        optimizer state) is cut to this rank's block."""
+        split = _split_parameters(self.model)
+        if split:
+            tree = self._place(tree, split)
+        tree = _blocks(tree)
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         return self._replace(step=int(tree["step"]))
+
+
+    def _place(self, tree: dict, split: dict) -> dict:
+        from tensorflowonspark_torch.checkpoint import Shard
+
+        def block(v, p, sharding):
+            if not isinstance(v, torch.Tensor) or v.shape == p.shape:
+                return v
+            mine = Shard.of(p.detach(), sharding)
+            if tuple(v.shape) != mine.shape:
+                return v  # load_state_dict names the mismatch
+            return v[tuple(slice(o, o + n) for o, n in zip(mine.offset, p.shape))]
+
+        model = dict(tree["model"])
+        for name, p in self.model.named_parameters():
+            if id(p) in split and name in model:
+                model[name] = block(model[name], p, split[id(p)])
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        state = {}
+        for i, entry in tree["optimizer"]["state"].items():
+            s = split.get(id(params[int(i)]))
+            state[i] = entry if s is None else {
+                k: block(v, params[int(i)], s) for k, v in entry.items()}
+        return {**tree, "model": model, "optimizer": {**tree["optimizer"], "state": state}}
+
+
+def _split_parameters(model: torch.nn.Module) -> dict:
+    """``{id(parameter): Sharding}`` of the parameters ``tp.shard_model``
+    split across processes."""
+    from tensorflowonspark_torch.parallel.mesh import axis_size
+    from tensorflowonspark_torch.parallel.tp import param_name
+
+    shardings = getattr(model, "tos_shardings", {})
+    out = {}
+    for name, p in model.named_parameters():
+        s = shardings.get(param_name(name))
+        if s is not None and any(axis_size(s.mesh, a) > 1
+                                 for d in range(p.dim()) for a in s.axes_of(d)):
+            out[id(p)] = s
+    return out
+
+
+def _blocks(tree):
+    from tensorflowonspark_torch.checkpoint import Shard
+
+    if isinstance(tree, Shard):
+        return tree.local
+    if isinstance(tree, dict):
+        return {k: _blocks(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_blocks(v) for v in tree)
+    return tree
 
 
 def replicate(tree: Any, mesh) -> Any:
     """Place a model or a ``{name: tensor}`` tree on the mesh's device,
     every rank holding global rank 0's values (a broadcast over the world
     when the mesh spans processes).  A module's parameters and buffers move
-    in place (``p.data``), so an optimizer built on them stays valid; a
+    in place (``p.data``), so an optimizer built on them stays valid, and
+    its ``BatchNorm``s take the batch axes' group (global statistics); a
     tree comes back as fresh tensors."""
     import torch.distributed as dist
 
@@ -94,11 +173,14 @@ def replicate(tree: Any, mesh) -> Any:
     dev = device_of(mesh)
     spread = is_multiprocess(mesh)
     if isinstance(tree, torch.nn.Module):
+        from tensorflowonspark_torch.parallel.tp import bind_batch_group
+
         with torch.no_grad():
             for t in list(tree.parameters()) + list(tree.buffers()):
                 t.data = t.data.to(dev)
                 if spread:
                     dist.broadcast(t.data, src=0)
+        bind_batch_group(tree, mesh)
         return tree
     out = {k: torch.as_tensor(v).to(dev).clone() for k, v in tree.items()}
     if spread:
@@ -248,14 +330,20 @@ BNTrainState = TrainState
 def make_bn_train_step(
     loss_fn: Callable[[torch.nn.Module, Any], tuple[torch.Tensor, dict]],
     optimizer: torch.optim.Optimizer,
+    mesh=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """Train step for models with BatchNorm — the counterpart of the JAX
     package's ``make_bn_train_step``, whose ``loss_fn`` returns the mutated
     ``batch_stats``.  Here ``loss_fn(model, batch) -> (loss, aux)`` runs the
     model in ``train()`` mode, where the forward normalises with the batch
     statistics and moves the running averages in place (flax's
-    ``mutable=["batch_stats"]``), so this is ``make_train_step``."""
-    return make_train_step(loss_fn, optimizer)
+    ``mutable=["batch_stats"]``), so this is ``make_train_step``.
+
+    ``mesh``: as ``make_train_step``'s (each rank's rows, the gradients
+    summed over ``dp``/``fsdp``), and the model placed on it (``replicate``,
+    ``tp.shard_model``) normalises over the global batch, the JAX step over
+    the global array."""
+    return make_train_step(loss_fn, optimizer, mesh=mesh)
 
 
 def make_eval_step(apply_fn: Callable[..., Any]) -> Callable[..., Any]:

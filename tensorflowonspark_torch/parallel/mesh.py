@@ -8,7 +8,7 @@ that owns one device, so the mesh is a
 the same axis names (``AXES``): ``dp`` (data parallel), ``fsdp``
 (parameters sharded ZeRO-3 style), ``tp`` (Megatron tensor parallel,
 ``tp.py``), ``sp`` (ring / Ulysses sequence parallel, ``sp.py``), ``ep``
-(expert parallel, ``ep.py``) and ``pp`` (pipeline; not ported yet).  Axes
+(expert parallel, ``ep.py``) and ``pp`` (pipeline stages, ``pp.py``).  Axes
 left out have size 1.  Without a process group the mesh is the process's
 own device alone (every axis 1).
 

@@ -188,6 +188,34 @@ class _GatherFrom(torch.autograd.Function):
         return _my_part(g, ctx.dim, ctx.grp), None, None, None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _all_reduce(x, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.grp), None
+
+
+def all_reduce_sum(x: torch.Tensor, grp) -> torch.Tensor:
+    """``x`` summed over ``grp``, where every rank goes on to compute
+    something else from the sum (BatchNorm's global statistics): the
+    gradient is the sum of the ranks' gradients (``reduce_from``'s is the
+    rank's own, for a result every rank uses alike)."""
+    return x if grp is None else _AllReduceSum.apply(x, grp)
+
+
+def bind_batch_group(model: nn.Module, mesh) -> None:
+    """Give every module with a ``batch_group`` attribute (``BatchNorm``)
+    the group of the mesh's batch axes (``None`` on one rank)."""
+    grp = group(mesh, *BATCH_AXES)
+    for m in model.modules():
+        if hasattr(m, "batch_group"):
+            m.batch_group = grp
+
+
 def copy_to(x: torch.Tensor, grp) -> torch.Tensor:
     """Megatron's ``f``: identity forward, gradient all-reduced over
     ``grp`` — in front of a product whose weight is split over ``grp``."""
@@ -232,7 +260,11 @@ def shard_model(model: nn.Module, mesh, rules: Rules = TRANSFORMER_TP_RULES,
     to the mesh's device; an fsdp-sharded one is gathered at each use by
     a parametrization.  Every module with a ``tp_group``/``ep_group``
     attribute (the transformer's attention, MLP, MoE, embedding and head)
-    gets the mesh's group for that axis.  The shardings by parameter name
+    gets the mesh's group for that axis, and every ``BatchNorm`` the batch
+    axes' group (``bind_batch_group``).  ``rules=()`` with ``fsdp`` is the
+    JAX package's ``shard_tree(mesh, params)`` of the image models: each
+    parameter split over ``fsdp`` on its largest divisible dim, the running
+    statistics (buffers) replicated.  The shardings by parameter name
     are kept as ``model.tos_shardings`` (``dp.make_train_step`` reads them
     to reduce gradients; ``gather_full`` to reassemble).  Every rank must
     hold the same full weights before the call."""
@@ -267,6 +299,7 @@ def shard_model(model: nn.Module, mesh, rules: Rules = TRANSFORMER_TP_RULES,
             m.tp_group = tp_grp
         if hasattr(m, "ep_group"):
             m.ep_group = ep_grp
+    bind_batch_group(model, mesh)
     model.tos_shardings = {param_name(k): v for k, v in shardings.items()}
     return model
 

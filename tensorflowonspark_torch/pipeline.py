@@ -19,10 +19,10 @@ batches rows through one apply per node process (on the node's ``device``
 argument, default ``cuda``) with the same cached-load behaviour the
 reference used for its per-executor SavedModel singleton.
 
+``scoring="sharded"`` scores over one device mesh of the data nodes
+(``inference.sharded_bundle_inference_loop``; set ``torch_distributed``).
 Not ported yet: DIRECT ``fit`` onto the ledger-driven ingest feed (the
-ingest tier, ROADMAP.md queue 1 (i)), and ``scoring="sharded"`` (SPMD
-scoring over one device mesh, queue 1 (l)); both raise
-``NotImplementedError``.
+ingest tier, ROADMAP.md queue 1 (i)); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -239,8 +239,8 @@ class HasScoring(Params):
     scoring = Param("scoring", "task",
                     "transform execution mode: 'task' (every node holds the "
                     "whole model, scores its own partitions) or 'sharded' "
-                    "(model sharded over one global mesh, SPMD scoring; "
-                    "not ported yet)")
+                    "(model sharded over one mesh of the data nodes, "
+                    "each node scoring its own rows; needs torch_distributed)")
     mesh_axes = Param("mesh_axes", None,
                       "mesh layout for scoring='sharded' "
                       "(default {'fsdp': -1})")
@@ -440,11 +440,16 @@ class TorchModel(TorchParams):
         (default: {"prediction": "prediction"}).  The scoring nodes take
         their device from the model's args (``device``, default ``cuda``).
 
-        ``scoring="sharded"`` (the JAX package's SPMD scorer over one global
-        mesh, ``sharded_bundle_inference_loop``) is not ported yet and
-        raises ``NotImplementedError`` (ROADMAP.md queue 1 (l)).
+        ``scoring="sharded"`` scores over one mesh of the data nodes
+        (``inference.sharded_bundle_inference_loop``, with
+        ``torch_distributed`` set): the model sharded over it, each node
+        emitting its own rows, every node given at least one partition and
+        end-of-feed as soon as its share is done.
         """
-        from tensorflowonspark_torch.inference import bundle_inference_loop
+        from tensorflowonspark_torch.inference import (
+            bundle_inference_loop,
+            sharded_bundle_inference_loop,
+        )
 
         args = self.merge_args_params(self.tf_args)
         export_dir = args.get("export_dir")
@@ -462,11 +467,6 @@ class TorchModel(TorchParams):
             raise ValueError(
                 f"scoring='sharded' needs at least one partition per node "
                 f"({data.num_partitions} partitions < {num_executors} nodes)")
-        if sharded:
-            raise NotImplementedError(
-                "scoring='sharded' (SPMD scoring over one device mesh, "
-                "sharded_bundle_inference_loop) is not ported yet: ROADMAP.md "
-                "queue 1 (l), pipeline parallelism and SPMD scoring over a mesh")
         # One-pass input read: capture rows WHILE they stream to the scoring
         # nodes, so partitions are consumed exactly once (no double IO on
         # file-backed datasets; consume-once generator partitions work).
@@ -483,7 +483,7 @@ class TorchModel(TorchParams):
 
         tee_data = PartitionedDataset([_tee(p) for p in range(data.num_partitions)])
         cluster = _cluster.run(
-            bundle_inference_loop,
+            sharded_bundle_inference_loop if sharded else bundle_inference_loop,
             args,
             num_executors=num_executors,
             input_mode=InputMode.STREAMING,
@@ -495,9 +495,18 @@ class TorchModel(TorchParams):
             torch_distributed=bool(args.get("torch_distributed")),
         )
         try:
-            pred_parts = cluster.inference(tee_data, flat=False)
+            # sharded scoring needs eager EOF: a node whose share ran out
+            # keeps joining the mesh's rounds until its peers finish
+            pred_parts = cluster.inference(tee_data, flat=False,
+                                           eof_when_done=sharded)
         finally:
-            cluster.shutdown()
+            try:
+                cluster.shutdown()
+            finally:
+                # the nodes' final telemetry (rows, kernel launches): the
+                # scoring cluster's counterpart of the estimator's
+                # last_cluster_info
+                self.last_cluster_metrics = cluster.metrics()
         parts = []
         for p, preds in enumerate(pred_parts):
             rows = captured.get(p)

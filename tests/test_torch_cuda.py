@@ -465,3 +465,42 @@ def test_cuda_lse_gradient_matches_plain_version(off):
     # keeps f32; both backwards are the same recompute: 2% relative L2
     for a, b in zip(*grads):
         assert (a - b).norm().item() <= 2e-2 * b.norm().item() + 1e-6
+
+
+def test_cuda_pp_one_process_1f1b_matches_plain_attention():
+    """The 1F1B schedule with every stage in one process, on the card (2
+    stages of 1 block, narrow, bf16): a forward and a recompute of each
+    block per microbatch launch the kernel (2 · 2 layers · 2 microbatches),
+    and the loss, the stage, head and input gradients agree with the same
+    pipeline over plain attention (``attn_impl="xla"``): loss within 1e-2,
+    each gradient within 5% (relative L2), the bounds ``chip_smoke.py``
+    holds one step to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.parallel import pp
+
+    ids = torch.randint(0, 128, (4, 256), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+
+    def run(attn_impl):
+        with torch.device("cuda"):
+            model = tfm.Transformer(vocab_size=128, d_model=128, n_layers=2, n_heads=2,
+                                    attn_impl=attn_impl)
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        stage_fn, stacked, head, emb = tfm.pipeline_parts(model, 2)
+        x = torch.nn.functional.embedding(ids, emb).to(model.compute_dtype)
+        before = ta.LAUNCHES["flash_attn_fwd"]
+        loss, grads, head_grads, dx = pp.pipeline_1f1b(
+            stage_fn, stacked, x, tfm.pipeline_head_loss(model), mesh=None, n_microbatches=2,
+            targets=ids, head_params=head, with_input_grad=True)
+        torch.cuda.synchronize()
+        return loss, {**grads, **head_grads, "dx": dx}, ta.LAUNCHES["flash_attn_fwd"] - before
+
+    loss, grads, launches = run("auto")
+    plain_loss, plain_grads, plain_launches = run("xla")
+    assert (launches, plain_launches) == (2 * 2 * 2, 0)
+    assert torch.isfinite(loss) and abs(loss.item() - plain_loss.item()) <= 1e-2 * abs(plain_loss.item())
+    for name, want in plain_grads.items():
+        err = (grads[name].float() - want.float()).norm() / want.float().norm()
+        assert err <= 0.05, (name, err.item())

@@ -103,9 +103,14 @@ def test_resnet_train_reads_tfrecords(tmp_path):
     assert out["step"] == 4 and np.isfinite(out["loss"])
 
 
-@pytest.mark.parametrize("flag", [["--fsdp", "2"], ["--profile-dir", "/nonexistent"]])
-def test_resnet_train_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+# --fsdp is ported: on one process it refuses the mesh as the JAX example
+# does on one device; --profile-dir is not (ROADMAP.md queue 1 (f))
+@pytest.mark.parametrize("flag,exc,match", [
+    (["--fsdp", "2"], ValueError, "1 devices not divisible"),
+    (["--profile-dir", "/nonexistent"], NotImplementedError, "ROADMAP.md queue 1"),
+], ids=["flag0", "flag1"])
+def test_resnet_train_unported_flags_raise(flag, exc, match):
+    with pytest.raises(exc, match=match):
         resnet_train.main(["--device", "cpu", *flag])
 
 

@@ -6,7 +6,11 @@ scoring-mode and env-knob checks), BASELINE config 4's end-to-end gate
 (``fit`` → ``transform`` through real node processes at vocab 1009,
 ordered and exactly counted, the transform's scores held against the JAX
 ``build_apply`` of the same bundle at rtol 1e-5 / atol 1e-6), the ``steps``
-cap, DIRECT staging, and the two paths that raise until their items land.
+cap, DIRECT staging, the path that raises until its item lands, and the
+sharded scorer: ``scoring="sharded"`` over a 2-node gloo mesh, its
+streaming form (5 partitions over 2 nodes, ``window=1``) and
+``_local_rows``, held against the JAX ``build_apply`` at rtol 1e-4 /
+atol 1e-5 (the JAX tests').
 """
 
 import os
@@ -146,12 +150,59 @@ class TestFitTransform:
         with pytest.raises(ValueError, match="at least one partition"):
             m.transform(PartitionedDataset.from_iterable(list(range(8)), 2))
 
-    def test_transform_sharded_scoring_is_not_ported(self):
+    def test_transform_sharded_scoring_is_not_ported(self, monkeypatch):
+        """Named from before ``scoring="sharded"`` was ported, when it
+        raised: it now runs ``sharded_bundle_inference_loop`` on the nodes
+        and asks the cluster for end-of-feed as soon as a node's share is
+        done (free dispatch, ``cluster.py``), as the JAX ``transform``
+        does."""
+        from tensorflowonspark_torch import inference
+
+        seen = {}
+
+        class Cluster:
+            def inference(self, data, flat, eof_when_done):
+                seen["eof_when_done"] = eof_when_done
+                return [[np.zeros(1)] * len(list(data.iter_partition(p)))
+                        for p in range(data.num_partitions)]
+
+            def shutdown(self):
+                seen["shutdown"] = True
+
+            def metrics(self):
+                return {"counters": {"rows": 8}}
+
+        def run(map_fun, args, **kwargs):
+            seen["map_fun"] = map_fun
+            seen["torch_distributed"] = kwargs["torch_distributed"]
+            return Cluster()
+
+        monkeypatch.setattr(pipeline._cluster, "run", run)
         m = pipeline.TorchModel()
-        m.set("export_dir", "/nonexistent")
+        m.set("export_dir", "/nonexistent").set("torch_distributed", True)
         m.setNumExecutors(2).setScoring("sharded")
-        with pytest.raises(NotImplementedError, match=r"queue 1 \(l\)"):
-            m.transform(PartitionedDataset.from_iterable(list(range(8)), 2))
+        out = list(m.transform(PartitionedDataset.from_iterable(list(range(8)), 2)))
+        assert len(out) == 8 and seen == {
+            "map_fun": inference.sharded_bundle_inference_loop, "torch_distributed": True,
+            "eof_when_done": True, "shutdown": True}
+        assert m.last_cluster_metrics == {"counters": {"rows": 8}}
+
+    def test_transform_sharded_scoring_two_process(self, tmp_path):
+        """``setScoring("sharded")`` with ``torch_distributed``: the
+        wide-and-deep bundle the JAX package exported, fsdp-sharded over a
+        2-node gloo mesh, scores 16 rows in 4 partitions — every row once,
+        in order, within rtol 1e-4 / atol 1e-5 of the JAX
+        ``build_apply``."""
+        rows, expected = _sharded_bundle(tmp_path, 16, seed=6)
+        m = pipeline.TorchModel(tf_args={"device": "cpu"})
+        m.set("export_dir", str(tmp_path / "b")).set("torch_distributed", True)
+        m.setNumExecutors(2).setBatchSize(4).setScoring("sharded")
+        m.set("reservation_timeout", 120.0)
+        out = list(m.transform(PartitionedDataset.from_iterable(rows, 4)))
+        assert len(out) == 16
+        assert all(np.allclose(r["features"], rows[i]["features"]) for i, r in enumerate(out))
+        np.testing.assert_allclose(np.stack([r["prediction"] for r in out]), expected,
+                                   rtol=1e-4, atol=1e-5)
 
     def test_estimator_requires_export_dir(self):
         est = pipeline.TorchEstimator(torch_mapfuns.noop, {})
@@ -205,6 +256,82 @@ def test_direct_fit_stages_rows_for_a_self_service_train_fn(tmp_path):
     est.fit(PartitionedDataset.from_iterable(rows, 4))
     counts = [int((tmp_path / "logs" / f"staged_{i}.txt").read_text()) for i in range(2)]
     assert sum(counts) == 40 and all(c > 0 for c in counts)
+
+
+def _sharded_bundle(tmp_path, n_rows, seed):
+    """The JAX package's wide-and-deep bundle at ``tmp_path/b`` and
+    ``n_rows`` synthetic rows with the JAX ``build_apply``'s scores."""
+    import jax
+
+    from tensorflowonspark_torch.inference import rows_to_features
+    from tensorflowonspark_tpu.checkpoint import export_bundle
+    from tensorflowonspark_tpu.models import registry as jreg
+    from tensorflowonspark_tpu.models import wide_deep as jwd
+
+    config = {"model": "wide_deep", "vocab_size": 101, "embed_dim": 4,
+              "hidden": (8,), "bf16": False}
+    params = jax.device_get(jwd.init_params(jwd.build_wide_deep(config),
+                                            jax.random.PRNGKey(0)))
+    export_bundle(str(tmp_path / "b"), params, config)
+    rows = wide_deep.synthetic_criteo(n_rows, seed=seed)
+    return rows, np.asarray(jreg.build_apply(config)(params, rows_to_features(rows, None)))
+
+
+@pytest.mark.parametrize("mesh_axes", [{"fsdp": -1}, {"tp": 2}], ids=["fsdp", "tp"])
+def test_two_process_sharded_streaming_inference(tmp_path, mesh_axes):
+    """The restated ``tests/test_distributed.py`` streaming case: params
+    fsdp-sharded over a 2-node gloo mesh, 24 rows in 5 partitions (uneven,
+    so the drier node joins rounds with filler batches), ``window=1``
+    (free dispatch must win over the window, or the nodes would wait for
+    each other in a collective), each node emitting only its own rows:
+    exactly 24 results in order, equal to the JAX ``build_apply``'s.  On a
+    ``tp=2`` mesh the two nodes are peers on the same rows: each scores
+    both nodes' batches and emits its own (``_peer_batch``,
+    ``_local_rows``), so no row is lost or doubled."""
+    from tensorflowonspark_torch import cluster as tcluster
+    from tensorflowonspark_torch.inference import sharded_bundle_inference_loop
+
+    rows, expected = _sharded_bundle(tmp_path, 24, seed=5)
+    cluster = tcluster.run(
+        sharded_bundle_inference_loop,
+        {"export_dir": str(tmp_path / "b"), "batch_size": 4, "mesh_axes": mesh_axes,
+         "device": "cpu"},
+        num_executors=2, input_mode=InputMode.STREAMING, torch_distributed=True,
+        log_dir=str(tmp_path / "logs"), reservation_timeout=120.0)
+    try:
+        parts = dict(cluster.inference_stream(PartitionedDataset.from_iterable(rows, 5),
+                                              window=1, eof_when_done=True))
+    finally:
+        cluster.shutdown(timeout=120.0)
+    results = [x for p in sorted(parts) for x in parts[p]]
+    assert len(results) == 24
+    np.testing.assert_allclose(np.stack(results), expected, rtol=1e-4, atol=1e-5)
+
+
+def test_local_rows_dedupes_replicated_mesh_axes():
+    """``inference._local_rows`` must not duplicate rows when a non-batch
+    axis (tp) puts several ranks on the same rows: on a dp4 × tp2 mesh each
+    rank scores its tp pair's two batches and keeps its own block, so the
+    8 ranks emit the 8 rows, each once (the restated
+    ``tests/test_pipeline.py`` case, whose mesh holds the same layout)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from tensorflowonspark_torch.inference import _local_rows
+    from tensorflowonspark_torch.parallel import mesh as tmesh
+
+    x = torch.arange(8.0)[:, None] * torch.ones((1, 3))
+    emitted = []
+    for r in range(8):
+        mesh = DeviceMesh("cpu", torch.arange(8).reshape(4, 1, 2, 1, 1, 1),
+                          mesh_dim_names=tmesh.AXES, _init_backend=False, _rank=r)
+        dp, tp = tmesh.axis_index(mesh, "dp"), tmesh.axis_index(mesh, "tp")
+        assert (dp, tp) == (r // 2, r % 2)
+        pair = x[2 * dp:2 * dp + 2]  # the two tp peers' one-row batches, peer order
+        mine = _local_rows(pair, mesh)
+        np.testing.assert_array_equal(mine.numpy(), x[r:r + 1].numpy())
+        emitted.append(mine)
+    np.testing.assert_array_equal(torch.cat(emitted).numpy(), x.numpy())
+    assert _local_rows({"a": pair}, mesh)["a"].shape == (1, 3)
 
 
 def test_transform_rejects_unknown_scoring_mode():
@@ -322,3 +449,17 @@ class TestMergePredictionRows:
         assert len(results) == 2
         np.testing.assert_array_equal(results[1]["a"], [2, 3])
         assert results[1]["b"] == 1
+
+    def test_argmax_emits_class_ids_and_sequence_ids(self):
+        """``postprocess="argmax"``: an int per row for class scores, and
+        each row's ``[S]`` ids for a sequence model's ``[B, S, V]`` logits
+        (the LM bundle scored by ``transform``); the padding rows dropped."""
+        from tensorflowonspark_torch.inference import batch_results
+
+        scores = np.random.RandomState(0).randn(4, 5)
+        assert batch_results(scores, 3, "argmax") == [int(i) for i in scores[:3].argmax(-1)]
+        logits = np.random.RandomState(1).randn(4, 6, 5)
+        ids = batch_results(logits, 2, "argmax")
+        assert len(ids) == 2
+        for row, want in zip(ids, logits[:2].argmax(-1)):
+            np.testing.assert_array_equal(row, want)

@@ -338,14 +338,14 @@ def test_train_lm_example_runs_on_cpu(capsys):
     assert np.isfinite(out["loss"]) and out["generated"].shape == (1, 11)
 
 
-# --pp and --profile-dir are not ported (their ROADMAP items); --tp, --sp
-# and --ep are, and refuse a mesh the world of one process cannot hold, as
-# the JAX example does on one device; --n-experts is, and refuses top-2 of 1
+# --profile-dir is not ported (its ROADMAP item); --tp, --sp, --ep and --pp
+# are, and refuse a mesh the world of one process cannot hold, as the JAX
+# example does on one device; --n-experts is, and refuses top-2 of 1
 @pytest.mark.parametrize("flag,exc,match", [
     (["--tp", "2"], ValueError, "1 devices not divisible"),
     (["--sp", "2"], ValueError, "1 devices not divisible"),
     (["--ep", "2"], ValueError, "1 devices not divisible"),
-    (["--pp", "2"], NotImplementedError, "ROADMAP.md queue 1 \\(l\\)"),
+    (["--pp", "2"], SystemExit, "--pp 2 needs 2 ranks, have 1"),
     (["--n-experts", "1"], ValueError, "top_k 2"),
     (["--profile-dir", "x"], NotImplementedError, "ROADMAP.md queue 1 \\(f\\)"),
 ], ids=[f"flag{i}" for i in range(6)])

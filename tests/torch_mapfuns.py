@@ -865,3 +865,58 @@ def world1_group(name: str = "solo"):
         client.close()
         server.stop()
         coord.stop()
+
+
+def fsdp_bn_chief_save(args, ctx):
+    """The small ResNet (float64) trained 2 BN steps over a 2-node
+    ``fsdp=2`` mesh (``run(torch_distributed=True)``), saved through
+    ``chief_save`` (the collective regime: every node writes its blocks),
+    then restored onto a fresh state of the same mesh.  Writes
+    ``fsdp_<rank>.json`` (the restore's step, whether every leaf came back
+    bit for bit, and the next step's loss from both states) and, from rank
+    0, ``full.pt``: ``tp.full_parameters`` of the trained model."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_torch.checkpoint import CheckpointManager, _leaves, chief_save
+    from tensorflowonspark_torch.models import resnet as tres
+    from tensorflowonspark_torch.parallel import dp as dplib
+    from tensorflowonspark_torch.parallel import tp as tplib
+
+    mesh = ctx.make_mesh("cpu", fsdp=2)
+
+    def build():
+        model = tres.ResNet(stage_sizes=(1, 1, 1), num_classes=10, width=8, stem="cifar",
+                            compute_dtype=torch.float64, norm_dtype=torch.float64).double()
+        model.init_weights(torch.Generator().manual_seed(0))
+        dplib.replicate(model, mesh)
+        tplib.shard_model(model, mesh, rules=())
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, nesterov=True)
+        return (dplib.BNTrainState.create(model, opt),
+                dplib.make_bn_train_step(tres.make_loss_fn(model), opt, mesh=mesh))
+
+    rank = dist.get_rank()
+    rng = np.random.RandomState(rank)
+    batch = {"image": torch.from_numpy(rng.rand(4, 32, 32, 3)),
+             "label": torch.arange(4, dtype=torch.int32) + 4 * rank}
+    state, step = build()
+    for _ in range(2):
+        state, _ = step(state, batch)
+    manager = CheckpointManager(args["model_dir"])
+    chief_save(ctx, manager, state.step, state.tree())
+    full = tplib.full_parameters(state.model, mesh)
+    if rank == 0:
+        torch.save(full, os.path.join(args["model_dir"], "full.pt"))
+    fresh, fresh_step = build()
+    restored, at = manager.restore_latest(fresh.tree())
+    fresh = fresh.restore(restored)
+    pairs = list(zip(_leaves(state.tree()), _leaves(fresh.tree())))
+    same = all(torch.equal(dplib._blocks(a), dplib._blocks(b)) for (_, a), (_, b) in pairs
+               if isinstance(dplib._blocks(a), torch.Tensor))
+    _, m_live = step(state, batch)
+    _, m_restored = fresh_step(fresh, batch)
+    with open(os.path.join(args["model_dir"], f"fsdp_{rank}.json"), "w") as f:
+        json.dump({"step": at, "restored_step": fresh.step, "equal": same,
+                   "leaves": len(pairs), "losses": [m_live["loss"].item(),
+                                                    m_restored["loss"].item()]}, f)
