@@ -167,6 +167,16 @@ Phases (any failure propagates and the script exits non-zero):
    ids in batches of 4 with ``postprocess="argmax"``, every row's ids
    equal to ``scoring="task"``'s on the same bundle; the node's kernel
    launches (n_layers a batch) and each transform's seconds.
+26. ingest resnet50 — ResNet-50 at the resnet50 phase's width fed from
+   2560 synthetic 224 px images in 20 TFRecord shards through the DIRECT
+   ingest tier (``IngestFeed`` in columnar mode, ``device_prefetch`` as
+   uint8, normalised on the card), after the image clusters: node-local
+   readers under ``profiling.trace`` (the card's idle share) and again
+   without it, then one data-service worker over two epochs (the second
+   from ``ChunkCache``); images/s, step ms and the host's wait a step over
+   the timed steps, the readers' decode rate alone; gates: every id
+   exactly once per epoch, the first 3 steps replayed resident within 1%,
+   no attention launch, the worker without a CUDA context.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -176,6 +186,7 @@ with 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import json
@@ -292,7 +303,8 @@ GENERIC_CASES = [
 # cases timed against the plain version and the library call as well
 REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d256",
                    "bf16_d256_train_shape", "f32_d256", "bf16_d32_padded",
-                   "bf16_d96_padded", "bf16_d512", "f32_d512")
+                   "bf16_d96_padded", "bf16_d512", "f32_d512",
+                   "bf16_d320_ragged_noncausal", "f32_d320")
 
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
@@ -323,6 +335,14 @@ RESNET_CONFIG = {"model": "resnet50", "num_classes": 1000, "bf16": True}
 RESNET_BATCH, RESNET_SIZE = 256, 224
 RESNET_LR, RESNET_WD = 0.1, 1e-4
 RESNET_WARMUP, RESNET_TIMED = 3, 20
+# ResNet-50 at the same width fed from TFRecord shards through the DIRECT
+# ingest tier (phase_ingest_resnet50): INGEST_IMAGES synthetic 224 px
+# Examples in shards of INGEST_PER_SHARD; per epoch INGEST_WARMUP steps
+# and INGEST_IMAGES / RESNET_BATCH - INGEST_WARMUP timed ones; the first
+# INGEST_REPLAY steps replayed in this process within LOSS_REL_TOL
+INGEST_IMAGES, INGEST_PER_SHARD = 2560, 128
+INGEST_WARMUP, INGEST_REPLAY = 2, 3
+INGEST_CACHE_BYTES = 1 << 30
 # one BN step, card against CPU, f32 resnet_cifar (phase_bn_card_vs_cpu).
 # cuDNN in f32: the CPU's own f32 gradients stray at most 6.3e-6 (relative
 # L2 per parameter) from float64 ones at this model and batch; cuDNN may
@@ -534,14 +554,15 @@ def design_bound(route, b, sq, sk, h, d, padded, causal, kv_offset, itemsize):
                              PEAK_FLOPS[route], products, slices), basis)
 
 
-def sdpa_choice(q, k, v) -> str:
+def sdpa_choice(q, k, v, is_causal=True, attn_mask=None) -> str:
     """The ``F.scaled_dot_product_attention`` backend PyTorch picks for a
-    causal call on these inputs."""
+    call on these inputs (causal unless told otherwise)."""
     import torch
     from torch.nn.attention import SDPBackend
 
     try:
-        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, attn_mask=attn_mask, is_causal=is_causal)).name
     except (AttributeError, RuntimeError, TypeError, ValueError) as e:
         return f"unknown ({type(e).__name__})"
 
@@ -789,15 +810,25 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
             f"{bound_ms:.5f} ms, {bound_by}, the function's own; share "
             f"{bound_ms / ms:.3f})")
         if name in REFERENCE_TIMED:
-            plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=causal),
-                               reps=10, windows=3)[0]
+            plain_ms = time_ms(lambda: att.chunk_attention(
+                q, k, v, causal=causal, kv_offset=off), reps=10, windows=3)[0]
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            # the same function: SDPA's is_causal aligns the top-left
+            # corner, so a causal mask with a kv_offset or Sq != Sk goes in
+            # as an explicit mask
+            sdpa = dict(is_causal=causal)
+            if causal and (sq != sk or off):
+                sdpa = dict(attn_mask=att._causal_keep(sq, sk, off, q.device))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))[0]
-            backend = sdpa_choice(qt, kt, vt)
+                qt, kt, vt, **sdpa))[0]
+            backend = sdpa_choice(qt, kt, vt, **sdpa)
             design_ms, design_by, design_basis = design_bound(
                 route, b, sq, sk, h, d, padded, causal, off, q.element_size())
-            rec = {"shape": f"B={b} S={sq} H={h} D={d} causal {dtype_name}",
+            rec = {"shape": (f"B={b} S={sq} H={h} D={d} causal {dtype_name}"
+                             if sq == sk and causal and not off else
+                             f"B={b} Sq={sq} Sk={sk} H={h} D={d} "
+                             f"{'causal kv_offset ' + str(off) if causal else 'non-causal'}"
+                             f" {dtype_name}"),
                    "padded_head_dim": padded,
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
@@ -837,9 +868,11 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
                    head_dim_64=timed["head_dim_64"], d256=timed["bf16_d256"],
                    d256_train_shape=timed["bf16_d256_train_shape"],
                    d32_padded=timed["bf16_d32_padded"],
-                   d96_padded=timed["bf16_d96_padded"], d512=timed["bf16_d512"]),
+                   d96_padded=timed["bf16_d96_padded"], d512=timed["bf16_d512"],
+                   d320=timed["bf16_d320_ragged_noncausal"]),
             record("flash_attn_fwd_tf32", "f32_serving_shape",
-                   d256=timed["f32_d256"], d512=timed["f32_d512"])]
+                   d256=timed["f32_d256"], d512=timed["f32_d512"],
+                   d320=timed["f32_d320"])]
 
 
 def make_lm_params(cfg: dict, seed: int) -> dict:
@@ -3092,6 +3125,214 @@ def import_test_mapfuns():
     return torch_mapfuns
 
 
+def ingest_window(result: dict, first: int, last: int, batch: int) -> dict:
+    """Step ms, images/s and the host wait per step over steps
+    ``first..last-1`` of an ingest-fed run (``ingest_resnet_trainer``'s
+    record): the span between the ends of steps ``first - 1`` and
+    ``last - 1`` on the device's clock, waits on the host's."""
+    ends = result["end_ms"]
+    ms = (ends[last - 1] - ends[first - 1]) / (last - first)
+    return {"steps": last - first, "step_ms": ms, "images_per_s": batch / ms * 1e3,
+            "host_wait_ms": statistics.mean(result["wait_ms"][first:last])}
+
+
+def ingest_replay(result: dict, seed: int, device: str, torch_mapfuns) -> list:
+    """The run's first ``INGEST_REPLAY`` batches, regenerated from their
+    ids, through the port's resident BN step from the same init seed;
+    returns each step's loss there."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.parallel import dp
+
+    model = torch_mapfuns.build_image_model(RESNET_CONFIG, seed, device)
+    optimizer = torch.optim.SGD(model.parameters(), lr=RESNET_LR, momentum=0.9,
+                                nesterov=True)
+    step = dp.make_bn_train_step(resnet.make_loss_fn(model, weight_decay=RESNET_WD),
+                                 optimizer)
+    state = dp.BNTrainState.create(model, optimizer)
+    losses = []
+    for ids in result["ids"][:INGEST_REPLAY]:
+        pixels = np.stack([torch_mapfuns.synthetic_image(seed, i, RESNET_SIZE) for i in ids])
+        images = torch_mapfuns.normalize_images(torch.from_numpy(pixels).to(device))
+        labels = torch.as_tensor(ids, device=device) % RESNET_CONFIG["num_classes"]
+        state, m = step(state, {"image": images, "label": labels})
+        losses.append(m["loss"].item())
+    del model, optimizer, state
+    return losses
+
+
+def phase_ingest_resnet50(seed: int, smi: str, resident_images_s: float | None,
+                          device: str = "cuda") -> dict:
+    """BASELINE config 3 at ``phase_resnet50``'s width (ResNet-50, 224 px,
+    batch 256, bf16 over f32 masters, SGD Nesterov, ``make_bn_train_step``)
+    fed from TFRecord shards through the port's DIRECT ingest tier instead
+    of one resident batch (``tests/torch_mapfuns.py:ingest_resnet_trainer``
+    on one node process): ``INGEST_IMAGES`` synthetic Examples (``image``
+    uint8 bytes, ``label``, ``id``; each image a function of ``(seed, id)``)
+    written under ``WORK_DIR``; run A reads them with node-local readers
+    (``train(shard_dir, num_epochs=1)``, its timed steps inside
+    ``profiling.trace``; once more without the trace), run B through one
+    data-service worker (``ingest_workers=1``, two epochs, the second from
+    ``ChunkCache``).
+
+    Gates, each raised: every id exactly once per epoch; the first
+    ``INGEST_REPLAY`` steps of each run replayed here through the resident
+    BN step from the same init, each loss within ``LOSS_REL_TOL``; no
+    attention launch; the ingest worker never initialised CUDA (its
+    ``update_meta``: no card visible, torch's CUDA state untouched); epoch
+    2 served from the worker's cache.
+    ``device="cpu"`` rehearses it with shrunken constants."""
+    import tensorflowonspark_torch as tos
+    from tensorflowonspark_torch.feeding import FeedQueues
+    from tensorflowonspark_torch.ingest import IngestFeed
+    from tensorflowonspark_torch.marker import EndOfFeed, EndPartition
+    from tensorflowonspark_torch.ops import attention as att
+
+    torch_mapfuns = import_test_mapfuns()
+    cuda = device == "cuda"
+    per_epoch = INGEST_IMAGES // RESNET_BATCH
+    if per_epoch * RESNET_BATCH != INGEST_IMAGES or per_epoch <= INGEST_WARMUP:
+        raise ValueError("INGEST_IMAGES must be whole batches, more than the warm-up")
+    shard_dir = os.path.join(WORK_DIR, "ingest_shards")
+    t0 = time.perf_counter()
+    shards = torch_mapfuns.write_image_shards(
+        shard_dir, INGEST_IMAGES, INGEST_PER_SHARD, RESNET_SIZE, seed,
+        RESNET_CONFIG["num_classes"])
+    pixel_mb = INGEST_IMAGES * RESNET_SIZE * RESNET_SIZE * 3 / 1e6
+    disk_mb = sum(os.path.getsize(p) for p in shards) / 1e6
+    log(f"[ingest] {INGEST_IMAGES} Examples ({RESNET_SIZE} px uint8 image, label, id) in "
+        f"{len(shards)} shards, {disk_mb:.1f} MB on disk ({pixel_mb:.1f} MB of pixels), "
+        f"written in {time.perf_counter() - t0:.1f} s")
+
+    # what node-side decode alone delivers on this host: the columnar
+    # readers and the batch assembly over the shards twice, no training
+    # behind them; the pool fixed at its autotune ceiling
+    # (TOS_INGEST_READERS), timed from the first batch (the feed's start-up
+    # and the autotuner's ramp are not decode)
+    queues = FeedQueues(("input",))
+    for i, path in enumerate(shards * 2):
+        queues.get_queue("input").put(path)
+        queues.get_queue("input").put(EndPartition(key=(0, i)))
+    queues.get_queue("input").put(EndOfFeed())
+    feed = IngestFeed(queues, schema=torch_mapfuns.image_schema(),
+                      binary_features={"image"}, autotune=False)
+    sizes, t0 = [], time.perf_counter()
+    for batch in torch_mapfuns.image_batches(feed, RESNET_BATCH, RESNET_SIZE):
+        if not sizes:
+            t0 = time.perf_counter()
+        sizes.append(len(batch["id"]))
+    decode_s = time.perf_counter() - t0
+    if sum(sizes) != 2 * INGEST_IMAGES:
+        raise AssertionError(f"the decode pass delivered {sum(sizes)} images")
+    images_s = sum(sizes[1:]) / decode_s
+    decode = {"images_per_s": images_s,
+              "mb_per_s": images_s * RESNET_SIZE * RESNET_SIZE * 3 / 1e6,
+              "readers": feed.pipeline._max_readers}
+    log(f"[ingest] node-side decode alone ({decode['readers']} readers, autotune off, "
+        f"+ batch assembly; host clock from the first batch, 2 passes): "
+        f"{decode['images_per_s']:.1f} images/s, {decode['mb_per_s']:.1f} MB/s of "
+        f"pixels ({smi})")
+
+    args = {"device": device, "config": RESNET_CONFIG, "seed": seed, "size": RESNET_SIZE,
+            "batch_size": RESNET_BATCH, "lr": RESNET_LR, "weight_decay": RESNET_WD,
+            "warmup": INGEST_WARMUP}
+    driver_launches = sum(att.LAUNCHES.values())
+    runs = {}
+    # run A twice: under the trace (the idle share), and without it
+    for tag, epochs, workers, traced in (("A", 1, 0, True), ("A untraced", 1, 0, False),
+                                         ("B", 2, 1, False)):
+        out_dir = os.path.join(WORK_DIR, f"ingest_{tag.replace(' ', '_')}")
+        os.makedirs(out_dir, exist_ok=True)
+        run_args = {**args, "out_dir": out_dir}
+        if traced and cuda:
+            run_args["trace_dir"] = os.path.join(out_dir, "trace")
+        extra = {}
+        if workers:
+            extra = {"ingest_workers": workers, "ingest_opts": {
+                "schema": torch_mapfuns.image_schema(), "binary_features": {"image"},
+                "cache_bytes": INGEST_CACHE_BYTES}}
+        t0 = time.perf_counter()
+        cluster = tos.run(torch_mapfuns.ingest_resnet_trainer, run_args,
+                          num_executors=1, input_mode=tos.InputMode.DIRECT,
+                          log_dir=os.path.join(out_dir, "logs"),
+                          reservation_timeout=300, **extra)
+        try:
+            cluster.train(shard_dir, num_epochs=epochs)
+        finally:
+            cluster.shutdown(timeout=300)
+        wall_s = time.perf_counter() - t0
+        result = json.load(open(os.path.join(out_dir, "ingest_result_0.json")))
+        seen = collections.Counter(i for b in result["ids"] for i in b)
+        if seen != collections.Counter({i: epochs for i in range(INGEST_IMAGES)}):
+            raise AssertionError(f"run {tag}: ids not each seen exactly once per epoch "
+                                 f"({sum(seen.values())} seen, {len(seen)} distinct)")
+        if len(result["ids"]) != epochs * per_epoch:
+            raise AssertionError(f"run {tag}: {len(result['ids'])} steps")
+        rec = {"wall_s": wall_s, "losses": result["losses"],
+               "epoch1": ingest_window(result, INGEST_WARMUP, per_epoch, RESNET_BATCH)}
+        if epochs > 1:
+            rec["epoch2"] = ingest_window(result, per_epoch + INGEST_WARMUP,
+                                          2 * per_epoch, RESNET_BATCH)
+        if "trace" in result:
+            rec["trace"] = result["trace"]
+        # the node processes' own counters (the driver's hold every phase's)
+        counters = collections.Counter()
+        for name, node in cluster.metrics()["nodes"].items():
+            if name != "driver":
+                counters.update(node.get("counters") or {})
+        if counters["attn.flash_fwd_launches"]:
+            raise AssertionError(f"run {tag} launched an attention kernel: {counters}")
+        if workers:
+            worker = [m for m in cluster.coordinator.cluster_info()
+                      if m["job_name"] == "ingest"]
+            if not worker or worker[0].get("cuda_initialized") is not False:
+                raise AssertionError(f"the ingest worker reported {worker}")
+            rec["cache_hits"] = counters["ingest.cache_hits"]
+            rec["worker_device"] = worker[0].get("device")
+            rec["worker_cuda_visible_devices"] = worker[0].get("cuda_visible_devices")
+            if rec["cache_hits"] < 1:
+                raise AssertionError(f"epoch 2 was not served from the cache: {counters}")
+        replay = ingest_replay(result, seed, device, torch_mapfuns)
+        rec["replay_losses"] = replay
+        for i, (got, want) in enumerate(zip(result["losses"], replay)):
+            if abs(got - want) > LOSS_REL_TOL * abs(want):
+                raise AssertionError(f"run {tag} step {i}: loss {got:.5f} fed from the "
+                                     f"shards, {want:.5f} replayed resident")
+        runs[tag] = rec
+        windows = [(f"run {tag}" + (f" epoch {e}" if epochs > 1 else ""), rec[f"epoch{e}"])
+                   for e in range(1, epochs + 1)]
+        for name, w in windows:
+            log(f"[ingest] {name}: {w['images_per_s']:.1f} images/s, step "
+                f"{w['step_ms']:.2f} ms over {w['steps']} timed steps ("
+                f"{'CUDA events' if cuda else 'host clock'} at each step's end), host waited {w['host_wait_ms']:.2f} ms a step for "
+                f"next_batch + device_prefetch ({smi})")
+        log(f"[ingest] run {tag}: losses " + ", ".join(f"{x:.4f}" for x in result["losses"])
+            + "; replayed resident " + ", ".join(f"{x:.4f}" for x in replay)
+            + f"; wall {wall_s:.1f} s with the cluster's start")
+    trace = runs["A"].get("trace")
+    if trace:
+        log(f"[ingest] run A's timed steps under profiling.trace: the card busy "
+            f"{trace['busy_ms']:.2f} of {trace['window_ms']:.2f} ms ({trace['kernels']} "
+            f"kernels), idle share {trace['idle_share']:.4f} ({smi})")
+    b = runs["B"]
+    log(f"[ingest] run B's worker: cuda_initialized False, CUDA_VISIBLE_DEVICES="
+        f"{b['worker_cuda_visible_devices']!r}, device {b['worker_device']}; epoch 2 "
+        f"cache hits {b['cache_hits']}")
+    if resident_images_s is not None:
+        log(f"[ingest] beside phase_resnet50's resident batch, {resident_images_s:.1f} "
+            f"images/s ({resident_images_s * RESNET_SIZE ** 2 * 3 / 1e6:.1f} "
+            f"MB/s of pixels): run A {runs['A']['epoch1']['images_per_s']:.1f} (untraced "
+            f"{runs['A untraced']['epoch1']['images_per_s']:.1f}), run B "
+            f"{b['epoch1']['images_per_s']:.1f} / {b['epoch2']['images_per_s']:.1f} "
+            f"(epoch 1 / 2), decode alone {decode['images_per_s']:.1f} ({smi})")
+    if sum(att.LAUNCHES.values()) != driver_launches:
+        raise AssertionError(f"the ingest replay launched an attention kernel: {att.LAUNCHES}")
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    return {"decode": decode, "runs": runs, "resident_images_per_s": resident_images_s}
+
+
 def phase_wide_deep_sync(seed: int, smi: str, device: str = "cuda") -> dict:
     """``train(mode="sync")`` of the full-width wide-and-deep on 2 node
     processes sharing the card: ``ctx.collective_group().grad_fn()`` is the
@@ -3358,6 +3599,9 @@ def main() -> int:
         images["inception"] = phase_inception(args.seed, smi)
         torch.cuda.empty_cache()
         images["clusters"] = phase_image_clusters(args.seed, smi)
+        torch.cuda.empty_cache()
+        images["ingest"] = phase_ingest_resnet50(
+            args.seed, smi, images["resnet50"]["images_per_s"])
         from tensorflowonspark_torch.ops import attention as att
 
         if any(att.LAUNCHES.values()):

@@ -22,7 +22,8 @@ blocks) and restores each leaf to the live state's placement::
       --device cpu --fsdp 2 --image-size 32 --batch 4 --steps 1 \\
       --num-classes 10 --model-dir /tmp/rn
 
-``--profile-dir`` is not ported yet and raises.
+``--profile-dir DIR`` traces the timed steps with ``torch.profiler``
+(``profiling.profile_steps``) into a TensorBoard/Chrome trace under DIR.
 """
 
 from __future__ import annotations
@@ -51,10 +52,6 @@ def main(argv=None) -> dict:
     p.add_argument("--profile-dir", default="")
     p.add_argument("--device", default=None, help="default cuda")
     args = p.parse_args(argv)
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir is not ported yet: ROADMAP.md queue 1 (f), "
-            "profiling.py on torch.profiler")
 
     import torch.distributed as dist
 
@@ -73,6 +70,7 @@ def _train(args) -> dict:
     import torch
     import torch.distributed as dist
 
+    from tensorflowonspark_torch import profiling
     from tensorflowonspark_torch.checkpoint import CheckpointManager, has_shards
     from tensorflowonspark_torch.models import resnet
     from tensorflowonspark_torch.parallel import dp as dplib
@@ -149,8 +147,12 @@ def _train(args) -> dict:
     if lead:
         print(f"step 0: loss={float(metrics['loss']):.4f}")
     t0 = time.perf_counter()
-    for _ in range(args.steps):
-        metrics = one_step()
+    if args.profile_dir:
+        metrics = profiling.profile_steps(args.profile_dir, one_step,
+                                          warmup=0, steps=args.steps)
+    else:
+        for _ in range(args.steps):
+            metrics = one_step()
     loss = float(metrics["loss"])  # waits for the device
     dt = time.perf_counter() - t0
     imgs = args.batch * args.steps / dt

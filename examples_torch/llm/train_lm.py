@@ -47,8 +47,9 @@ world is ``dp × pp`` ranks, ``pp`` innermost::
       --vocab-size 256
 
 On one card every stage runs in this process (``chip_smoke.py``'s pp phase
-drives ``PipelinedLM`` so).  ``--profile-dir`` (ROADMAP.md queue 1 (f)) is
-not ported yet and raises.
+drives ``PipelinedLM`` so).  ``--profile-dir DIR`` traces the timed steps
+with ``torch.profiler`` (``profiling.profile_steps``) into a
+TensorBoard/Chrome trace under DIR.
 """
 
 from __future__ import annotations
@@ -121,14 +122,11 @@ def _init_world(device: str | None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir is not ported yet: profiling.py is ROADMAP.md "
-            "queue 1 (f)")
 
     import torch
     import torch.distributed as dist
 
+    from tensorflowonspark_torch import profiling
     from tensorflowonspark_torch.models import transformer as tfm
     from tensorflowonspark_torch.parallel import dp as dplib
     from tensorflowonspark_torch.parallel import mesh as meshlib
@@ -178,9 +176,20 @@ def main(argv=None) -> dict:
         if lead:
             print(f"step 0: loss={first:.4f}")
 
+        def one_step():
+            nonlocal state
+            state, m = step(state, batch)
+            return m
+
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            state, metrics = step(state, batch)
+        if args.profile_dir:
+            # warmup already happened (the first step above), so the timed
+            # window covers exactly args.steps executions.
+            metrics = profiling.profile_steps(args.profile_dir, one_step,
+                                              warmup=0, steps=args.steps)
+        else:
+            for _ in range(args.steps):
+                metrics = one_step()
         loss = float(metrics["loss"])  # fetch = sync
         dt = time.perf_counter() - t0
         tokens = args.batch * args.seq_len * args.steps
@@ -277,6 +286,7 @@ def _train_pipelined(args) -> dict:
     import torch
     import torch.distributed as dist
 
+    from tensorflowonspark_torch import profiling
     from tensorflowonspark_torch.models import transformer as tfm
     from tensorflowonspark_torch.parallel import mesh as meshlib
 
@@ -328,8 +338,12 @@ def _train_pipelined(args) -> dict:
     if lead:
         print(f"step 0: loss={first:.4f}")
     t0 = time.perf_counter()
-    for _ in range(args.steps):
-        loss = lm.step(mine)
+    if args.profile_dir:
+        loss = profiling.profile_steps(args.profile_dir, lambda: lm.step(mine),
+                                       warmup=0, steps=args.steps)
+    else:
+        for _ in range(args.steps):
+            loss = lm.step(mine)
     loss = float(loss)  # fetch = sync
     dt = time.perf_counter() - t0
     tokens = args.batch * args.seq_len * args.steps

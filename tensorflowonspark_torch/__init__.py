@@ -25,41 +25,71 @@ optax's Adagrad in ``optim``) through the ML pipeline (``pipeline``:
 collective group behind ``train(mode="sync")`` (``collective``, reached as
 ``ctx.collective_group()``), and the sharded embedding tier
 (``embedding``: range-sharded tables over the group's sparse collectives,
-served through the gateway's lookup fan-out).
+served through the gateway's lookup fan-out); and ``InputMode.DIRECT``
+ingestion — the node-side reader pipeline, the data-service tier and
+``ingest.device_prefetch`` (``ingest``), the autoscaler (``autoscale``) and
+``torch.profiler`` traces (``profiling``).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
 """
 
 __version__ = "0.1.0"
 
-from tensorflowonspark_torch import collective, pipeline  # noqa: F401
+import importlib
+
+# The control plane (cluster, coordinator, node runtime, feeds, ingest) loads
+# no torch: a node process registers without paying torch's import, as the
+# JAX package's nodes skip jax's.  The names whose modules import torch load
+# at first use (PEP 562).
+from tensorflowonspark_torch import pipeline  # noqa: F401
 from tensorflowonspark_torch import telemetry  # noqa: F401 - metrics/span API
+from tensorflowonspark_torch import ingest  # noqa: F401 - DIRECT-mode reader pipeline
 from tensorflowonspark_torch.cluster import InputMode, TorchCluster, run  # noqa: F401
-from tensorflowonspark_torch.checkpoint import (  # noqa: F401
-    export_bundle,
-    load_bundle,
-    load_bundle_cached,
-)
 from tensorflowonspark_torch.data import PartitionedDataset  # noqa: F401
 from tensorflowonspark_torch.feeding import DataFeed, FeedQueues  # noqa: F401
-from tensorflowonspark_torch.inference import bundle_inference_loop  # noqa: F401
 from tensorflowonspark_torch.launcher import (  # noqa: F401
     LocalLauncher,
     SubprocessLauncher,
 )
 from tensorflowonspark_torch.marker import EndOfFeed, EndPartition  # noqa: F401
-from tensorflowonspark_torch.models.registry import build, build_apply  # noqa: F401
 from tensorflowonspark_torch.pipeline import (  # noqa: F401
     Namespace,
     TorchEstimator,
     TorchModel,
     TorchParams,
 )
-from tensorflowonspark_torch.serving import (  # noqa: F401
-    GatewayClient,
-    ServingGateway,
-    serving_loop,
-)
+
+_LAZY = {
+    "collective": ("tensorflowonspark_torch.collective", None),
+    "export_bundle": ("tensorflowonspark_torch.checkpoint", "export_bundle"),
+    "load_bundle": ("tensorflowonspark_torch.checkpoint", "load_bundle"),
+    "load_bundle_cached": ("tensorflowonspark_torch.checkpoint",
+                           "load_bundle_cached"),
+    "bundle_inference_loop": ("tensorflowonspark_torch.inference",
+                              "bundle_inference_loop"),
+    "build": ("tensorflowonspark_torch.models.registry", "build"),
+    "build_apply": ("tensorflowonspark_torch.models.registry", "build_apply"),
+    "GatewayClient": ("tensorflowonspark_torch.serving", "GatewayClient"),
+    "ServingGateway": ("tensorflowonspark_torch.serving", "ServingGateway"),
+    "serving_loop": ("tensorflowonspark_torch.serving", "serving_loop"),
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module, attr = _LAZY[name]
+    value = importlib.import_module(module)
+    if attr is not None:
+        value = getattr(value, attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))
+
+
 # drop-in aliases for TensorFlowOnSpark users, as in the JAX package
 TFCluster = TorchCluster
 TFEstimator = TorchEstimator

@@ -961,11 +961,69 @@ class TorchCluster:
                                        if hasattr(embedding, "to_manifest")
                                        else dict(embedding))
         if self.input_mode == InputMode.DIRECT:
-            raise NotImplementedError(
-                "InputMode.DIRECT train() (node-side shard ingestion) is not "
-                "ported yet: ROADMAP.md queue 1 (i), the ingest tier; run "
-                "the cluster with input_mode=InputMode.STREAMING to stream "
-                "rows from the driver")
+            from tensorflowonspark_torch.ingest import shards_as_partitioned
+
+            if not isinstance(data, (str, os.PathLike, list, tuple)) and not \
+                    hasattr(data, "iter_partition"):
+                raise RuntimeError(
+                    "InputMode.DIRECT (reference: InputMode.TENSORFLOW) "
+                    "train() takes a shard path/glob/directory (or list of "
+                    "paths), not row data — nodes read the files themselves. "
+                    "To stream rows from the driver, run the cluster with "
+                    "input_mode=InputMode.STREAMING (reference: InputMode.SPARK)")
+            if hasattr(data, "iter_partition"):
+                dataset = data  # pre-built partitions of paths: passthrough
+                num_shards = num_items = None
+            else:
+                from tensorflowonspark_torch.ingest import (
+                    enumerate_shards,
+                    split_shards,
+                )
+
+                files = enumerate_shards(data)
+                num_shards = len(files)
+                items = split_shards(files, span_bytes)
+                num_items = len(items)
+                dataset = shards_as_partitioned(items, num_partitions,
+                                                span_bytes=0)
+            manifest = {
+                "kind": "tfrecord_shards", "qname": qname,
+                "num_shards": num_shards,
+                # work items the ledger feeds: == num_shards unless large
+                # plain shards were split into sub-shard span ranges
+                "num_items": num_items,
+                "num_partitions": dataset.num_partitions,
+                "num_epochs": num_epochs,
+                "mode": mode,
+                "spec": str(data) if isinstance(data, (str, os.PathLike)) else None,
+            }
+            if sync_block is not None:
+                manifest["sync"] = sync_block
+            if self._ingest_ids:
+                # disaggregated tier declaration: map_funs (and operators
+                # reading ctx.job_manifest()) see which tier the ledger
+                # feeds and how the pool is configured — ingest_opts
+                # overrides win over the env knobs, mirroring what the
+                # workers themselves resolve
+                from tensorflowonspark_torch.ingest.service import (
+                    cache_bytes_default,
+                    shuffle_default,
+                )
+
+                opts = self._ingest_opts()
+                shuffle = opts.get("shuffle")
+                cache_bytes = opts.get("cache_bytes")
+                manifest["ingest"] = {
+                    "workers": len(self._ingest_feedable_ids()),
+                    # None = "not overridden": the env knob applies,
+                    # through the SAME helpers IngestService resolves with
+                    "shuffle": bool(shuffle_default() if shuffle is None
+                                    else shuffle),
+                    "cache_bytes": int(cache_bytes_default()
+                                       if cache_bytes is None
+                                       else cache_bytes),
+                }
+            self.coordinator.set_manifest(manifest)
         else:
             if isinstance(data, (str, os.PathLike)):
                 raise RuntimeError(
@@ -1455,6 +1513,17 @@ class TorchCluster:
         autoscaler policy compares its desired pool size to."""
         return len(self._ingest_feedable_ids())
 
+    def _ingest_opts(self) -> dict:
+        """The tier's decode configuration as launched
+        (``run(ingest_opts=...)``, carried on every NodeConfig) — the
+        manifest must describe what the workers ACTUALLY run, not the env
+        defaults the opts may override."""
+        for cfg in getattr(self.launcher, "configs", []):
+            opts = getattr(cfg, "ingest_opts", None)
+            if opts:
+                return dict(opts)
+        return {}
+
     def resize(self, num_nodes: int, *, drain_timeout: float | None = None) -> dict:
         """Grow or shrink the LIVE cluster to ``num_nodes`` feedable nodes.
 
@@ -1822,18 +1891,187 @@ class TorchCluster:
 
     def resize_ingest(self, num_workers: int, *,
                       drain_timeout: float | None = None) -> dict:
-        """Grow or shrink the data-service (ingest) tier — not ported yet."""
-        raise NotImplementedError(
-            "the data-service tier (resize_ingest) is not ported yet: "
-            "ROADMAP.md queue 1 (i), the ingest tier")
+        """Grow or shrink the data-service tier to ``num_workers`` live
+        ingest workers — the fleet knob BENCH_r12's per-box decode ceiling
+        becomes (decode parallelism was a per-trainer constant before this
+        tier existed).
+
+        Scale-out opens ``ingest``-role slots mid-run, spawns fresh node
+        processes (the coordinator's role assignment routes them into
+        ``ingest.service.ingest_worker_main``), and attaches each to an
+        in-flight ingest-fed ``train()`` with a rebalanced ledger share.
+        Scale-in drains the highest-numbered workers (ledger retire ->
+        orphaned shard items re-feed to surviving workers -> retirement
+        EOF -> reap), with the same at-least-once guarantees a worker
+        death gets.  Trainers are untouched in both directions.
+
+        Limitation: each worker snapshots the TRAINER endpoints at its own
+        boot (``ingest_worker_main`` reads ``ctx.cluster_info``), so a
+        trainer added by ``resize()`` mid-run joins the forwarding
+        rotation only as workers (re)start — resize the trainer fleet
+        between train() calls, or cycle the ingest tier afterwards."""
+        if num_workers < 0:
+            raise ValueError("resize_ingest needs num_workers >= 0")
+        # same preconditions run() enforces for ingest_workers: the tier
+        # only has work on a DIRECT cluster, and a torch_distributed world
+        # has a fixed process count
+        if self.input_mode != InputMode.DIRECT:
+            raise RuntimeError(
+                "resize_ingest needs InputMode.DIRECT: the data-service "
+                "tier claims shard items from the ledger, which a "
+                "STREAMING cluster never produces")
+        if any(getattr(cfg, "torch_distributed", False)
+               for cfg in getattr(self.launcher, "configs", [])):
+            raise RuntimeError(
+                "cannot resize the ingest tier of a torch.distributed job: "
+                "a live process group has a fixed world size")
+        with self._resize_lock:
+            if self._closing.is_set() or self._shutdown_done:
+                raise RuntimeError("cluster is shutting down")
+            current = self.num_ingest()
+            t0 = time.monotonic()
+            if num_workers == current:
+                return {"action": "noop", "tier": "ingest",
+                        "from": current, "to": current}
+            if num_workers > current:
+                added = self._scale_out_ingest(num_workers - current)
+                record: dict = {"action": "scale_out", "tier": "ingest",
+                                "from": current, "to": current + len(added),
+                                "added": added}
+            else:
+                retired = self._scale_in_ingest(current - num_workers,
+                                                drain_timeout)
+                record = {"action": "scale_in", "tier": "ingest",
+                          "from": current, "to": current - len(retired),
+                          "retired": retired}
+            record["secs"] = round(time.monotonic() - t0, 3)
+            self._resize_log.append(record)
+            telemetry.counter(f"cluster.ingest_{record['action']}_total").inc()
+            telemetry.gauge("cluster.ingest_workers").set(self.num_ingest())
+            logger.info("ingest tier resized: %s", record)
+            return dict(record)
+
+    def _ingest_template(self):
+        """NodeConfig to clone for ingest scale-out: any live config works
+        (role assignment — not the config — routes a process into the
+        service loop), preferring an existing ingest worker's so its
+        ``ingest_opts`` tuning rides along."""
+        best = None
+        for meta in self.cluster_info:
+            li = meta.get("launch_index", -1)
+            if not 0 <= li < len(self.launcher.configs):
+                continue
+            if meta["executor_id"] in self._ingest_ids:
+                return self.launcher.configs[li]
+            if best is None:
+                best = self.launcher.configs[li]
+        if best is None:
+            raise RuntimeError("no node config to clone for ingest scale-out")
+        return best
+
+    def _scale_out_ingest(self, count: int) -> list[int]:
+        import dataclasses as _dc
+
+        # ingest_tier: the newcomer reads no device facts before it knows
+        # its role, so an ingest worker never initialises CUDA
+        template = _dc.replace(self._ingest_template(), ingest_tier=True)
+        new_ids = self._spawn_slots(count, "ingest", template,
+                                    "ingest_scale_out_spawn")
+        for eid in new_ids:
+            self._ingest_ids.append(eid)
+            self._attach_train_slot(eid, tier="ingest")
+            ttrace.event("ingest_scale_out", executor=eid)
+        return new_ids
+
+    def _scale_in_ingest(self, count: int,
+                         drain_timeout: float | None) -> list[int]:
+        if drain_timeout is None:
+            drain_timeout = _env_float("TOS_DRAIN_TIMEOUT", 60.0)
+        candidates = [eid for eid in self._ingest_ids
+                      if eid not in self._retiring]
+        if len(candidates) < count:
+            raise ValueError(f"cannot retire {count} ingest worker(s): only "
+                             f"{len(candidates)} live")
+        victims = sorted(candidates)[-count:]  # newest workers first out
+        with self._train_lock:
+            # A live ingest-fed train() must keep at least one worker: the
+            # trainer tier's analogue is the chief-never-retires floor —
+            # with ZERO survivors every ledger slot would retire, queued
+            # partitions would orphan with nobody to deliver them, and
+            # train() would return "success" with records never decoded.
+            if (self._train_session is not None
+                    and self._train_session.get("tier") == "ingest"
+                    and count >= len(candidates)):
+                raise RuntimeError(
+                    "cannot retire every ingest worker while an ingest-fed "
+                    "train() is in flight: its ledger partitions would "
+                    "orphan with no worker to deliver them; keep >= 1, or "
+                    "retry after the train completes")
+            for eid in victims:
+                self._retiring.add(eid)
+        for eid in victims:
+            if self.supervisor is not None:
+                self.supervisor.retire(eid)
+        self.coordinator.mark_draining(victims)
+        ttrace.event("ingest_drain_begin", executors=victims)
+        # queued shard items to the orphan pool; surviving workers (or the
+        # victims themselves, for their in-flight item) deliver them
+        with self._train_lock:
+            entries = [(eid, self._active_ledger.get(eid)) for eid in victims]
+        for eid, entry in entries:
+            if entry is not None:
+                moved = entry[0].retire_slot(entry[1])
+                if moved:
+                    logger.info("%d queued shard item(s) of retiring ingest "
+                                "worker %d redistributed", moved, eid)
+        for eid, entry in entries:
+            if entry is None:
+                continue
+            ledger, pos = entry
+            deadline = time.monotonic() + drain_timeout
+            while time.monotonic() < deadline:
+                if ledger.slot_idle(pos) and not ledger.needs_drain(pos):
+                    break
+                if not self.coordinator.is_tracked(eid):
+                    break
+                if self._closing.is_set():
+                    break
+                time.sleep(0.1)
+        for eid in victims:
+            if self.coordinator.is_tracked(eid):
+                self._send_retirement_eof(eid)
+        for eid in victims:
+            self._reap_retired(eid, drain_timeout, "ingest worker")
+            if eid in self._ingest_ids:
+                self._ingest_ids.remove(eid)
+            self._retiring.discard(eid)
+            ttrace.event("ingest_scale_in", executor=eid)
+        return victims
 
     def autoscale(self, policy=None, **kwargs):
-        """Start a telemetry-driven autoscaling loop over :meth:`resize` —
-        the JAX package's ``autoscale.Autoscaler``, not ported yet; drive
-        :meth:`resize` by hand meanwhile."""
-        raise NotImplementedError(
-            "cluster.autoscale() is not ported yet: ROADMAP.md queue 1 (h), "
-            "the autoscaler; cluster.resize() works")
+        """Start a telemetry-driven autoscaling loop over :meth:`resize`:
+        each tick samples ``cluster.stats(window)``, asks the policy for a
+        desired node count, applies hysteresis (cooldown after any action;
+        scale-in only after K consecutive under-target windows) and min/max
+        bounds, and resizes.  Returns the started
+        :class:`~tensorflowonspark_torch.autoscale.Autoscaler` (stopped
+        automatically at shutdown), or None when disabled via
+        ``TOS_AUTOSCALE=0`` — the ops kill switch.
+
+        Keyword args (``min_nodes``, ``max_nodes``, ``tick_secs``,
+        ``cooldown_secs``, ``scale_in_ticks``, ``window``, ...) pass through
+        to ``Autoscaler``; the ``TOS_AUTOSCALE_*`` knobs supply defaults.
+        """
+        if not _env_bool("TOS_AUTOSCALE", True):
+            logger.warning("autoscaling disabled by TOS_AUTOSCALE=0; "
+                           "cluster.autoscale() is a no-op")
+            return None
+        from tensorflowonspark_torch.autoscale import Autoscaler
+
+        scaler = Autoscaler(self, policy, **kwargs)
+        scaler.start()
+        self._autoscalers.append(scaler)
+        return scaler
 
     # -- teardown (reference TFCluster.shutdown :~170-240, §3.5) -------------
 
@@ -2263,8 +2501,21 @@ def run(
     handed out through a control-plane max-reduce, NCCL on the card (gloo
     when the map_fun's args ask for ``device="cpu"``).
 
-    ``ingest_workers`` and ``ingest_opts`` (the JAX package's data-service
-    tier) are not ported yet: either raises ``NotImplementedError``.
+    ``ingest_workers`` (default ``TOS_INGEST_WORKERS``) adds that many
+    standalone DATA-SERVICE nodes (role ``ingest``, the tf.data-service
+    design): a DIRECT-mode ``train()`` then feeds its shard items to the
+    worker pool, which decodes on its own cores (with the cross-epoch
+    chunk cache, ``TOS_INGEST_CACHE_BYTES``) and streams packed chunks to
+    every trainer over the zero-copy wire — decode parallelism becomes the
+    ``cluster.resize_ingest`` fleet knob instead of a per-trainer
+    constant.  ``ingest_opts`` carries the tier's decode configuration
+    (``schema=``, ``chunk_records=``, ``readers=``, ``cache_bytes=``,
+    ``shuffle=``, ... — :class:`~tensorflowonspark_torch.ingest.service.
+    IngestService` keywords).  DIRECT mode only, and not combinable with
+    ``torch_distributed`` (the workers are not process-group members).
+    An ingest worker decodes on host cores and never opens the card: the
+    node hides every CUDA device from itself once it is assigned the
+    ``ingest`` role.
 
     ``coordinator_host`` pins the control-plane bind/advertise interface
     (default: bind all interfaces, advertise the routable ``local_ip()`` so
@@ -2286,10 +2537,16 @@ def run(
     if ingest_workers is None:
         ingest_workers = _env_int("TOS_INGEST_WORKERS", 0, minimum=0)
     ingest_workers = max(0, int(ingest_workers))
-    if ingest_workers or ingest_opts:
-        raise NotImplementedError(
-            "ingest_workers (the data-service tier) are not ported yet: "
-            "ROADMAP.md queue 1 (i), the ingest tier")
+    if ingest_workers and input_mode != InputMode.DIRECT:
+        raise ValueError(
+            "ingest_workers need InputMode.DIRECT: the data-service tier "
+            "claims shard items from the ledger (STREAMING clusters stream "
+            "rows from the driver and have nothing for the tier to decode)")
+    if ingest_workers and torch_distributed:
+        raise ValueError(
+            "ingest_workers cannot be combined with torch_distributed: "
+            "data-service workers are not members of the process group, "
+            "whose ranks are the contiguous data-node ids")
     total_procs = num_executors + ingest_workers
     if per_node_env is not None and len(per_node_env) not in (
             num_executors, total_procs):
@@ -2338,6 +2595,8 @@ def run(
                  **(per_node_env[i] if per_node_env is not None
                     and i < len(per_node_env) else {})},
             launch_index=i,
+            ingest_opts=dict(ingest_opts) if ingest_opts else None,
+            ingest_tier=bool(ingest_workers),
         )
         for i in range(total_procs)
     ]

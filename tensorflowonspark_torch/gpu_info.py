@@ -13,14 +13,29 @@
 
 from __future__ import annotations
 
+import os
 import shutil
 import subprocess
-
-import torch
+import sys
 
 
 def is_gpu_available() -> bool:
+    import torch
+
     return torch.cuda.is_available()
+
+
+def _no_card_without_torch() -> bool:
+    """True when no CUDA device can be visible to this process and torch is
+    not loaded yet: ``CUDA_VISIBLE_DEVICES`` hides every card, or the host
+    has no NVIDIA driver (no ``/dev/nvidiactl``).  The summary is then known
+    without paying torch's import — a control-plane node (and every CPU
+    test node) registers at once, as the JAX package's nodes skip jax's."""
+    if "torch" in sys.modules:
+        return False
+    if os.environ.get("CUDA_VISIBLE_DEVICES", None) in ("", "-1"):
+        return True
+    return not os.path.exists("/dev/nvidiactl")
 
 
 def nvidia_smi_name_power() -> list[str]:
@@ -38,6 +53,12 @@ def nvidia_smi_name_power() -> list[str]:
 
 def device_summary() -> dict:
     """What this process sees, in the shape of ``tpu_info.device_summary``."""
+    if _no_card_without_torch():
+        return {"platform": "cpu", "device_kind": "cpu", "num_devices": 0,
+                "coords": [], "process_index": 0,
+                "nvidia_smi": nvidia_smi_name_power()}
+    import torch
+
     if not torch.cuda.is_available():
         return {"platform": "cpu", "device_kind": "cpu", "num_devices": 0,
                 "coords": [], "process_index": _process_index(),
@@ -64,6 +85,8 @@ def _process_index() -> int:
 def default_device(device=None) -> torch.device:
     """``None`` means ``cuda``.  Raises when a CUDA device is asked for and
     this process has none."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -77,6 +77,20 @@ class NodeConfig:
     # named (dead) executor slot; it adopts the slot's bumped incarnation,
     # fencing out its predecessor (supervisor.py).
     replace_executor_id: int = -1
+    # Decode options for the data-service tier (cluster.run(ingest_opts=...)):
+    # keyword args for ingest.service.IngestService — schema=, chunk_records=,
+    # readers=, cache_bytes=, shuffle=, ...  Only read by processes the
+    # coordinator assigns the "ingest" role (role-aware dispatch below);
+    # carried on EVERY config because role assignment is registration-order,
+    # so any launched process may become an ingest worker.
+    ingest_opts: dict | None = None
+    # True when this process may be assigned the "ingest" role (the cluster
+    # runs a data-service tier).  Such a process touches no CUDA before it
+    # knows its role: it registers a placeholder device and reports the real
+    # facts by update_meta once the role is known — an ingest worker hides
+    # every card from itself first, so it decodes on host cores and never
+    # opens a CUDA context on the trainer's card.
+    ingest_tier: bool = False
 
 
 class NodeContext:
@@ -139,9 +153,11 @@ class NodeContext:
 
         The feed-source switch: on a STREAMING cluster this is the
         driver-streamed ``DataFeed``; on a DIRECT cluster the same call
-        goes to :meth:`get_ingest_feed`, the node-side reader pipeline over
-        the shard paths the ledger assigns, which the port does not have
-        yet (it raises).  ``ingest_opts`` are DIRECT-only.
+        returns an :class:`~tensorflowonspark_torch.ingest.IngestFeed` — the
+        node-side reader pipeline over the shard paths the ledger assigns —
+        so one map_fun body serves both input modes.  ``ingest_opts``
+        (``decode=``, ``readers=``, ``verify=``, ...) configure the
+        pipeline and are DIRECT-only; see :meth:`get_ingest_feed`.
         """
         if self._config.input_mode == "direct":
             return self.get_ingest_feed(
@@ -188,9 +204,14 @@ class NodeContext:
         ``TOS_INGEST_*`` knobs; ``verify=False`` skips CRC checks for
         trusted local data.
         """
-        raise NotImplementedError(
-            "InputMode.DIRECT node-side ingestion is not ported yet: "
-            "ROADMAP.md queue 1 (i), the ingest tier")
+        from tensorflowonspark_torch.ingest import IngestFeed
+
+        return IngestFeed(
+            self.queues, train_mode, qname_in, qname_out, input_mapping,
+            stop_event=self.stop_requested, readers=readers, decode=decode,
+            chunk_records=chunk_records, verify=verify, prefetch=prefetch,
+            autotune=autotune, zerocopy=zerocopy, schema=schema,
+            binary_features=binary_features)
 
     def job_manifest(self) -> dict:
         """The driver-published description of the current DIRECT-mode feed
@@ -426,6 +447,25 @@ def _destroy_process_group() -> None:
         dist.destroy_process_group()
 
 
+def _ingest_worker(tf_args, ctx) -> None:
+    """The data-service worker loop, then this process's CUDA state for the
+    driver to read: an ingest worker never initialises CUDA."""
+    from tensorflowonspark_torch.ingest.service import ingest_worker_main
+
+    try:
+        ingest_worker_main(tf_args, ctx)
+    finally:
+        torch = sys.modules.get("torch")
+        try:
+            ctx._client.update_meta(ctx.executor_id, {
+                "cuda_initialized": bool(torch is not None
+                                         and torch.cuda.is_initialized()),
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")})
+        except Exception:
+            logger.debug("could not report the ingest worker's CUDA state",
+                         exc_info=True)
+
+
 def node_main(config: NodeConfig) -> int:
     """Entry point of one node process; returns a process exit code."""
     for k, v in config.env.items():
@@ -450,9 +490,16 @@ def node_main(config: NodeConfig) -> int:
 
     # In distributed mode register a placeholder and fill in the real device
     # facts (with this process's rank) via update_meta right after
-    # init_process_group, as the JAX package does around its initialize.
-    device_meta = ({"platform": "pending_distributed_init"}
-                   if config.torch_distributed else gpu_info.device_summary())
+    # init_process_group, as the JAX package does around its initialize.  A
+    # process that may become an ingest worker registers a placeholder too
+    # (reading the device facts would initialise CUDA before the role is
+    # known).
+    if config.torch_distributed:
+        device_meta = {"platform": "pending_distributed_init"}
+    elif config.ingest_tier:
+        device_meta = {"platform": "pending_role"}
+    else:
+        device_meta = gpu_info.device_summary()
     ident = client.register({"host": local_ip(), "data_port": data_port,
                              "pid": os.getpid(), "device": device_meta,
                              "launch_index": config.launch_index},
@@ -469,6 +516,12 @@ def node_main(config: NodeConfig) -> int:
     # tier even though role assignment is registration-order
     faultinject.set_identity(executor_id, incarnation,
                              role=ident["job_name"])
+    if config.ingest_tier and not config.torch_distributed:
+        if ident["job_name"] == "ingest":
+            # before anything in this process initialises CUDA: the worker
+            # decodes on host cores and must not hold a context on the card
+            os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        client.update_meta(executor_id, {"device": gpu_info.device_summary()})
     if config.log_dir:
         # chaos-kill postmortem: a `kill` fault dumps this process's flight
         # recorder (recent spans + events) next to the job logs before the
@@ -740,13 +793,22 @@ def node_main(config: NodeConfig) -> int:
         incarnation=incarnation,
     )
 
+    # Role-aware dispatch: a process the coordinator assigned the "ingest"
+    # role runs the data-service worker loop instead of the user map_fun —
+    # role assignment is registration-order, so the dispatch must key on
+    # the ASSIGNED role, never on which config launched the process.
+    if ident["job_name"] == "ingest":
+        effective_map_fun = _ingest_worker
+    else:
+        effective_map_fun = config.map_fun
+
     exit_code = 0
     try:
         logger.info("node %d (%s:%d) invoking map_fun", executor_id, ident["job_name"], ident["task_index"])
         from tensorflowonspark_torch import telemetry
 
         with telemetry.timed("node.map_fun_secs"):
-            config.map_fun(config.tf_args, ctx)
+            effective_map_fun(config.tf_args, ctx)
     except Exception:
         tb = traceback.format_exc()
         logger.error("map_fun failed:\n%s", tb)

@@ -21,14 +21,11 @@ reference used for its per-executor SavedModel singleton.
 
 ``scoring="sharded"`` scores over one device mesh of the data nodes
 (``inference.sharded_bundle_inference_loop``; set ``torch_distributed``).
-Not ported yet: DIRECT ``fit`` onto the ledger-driven ingest feed (the
-ingest tier, ROADMAP.md queue 1 (i)); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import copy
-import glob as _glob
 import logging
 import os
 from typing import Any, Callable
@@ -39,7 +36,6 @@ from tensorflowonspark_torch import cluster as _cluster
 from tensorflowonspark_torch import dfutil
 from tensorflowonspark_torch.cluster import InputMode
 from tensorflowonspark_torch.data import PartitionedDataset, as_partitioned
-from tensorflowonspark_torch.utils.paths import resolve_uri
 
 logger = logging.getLogger(__name__)
 
@@ -319,13 +315,16 @@ class TorchEstimator(TorchParams):
     STREAMING mode the *driver* replays the dataset ``epochs`` times
     through the feed, in ``train_mode`` (``"sync"`` publishes the sync
     manifest block, with ``embedding_plan`` in it, for collective
-    train_fns).  In DIRECT mode the train_fn is self-service: it reads its
-    files itself (rows staged via ``tfrecord_dir`` arrive as
-    ``args.data_dir``).  A shard-spec dataset — a path, glob or list of
-    paths that resolves to shard files — is what the JAX package feeds
-    through its ledger-driven ingest feed; the port raises
-    ``NotImplementedError`` for it (ROADMAP.md queue 1 (i)), and a path
-    that resolves to no shards stays self-service, as there.
+    train_fns).  In DIRECT mode ``fit`` drives the ledger-backed ingest
+    feed whenever it has a shard spec — a path / glob / list-of-paths
+    dataset, or rows staged via ``tfrecord_dir`` — so
+    ``cluster.train(spec, num_epochs=epochs)`` replays the shard set
+    through the partition ledger and the train_fn inherits at-least-once
+    re-feed, sub-shard parallelism, and elastic recovery by consuming
+    ``ctx.get_data_feed()`` (the reference's estimator stayed
+    self-service here).  Self-service train_fns that read files
+    themselves instead of consuming the feed keep working: the path feed
+    is tiny and is drained at shutdown.
     """
 
     def __init__(self, train_fn: Callable, tf_args: Any = None,
@@ -352,11 +351,22 @@ class TorchEstimator(TorchParams):
         input_mode = args.input_mode
         shard_spec = _as_shard_spec(dataset) if input_mode == InputMode.DIRECT \
             else None
-        if shard_spec is not None and _resolves_to_shards(shard_spec):
-            raise NotImplementedError(
-                "DIRECT fit onto the ledger-driven ingest feed is not ported "
-                "yet: ROADMAP.md queue 1 (i), the ingest tier; pass rows with "
-                "tfrecord_dir for a self-service train_fn, or use STREAMING")
+        # DIRECT + a shard spec (path/glob/dir or list of paths): nothing
+        # to partition driver-side — the spec goes straight to the
+        # ledger-driven ingest feed below.  A path that does NOT resolve
+        # to TFRecord shards (e.g. a raw-image directory a self-service
+        # train_fn reads its own way) is left alone: the previous
+        # releases' self-service contract must keep working.
+        if shard_spec is not None:
+            from tensorflowonspark_torch.ingest import enumerate_shards
+
+            try:
+                enumerate_shards(shard_spec)
+            except FileNotFoundError as e:
+                logger.warning(
+                    "DIRECT fit: %s — leaving the train_fn self-service "
+                    "(no ledger-driven ingest feed for this dataset)", e)
+                shard_spec = None
         data = None if shard_spec is not None else as_partitioned(
             dataset, default_partitions=max(1, args.num_executors))
         if args.get("tfrecord_dir"):
@@ -367,6 +377,8 @@ class TorchEstimator(TorchParams):
                 raise ValueError("tfrecord_dir staging requires row-dict datasets")
             dfutil.save_as_tfrecords(rows, args.tfrecord_dir)
             args.merge({"data_dir": args.tfrecord_dir})
+            if input_mode == InputMode.DIRECT:
+                shard_spec = args.tfrecord_dir  # feed the staged shards
         cluster = _cluster.run(
             self.train_fn,
             args,
@@ -385,6 +397,16 @@ class TorchEstimator(TorchParams):
         try:
             if input_mode == InputMode.STREAMING:
                 cluster.train(data, num_epochs=args.epochs,
+                              shuffle_seed=args.shuffle_seed,
+                              mode=args.get("train_mode", "async"),
+                              embedding=args.get("embedding_plan"))
+            elif shard_spec is not None:
+                # DIRECT onto the ledger-driven ingest feed: shard (and
+                # sub-shard span) work items flow through the partition
+                # ledger, so the pipeline layer inherits at-least-once
+                # re-feed and elastic recovery instead of staying
+                # self-service
+                cluster.train(shard_spec, num_epochs=args.epochs,
                               shuffle_seed=args.shuffle_seed,
                               mode=args.get("train_mode", "async"),
                               embedding=args.get("embedding_plan"))
@@ -569,30 +591,14 @@ def merge_prediction_rows(rows: list, preds: list, output_mapping: dict) -> list
 
 def _as_shard_spec(dataset: Any):
     """A DIRECT-mode fit dataset that is already a shard spec (path, glob,
-    directory, or list of paths) — returned as-is; None means row data
-    (needs ``tfrecord_dir`` staging)."""
+    directory, or list of paths) — returned as-is for the ledger feed;
+    None means row data (needs ``tfrecord_dir`` staging)."""
     if isinstance(dataset, (str, os.PathLike)):
         return dataset
     if isinstance(dataset, (list, tuple)) and dataset and all(
             isinstance(p, (str, os.PathLike)) for p in dataset):
         return list(dataset)
     return None
-
-
-def _resolves_to_shards(spec) -> bool:
-    """Whether the JAX package's ``ingest.enumerate_shards`` would find
-    shard files for ``spec`` (and so feed the ledger): a non-empty list of
-    paths, a glob with matches, a directory holding ``part-*`` files, or an
-    existing file."""
-    if isinstance(spec, list):
-        return bool(spec)
-    local = resolve_uri(os.fspath(spec))
-    if any(c in local for c in "*?["):
-        return bool(_glob.glob(local))
-    if os.path.isdir(local):
-        return any(not f.endswith(".json")
-                   for f in _glob.glob(os.path.join(local, "part-*")))
-    return os.path.exists(local)
 
 
 def _is_row_data(data: PartitionedDataset) -> bool:

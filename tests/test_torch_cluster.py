@@ -139,13 +139,21 @@ def test_torch_distributed_refuses_elastic():
                 elastic=True)
 
 
-def test_unported_subsystems_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tos.run(torch_mapfuns.noop, ingest_workers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        TorchCluster.autoscale(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        TorchCluster.resize_ingest(None, 1)
+def test_unported_subsystems_raise_naming_the_roadmap(monkeypatch):
+    """Named from before the ingest tier and the autoscaler were ported,
+    when these calls raised ``NotImplementedError``: they now refuse what
+    the JAX package refuses — an ingest tier outside DIRECT or beside a
+    process group, a negative ingest pool — and ``TOS_AUTOSCALE=0`` turns
+    ``autoscale()`` into a no-op, before any cluster starts."""
+    with pytest.raises(ValueError, match="InputMode.DIRECT"):
+        tos.run(torch_mapfuns.noop, ingest_workers=1,
+                input_mode=tos.InputMode.STREAMING)
+    with pytest.raises(ValueError, match="torch_distributed"):
+        tos.run(torch_mapfuns.noop, ingest_workers=1, torch_distributed=True)
+    monkeypatch.setenv("TOS_AUTOSCALE", "0")
+    assert TorchCluster.autoscale(None) is None
+    with pytest.raises(ValueError, match="num_workers >= 0"):
+        TorchCluster.resize_ingest(None, -1)
 
 
 def test_launch_without_cloudpickle(tmp_path):

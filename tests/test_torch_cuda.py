@@ -504,3 +504,57 @@ def test_cuda_pp_one_process_1f1b_matches_plain_attention():
     for name, want in plain_grads.items():
         err = (grads[name].float() - want.float()).norm() / want.float().norm()
         assert err <= 0.05, (name, err.item())
+
+
+def test_cuda_device_prefetch_from_a_live_ingest_feed(tmp_path, monkeypatch):
+    """``ingest.device_prefetch`` onto the card from a live ``IngestFeed``
+    under ``TOS_INGEST_ZEROCOPY=debug`` (a record view kept past its batch
+    would fail when the feed retires the batch), depth 2, 4 batches whose
+    leaves alias the shard buffer: the tensors on the card equal the host
+    records, and the H2D copy runs on the side stream — held behind a spin
+    there, it has not finished when the call returns, the consumer's stream
+    waits on it, and what the consumer computes is still right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from tensorflowonspark_torch import tfrecord
+    from tensorflowonspark_torch.feeding import FeedQueues
+    from tensorflowonspark_torch.ingest import IngestFeed, device_prefetch
+    from tensorflowonspark_torch.marker import EndOfFeed, EndPartition
+
+    monkeypatch.setenv("TOS_INGEST_ZEROCOPY", "debug")
+    records = [np.arange(64, dtype=np.float32) + 1000 * i for i in range(16)]
+    queues = FeedQueues(("input",))
+    for s in range(2):
+        path = str(tmp_path / f"part-{s:05d}")
+        tfrecord.write_records(path, [r.tobytes() for r in records[8 * s:8 * s + 8]])
+        queues.get_queue("input").put(path)
+        queues.get_queue("input").put(EndPartition(key=(0, s)))
+    queues.get_queue("input").put(EndOfFeed())
+    feed = IngestFeed(queues, readers=1)
+
+    def views():
+        while not feed.should_stop():
+            batch = feed.next_batch(4)
+            if batch:
+                assert all(type(r) is memoryview for r in batch)
+                yield tuple(np.frombuffer(r, np.float32) for r in batch)
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(2e9))  # about a second of SM clock
+    batches = device_prefetch(views(), depth=2, device="cuda", stream=side)
+    first = next(batches)
+    pending = torch.cuda.Event()
+    pending.record()
+    assert not pending.query() and not side.query()
+    total = first[0].sum()  # queued on the consumer's stream, after the copy
+    got = [first, *batches]
+    assert len(got) == 4 and all(t.is_cuda for b in got for t in b)
+    assert total.item() == float(records[0].sum())
+    torch.cuda.synchronize()
+    flat = [t.cpu().numpy() for b in got for t in b]
+    assert sorted(int(a[0]) for a in flat) == [1000 * i for i in range(16)]
+    for a in flat:
+        np.testing.assert_array_equal(a, records[int(a[0]) // 1000])

@@ -104,10 +104,12 @@ def test_resnet_train_reads_tfrecords(tmp_path):
 
 
 # --fsdp is ported: on one process it refuses the mesh as the JAX example
-# does on one device; --profile-dir is not (ROADMAP.md queue 1 (f))
+# does on one device; --profile-dir traces the timed steps, so a path that
+# cannot be a directory raises once the trace starts
 @pytest.mark.parametrize("flag,exc,match", [
     (["--fsdp", "2"], ValueError, "1 devices not divisible"),
-    (["--profile-dir", "/nonexistent"], NotImplementedError, "ROADMAP.md queue 1"),
+    (["--image-size", "32", "--batch", "2", "--steps", "1", "--num-classes",
+      "10", "--profile-dir", "/dev/null/trace"], NotADirectoryError, "/dev/null"),
 ], ids=["flag0", "flag1"])
 def test_resnet_train_unported_flags_raise(flag, exc, match):
     with pytest.raises(exc, match=match):

@@ -6,7 +6,7 @@ scoring-mode and env-knob checks), BASELINE config 4's end-to-end gate
 (``fit`` → ``transform`` through real node processes at vocab 1009,
 ordered and exactly counted, the transform's scores held against the JAX
 ``build_apply`` of the same bundle at rtol 1e-5 / atol 1e-6), the ``steps``
-cap, DIRECT staging, the path that raises until its item lands, and the
+cap, DIRECT staging, DIRECT fit onto the ledger-driven ingest feed, and the
 sharded scorer: ``scoring="sharded"`` over a 2-node gloo mesh, its
 streaming form (5 partitions over 2 nodes, ``window=1``) and
 ``_local_rows``, held against the JAX ``build_apply`` at rtol 1e-4 /
@@ -225,22 +225,35 @@ class TestFitTransform:
             rows_to_features(rows, {"zz": "x"})
 
 
-def test_direct_fit_onto_the_ingest_feed_is_not_ported(tmp_path):
-    """A DIRECT fit over a shard spec that resolves to shard files is what
-    the JAX package feeds through its ledger-driven ingest feed: the port
-    raises naming queue 1 (i), before it starts a cluster."""
+def test_direct_fit_onto_the_ingest_feed_is_not_ported(tmp_path, monkeypatch):
+    """Named from before the ingest tier was ported, when a DIRECT fit over
+    a shard spec raised.  Now ``tests/test_pipeline.py::
+    test_fit_direct_feeds_ledger_ingest`` restated: ``TorchEstimator.fit``
+    in DIRECT mode drives the ledger-backed ingest feed — a shard-spec
+    dataset goes through ``cluster.train``, nodes consume
+    ``ctx.get_data_feed()``, and every record is delivered exactly once on
+    the happy path — no self-service reads."""
     from tensorflowonspark_torch import tfrecord
 
+    monkeypatch.setenv("TOS_SHM_RING", "0")
     shard_dir = tmp_path / "shards"
     os.makedirs(shard_dir)
-    tfrecord.write_records(str(shard_dir / "part-00000"), [b"r0", b"r1"])
-    est = pipeline.TorchEstimator(torch_mapfuns.noop, {})
+    total = 0
+    for s in range(4):
+        recs = [f"s{s}-r{i}".encode() for i in range(25)]
+        tfrecord.write_records(str(shard_dir / f"part-{s:05d}"), recs)
+        total += len(recs)
+    est = pipeline.TorchEstimator(torch_mapfuns.direct_fit_counter, {})
+    est.setNumExecutors(2).setEpochs(1).setBatchSize(16)
     est.setInputMode(InputMode.DIRECT)
     est.set("export_dir", str(tmp_path / "export"))
-    with pytest.raises(NotImplementedError, match=r"queue 1 \(i\)"):
-        est.fit(str(shard_dir))
-    with pytest.raises(NotImplementedError, match=r"queue 1 \(i\)"):
-        est.fit([str(shard_dir / "part-00000")])
+    est.set("log_dir", str(tmp_path / "logs"))
+    est.fit(str(shard_dir))
+    counts = []
+    for f in (tmp_path / "logs").glob("fit_count_*.txt"):
+        counts.append(int(f.read_text()))
+    assert sum(counts) == total          # the ledger fed every record
+    assert len(counts) == 2 and all(c > 0 for c in counts)  # both nodes
 
 
 def test_direct_fit_stages_rows_for_a_self_service_train_fn(tmp_path):

@@ -338,16 +338,17 @@ def test_train_lm_example_runs_on_cpu(capsys):
     assert np.isfinite(out["loss"]) and out["generated"].shape == (1, 11)
 
 
-# --profile-dir is not ported (its ROADMAP item); --tp, --sp, --ep and --pp
-# are, and refuse a mesh the world of one process cannot hold, as the JAX
-# example does on one device; --n-experts is, and refuses top-2 of 1
+# --tp, --sp, --ep and --pp refuse a mesh the world of one process cannot
+# hold, as the JAX example does on one device; --n-experts refuses top-2 of
+# 1; --profile-dir traces the timed steps, so a path that cannot be a
+# directory raises once the trace starts
 @pytest.mark.parametrize("flag,exc,match", [
     (["--tp", "2"], ValueError, "1 devices not divisible"),
     (["--sp", "2"], ValueError, "1 devices not divisible"),
     (["--ep", "2"], ValueError, "1 devices not divisible"),
     (["--pp", "2"], SystemExit, "--pp 2 needs 2 ranks, have 1"),
     (["--n-experts", "1"], ValueError, "top_k 2"),
-    (["--profile-dir", "x"], NotImplementedError, "ROADMAP.md queue 1 \\(f\\)"),
+    (["--profile-dir", "/dev/null/trace"], NotADirectoryError, "/dev/null"),
 ], ids=[f"flag{i}" for i in range(6)])
 def test_train_lm_unported_flags_raise(flag, exc, match):
     with pytest.raises(exc, match=match):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import time
 
 
 def noop(args, ctx):
@@ -920,3 +921,265 @@ def fsdp_bn_chief_save(args, ctx):
         json.dump({"step": at, "restored_step": fresh.step, "equal": same,
                    "leaves": len(pairs), "losses": [m_live["loss"].item(),
                                                     m_restored["loss"].item()]}, f)
+
+
+def record_items(args, ctx):
+    """Slow consumer that records every item it consumed — the autoscale
+    coverage probe: the union of all nodes' files must cover the fed
+    records exactly (duplicates allowed, loss not), whatever resizes
+    happened mid-feed.  ``sleep_per_batch`` throttles consumption so a
+    resize demonstrably lands while partitions are still queued/buffered.
+
+    Each batch is appended and flushed as soon as it is consumed: the chaos
+    test SIGKILLs this process mid-drain, and a write-at-exit log would
+    silently lose every batch the victim consumed (the ledger only re-feeds
+    what the victim never reported consumed)."""
+    feed = ctx.get_data_feed(train_mode=True)
+    out = os.path.join(args["out_dir"], f"node_{ctx.executor_id}.txt")
+    with open(out, "a") as f:
+        while not feed.should_stop():
+            batch = feed.next_batch(args["batch_size"])
+            if batch:
+                f.write("".join(f"{int(x)}," for x in batch))
+                f.flush()
+                if args.get("sleep_per_batch"):
+                    time.sleep(args["sleep_per_batch"])
+
+
+def direct_record_counter(args, ctx):
+    """DIRECT-mode consumer: ``ctx.get_data_feed`` returns the ingest feed
+    (shard paths in, record payload bytes out).  Appends every record's
+    utf-8 payload to a per-(executor, incarnation) coverage file — the
+    at-least-once / exact-coverage probe for the direct-ingestion tests —
+    and publishes the job manifest + per-incarnation record count via
+    ``update_meta`` once the feed ends."""
+    feed = ctx.get_data_feed(train_mode=True)
+    cover = os.path.join(
+        args["out_dir"], f"seen_{ctx.executor_id}_inc{ctx.incarnation}.txt")
+    ctx.update_meta({"incarnation": ctx.incarnation})
+    n = 0
+    with open(cover, "a") as f:
+        while not feed.should_stop():
+            batch = feed.next_batch(args.get("batch_size", 16))
+            if not batch:
+                continue
+            # zero-copy contract: records are memoryviews (plain shards)
+            # or bytes (gzip); str() handles both without retaining views
+            f.write("".join(str(rec, "utf-8") + "\n" for rec in batch))
+            f.flush()
+            n += len(batch)
+            if args.get("sleep_per_batch"):
+                # chaos pacing: keep the feed in flight long enough for a
+                # mid-train fault to land deterministically
+                time.sleep(args["sleep_per_batch"])
+    ctx.update_meta({f"records_inc{ctx.incarnation}": n,
+                     "manifest": ctx.job_manifest()})
+
+
+def direct_fit_counter(args, ctx):
+    """DIRECT-mode pipeline train_fn: drain the ledger-driven ingest feed
+    and write this node's record count — the probe for the
+    ``TorchEstimator.fit`` DIRECT-onto-the-ledger satellite (``args`` is the
+    merged pipeline Namespace, so params arrive attribute-style)."""
+    feed = ctx.get_data_feed(train_mode=True)
+    n = 0
+    while not feed.should_stop():
+        n += len(feed.next_batch(args.get("batch_size", 16)))
+    out = os.path.join(args.log_dir, f"fit_count_{ctx.executor_id}.txt")
+    with open(out, "w") as f:
+        f.write(str(n))
+
+
+# -- ResNet fed from TFRecord shards through the DIRECT ingest tier -----------
+
+IMAGE_MEAN = (0.485, 0.456, 0.406)
+IMAGE_STD = (0.229, 0.224, 0.225)
+
+
+def synthetic_image(seed: int, image_id: int, size: int):
+    """A uint8 ``[size, size, 3]`` image that is a function of ``(seed, id)``
+    alone: the shards hold these, and a replay regenerates any batch from
+    its ids without reading the shards."""
+    import numpy as np
+
+    return np.random.default_rng([seed, image_id]).integers(
+        0, 256, (size, size, 3), dtype=np.uint8)
+
+
+def image_schema():
+    """The shards' columns: the image's raw pixel bytes, its label and id."""
+    from tensorflowonspark_torch import dfutil
+
+    return dfutil.Schema([dfutil.ColumnSpec("id", "int64"),
+                          dfutil.ColumnSpec("image", "bytes"),
+                          dfutil.ColumnSpec("label", "int64")])
+
+
+def write_image_shards(out_dir: str, n_images: int, per_shard: int, size: int,
+                       seed: int, num_classes: int) -> list[str]:
+    """``n_images`` synthetic Examples (``image`` H·W·3 uint8 bytes,
+    ``label`` = id % num_classes, ``id``) in TFRecord shards of
+    ``per_shard`` records, generated one shard at a time."""
+    from tensorflowonspark_torch import dfutil
+    from tensorflowonspark_torch.data import PartitionedDataset
+
+    def shard(first):
+        for i in range(first, min(first + per_shard, n_images)):
+            yield {"id": i, "image": synthetic_image(seed, i, size).tobytes(),
+                   "label": i % num_classes}
+
+    data = PartitionedDataset([(lambda f=f: shard(f))
+                               for f in range(0, n_images, per_shard)])
+    dfutil.save_as_tfrecords(data, out_dir, image_schema())
+    return dfutil.shard_files(out_dir)
+
+
+def image_batches(feed, batch_size: int, size: int):
+    """Whole batches of ``{"image": uint8 [n, H, W, 3], "label", "id"}`` from
+    a columnar ``IngestFeed`` (a columnar batch never spans two decoded
+    chunks, so short ones are joined); the last batch may be short."""
+    images, labels, ids, n = [], [], [], 0
+    while not feed.should_stop():
+        cols = feed.next_batch(batch_size - n)
+        if not cols:
+            continue
+        images.extend(cols["image"])
+        labels.append(cols["label"])
+        ids.append(cols["id"])
+        n += len(cols["id"])
+        if n == batch_size:
+            yield _image_batch(images, labels, ids, size)
+            images, labels, ids, n = [], [], [], 0
+    if n:
+        yield _image_batch(images, labels, ids, size)
+
+
+def _image_batch(images, labels, ids, size):
+    import numpy as np
+
+    return {"image": np.frombuffer(b"".join(images), np.uint8).reshape(
+                len(images), size, size, 3),
+            "label": np.concatenate(labels), "id": np.concatenate(ids)}
+
+
+def normalize_images(images):
+    """uint8 NHWC pixels to float32 with the ImageNet mean and std, on the
+    tensor's device (the host ships 1 byte a pixel, not 4)."""
+    import torch
+
+    mean = torch.tensor(IMAGE_MEAN, device=images.device)
+    std = torch.tensor(IMAGE_STD, device=images.device)
+    return (images.float() / 255.0 - mean) / std
+
+
+def build_image_model(config: dict, seed: int, device):
+    """The registry's model for ``config`` on ``device``, initialised from
+    ``seed`` — the same weights in a node and in a replay."""
+    import torch
+
+    from tensorflowonspark_torch.models import registry
+
+    with torch.device(device):
+        model = registry.build(config)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def device_idle_share(prof) -> dict:
+    """The card's idle share over a ``profiling.trace``: one minus the union
+    of the kernels' device intervals over the span from the first kernel's
+    start to the last one's end (device clock)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {"idle_share": None, "busy_ms": 0.0, "window_ms": 0.0, "kernels": 0}
+    busy, (cur_a, cur_b) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    window = spans[-1][1] - spans[0][0]
+    return {"idle_share": 1.0 - busy / window, "busy_ms": busy / 1e3,
+            "window_ms": window / 1e3, "kernels": len(spans)}
+
+
+def ingest_resnet_trainer(args, ctx):
+    """A BN-step ResNet trained from TFRecord shards through the DIRECT
+    ingest feed: ``ctx.get_data_feed(schema=..., binary_features={"image"})``
+    in columnar mode, batches moved by ``ingest.device_prefetch`` as uint8
+    and normalised on the device, SGD Nesterov with L2 on the kernels.
+
+    Writes ``ingest_result_<executor>.json`` to ``args["out_dir"]``: each
+    step's ids and loss, the host time the loop waited for each batch,
+    and per-step end marks (CUDA events on the card, the host clock on the
+    CPU); with ``trace_dir``, the steps from ``warmup`` on run inside
+    ``profiling.trace`` and the card's idle share over them is added; with
+    ``save``, the trained weights go to ``trained_<executor>.pt``."""
+    import contextlib
+    import time
+
+    import torch
+
+    from tensorflowonspark_torch import profiling
+    from tensorflowonspark_torch.gpu_info import default_device
+    from tensorflowonspark_torch.ingest import device_prefetch
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.parallel import dp
+
+    device = default_device(args.get("device"))
+    cuda = device.type == "cuda"
+    model = build_image_model(args["config"], args["seed"], device)
+    optimizer = torch.optim.SGD(model.parameters(), lr=args["lr"], momentum=0.9,
+                                nesterov=True)
+    step = dp.make_bn_train_step(
+        resnet.make_loss_fn(model, weight_decay=args["weight_decay"]), optimizer)
+    state = dp.BNTrainState.create(model, optimizer)
+    feed = ctx.get_data_feed(schema=image_schema(), binary_features={"image"},
+                             readers=args.get("readers"))
+    batches = device_prefetch(
+        image_batches(feed, args["batch_size"], args["size"]),
+        depth=args.get("depth", 2), device=device)
+    losses, ids, waits, marks = [], [], [], []
+    trace_dir, warmup = args.get("trace_dir"), args.get("warmup", 2)
+    prof = None
+    with contextlib.ExitStack() as stack:
+        while True:
+            if trace_dir and len(losses) == warmup:
+                prof = stack.enter_context(profiling.trace(trace_dir))
+            t = time.perf_counter()
+            batch = next(batches, None)
+            waits.append((time.perf_counter() - t) * 1e3)
+            if batch is None:
+                break
+            state, m = step(state, {"image": normalize_images(batch["image"]),
+                                    "label": batch["label"]})
+            losses.append(m["loss"].detach())
+            ids.append(batch["id"])
+            if cuda:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+            else:
+                marks.append(time.perf_counter())
+        if cuda:
+            torch.cuda.synchronize()
+    if cuda:
+        marks = [marks[0].elapsed_time(e) for e in marks]
+    else:
+        marks = [(t - marks[0]) * 1e3 for t in marks]
+    result = {"losses": [x.item() for x in losses],
+              "ids": [x.cpu().tolist() for x in ids], "wait_ms": waits[:-1],
+              "end_ms": marks, "device": str(device),
+              "cuda_initialized": cuda and torch.cuda.is_initialized()}
+    if prof is not None and cuda:
+        result["trace"] = device_idle_share(prof)
+    if args.get("save"):
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                   os.path.join(args["out_dir"], f"trained_{ctx.executor_id}.pt"))
+    with open(os.path.join(args["out_dir"],
+                           f"ingest_result_{ctx.executor_id}.json"), "w") as f:
+        json.dump(result, f)
