@@ -177,6 +177,17 @@ Phases (any failure propagates and the script exits non-zero):
    the timed steps, the readers' decode rate alone; gates: every id
    exactly once per epoch, the first 3 steps replayed resident within 1%,
    no attention launch, the worker without a CUDA context.
+27. pod — ``examples_torch/mnist/mnist_pod.py`` as a 1-rank pod
+   (``GPUPodLauncher`` on ``localhost`` with the card slice ``[0]``, NCCL
+   of world size 1), 2000 synthetic samples in 8 STREAMING partitions:
+   the rank's ``CUDA_VISIBLE_DEVICES``, its registered device facts,
+   ``chip_plan()``, every sample fed once, a falling loss, and the
+   collective checkpoint's logits against the final weights'; the job's
+   seconds and steps/s.  Then ``export_program``: ResNet-50 (f32, eval)
+   exported on the card with a dynamic batch and scored in a fresh process
+   that imports only torch and numpy, against ``build_apply`` at batches 2
+   and 5; the LM configuration's export on the card must raise
+   ``NotImplementedError``.  Neither launches an attention kernel.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -368,6 +379,22 @@ INCEPTION_BATCH, INCEPTION_SIZE = 32, 299
 # CPU's own bf16 error against the same f32 logits
 INCEPTION_F32_TOL = 1e-3
 MNIST_SAMPLES, CIFAR_SAMPLES = 1920, 512  # the image clusters' synthetic sets
+# the pod phase: examples_torch/mnist/mnist_pod.py as a 1-rank pod on the
+# card (GPUPodLauncher, card slice [0]), the JAX example's data: 2000
+# synthetic samples in 8 STREAMING partitions, one epoch, 64 rows a step.
+# The collective checkpoint's logits against the final weights' on a fixed
+# batch: both forwards run here, on the same code path and settings, so
+# they agree to rounding; 1e-6 relative
+POD_SAMPLES, POD_PARTITIONS, POD_PROBE = 2000, 8, 16
+POD_RESTORE_RTOL = 1e-6
+# its export sub-step: ResNet-50 (RESNET_CONFIG in f32, eval) through
+# export_program on the card, loaded in a fresh process that imports only
+# torch and numpy; logits at EXPORT_BATCHES against build_apply's, both in
+# full f32 (TF32 off), within 1e-4 of the largest logit (the exported graph
+# runs the same kernels; cuDNN may pick another algorithm in the other
+# process)
+EXPORT_BATCHES = (2, 5)
+EXPORT_LOGIT_TOL = 1e-4
 # BASELINE config 4, wide-and-deep on Criteo, at the JAX example's widths
 # (examples/criteo/criteo_wide_deep.py): 26 x 100_003 hash buckets,
 # embed 16, MLP (256, 128, 64), batch 512, optax's Adagrad at lr 0.01
@@ -3333,6 +3360,211 @@ def phase_ingest_resnet50(seed: int, smi: str, resident_images_s: float | None,
     return {"decode": decode, "runs": runs, "resident_images_per_s": resident_images_s}
 
 
+EXPORT_CONSUMER = """
+import json, sys
+import numpy as np
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work = sys.argv[1]
+program = torch.export.load(work + "/model.pt2").module()
+out = {}
+with torch.no_grad():
+    for b in json.loads(sys.argv[2]):
+        x = torch.from_numpy(np.load(f"{work}/x{b}.npy")).to(sys.argv[3])
+        out[f"y{b}"] = program(x).float().cpu().numpy()
+np.savez(work + "/consumer.npz", **out)
+ours = sorted(m for m in sys.modules if m.startswith("tensorflowonspark"))
+print(json.dumps({"loaded": ours}))
+"""
+
+
+def pod_chip_plan(cluster, timeout: float = 120.0):
+    """``cluster.chip_plan()`` once every node has reported its device facts
+    (a distributed node reports after its process group forms, which may
+    come after ``train()`` has handed over the last partition)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return cluster.chip_plan()
+        except RuntimeError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def phase_pod(seed: int, smi: str, device: str = "cuda") -> dict:
+    """``examples_torch/mnist/mnist_pod.py`` as a 1-rank pod:
+    ``GPUPodLauncher(hosts=["localhost"], transport="local",
+    gpu_slices=[[0]])`` drives ``mnist_pod.main_fun`` at the example's
+    widths (features (32, 64), dense 256, 64 rows a step) over
+    ``POD_SAMPLES`` synthetic samples in ``POD_PARTITIONS`` STREAMING
+    partitions, one epoch.  Gates: the node saw ``CUDA_VISIBLE_DEVICES``
+    "0", its process group is NCCL of world size 1, its registered device
+    facts are the card's (``gpu``, 1 device, the ``nvidia-smi`` name),
+    ``chip_plan()`` is one ``HostAssignment`` with cards ``(0,)``, every
+    sample was fed once, the last loss is below the first, the rank's own
+    attention-kernel counts stay 0, and the
+    collective checkpoint restores to the final weights' logits on a fixed
+    batch (``POD_RESTORE_RTOL``).  Prints the job's seconds and steps/s.
+    Then the export sub-step (``export_sub_step``).  ``device="cpu"``
+    rehearses it on the CPU (a gloo rank, no card)."""
+    import numpy as np
+    import torch
+
+    import tensorflowonspark_torch as tos
+    from examples_torch.mnist import mnist_pod
+    from tensorflowonspark_torch.checkpoint import latest_step_dir, load_bundle, restore_checkpoint
+    from tensorflowonspark_torch.launcher import GPUPodLauncher
+    from tensorflowonspark_torch.models import mnist
+    from tensorflowonspark_torch.models.registry import build_apply
+
+    cpu = device == "cpu"
+    args = {"batch_size": 64, "seed": seed, "device": device,
+            "model_dir": os.path.join(WORK_DIR, "pod_model"),
+            "export_dir": os.path.join(WORK_DIR, "pod_export")}
+    pod = GPUPodLauncher(hosts=["localhost"], transport="local",
+                         gpu_slices=None if cpu else [[0]],
+                         platform="cpu" if cpu else "gpu")
+    t0 = time.perf_counter()
+    cluster = tos.run(mnist_pod.main_fun, args, num_executors=1,
+                      input_mode=tos.InputMode.STREAMING, launcher=pod,
+                      log_dir=os.path.join(WORK_DIR, "pod_logs"), reservation_timeout=300)
+    try:
+        t_train = time.perf_counter()
+        cluster.train(tos.PartitionedDataset.from_iterable(
+            mnist.synthetic_mnist(POD_SAMPLES), POD_PARTITIONS), num_epochs=1)
+        feed_s = time.perf_counter() - t_train
+        plan = pod_chip_plan(cluster)
+    finally:
+        cluster.shutdown(timeout=300)
+    job_s = time.perf_counter() - t0
+    (meta,) = cluster.coordinator.cluster_info()
+    report, facts = meta["mnist_pod"], meta["device"]
+    steps_s = report["steps"] / report["train_s"]
+    log(f"[pod] mnist_pod, 1 rank ({report['backend']}, world {report['world']}, "
+        f"CUDA_VISIBLE_DEVICES={report['cuda_visible_devices']!r}, {report['device']}): "
+        f"{report['rows']} rows in {report['steps']} steps; losses "
+        + ", ".join(f"{x:.4f}" for x in report["losses"][::10] + report["losses"][-1:])
+        + f"; chip_plan {plan}; registered device {facts['platform']} x"
+        f"{facts['num_devices']} {facts['device_kind']!r}")
+    log(f"[pod] job {job_s:.2f} s from launch to shutdown (train() handed over the "
+        f"partitions in {feed_s:.2f} s); the rank's step loop {report['train_s']:.2f} s, "
+        f"{steps_s:.2f} steps/s, first step included (host clock; {smi})")
+    want_facts = (("cpu", 0, "cpu", []) if cpu else
+                  ("gpu", 1, torch.cuda.get_device_name(0), [smi]))
+    if report["cuda_visible_devices"] != ("" if cpu else "0"):
+        raise AssertionError(f"the pod's rank saw CUDA_VISIBLE_DEVICES="
+                             f"{report['cuda_visible_devices']!r}")
+    if (report["backend"], report["world"]) != ("gloo" if cpu else "nccl", 1):
+        raise AssertionError(f"the pod formed {report['backend']} of world {report['world']}")
+    if (facts["platform"], facts["num_devices"], facts["device_kind"],
+            facts["nvidia_smi"]) != want_facts:
+        raise AssertionError(f"the pod's registered device facts: {facts}")
+    if [(a.executor_id, a.chip_ids) for a in plan] != [(0, () if cpu else (0,))]:
+        raise AssertionError(f"chip_plan: {plan}")
+    if report["rows"] != POD_SAMPLES:
+        raise AssertionError(f"the pod trained on {report['rows']} of {POD_SAMPLES} samples")
+    if not report["losses"][-1] < report["losses"][0]:
+        raise AssertionError(f"the pod's loss did not fall: {report['losses']}")
+    if any(report["attention_launches"].values()):
+        raise AssertionError(f"the pod's rank launched an attention kernel: "
+                             f"{report['attention_launches']}")
+
+    path = latest_step_dir(args["model_dir"])
+    if not path.endswith(f"step_{report['steps']}"):
+        raise AssertionError(f"the newest checkpoint is {path}, not step {report['steps']}")
+    variables, config = load_bundle(args["export_dir"])
+    final = build_apply(config, device)
+    restored = build_apply(config, device)
+    restored.model.load_state_dict(restore_checkpoint(path)["model"])
+    probe = mnist.batch_to_arrays(mnist.synthetic_mnist(POD_PROBE, seed=seed + 7))["image"]
+    want = final(variables, probe).cpu().numpy()
+    with torch.inference_mode():
+        got = restored.model(torch.as_tensor(probe, device=device)).cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"[pod] the collective checkpoint's logits on {POD_PROBE} fixed images against "
+        f"the final weights': max error {rel:.3g} of the largest (gate {POD_RESTORE_RTOL})")
+    if not rel <= POD_RESTORE_RTOL:
+        raise AssertionError(f"the restored checkpoint's logits differ by {rel}")
+    out = {"job_s": job_s, "loop_s": report["train_s"], "steps": report["steps"],
+           "steps_per_s": steps_s, "first_loss": report["losses"][0],
+           "last_loss": report["losses"][-1], "restore_rel_err": rel}
+    out["export"] = export_sub_step(seed, smi, device)
+    return out
+
+
+def export_sub_step(seed: int, smi: str, device: str = "cuda") -> dict:
+    """ResNet-50 (``RESNET_CONFIG`` in f32, eval mode) through
+    ``checkpoint.export_program`` with a dynamic batch on ``device``,
+    loaded in a fresh process that imports only torch and numpy (it reports
+    the ``tensorflowonspark*`` modules it holds: none); its logits at
+    ``EXPORT_BATCHES`` against ``build_apply``'s forward here, within
+    ``EXPORT_LOGIT_TOL`` of the largest logit.  On the card, the LM
+    configuration's export must raise ``NotImplementedError`` (its forward
+    reaches the ctypes-bound attention kernel)."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.checkpoint import export_program
+    from tensorflowonspark_torch.convert import torch_to_flax
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.models.registry import build_apply
+
+    config = {**RESNET_CONFIG, "bf16": False}
+    model = resnet.build_resnet50(config)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    params = torch_to_flax(model.state_dict(), config=config)
+    del model
+    work = os.path.join(WORK_DIR, "program")
+    t0 = time.perf_counter()
+    export_program(work, params, config, (RESNET_SIZE, RESNET_SIZE, 3), device=device)
+    export_s = time.perf_counter() - t0
+    apply = build_apply(config, device)
+    rng = np.random.RandomState(seed)
+    want = {}
+    for b in EXPORT_BATCHES:
+        x = rng.rand(b, RESNET_SIZE, RESNET_SIZE, 3).astype(np.float32)
+        np.save(os.path.join(work, f"x{b}.npy"), x)
+        want[b] = apply(params, x).cpu().numpy()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", EXPORT_CONSUMER, work, json.dumps(list(EXPORT_BATCHES)), device],
+        capture_output=True, text=True, timeout=300, cwd=work)
+    consumer_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the program's consumer failed:\n{proc.stderr[-3000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])["loaded"]
+    got = np.load(os.path.join(work, "consumer.npz"))
+    errs = {b: float(np.abs(got[f"y{b}"] - want[b]).max() / np.abs(want[b]).max())
+            for b in EXPORT_BATCHES}
+    size_mb = os.path.getsize(os.path.join(work, "model.pt2")) / 1e6
+    log(f"[export] ResNet-50 f32 eval, {RESNET_SIZE} px, dynamic batch on {device}: "
+        f"export_program {export_s:.2f} s, model.pt2 {size_mb:.1f} MB; a fresh process "
+        f"(torch and numpy only; package modules loaded: {loaded}) took {consumer_s:.2f} s; "
+        + ", ".join(f"batch {b} max error {e:.3g} of the largest logit" for b, e in errs.items())
+        + f" (gate {EXPORT_LOGIT_TOL}) (host clock; {smi})")
+    if loaded:
+        raise AssertionError(f"the program's consumer loaded {loaded}")
+    if not all(e <= EXPORT_LOGIT_TOL for e in errs.values()):
+        raise AssertionError(f"the exported program disagrees with build_apply: {errs}")
+    out = {"export_s": export_s, "consumer_s": consumer_s, "program_mb": size_mb,
+           "max_rel_err": max(errs.values())}
+    if device == "cuda":
+        try:
+            export_program(os.path.join(WORK_DIR, "lm_program"), {}, LM_CONFIG,
+                           (SEQ_LEN,), input_dtype=np.int32, device=device)
+        except NotImplementedError as e:
+            log(f"[export] the LM on cuda refuses, as it must: {e}")
+        else:
+            raise AssertionError("export_program exported the LM on cuda past its kernel")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def phase_wide_deep_sync(seed: int, smi: str, device: str = "cuda") -> dict:
     """``train(mode="sync")`` of the full-width wide-and-deep on 2 node
     processes sharing the card: ``ctx.collective_group().grad_fn()`` is the
@@ -3623,6 +3855,17 @@ def main() -> int:
                                  f"{att.LAUNCHES}")
         log(f"[criteo] the config-4 phases took {time.perf_counter() - t_criteo:.1f} s "
             f"(host clock; {smi}); summary {json.dumps(criteo)}")
+        # a 1-rank pod through GPUPodLauncher, and torch.export programs:
+        # no MNIST or ResNet path reaches either kernel
+        torch.cuda.empty_cache()
+        t_pod = time.perf_counter()
+        reset_launches()
+        pod = phase_pod(args.seed, smi)  # it reads the rank's counts too
+        if any(att.LAUNCHES.values()):
+            raise AssertionError(f"the pod phase launched an attention kernel: "
+                                 f"{att.LAUNCHES}")
+        log(f"[pod] the pod phase took {time.perf_counter() - t_pod:.1f} s "
+            f"(host clock; {smi}); summary {json.dumps(pod)}")
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     print(json.dumps({"kernels": [record, tf32]}))

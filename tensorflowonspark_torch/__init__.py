@@ -28,7 +28,11 @@ collective group behind ``train(mode="sync")`` (``collective``, reached as
 served through the gateway's lookup fan-out); and ``InputMode.DIRECT``
 ingestion — the node-side reader pipeline, the data-service tier and
 ``ingest.device_prefetch`` (``ingest``), the autoscaler (``autoscale``) and
-``torch.profiler`` traces (``profiling``).
+``torch.profiler`` traces (``profiling``); and multi-host pods — one node
+per (host, card slice) in one ``torch.distributed`` world
+(``GPUPodLauncher``, ``TorchCluster.chip_plan``) — with ``torch.export``
+programs (``checkpoint.export_program``) and the codebase's static analysis
+(``analysis``, toslint).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
 """
@@ -48,6 +52,7 @@ from tensorflowonspark_torch.cluster import InputMode, TorchCluster, run  # noqa
 from tensorflowonspark_torch.data import PartitionedDataset  # noqa: F401
 from tensorflowonspark_torch.feeding import DataFeed, FeedQueues  # noqa: F401
 from tensorflowonspark_torch.launcher import (  # noqa: F401
+    GPUPodLauncher,
     LocalLauncher,
     SubprocessLauncher,
 )
@@ -62,6 +67,7 @@ from tensorflowonspark_torch.pipeline import (  # noqa: F401
 _LAZY = {
     "collective": ("tensorflowonspark_torch.collective", None),
     "export_bundle": ("tensorflowonspark_torch.checkpoint", "export_bundle"),
+    "export_program": ("tensorflowonspark_torch.checkpoint", "export_program"),
     "load_bundle": ("tensorflowonspark_torch.checkpoint", "load_bundle"),
     "load_bundle_cached": ("tensorflowonspark_torch.checkpoint",
                            "load_bundle_cached"),

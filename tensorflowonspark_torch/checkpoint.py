@@ -53,6 +53,10 @@ each node of a sharded embedding table commits its own row range as
 ``restore_embedding_shard`` reassembles any ``[lo, hi)`` from whatever
 shard files cover it (the layout is shared with the JAX package).
 
+**Programs** (the reference's ``export_stablehlo``, ``:384-431``):
+``export_program`` writes a ``torch.export`` program that scores without
+this package.
+
 The orbax bundle layout (a ``params/`` checkpoint directory, written by the
 JAX package for cross-process-sharded params) is not read by the port yet.
 """
@@ -640,6 +644,92 @@ def bundle_signature(export_dir: str) -> tuple:
             continue
         sig.append((name, st.st_mtime_ns, st.st_size))
     return tuple(sig)
+
+
+def _kernel_route(model: torch.nn.Module) -> tuple[str, int] | None:
+    """The kernel route (``ops.attention._route``) a CUDA forward of
+    ``model`` takes through the ctypes-bound attention kernel, or None when
+    no layer of it attends through ``flash_attention``."""
+    from tensorflowonspark_torch.ops.attention import _route, flash_attention
+
+    for m in model.modules():
+        if getattr(m, "attend", None) is flash_attention:
+            return _route(m.compute_dtype, m.d_head)
+    return None
+
+
+def _as_torch_dtype(dtype: Any) -> torch.dtype:
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
+
+
+def export_program(export_dir: str, params: Any, model_config: dict,
+                   input_shape: tuple, input_dtype: Any = None, device=None) -> str:
+    """Serving interop: export a self-contained ``torch.export`` program,
+    the counterpart of the JAX package's ``export_stablehlo``.
+
+    The reference's SavedModel was consumable by anything speaking TF serving
+    (``TFNode.py:~160-230``); the bundle format is registry-bound to this
+    repo.  This writes ``model.pt2`` — the model's eval forward with the
+    weights inside, through ``torch.export.export`` and
+    ``torch.export.save`` — so a consumer needs only ``torch`` (no model
+    registry, no this-package):
+
+        logits = torch.export.load("model.pt2").module()(images)
+
+    ``params`` is the bundle's tree (flax names, as ``export_bundle`` takes
+    it).  ``input_shape`` excludes the batch dim: the program scores any
+    batch size (a ``torch.export.Dim``).  ``device`` (default ``cuda``) is
+    where the program's weights live and where it runs.  ``program.json`` beside it
+    records the config, device, input shape and dtype.
+
+    On the CPU every family exports through its plain path.  On ``cuda`` a
+    model whose forward reaches the ctypes-bound attention kernel cannot be
+    traced and raises ``NotImplementedError``: exporting plain attention in
+    its place would hide the kernel (ROADMAP (f): the kernel needs
+    registering as a ``torch.library.custom_op`` with a fake
+    implementation).
+    """
+    from tensorflowonspark_torch.convert import flax_to_torch
+    from tensorflowonspark_torch.gpu_info import default_device
+    from tensorflowonspark_torch.models.registry import build
+
+    dev = default_device(device)
+    with torch.device("meta"):
+        model = build(model_config).cast_matrices_()
+    route = _kernel_route(model) if dev.type == "cuda" else None
+    if route is not None:
+        raise NotImplementedError(
+            f"export_program on cuda: the {model_config.get('model')!r} forward "
+            f"reaches the attention kernel {route[0]} (head dim padded to "
+            f"{route[1]}, ops.attention._route), bound through ctypes, which "
+            "torch.export cannot trace; export on the CPU (device='cpu') "
+            "until the kernel is a torch.library.custom_op with a fake "
+            "implementation (ROADMAP (f))")
+    model = model.to_empty(device=dev).eval()
+    model.load_state_dict(flax_to_torch(params, model_config), strict=True)
+    dtype = _as_torch_dtype(input_dtype)
+    # a batch of 2: torch.export specialises a dimension it sees at 0 or 1.
+    # Dim.DYNAMIC takes the batch's range from what the forward allows
+    # (cuDNN's convolutions cap it at 65535 on the card).
+    example = torch.zeros((2, *input_shape), dtype=dtype, device=dev)
+    with torch.no_grad():
+        program = torch.export.export(model, (example,),
+                                      dynamic_shapes=({0: torch.export.Dim.DYNAMIC},))
+
+    local = resolve_uri(export_dir)
+    os.makedirs(local, exist_ok=True)
+    torch.export.save(program, os.path.join(local, "model.pt2"))
+    meta = {"model_config": model_config, "device": dev.type,
+            "input_shape": list(input_shape),
+            "input_dtype": str(dtype).removeprefix("torch."),
+            "batch_polymorphic": True}
+    with open(os.path.join(local, "program.json"), "w") as f:
+        json.dump(meta, f, indent=2, sort_keys=True)
+    return local
 
 
 _BUNDLE_CACHE: dict[str, tuple[Any, dict, Callable]] = {}

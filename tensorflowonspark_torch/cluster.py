@@ -13,7 +13,8 @@ port; its deltas from the reference (BASELINE.json:5, SURVEY.md §2.3):
   nodes when ``run(torch_distributed=True)``).  Roles are
   chief/worker/evaluator only.
 - **Launcher abstraction** instead of Spark: ``SubprocessLauncher``
-  (default) or ``LocalLauncher`` place node processes; partitions stream
+  (default), ``LocalLauncher`` or ``GPUPodLauncher`` (multi-host) place
+  node processes; partitions stream
   over the data plane (``dataserver.py``) rather than Spark feed tasks.
 - ``InputMode.DIRECT`` (framework reads files itself — the reference's
   ``InputMode.TENSORFLOW``) vs ``InputMode.STREAMING`` (driver streams
@@ -43,6 +44,7 @@ from tensorflowonspark_torch.telemetry import trace_export as ttrace_export
 from tensorflowonspark_torch.data import as_partitioned
 from tensorflowonspark_torch.dataserver import DataClient
 from tensorflowonspark_torch.launcher import (  # noqa: F401 - LocalLauncher re-exported
+    GPUPodLauncher,
     LocalLauncher,
     SubprocessLauncher,
 )
@@ -1565,11 +1567,13 @@ class TorchCluster:
         """
         if num_nodes < 1:
             raise ValueError("resize needs num_nodes >= 1")
-        if any(getattr(cfg, "torch_distributed", False)
-               for cfg in getattr(self.launcher, "configs", [])):
+        if isinstance(self.launcher, GPUPodLauncher) or any(
+                getattr(cfg, "torch_distributed", False)
+                for cfg in getattr(self.launcher, "configs", [])):
             raise RuntimeError(
-                "cannot resize a torch.distributed job: a live process group "
-                "has a fixed world size (same constraint as elastic=True)")
+                "cannot resize a torch.distributed job (a GPUPodLauncher pod "
+                "is one): a live process group has a fixed world size (same "
+                "constraint as elastic=True)")
         with self._resize_lock:
             if self._closing.is_set() or self._shutdown_done:
                 raise RuntimeError("cluster is shutting down")
@@ -2437,6 +2441,31 @@ class TorchCluster:
             writer.add_scalars(scalars, step=step)
             writer.flush()
 
+    def chip_plan(self):
+        """Authoritative global card numbering across the registered nodes
+        (``gpu_info.plan_topology`` over each node's reported
+        ``device_summary``, in executor-id order) — the driver-side
+        replacement for the reference's per-executor randomized GPU picking
+        (``gpu_info.py``; SURVEY.md §5.2 disposition).  Returns one
+        ``HostAssignment`` per node; evaluators report their cards too but
+        own no data-plane role."""
+        from tensorflowonspark_torch import gpu_info
+
+        infos = self.coordinator.cluster_info()
+        pending = [m["executor_id"] for m in infos
+                   if (m.get("device") or {}).get("num_devices") is None]
+        if pending:
+            # torch_distributed nodes register a placeholder and report real
+            # device facts only after init_process_group — a plan built
+            # from placeholders would be silently all-zero
+            raise RuntimeError(
+                f"chip plan unavailable: nodes {pending} have not reported "
+                "device facts yet (distributed nodes report after their "
+                "torch.distributed bootstrap); retry once the job is running")
+        counts = [int((m.get("device") or {}).get("num_devices") or 0)
+                  for m in infos]
+        return gpu_info.plan_topology(counts)
+
     def tensorboard_url(self) -> str | None:
         for meta in self.coordinator.cluster_info():
             if "tb_url" in meta:
@@ -2524,11 +2553,16 @@ def run(
     connection with the per-cluster ``authkey`` (HMAC challenge-response,
     same handshake as the data plane).
     """
-    if elastic and torch_distributed:
+    # GPUPodLauncher forces torch_distributed=True on every NodeConfig it
+    # launches, so checking the parameter alone would let a pod job slip
+    # past the guards.
+    pod = isinstance(launcher, GPUPodLauncher)
+    if elastic and (torch_distributed or pod):
         raise ValueError(
-            "elastic=... cannot be combined with a torch.distributed job: a "
-            "restarted process cannot rejoin a live process group "
-            "(TF-Replicator generation semantics); run elastic jobs without "
+            "elastic=... cannot be combined with a torch.distributed job "
+            "(torch_distributed=True or a GPUPodLauncher): a restarted "
+            "process cannot rejoin a live process group (TF-Replicator "
+            "generation semantics); run elastic jobs without "
             "torch_distributed")
     if reservation_timeout is None:
         reservation_timeout = _env_float("TOS_RESERVATION_TIMEOUT", 120.0)
@@ -2542,9 +2576,10 @@ def run(
             "ingest_workers need InputMode.DIRECT: the data-service tier "
             "claims shard items from the ledger (STREAMING clusters stream "
             "rows from the driver and have nothing for the tier to decode)")
-    if ingest_workers and torch_distributed:
+    if ingest_workers and (torch_distributed or pod):
         raise ValueError(
-            "ingest_workers cannot be combined with torch_distributed: "
+            "ingest_workers cannot be combined with torch_distributed (or a "
+            "GPUPodLauncher): "
             "data-service workers are not members of the process group, "
             "whose ranks are the contiguous data-node ids")
     total_procs = num_executors + ingest_workers

@@ -87,8 +87,8 @@ _CONV_FAMILIES = frozenset({"mnist_cnn", "resnet50", "resnet18", "resnet_cifar",
                             "inception_v3"})
 _WIDE_DEEP = frozenset({"wide_deep", "wide_deep_dense"})
 _TABLES = frozenset({"embeddings", "wide_weights"})  # same name and layout
-_BN_STATS = {"mean": "running_mean", "var": "running_var"}
-_FROM_BN_STATS = {v: k for k, v in _BN_STATS.items()}
+_BN_BUFFERS = {"mean": "running_mean", "var": "running_var"}
+_FROM_BN_BUFFERS = {v: k for k, v in _BN_BUFFERS.items()}
 
 
 def _model(config: dict | None) -> str:
@@ -245,7 +245,7 @@ def _leafwise_flax_to_torch(variables: dict) -> dict[str, torch.Tensor]:
             raise KeyError(f"unknown param leaf {'/'.join(path)}")
     for path, leaf in _walk(variables.get("batch_stats", {})):
         *mod, name = path
-        out[".".join(mod + [_BN_STATS[name]])] = _tensor(leaf)
+        out[".".join(mod + [_BN_BUFFERS[name]])] = _tensor(leaf)
     return out
 
 
@@ -263,8 +263,8 @@ def _leafwise_torch_to_flax(state: dict) -> dict:
         a = _numpy(t)
         if not mod and name in _TABLES:
             params[name] = a
-        elif name in _FROM_BN_STATS:
-            _set(stats, mod + [_FROM_BN_STATS[name]], a)
+        elif name in _FROM_BN_BUFFERS:
+            _set(stats, mod + [_FROM_BN_BUFFERS[name]], a)
         elif name == "weight":
             if a.ndim == 4:                                       # conv kernel
                 _set(params, mod + ["kernel"], np.ascontiguousarray(a.transpose(2, 3, 1, 0)))

@@ -13,9 +13,13 @@ launcher backend owns process placement (SURVEY.md §7.1-4):
   with its own environment.  Required for per-process accelerator
   visibility (``CUDA_VISIBLE_DEVICES``), where env must be in place
   *before* the child interpreter starts.
-
-The JAX package's multi-host ``TPUPodLauncher`` is not ported yet
-(ROADMAP.md queue 1 (g)).
+- ``GPUPodLauncher`` — placement across GPU hosts, the counterpart of the
+  JAX package's ``TPUPodLauncher``: one node process per (host, card
+  slice), spawned over ``ssh`` (default) or, with ``transport='local'``,
+  on this machine for single-box pods and tests.
+  ``gpu_info.gpu_visibility_env`` makes each process see
+  exactly its card slice, and the processes form one ``torch.distributed``
+  world.
 
 ``NodeConfig`` travels to the child with ``cloudpickle`` when it is
 installed (so lambdas and closures work as map_funs), and otherwise with
@@ -33,10 +37,11 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import shlex
 import subprocess
 import sys
 import time
-from typing import Callable, Sequence
+from typing import Sequence
 
 import pickle
 
@@ -282,24 +287,29 @@ class SubprocessLauncher(_RespawnMixin):
             self._procs.append(self._spawn_one(i, config))
 
     def _spawn_one(self, i: int, config: NodeConfig) -> PopenHandle:
-        child_env = {**os.environ, **_pythonpath_env(), **config.env}
+        log_f = None
         if self._log_dir:
             log_f = open(os.path.join(self._log_dir, f"node_{i}.log"), "ab", buffering=0)
-        else:
-            log_f = None
         payload = dumps_config(config)
-        proc = subprocess.Popen(
-            _node_command(),
-            stdin=subprocess.PIPE,
-            stdout=log_f if log_f else None,
-            stderr=subprocess.STDOUT if log_f else None,
-            env=child_env,
-        )
+        try:
+            proc = self._popen(i, config.env, log_f)
+        finally:
+            if log_f is not None:
+                log_f.close()  # child holds its own fd now
         proc.stdin.write(payload)
         proc.stdin.close()
-        if log_f is not None:
-            log_f.close()  # child holds its own fd now
         return PopenHandle(proc)
+
+    def _popen(self, i: int, env: dict[str, str], log_f) -> subprocess.Popen:
+        """Start node ``i``'s interpreter on this machine, ``env`` over the
+        driver's environment, its output into ``log_f``."""
+        return subprocess.Popen(
+            _node_command(),
+            stdin=subprocess.PIPE,
+            stdout=log_f,
+            stderr=subprocess.STDOUT if log_f else None,
+            env={**os.environ, **_pythonpath_env(), **env},
+        )
 
     @property
     def processes(self) -> list[PopenHandle]:
@@ -322,3 +332,103 @@ class SubprocessLauncher(_RespawnMixin):
             p.join(5.0)
             if p.is_alive():
                 p.kill()
+
+
+class GPUPodLauncher(SubprocessLauncher):
+    """Placement across GPU hosts: one node process per (host, card slice).
+
+    ``hosts`` has one entry per process and may repeat (two processes on
+    one host: ``["gpu-0", "gpu-0"]``).  Every process joins one
+    ``torch.distributed`` world (``NodeConfig.torch_distributed=True`` is
+    forced): NCCL across the hosts, one rank per card.
+
+    Transports:
+    - ``'ssh'`` (default): ``ssh <host> env K=V... python -m
+      tensorflowonspark_torch.node_entry`` with the pickled config streamed
+      over stdin.  Requires passwordless ssh and the package importable on
+      the remote host (reference parity: ``TFCluster.py:~340-360`` used
+      Spark's executor placement instead).
+    - ``'local'``: every "host" is this machine, spawned as
+      ``SubprocessLauncher`` spawns; used for single-host multi-process
+      pods and for tests.
+
+    ``gpu_slices`` optionally gives each process its card ids on its host
+    (two processes splitting one host's cards: ``[[0], [1]]``); the env is
+    then ``gpu_info.gpu_visibility_env`` of the slice plus ``LOCAL_RANK=0``:
+    the process sees its first card as ``cuda:0`` and binds it.  Without
+    slices each process sees every card of its host.  ``platform='cpu'``
+    hides the cards (a gloo world of CPU ranks, as the tests run it).
+    """
+
+    def __init__(
+        self,
+        hosts: Sequence[str],
+        transport: str = "ssh",
+        env: dict[str, str] | None = None,
+        gpu_slices: Sequence[Sequence[int]] | None = None,
+        platform: str = "gpu",
+    ):
+        if transport not in ("ssh", "local"):
+            raise ValueError(f"unknown transport {transport!r}: 'ssh' or 'local'")
+        if gpu_slices is not None and len(gpu_slices) != len(hosts):
+            raise ValueError("gpu_slices must have one entry per host")
+        super().__init__(env)
+        self.hosts = list(hosts)
+        self.transport = transport
+        self.gpu_slices = [list(s) for s in gpu_slices] if gpu_slices else None
+        self.platform = platform
+
+    def host_env(self, index: int) -> dict[str, str]:
+        """The accelerator-visibility env for host ``index``."""
+        from tensorflowonspark_torch import gpu_info
+
+        env = dict(self.env)
+        if self.gpu_slices is not None:
+            env.update(gpu_info.gpu_visibility_env(
+                self.gpu_slices[index], platform=self.platform))
+            env["LOCAL_RANK"] = "0"  # the slice's first card is this rank's
+        elif self.platform == "cpu":
+            env.update(gpu_info.gpu_visibility_env((), platform="cpu"))
+        return env
+
+    def launch(self, configs: Sequence[NodeConfig], log_dir: str | None = None) -> None:
+        if len(configs) != len(self.hosts):
+            raise ValueError(
+                f"pod launcher got {len(configs)} configs for {len(self.hosts)} hosts")
+        for i, config in enumerate(configs):
+            config.torch_distributed = True  # a pod IS a torch.distributed job
+            config.env = {**self.host_env(i), **config.env}
+        super().launch(configs, log_dir)
+
+    def _popen(self, i: int, env: dict[str, str], log_f) -> subprocess.Popen:
+        if self.transport == "local":
+            return super()._popen(i, env, log_f)
+        # ssh joins argv into ONE remote shell line, so every env value and
+        # command token must be shell-quoted (NCCL_* and PYTHONPATH values
+        # may hold spaces or ':'; unquoted values would also be an injection
+        # hole).
+        env_prefix = ["env"] + [
+            shlex.quote(f"{k}={v}") for k, v in sorted(env.items())]
+        remote = env_prefix + [shlex.quote(c) for c in _node_command()]
+        return subprocess.Popen(
+            ["ssh", "-o", "BatchMode=yes", self.hosts[i]] + remote,
+            stdin=subprocess.PIPE,
+            stdout=log_f,
+            stderr=subprocess.STDOUT if log_f else None)
+
+    def respawn(self, index: int, config: NodeConfig | None = None) -> None:
+        """A pod is one ``torch.distributed`` job — a restarted process
+        cannot rejoin the live process group, so there is nothing a per-slot
+        respawn could correctly do (``cluster.run`` refuses ``elastic`` with
+        this launcher up front; this guard catches direct callers)."""
+        raise NotImplementedError(
+            "GPUPodLauncher cannot respawn a single slot of a live "
+            "torch.distributed world; relaunch the whole pod instead")
+
+    def spawn_more(self, configs: Sequence[NodeConfig]) -> None:
+        """A pod's process count is fixed by its torch.distributed world
+        size; ``cluster.resize`` refuses distributed jobs up front — this
+        guard catches direct callers."""
+        raise NotImplementedError(
+            "GPUPodLauncher cannot grow a live torch.distributed world; "
+            "relaunch the pod at the new size instead")

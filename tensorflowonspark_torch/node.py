@@ -430,12 +430,46 @@ def _init_process_group(init_method: str, rank: int, world_size: int,
                 "torch_distributed on the card needs a CUDA device and this "
                 "node has none; pass device='cpu' in the map_fun's args for "
                 "a gloo process group on the CPU")
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        from tensorflowonspark_torch.parallel.mesh import mesh_device
+
+        # the card of LOCAL_RANK (set by node_main before this call), the
+        # device parallel.mesh gives the rank, bound before NCCL forms
+        torch.cuda.set_device(mesh_device())
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout))
     logger.info("torch.distributed: rank %d of %d, backend %s, %s", rank,
                 world_size, backend, init_method)
+
+
+def _local_rank(cluster_info: list, rank: int) -> int:
+    """The card ``rank`` binds when its launcher set no ``LOCAL_RANK`` (a
+    ``GPUPodLauncher`` slice sets 0, ``torchrun`` its own): its index among
+    the data nodes that registered from its host, modulo the cards this
+    process sees (the ranks of one host share them round robin)."""
+    import torch
+
+    host = cluster_info[rank]["host"]
+    index = sum(1 for m in cluster_info[:rank] if m["host"] == host)
+    cards = torch.cuda.device_count()
+    return index % cards if cards else index
+
+
+def _rendezvous_host(cluster_info: list, num_data: int) -> str:
+    """The chief's registered address, where every rank dials the process
+    group's store.  A loopback address reaches no rank on another host:
+    when the data nodes registered from more than one host it raises
+    instead of letting the remote ranks wait out the store's timeout."""
+    host = cluster_info[0]["host"]
+    hosts = {m["host"] for m in cluster_info[:num_data]}
+    loopback = host.startswith("127.") or host in ("localhost", "::1")
+    if loopback and len(hosts) > 1:
+        raise RuntimeError(
+            f"the chief registered the loopback address {host} but the data "
+            f"nodes span hosts {sorted(hosts)}: no remote rank can reach the "
+            "process group's store; give the chief's host a routable "
+            "interface")
+    return host
 
 
 def _destroy_process_group() -> None:
@@ -768,7 +802,8 @@ def node_main(config: NodeConfig) -> int:
         port = int(client.reduce("torch_distributed_port", port, kind="max",
                                  timeout=config.reservation_timeout,
                                  count=num_data))
-        chief_host = cluster_info[0]["host"]
+        chief_host = _rendezvous_host(cluster_info, num_data)
+        os.environ.setdefault("LOCAL_RANK", str(_local_rank(cluster_info, executor_id)))
         if sock is not None:
             sock.close()  # handoff: rank 0's TCP store binds it next
         _init_process_group(f"tcp://{chief_host}:{port}", executor_id,

@@ -5,11 +5,11 @@ docstring.  This is the single source of truth that
 
 - ``utils/envtune`` warns against at read time (an ``env_*`` call on an
   unregistered ``TOS_*`` name is a knob that ops cannot discover);
-- the ``knob-discipline`` checker in ``tensorflowonspark_tpu.analysis``
+- the ``knob-discipline`` checker in ``tensorflowonspark_torch.analysis``
   cross-checks statically: every knob read in the tree must be registered
-  here, every registered knob must be read somewhere, and the README
-  "Tuning knobs" table must match ``knob_table_markdown()`` exactly
-  (regenerate with ``python -m tensorflowonspark_tpu.analysis
+  here, every registered knob must be read somewhere, and the port's
+  "Tuning knobs" table in README must match ``knob_table_markdown()``
+  exactly (regenerate with ``python -m tensorflowonspark_torch.analysis
   --write-knob-table``).
 
 Defaults are *rendered* strings — some real defaults are computed (e.g.
@@ -284,8 +284,10 @@ KNOBS: dict[str, Knob] = {k.name: k for k in _ALL}
 
 # README block delimiters; knob_table_markdown() emits the table BETWEEN
 # these, and the knob-discipline checker requires the block to match.
-TABLE_BEGIN = "<!-- knob-table:begin (generated; run `python -m tensorflowonspark_tpu.analysis --write-knob-table`) -->"
-TABLE_END = "<!-- knob-table:end -->"
+# The port's table has markers of its own, so that its --write-knob-table
+# never rewrites the JAX package's block of the same README.
+TABLE_BEGIN = "<!-- torch-knob-table:begin (generated; run `python -m tensorflowonspark_torch.analysis --write-knob-table`) -->"
+TABLE_END = "<!-- torch-knob-table:end -->"
 
 
 def find_table_block(lines: list[str]) -> tuple[int, int] | None:

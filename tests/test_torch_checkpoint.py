@@ -4,6 +4,7 @@ restating ``tests/test_checkpoint.py``: round trip, keep-newest, a
 full-state resume — held against the JAX package's ``optax.sgd`` run on the
 same numpy batches — plus what the commit by rename guarantees."""
 
+import json
 import os
 
 import jax
@@ -200,3 +201,132 @@ def test_full_state_resume_matches_uninterrupted(tmp_path):
     partial.model.load_state_dict(restored["model"])
     _, losses_c = _run(partial, batches[5:])
     assert not np.allclose(losses_c, losses_a[5:], rtol=1e-5)
+
+
+# -- exported programs (the JAX package's export_stablehlo) -----------------
+
+def test_program_export_consumable_without_package(tmp_path):
+    """``tests/test_checkpoint.py``'s StableHLO interop test against
+    ``export_program``: the JAX package's MNIST weights (``init_params``)
+    exported as a ``torch.export`` program reload and score in a process
+    that imports neither package, equal to the JAX ``model.apply`` within
+    1e-5, at batch sizes 1 and 5 through one dynamic-batch program."""
+    import subprocess
+    import sys
+
+    from tensorflowonspark_tpu.models import mnist as jmnist
+
+    config = {"model": "mnist_cnn", "num_classes": 10, "features": [4, 8],
+              "dense": 16}
+    model = jmnist.build_mnist(config)
+    params = jmnist.init_params(model, jax.random.PRNGKey(0))
+    ckpt.export_program(str(tmp_path), jax.device_get(params), config,
+                        input_shape=(28, 28, 1), device="cpu")
+    meta = json.loads((tmp_path / "program.json").read_text())
+    assert meta == {"model_config": config, "device": "cpu", "input_shape": [28, 28, 1],
+                    "input_dtype": "float32", "batch_polymorphic": True}
+
+    x = np.random.RandomState(0).rand(5, 28, 28, 1).astype(np.float32)
+    expected = np.asarray(model.apply({"params": params}, jnp.asarray(x)))
+    np.save(tmp_path / "x.npy", x)
+    consumer = (
+        "import sys, numpy as np, torch\n"
+        "def ours():\n"
+        "    return [m for m in sys.modules if m.startswith(('tensorflowonspark', 'jax'))]\n"
+        "assert not ours(), ours()\n"
+        f"prog = torch.export.load(r'{tmp_path}/model.pt2').module()\n"
+        f"x = torch.from_numpy(np.load(r'{tmp_path}/x.npy'))\n"
+        "with torch.no_grad():\n"
+        "    one, five = prog(x[:1]), prog(x)\n"
+        "assert not ours(), ours()\n"
+        f"np.save(r'{tmp_path}/one.npy', one.numpy())\n"
+        f"np.save(r'{tmp_path}/five.npy', five.numpy())\n"
+    )
+    subprocess.run([sys.executable, "-c", consumer], check=True, timeout=180,
+                   cwd=str(tmp_path))
+    np.testing.assert_allclose(np.load(tmp_path / "five.npy"), expected, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.load(tmp_path / "one.npy"), expected[:1],
+                               rtol=1e-5, atol=1e-5)
+
+
+def _random_state(model, seed):
+    """Every parameter and persistent buffer of ``model`` drawn from a seed
+    (running variances positive)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if not t.is_floating_point():
+                continue
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            else:
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+
+
+def _family_input(name, b):
+    rng = np.random.RandomState(b)
+    if name == "transformer":
+        return rng.randint(0, 64, (b, 16)).astype(np.int32)
+    if name == "wide_deep":
+        from tensorflowonspark_torch.models import wide_deep as twd
+
+        return twd.batch_to_arrays(twd.synthetic_criteo(b, seed=b))["features"]
+    shape = {"linear": (6,), "mnist_cnn": (28, 28, 1), "resnet_cifar": (32, 32, 3),
+             "inception_v3": (75, 75, 3)}[name]
+    return rng.rand(b, *shape).astype(np.float32)
+
+
+FAMILIES = {
+    "transformer": {"model": "transformer", "vocab_size": 64, "d_model": 32,
+                    "n_layers": 2, "n_heads": 4, "bf16": False},
+    "linear": {"model": "linear", "in_dim": 6, "out_dim": 3},
+    "mnist_cnn": {"model": "mnist_cnn", "num_classes": 10, "features": [4, 8], "dense": 16},
+    "resnet_cifar": {"model": "resnet_cifar", "depth_blocks": 1, "width": 8,
+                     "num_classes": 10, "bf16": False},
+    "inception_v3": {"model": "inception_v3", "num_classes": 10, "bf16": False},
+    "wide_deep": {"model": "wide_deep", "vocab_size": 1009, "embed_dim": 4,
+                  "hidden": [8, 4], "bf16": False},
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_every_family_exports_on_the_cpu(tmp_path, name):
+    """On the CPU every family exports through its plain path (the LM's
+    attention included), and the program's outputs at batch sizes 2 and 3
+    equal ``build_apply``'s on the same weights (f32, 1e-5)."""
+    from tensorflowonspark_torch.convert import torch_to_flax
+    from tensorflowonspark_torch.models import registry
+
+    config = FAMILIES[name]
+    model = registry.build(config)
+    _random_state(model, 0)
+    params = torch_to_flax(model.state_dict(), n_heads=config.get("n_heads"), config=config)
+    x2 = _family_input(name, 2)
+    ckpt.export_program(str(tmp_path), params, config, input_shape=x2.shape[1:],
+                        input_dtype=x2.dtype, device="cpu")
+    program = torch.export.load(str(tmp_path / "model.pt2")).module()
+    apply = registry.build_apply(config, device="cpu")
+    for x in (x2, _family_input(name, 3)):
+        with torch.no_grad():
+            got = program(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), apply(params, x).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_export_of_the_lm_refuses_naming_the_kernel(tmp_path, monkeypatch):
+    """On ``cuda`` the LM's forward reaches the ctypes-bound attention
+    kernel, which ``torch.export`` cannot trace: ``export_program`` raises
+    before any weight moves, naming the route and the ROADMAP item (the
+    device is only resolved here; nothing runs on a card)."""
+    from tensorflowonspark_torch import gpu_info
+
+    monkeypatch.setattr(gpu_info, "default_device", lambda d=None: torch.device("cuda"))
+    config = FAMILIES["transformer"]
+    with pytest.raises(NotImplementedError,
+                       match=r"flash_attn_fwd_tf32 .*ROADMAP \(f\)"):
+        ckpt.export_program(str(tmp_path), {}, config, input_shape=(16,),
+                            input_dtype=np.int32)
+    with pytest.raises(NotImplementedError, match=r"attention kernel flash_attn_fwd "):
+        ckpt.export_program(str(tmp_path), {}, {**config, "bf16": True},
+                            input_shape=(16,), input_dtype=np.int32)
+    assert not (tmp_path / "model.pt2").exists()

@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +49,37 @@ def test_run_and_shutdown_noop():
         assert dev["platform"] == "cpu" and dev["num_devices"] == 0
         assert dev["process_index"] == 0 and dev["nvidia_smi"] == []
     cluster.shutdown()
+
+
+def test_chip_plan_numbers_the_registered_devices():
+    """``tests/test_cluster.py``'s ``chip_plan`` case: driver-side card
+    numbering from the registered device facts (here the CPU, 0 cards a
+    node), disjoint and contiguous."""
+    cluster = tos.run(torch_mapfuns.noop, num_executors=2,
+                      reservation_timeout=60, heartbeat_interval=HB)
+    plan = cluster.chip_plan()
+    assert [a.executor_id for a in plan] == [0, 1]
+    counts = [(m.get("device") or {}).get("num_devices") or 0
+              for m in cluster.cluster_info]
+    assert [a.num_chips for a in plan] == [int(c) for c in counts]
+    assert plan[1].chip_start == plan[0].num_chips  # disjoint, contiguous
+    cluster.shutdown()
+
+
+def test_chip_plan_over_cards_and_before_the_reports():
+    """``chip_plan`` over nodes that registered 4, 4 and 8 cards gives
+    disjoint contiguous slices; while a node still shows the distributed
+    placeholder it refuses (a plan from placeholders would be all zero)."""
+    def cluster_of(devices):
+        infos = [{"executor_id": i, "device": d} for i, d in enumerate(devices)]
+        coordinator = types.SimpleNamespace(cluster_info=lambda: infos)
+        return types.SimpleNamespace(coordinator=coordinator)
+
+    plan = TorchCluster.chip_plan(cluster_of([{"num_devices": n} for n in (4, 4, 8)]))
+    assert [a.chip_ids for a in plan] == [(0, 1, 2, 3), (4, 5, 6, 7), tuple(range(8, 16))]
+    pending = cluster_of([{"num_devices": 1}, {"platform": "pending_distributed_init"}])
+    with pytest.raises(RuntimeError, match=r"nodes \[1\] have not reported"):
+        TorchCluster.chip_plan(pending)
 
 
 def test_roles_and_ctx(tmp_path):

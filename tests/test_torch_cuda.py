@@ -558,3 +558,51 @@ def test_cuda_device_prefetch_from_a_live_ingest_feed(tmp_path, monkeypatch):
     assert sorted(int(a[0]) for a in flat) == [1000 * i for i in range(16)]
     for a in flat:
         np.testing.assert_array_equal(a, records[int(a[0]) // 1000])
+
+
+def test_cuda_export_program_scores_like_build_apply(tmp_path):
+    """``checkpoint.export_program`` on the card: a small MNIST CNN exported
+    with a dynamic batch scores batches of 1 and 3 as ``build_apply`` does
+    on the same weights (same process, same settings: within 1e-5 of the
+    largest logit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from tensorflowonspark_torch.checkpoint import export_program
+    from tensorflowonspark_torch.convert import torch_to_flax
+    from tensorflowonspark_torch.models import mnist
+    from tensorflowonspark_torch.models.registry import build_apply
+
+    config = {"model": "mnist_cnn", "num_classes": 10, "features": [4, 8], "dense": 16}
+    model = mnist.build_mnist(config)
+    model.init_weights(torch.Generator().manual_seed(0))
+    params = torch_to_flax(model.state_dict(), config=config)
+    export_program(str(tmp_path), params, config, (28, 28, 1), device="cuda")
+    program = torch.export.load(str(tmp_path / "model.pt2")).module()
+    apply = build_apply(config, "cuda")
+    for b in (1, 3):
+        x = np.random.RandomState(b).rand(b, 28, 28, 1).astype(np.float32)
+        with torch.no_grad():
+            got = program(torch.from_numpy(x).cuda())
+        want = apply(params, x)
+        assert got.device.type == "cuda"
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_cuda_export_program_refuses_a_model_that_reaches_the_kernel(tmp_path):
+    """On the card the LM's forward reaches the ctypes-bound attention
+    kernel, which ``torch.export`` cannot trace: ``export_program`` raises
+    naming the route, and writes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from tensorflowonspark_torch.checkpoint import export_program
+
+    config = {"model": "transformer", "vocab_size": 64, "d_model": 32, "n_layers": 2,
+              "n_heads": 4, "bf16": True}
+    with pytest.raises(NotImplementedError, match="attention kernel flash_attn_fwd "):
+        export_program(str(tmp_path), {}, config, (16,), input_dtype=np.int32,
+                       device="cuda")
+    assert not (tmp_path / "model.pt2").exists()

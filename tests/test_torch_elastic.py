@@ -1,7 +1,7 @@
 """The port's restart API end to end on the CPU, restating the JAX
 package's gates: an elastic run whose node is SIGKILLed resumes from the
 checkpoint its predecessor committed (``tests/test_elastic.py:453-497``),
-and a whole-job restart over the same model_dir keeps counting steps
+``elastic`` refuses a pod launcher (``:436-440``), and a whole-job restart over the same model_dir keeps counting steps
 (``tests/test_mnist_e2e.py:65-91``).  Map functions live in
 ``tests/torch_mapfuns.py``, which imports only the port."""
 
@@ -88,3 +88,14 @@ def test_restart_resumes_from_checkpoint(tmp_path):
     assert step1 > 0
     step2 = train_once("logs2")  # "restart": a new cluster, same model_dir
     assert step2 == 2 * step1, (step1, step2)  # resumed, not restarted
+
+
+def test_elastic_refuses_pod_launcher():
+    """``tests/test_elastic.py``'s pod guard: a ``GPUPodLauncher`` forces
+    ``torch_distributed`` on every node, so ``elastic`` is refused for it
+    up front, naming the launcher."""
+    from tensorflowonspark_torch.launcher import GPUPodLauncher
+
+    with pytest.raises(ValueError, match="GPUPodLauncher"):
+        tos.run(torch_mapfuns.noop, None, num_executors=1,
+                launcher=GPUPodLauncher(hosts=["h0"]), elastic=True)

@@ -27,6 +27,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -188,6 +189,68 @@ def test_two_node_chief_save_collective_regime(tmp_path):
     whole = {param_name(k): v for k, v in tckpt.restore_checkpoint(path)["model"].items()}
     for name, v in torch.load(model_dir / "full.pt").items():
         torch.testing.assert_close(whole[name], v, rtol=0, atol=0)
+
+
+def _linreg_partitions(num_partitions: int, rows_per_partition: int):
+    """``tests/test_distributed.py``'s rows: partition p from its index."""
+    parts = []
+    for p in range(num_partitions):
+        rng = np.random.RandomState(100 + p)
+        parts.append([(rng.randn(4).astype(np.float32), float(rng.randn()))
+                      for _ in range(rows_per_partition)])
+    return parts
+
+
+def test_distributed_with_evaluator_collective_checkpoint(tmp_path):
+    """``torch_distributed`` + an evaluator + the collective checkpoint
+    compose (``tests/test_distributed.py``'s, slow there): the evaluator
+    stays OUT of the process group (a collective save's barrier would
+    otherwise wait on it forever), the two data nodes form one world, train
+    in lockstep and save through ``chief_save``, and the checkpoint holds
+    the final weights: those of the JAX package's step (``optax.sgd(0.1)``
+    from ``w`` at 0.5) over each step's two rank batches concatenated (f32,
+    1e-6)."""
+    bs = 4
+    cluster = tos.run(torch_mapfuns.train_streaming_dist_ckpt,
+                      {"batch_size": bs, "model_dir": str(tmp_path / "model"),
+                       "device": "cpu"},
+                      num_executors=3, eval_node=True,
+                      input_mode=tos.InputMode.STREAMING, torch_distributed=True,
+                      log_dir=str(tmp_path / "logs"), reservation_timeout=120,
+                      feed_timeout=120)
+    try:
+        cluster.train(_linreg_partitions(num_partitions=4, rows_per_partition=bs),
+                      num_epochs=1)
+    finally:
+        cluster.shutdown(timeout=120.0)
+    metas = {m["executor_id"]: m for m in cluster.coordinator.cluster_info()}
+    # data nodes: one 2-process world, checkpoint committed
+    for r in (0, 1):
+        assert metas[r]["ckpt_dist"]["final_step"] == 2
+        assert metas[r]["ckpt_dist"]["world"] == 2
+    assert metas[0]["ckpt_dist"]["final_w"] == metas[1]["ckpt_dist"]["final_w"]
+    # evaluator: outside the group
+    assert metas[2]["job_name"] == "evaluator"
+    assert metas[2]["eval_process_count"] == 1
+    path = tckpt.latest_step_dir(str(tmp_path / "model"))
+    assert path.endswith("step_2")
+    np.testing.assert_array_equal(
+        tckpt.restore_checkpoint(path)["model"]["w"].numpy().ravel(),
+        np.asarray(metas[0]["ckpt_dist"]["final_w"], np.float32))
+    # the reference: the JAX package's linear regression on the same rows
+    opt = optax.sgd(0.1)
+    state = jdp.TrainState.create({"w": np.full((4, 1), 0.5, np.float32)}, opt)
+
+    def loss_fn(p, batch):
+        return jnp.mean(((batch["x"] @ p["w"])[:, 0] - batch["y"]) ** 2), {}
+
+    step = jdp.make_train_step(loss_fn, opt, donate=False)
+    for i in range(2):
+        state, _ = step(state, {k: np.concatenate(
+            [np.asarray(metas[r]["ckpt_dist"]["batches"][i][k], np.float32) for r in (0, 1)])
+            for k in ("x", "y")})
+    np.testing.assert_allclose(metas[0]["ckpt_dist"]["final_w"],
+                               np.asarray(state.params["w"]).ravel(), rtol=0, atol=1e-6)
 
 
 def test_resnet_train_fsdp_saves_and_resumes(tmp_path):

@@ -8,8 +8,8 @@ shardings and placements, and ring attention's hop loop over every shard in
 one process (what ``chip_smoke.py`` drives on the card).  Then ONE gloo
 world of 4 CPU ranks for the whole module (``tests/torch_parallel_worker.py``
 runs every multi-rank case in it), restating at 4 ranks
-``tests/test_transformer_parallel.py`` (tp2×dp2, tp2×fsdp2, the ring model
-at sp4, MoE at ep4 and at dp2×sp2, the descending train steps),
+``tests/test_transformer_parallel.py`` (tp2×dp2, tp2×fsdp2, the tp=4
+decode, the ring model at sp4, MoE at ep4 and at dp2×sp2, the descending train steps),
 ``tests/test_parallel_sp.py`` (at sp4 instead of sp8) and two of
 ``tests/test_parallel_dp.py``.  f32; outputs to 2e-5 as in the JAX tests,
 gradients to the JAX tests' 1e-4."""
@@ -62,6 +62,18 @@ def global_qkv(b=4, s=64, h=4, d=16, seed=0):
 def jax_model(**over):
     model = jtfm.build_transformer({**CFG, **over})
     params = model.init(jax.random.PRNGKey(0), jnp.asarray(ids16()))["params"]
+    return model, jax.tree.map(np.asarray, params)
+
+
+def decode_ids():
+    return np.random.RandomState(0).randint(0, 32, (2, 8)).astype(np.int32)
+
+
+def decode_model():
+    """``test_tp_sharded_decode_matches_unsharded``'s LM and params."""
+    model = jtfm.Transformer(vocab_size=32, d_model=16, n_layers=2, n_heads=4,
+                             attn_impl="xla", compute_dtype=jnp.float32)
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(decode_ids()))["params"]
     return model, jax.tree.map(np.asarray, params)
 
 
@@ -253,6 +265,8 @@ def world(tmp_path_factory):
     for name, over in (("dense", {}), ("moe", {"n_experts": 4})):
         _, params = jax_model(**over)
         torch.save(convert.flax_to_torch(params), work / f"{name}.pt")
+    _, params = decode_model()
+    torch.save(convert.flax_to_torch(params), work / "decode.pt")
     port = _free_port()
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
@@ -307,6 +321,20 @@ def test_tp_sharded_matches_replicated(world):
         np.testing.assert_allclose(got(world, "tp2_dp2", "logits", r),
                                    ref[(r // 2) * 2:][:2], **OUT_TOL)
     assert int(got(world, "tp2_dp2", "q_rows")) == 32 // 2  # half the heads
+
+
+def test_tp_sharded_decode_matches_unsharded(world):
+    """Model-parallel serving (``tests/test_transformer_parallel.py``'s,
+    slow there): ``greedy_generate`` with the heads, MLP and vocab split
+    over tp=4 emits exactly the unsharded tokens — the port's on one rank
+    and the JAX package's — on every rank, a 5-token prompt and 4 new."""
+    model, params = decode_model()
+    base = np.asarray(jtfm.greedy_generate(model, params, jnp.asarray(decode_ids()[:, :5]),
+                                           max_new_tokens=4))
+    for r in range(WORLD):
+        np.testing.assert_array_equal(got(world, "tp4_decode", "tokens", r), base)
+        np.testing.assert_array_equal(got(world, "tp4_decode", "unsharded", r), base)
+    assert int(got(world, "tp4_decode", "q_rows")) == 16 // 4  # one head a rank
 
 
 def test_tp_fsdp_composition(world):

@@ -81,6 +81,121 @@ def all_reduce_ranks(args, ctx):
                   f)
 
 
+def pod_probe(args, ctx):
+    """A pod member's view, the counterpart of ``tests/test_distributed.py``'s
+    ``_dist_map_fun_check_env``: the env values ``args['expect_env']``
+    names arrived as sent (through the ssh transport's quoting), then one
+    all-reduce of ``rank + 1`` over the world the pod formed; published as
+    ``ctx.update_meta({"dist_check": ...})``."""
+    import torch
+    import torch.distributed as dist
+
+    for key, want in (args or {}).get("expect_env", {}).items():
+        got = os.environ.get(key)
+        assert got == want, f"env {key!r}: {got!r} != {want!r}"
+    t = torch.tensor([float(dist.get_rank() + 1)])
+    dist.all_reduce(t)
+    ctx.update_meta({"dist_check": {
+        "rank": dist.get_rank(), "world": dist.get_world_size(),
+        "backend": dist.get_backend(), "sum": t.item(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}})
+    ctx.barrier("dist-done", timeout=120.0)
+
+
+class _RecordingFeed:
+    """A ``DataFeed`` that keeps every batch it hands out."""
+
+    def __init__(self, feed):
+        self._feed = feed
+        self.batches: list = []
+
+    def next_batch(self, n):
+        items = self._feed.next_batch(n)
+        if items:
+            self.batches.append(items)
+        return items
+
+    def __getattr__(self, name):
+        return getattr(self._feed, name)
+
+
+def mnist_pod_recorded(args, ctx):
+    """``examples_torch/mnist/mnist_pod.py:main_fun`` with the node's feed
+    recorded: the first ``args['record']`` batches it handed out go to
+    ``<out_dir>/batches_<executor_id>.npz`` (images and labels), so a test
+    can replay the global batches in one process."""
+    import numpy as np
+
+    from examples_torch.mnist import mnist_pod
+
+    feeds = []
+    get_feed = ctx.get_data_feed
+
+    def recording(*a, **kw):
+        feeds.append(_RecordingFeed(get_feed(*a, **kw)))
+        return feeds[-1]
+
+    ctx.get_data_feed = recording
+    mnist_pod.main_fun(args, ctx)
+    batches = feeds[0].batches[:args["record"]]
+    np.savez(os.path.join(args["out_dir"], f"batches_{ctx.executor_id}.npz"),
+             **{f"image{i}": np.stack([img for img, _ in b]) for i, b in enumerate(batches)},
+             **{f"label{i}": np.asarray([lab for _, lab in b]) for i, b in enumerate(batches)})
+
+
+def train_streaming_dist_ckpt(args, ctx):
+    """The counterpart of ``tests/mapfuns.py:train_streaming_dist_ckpt``:
+    linear regression (``w`` of 4x1 at 0.5, SGD 0.1) over a ``dp`` mesh of
+    the ``torch_distributed`` world, restore-or-init at start, the
+    collective ``chief_save`` at the end.  Publishes the batches it trained
+    on, so a test can replay the global steps.  The evaluator stays out of
+    the process group and records that."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_torch.checkpoint import CheckpointManager, chief_save
+    from tensorflowonspark_torch.parallel import dp as dplib
+
+    if ctx.job_name == "evaluator":
+        ctx.update_meta({"eval_process_count":
+                         dist.get_world_size() if dist.is_initialized() else 1})
+        return
+    mesh = ctx.make_mesh("cpu", dp=-1)
+    model = torch.nn.Module()
+    model.w = torch.nn.Parameter(torch.full((4, 1), 0.5))
+    dplib.replicate(model, mesh)
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.1)
+    manager = CheckpointManager(args["model_dir"])
+    state = dplib.TrainState.create(model, optimizer)
+    restored = manager.restore_latest(state.tree())
+    if restored is not None:
+        state = state.restore(restored[0])
+
+    def loss_fn(model, batch):
+        pred = batch["x"] @ model.w
+        return ((pred[:, 0] - batch["y"]) ** 2).mean(), {}
+
+    step = dplib.make_train_step(loss_fn, optimizer, mesh=mesh)
+
+    def to_arrays(items):
+        return {"x": np.stack([np.asarray(i[0], np.float32) for i in items]),
+                "y": np.asarray([i[1] for i in items], np.float32)}
+
+    feed = ctx.get_data_feed(train_mode=True)
+    losses, batches = [], []
+    for batch, _n in dplib.make_batch_iterator(
+            feed, int(args["batch_size"]), to_arrays, mesh=mesh, ctx=ctx):
+        batches.append({k: torch.as_tensor(v).tolist() for k, v in batch.items()})
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    chief_save(ctx, manager, state.step, state.tree())
+    ctx.update_meta({"ckpt_dist": {
+        "losses": losses, "final_step": state.step,
+        "world": dist.get_world_size(), "batches": batches,
+        "final_w": model.w.detach().ravel().tolist()}})
+
+
 def elastic_sum_batches(args, ctx):
     """Restartable feed consumer for the port's elastic-recovery test, the
     counterpart of ``tests/mapfuns.py:elastic_sum_batches``.

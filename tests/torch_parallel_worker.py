@@ -135,6 +135,29 @@ def tp2_fsdp2(env):
              **{f"param/{k}": v for k, v in params.items()})
 
 
+
+def decode_ids():
+    """The prompt source of ``test_tp_sharded_decode_matches_unsharded``."""
+    return np.random.RandomState(0).randint(0, 32, (2, 8)).astype(np.int32)
+
+
+@case
+def tp4_decode(env):
+    """Model-parallel serving: ``greedy_generate`` on the JAX test's LM
+    (vocab 32, d_model 16, 2 layers, 4 heads, f32) with its heads, MLP
+    and vocab split over tp=4, beside the same model unsharded."""
+    over = dict(vocab_size=32, d_model=16, attn_impl="xla")
+    prompt = decode_ids()[:, :5]
+    mesh = meshlib.make_mesh("cpu", tp=4)
+    sharded = env.model("decode", mesh, **over)
+    whole = _build({**CFG, **over}, None)
+    whole.load_state_dict(torch.load(os.path.join(env.dir, "decode.pt")))
+    env.save("tp4_decode",
+             tokens=tfm.greedy_generate(sharded, prompt, max_new_tokens=4),
+             unsharded=tfm.greedy_generate(whole, prompt, max_new_tokens=4),
+             q_rows=sharded.blocks[0].attn.q_proj.weight.shape[0])
+
+
 @case
 def ring_model_sp4(env):
     mesh = meshlib.make_mesh("cpu", sp=4)
