@@ -186,8 +186,14 @@ Phases (any failure propagates and the script exits non-zero):
    seconds and steps/s.  Then ``export_program``: ResNet-50 (f32, eval)
    exported on the card with a dynamic batch and scored in a fresh process
    that imports only torch and numpy, against ``build_apply`` at batches 2
-   and 5; the LM configuration's export on the card must raise
-   ``NotImplementedError``.  Neither launches an attention kernel.
+   and 5 (no attention launch); then three LM programs exported on the
+   card with ``tos::flash_attn_fwd`` inside (the LM at full width and
+   depth in bf16 with a dynamic batch, the same width in f32 at depth 2,
+   the MoE LM at depth 2 with a fixed batch), scored by one fresh process
+   that imports torch, numpy and the op's module only: n_layers op nodes
+   a graph, n_layers launches a forward on the route ``program.json``
+   names, logits against ``build_apply``'s; the op's host cost per call
+   against the undispatched implementation.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -395,6 +401,26 @@ POD_RESTORE_RTOL = 1e-6
 # process)
 EXPORT_BATCHES = (2, 5)
 EXPORT_LOGIT_TOL = 1e-4
+# its LM programs, through tos::flash_attn_fwd on the card: LM_CONFIG at
+# full width and depth in bf16 with a dynamic batch, scored at
+# EXPORT_LM_BATCHES; the same width in f32 at EXPORT_F32_LAYERS layers
+# (the 3xTF32 route), scored at batch 1; MOE_CONFIG at EXPORT_MOE_LAYERS
+# layers with the batch fixed at EXPORT_MOE_BATCH (its expert capacity
+# needs a concrete batch).  Depths cut so that each model.pt2 stays near
+# 0.4 GB.  All at SEQ_LEN.  Logits against build_apply's in this process:
+# the same kernels and aten ops, but cuBLAS may pick another algorithm in
+# the other process: f32 within EXPORT_LOGIT_TOL of the largest logit,
+# bf16 within EXPORT_BF16_LOGIT_TOL; the MoE in bf16 routes a token
+# otherwise when a router logit crosses a top-2 boundary, and its row
+# changes whole, so its rows out of EXPORT_BF16_LOGIT_TOL are counted as
+# re-routed and their share held to MOE_BF16_REROUTE_MAX
+EXPORT_LM_BATCHES = (1, 2)
+EXPORT_F32_LAYERS = 2
+EXPORT_MOE_LAYERS, EXPORT_MOE_BATCH = 2, 2
+EXPORT_BF16_LOGIT_TOL = 2e-2
+# the op's host cost: OP_HOST_CALLS calls through torch.ops.tos.flash_attn_fwd
+# and as many through flash_attn_fwd_cuda, in turns, at the serving shape
+OP_HOST_CALLS = 200
 # BASELINE config 4, wide-and-deep on Criteo, at the JAX example's widths
 # (examples/criteo/criteo_wide_deep.py): 26 x 100_003 hash buckets,
 # embed 16, MLP (256, 128, 64), batch 512, optax's Adagrad at lr 0.01
@@ -3380,6 +3406,201 @@ print(json.dumps({"loaded": ours}))
 """
 
 
+# the LM programs' consumer: imports torch, numpy and each program's
+# op_module only; per program the graph's op nodes, each forward's
+# launches (op_module's LAUNCHES), and the logits saved as f32
+EXPORT_LM_CONSUMER = """
+import importlib, json, sys, time
+import numpy as np
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+work, report = sys.argv[1], {}
+for tag, batches in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    path = f"{work}/{tag}"
+    with open(path + "/program.json") as f:
+        meta = json.load(f)
+    att = importlib.import_module(meta["op_module"])
+    exported = torch.export.load(path + "/model.pt2")
+    nodes = sum(n.target is torch.ops.tos.flash_attn_fwd.default
+                for n in exported.graph.nodes)
+    program = exported.module()
+    load_s = time.perf_counter() - t0
+    launches = []
+    for b in batches:
+        ids = torch.from_numpy(np.load(f"{path}/ids{b}.npy")).to(meta["device"])
+        before = dict(att.LAUNCHES)
+        with torch.no_grad():
+            y = program(ids)
+        if meta["device"] == "cuda":
+            torch.cuda.synchronize()
+        launches.append({n: c - before[n] for n, c in att.LAUNCHES.items()})
+        np.save(f"{path}/y{b}.npy", y.float().cpu().numpy())
+    report[tag] = {"nodes": nodes, "launches": launches, "load_s": load_s}
+    del program, exported
+report["loaded"] = sorted(m for m in sys.modules
+                         if m.startswith(("tensorflowonspark", "jax")))
+print(json.dumps(report))
+"""
+
+
+def export_lm_programs() -> list:
+    """``(tag, config, batch_polymorphic, batches)`` of the LM programs, from
+    the current ``LM_CONFIG`` and ``MOE_CONFIG`` (a CPU rehearsal shrinks
+    them)."""
+    return [("lm_bf16", LM_CONFIG, True, EXPORT_LM_BATCHES),
+            ("lm_f32", {**LM_CONFIG, "bf16": False, "n_layers": EXPORT_F32_LAYERS},
+             True, (1,)),
+            ("moe_bf16", {**MOE_CONFIG, "n_layers": EXPORT_MOE_LAYERS}, False,
+             (EXPORT_MOE_BATCH,))]
+
+
+def op_host_cost(seed: int) -> dict:
+    """The op's host cost per call at the serving shape (``MAX_BATCH`` x
+    ``SEQ_LEN``, the LM's heads, bf16, causal): the median µs of queueing
+    one call through ``torch.ops.tos.flash_attn_fwd`` and one through
+    ``flash_attn_fwd_cuda`` (the undispatched implementation), in turns
+    (the order swapped each call), every launch queued behind a spin
+    kernel so the host never waits for the card (host clock)."""
+    import torch
+
+    from tensorflowonspark_torch.ops import attention as att
+
+    h = LM_CONFIG["n_heads"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((MAX_BATCH, SEQ_LEN, h, LM_CONFIG["d_model"] // h),
+                           generator=g, device="cuda").bfloat16() for _ in range(3))
+    calls = {"op": lambda: torch.ops.tos.flash_attn_fwd(q, k, v, True, None, 0),
+             "direct": lambda: att.flash_attn_fwd_cuda(q, k, v, causal=True)}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls["direct"]()
+    spin = int(4e3 * (time.perf_counter() - t0) * OP_HOST_CALLS * _spin_cycles_per_ms())
+    times: dict = {name: [] for name in calls}
+    torch.cuda._sleep(spin + 1_000_000)
+    for i in range(OP_HOST_CALLS):
+        for name in sorted(calls, reverse=bool(i % 2)):
+            t0 = time.perf_counter()
+            calls[name]()
+            times[name].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {f"{name}_us": 1e6 * statistics.median(t) for name, t in times.items()}
+
+
+def export_lm_sub_step(seed: int, smi: str, device: str = "cuda") -> dict:
+    """The LM programs (``export_lm_programs``) through
+    ``checkpoint.export_program`` on ``device``: each ``program.json``
+    names ``tos::flash_attn_fwd`` with the route ``_route`` gives at its
+    type and head dim; one fresh process (``EXPORT_LM_CONSUMER``) loads
+    and scores all three; gates: n_layers op nodes a graph, n_layers
+    launches a forward on that route (0 on the CPU), logits against
+    ``build_apply``'s here (f32 ``EXPORT_LOGIT_TOL``, bf16
+    ``EXPORT_BF16_LOGIT_TOL``, the MoE's rows out of that within
+    ``MOE_BF16_REROUTE_MAX``).  On the card also the op's host cost per
+    call (``op_host_cost``)."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.checkpoint import export_program
+    from tensorflowonspark_torch.models.registry import build_apply
+    from tensorflowonspark_torch.ops import attention as att
+
+    work = os.path.join(WORK_DIR, "lm_programs")
+    rng = np.random.RandomState(seed)
+    programs, want, out = export_lm_programs(), {}, {}
+    for tag, config, dynamic, batches in programs:
+        path = os.path.join(work, tag)
+        params = make_lm_params(config, seed)
+        shape = (SEQ_LEN,) if dynamic else (batches[0], SEQ_LEN)
+        t0 = time.perf_counter()
+        export_program(path, params, config, shape, input_dtype=np.int32, device=device,
+                       batch_polymorphic=dynamic)
+        export_s = time.perf_counter() - t0
+        with open(os.path.join(path, "program.json")) as f:
+            meta = json.load(f)
+        h = config["n_heads"]
+        kernel, padded = att._route(torch.bfloat16 if config["bf16"] else torch.float32,
+                                    config["d_model"] // h)
+        routes = [{"kernel": kernel, "padded_head_dim": padded,
+                   "nodes": config["n_layers"]}]
+        if (meta["ops"], meta["op_routes"]) != (["tos::flash_attn_fwd"],
+                                                {"tos::flash_attn_fwd": routes}):
+            raise AssertionError(f"{tag}'s program.json: {meta}")
+        apply = build_apply(config, device)
+        want[tag] = {}
+        for b in batches:
+            ids = rng.randint(0, config["vocab_size"], (b, SEQ_LEN)).astype(np.int32)
+            np.save(os.path.join(path, f"ids{b}.npy"), ids)
+            want[tag][b] = apply(params, ids).float().cpu()
+        del apply, params
+        out[tag] = {"export_s": export_s, "kernel": kernel, "layers": config["n_layers"],
+                    "batch_polymorphic": dynamic,
+                    "program_mb": os.path.getsize(os.path.join(path, "model.pt2")) / 1e6}
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", EXPORT_LM_CONSUMER, work,
+         json.dumps([(tag, batches) for tag, _, _, batches in programs])],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    consumer_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the LM programs' consumer failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    loaded = report.pop("loaded")
+    for tag, config, _, batches in programs:
+        rec, got = out[tag], report[tag]
+        layers = config["n_layers"]
+        per_forward = {n: layers * (n == rec["kernel"]) * (device == "cuda")
+                       for n in att.LAUNCHES}
+        if got["nodes"] != layers or any(x != per_forward for x in got["launches"]):
+            raise AssertionError(f"{tag}: {got['nodes']} op nodes, launches "
+                                 f"{got['launches']} (want {layers} and {per_forward})")
+        errs, rerouted = [], []
+        for b in batches:
+            y = torch.from_numpy(np.load(os.path.join(work, tag, f"y{b}.npy")))
+            ref = want[tag][b]
+            rows = (y - ref).abs().amax(-1) / ref.abs().max()
+            errs.append(float(rows.max()))
+            rerouted.append(float((rows > EXPORT_BF16_LOGIT_TOL).float().mean()))
+        rec.update(nodes=got["nodes"], launches=got["launches"], load_s=got["load_s"],
+                   max_rel_err=max(errs), rerouted_share=max(rerouted))
+        batch = "dynamic batch" if rec["batch_polymorphic"] else f"batch fixed at {batches[0]}"
+        log(f"[export] {tag} ({layers} layers, {batch}, {SEQ_LEN} tokens) on {device}: "
+            f"export_program {rec['export_s']:.2f} s, "
+            f"model.pt2 {rec['program_mb']:.1f} MB, {got['nodes']} tos.flash_attn_fwd "
+            f"nodes, route {rec['kernel']}; the consumer loaded it in {got['load_s']:.2f} s "
+            f"and launched {got['launches']} at batches {list(batches)}; max error "
+            + ", ".join(f"{e:.3g}" for e in errs) + " of the largest logit, rows out of "
+            f"{EXPORT_BF16_LOGIT_TOL}: share " + ", ".join(f"{r:.4f}" for r in rerouted)
+            + f" (host clock; {smi})")
+        if tag.startswith("moe"):
+            if max(rerouted) > MOE_BF16_REROUTE_MAX:
+                raise AssertionError(f"{tag}: {max(rerouted)} of its rows re-routed")
+        elif max(errs) > (EXPORT_BF16_LOGIT_TOL if config["bf16"] else EXPORT_LOGIT_TOL):
+            raise AssertionError(f"{tag}: the program disagrees with build_apply: {errs}")
+    log(f"[export] the LM programs' consumer (torch, numpy and the op's module; "
+        f"{len(loaded)} package modules loaded) took {consumer_s:.2f} s (host clock; {smi})")
+    bad = [m for m in loaded if not m.startswith("tensorflowonspark_torch")]
+    if bad:
+        raise AssertionError(f"the LM programs' consumer loaded {bad}")
+    summary = {"programs": out, "consumer_s": consumer_s, "modules_loaded": len(loaded)}
+    if device == "cuda":
+        summary["op_host"] = op_host_cost(seed)
+        log(f"[export] the op's host cost per call at {MAX_BATCH} x {SEQ_LEN} bf16: "
+            f"{summary['op_host']['op_us']:.1f} µs through torch.ops.tos.flash_attn_fwd, "
+            f"{summary['op_host']['direct_us']:.1f} µs through flash_attn_fwd_cuda "
+            f"(median of {OP_HOST_CALLS} calls each, queued behind a spin; host clock; "
+            f"{smi})")
+    shutil.rmtree(work, ignore_errors=True)
+    return summary
+
+
 def pod_chip_plan(cluster, timeout: float = 120.0):
     """``cluster.chip_plan()`` once every node has reported its device facts
     (a distributed node reports after its process group forms, which may
@@ -3501,9 +3722,8 @@ def export_sub_step(seed: int, smi: str, device: str = "cuda") -> dict:
     loaded in a fresh process that imports only torch and numpy (it reports
     the ``tensorflowonspark*`` modules it holds: none); its logits at
     ``EXPORT_BATCHES`` against ``build_apply``'s forward here, within
-    ``EXPORT_LOGIT_TOL`` of the largest logit.  On the card, the LM
-    configuration's export must raise ``NotImplementedError`` (its forward
-    reaches the ctypes-bound attention kernel)."""
+    ``EXPORT_LOGIT_TOL`` of the largest logit, and no attention launch.
+    Then the LM programs (``export_lm_sub_step``)."""
     import subprocess
 
     import numpy as np
@@ -3513,6 +3733,7 @@ def export_sub_step(seed: int, smi: str, device: str = "cuda") -> dict:
     from tensorflowonspark_torch.convert import torch_to_flax
     from tensorflowonspark_torch.models import resnet
     from tensorflowonspark_torch.models.registry import build_apply
+    from tensorflowonspark_torch.ops import attention as att
 
     config = {**RESNET_CONFIG, "bf16": False}
     model = resnet.build_resnet50(config)
@@ -3551,17 +3772,13 @@ def export_sub_step(seed: int, smi: str, device: str = "cuda") -> dict:
         raise AssertionError(f"the program's consumer loaded {loaded}")
     if not all(e <= EXPORT_LOGIT_TOL for e in errs.values()):
         raise AssertionError(f"the exported program disagrees with build_apply: {errs}")
+    if any(att.LAUNCHES.values()):
+        raise AssertionError(f"the pod phase or the ResNet program launched an "
+                             f"attention kernel: {att.LAUNCHES}")
     out = {"export_s": export_s, "consumer_s": consumer_s, "program_mb": size_mb,
            "max_rel_err": max(errs.values())}
-    if device == "cuda":
-        try:
-            export_program(os.path.join(WORK_DIR, "lm_program"), {}, LM_CONFIG,
-                           (SEQ_LEN,), input_dtype=np.int32, device=device)
-        except NotImplementedError as e:
-            log(f"[export] the LM on cuda refuses, as it must: {e}")
-        else:
-            raise AssertionError("export_program exported the LM on cuda past its kernel")
     shutil.rmtree(work, ignore_errors=True)
+    out["lm"] = export_lm_sub_step(seed, smi, device)
     return out
 
 
@@ -3856,14 +4073,12 @@ def main() -> int:
         log(f"[criteo] the config-4 phases took {time.perf_counter() - t_criteo:.1f} s "
             f"(host clock; {smi}); summary {json.dumps(criteo)}")
         # a 1-rank pod through GPUPodLauncher, and torch.export programs:
-        # no MNIST or ResNet path reaches either kernel
+        # no MNIST or ResNet path reaches either kernel; the LM programs do
         torch.cuda.empty_cache()
         t_pod = time.perf_counter()
         reset_launches()
-        pod = phase_pod(args.seed, smi)  # it reads the rank's counts too
-        if any(att.LAUNCHES.values()):
-            raise AssertionError(f"the pod phase launched an attention kernel: "
-                                 f"{att.LAUNCHES}")
+        # it reads the rank's counts too, and its own before the LM programs
+        pod = phase_pod(args.seed, smi)
         log(f"[pod] the pod phase took {time.perf_counter() - t_pod:.1f} s "
             f"(host clock; {smi}); summary {json.dumps(pod)}")
     finally:

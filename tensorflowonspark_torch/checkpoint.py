@@ -55,7 +55,8 @@ shard files cover it (the layout is shared with the JAX package).
 
 **Programs** (the reference's ``export_stablehlo``, ``:384-431``):
 ``export_program`` writes a ``torch.export`` program that scores without
-this package.
+the model registry: with ``torch`` alone, or, where the model attends,
+with the module that registers the attention operator.
 
 The orbax bundle layout (a ``params/`` checkpoint directory, written by the
 JAX package for cross-process-sharded params) is not read by the port yet.
@@ -646,18 +647,6 @@ def bundle_signature(export_dir: str) -> tuple:
     return tuple(sig)
 
 
-def _kernel_route(model: torch.nn.Module) -> tuple[str, int] | None:
-    """The kernel route (``ops.attention._route``) a CUDA forward of
-    ``model`` takes through the ctypes-bound attention kernel, or None when
-    no layer of it attends through ``flash_attention``."""
-    from tensorflowonspark_torch.ops.attention import _route, flash_attention
-
-    for m in model.modules():
-        if getattr(m, "attend", None) is flash_attention:
-            return _route(m.compute_dtype, m.d_head)
-    return None
-
-
 def _as_torch_dtype(dtype: Any) -> torch.dtype:
     if dtype is None:
         return torch.float32
@@ -666,8 +655,30 @@ def _as_torch_dtype(dtype: Any) -> torch.dtype:
     return torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype
 
 
+def _program_ops(program) -> dict:
+    """What ``program``'s graph needs beyond ``torch``: the operator
+    ``tos::flash_attn_fwd`` if it calls it, the module that registers it,
+    and the kernel routes (``ops.attention._route``) at the type and head
+    dim of its calls, with the number of calls on each."""
+    from tensorflowonspark_torch.ops import attention
+
+    routes: dict = {}
+    for node in program.graph.nodes:
+        if node.op == "call_function" and node.target is torch.ops.tos.flash_attn_fwd.default:
+            q = node.args[0].meta["val"]
+            route = attention._route(q.dtype, q.shape[-1])
+            routes[route] = routes.get(route, 0) + 1
+    if not routes:
+        return {"ops": [], "op_module": None, "op_routes": {}}
+    return {"ops": [attention.OP_NAME], "op_module": attention.__name__,
+            "op_routes": {attention.OP_NAME: [
+                {"kernel": kernel, "padded_head_dim": padded, "nodes": n}
+                for (kernel, padded), n in sorted(routes.items())]}}
+
+
 def export_program(export_dir: str, params: Any, model_config: dict,
-                   input_shape: tuple, input_dtype: Any = None, device=None) -> str:
+                   input_shape: tuple, input_dtype: Any = None, device=None,
+                   batch_polymorphic: bool = True) -> str:
     """Serving interop: export a self-contained ``torch.export`` program,
     the counterpart of the JAX package's ``export_stablehlo``.
 
@@ -675,23 +686,36 @@ def export_program(export_dir: str, params: Any, model_config: dict,
     (``TFNode.py:~160-230``); the bundle format is registry-bound to this
     repo.  This writes ``model.pt2`` — the model's eval forward with the
     weights inside, through ``torch.export.export`` and
-    ``torch.export.save`` — so a consumer needs only ``torch`` (no model
-    registry, no this-package):
+    ``torch.export.save`` — so a consumer needs no model registry:
 
         logits = torch.export.load("model.pt2").module()(images)
 
-    ``params`` is the bundle's tree (flax names, as ``export_bundle`` takes
-    it).  ``input_shape`` excludes the batch dim: the program scores any
-    batch size (a ``torch.export.Dim``).  ``device`` (default ``cuda``) is
-    where the program's weights live and where it runs.  ``program.json`` beside it
-    records the config, device, input shape and dtype.
+    A program that calls no operator of this package (``program.json``'s
+    ``ops`` is ``[]``: the image and wide-and-deep families) needs only
+    ``torch``.  A model that attends (the LM, the MoE LM) calls
+    ``tos::flash_attn_fwd`` once per attention layer, on the card and on
+    the CPU alike; the consumer imports ``op_module``
+    (``tensorflowonspark_torch.ops.attention``, which registers it) before
+    ``torch.export.load``.  That import loads the package's ``__init__``
+    and the modules it imports (its cluster modules among them; the
+    consumer in ``chip_smoke.py`` lists them), and builds nothing: on a CUDA
+    tensor the op builds its kernel from the package's ``csrc/`` with
+    ``nvcc`` at its first launch.  The JAX artifact carries its Mosaic
+    kernel inline; a ``.pt2`` cannot carry CUDA code, so the kernel comes
+    from that package.
 
-    On the CPU every family exports through its plain path.  On ``cuda`` a
-    model whose forward reaches the ctypes-bound attention kernel cannot be
-    traced and raises ``NotImplementedError``: exporting plain attention in
-    its place would hide the kernel (ROADMAP (f): the kernel needs
-    registering as a ``torch.library.custom_op`` with a fake
-    implementation).
+    ``params`` is the bundle's tree (flax names, as ``export_bundle`` takes
+    it).  ``input_shape`` excludes the batch dim when ``batch_polymorphic``
+    (the default): the program then scores any batch size up to 65535 (a
+    ``torch.export.Dim``), and a forward that needs a concrete batch
+    raises here.  Otherwise ``input_shape`` is the whole example
+    shape and the program takes only that shape (the MoE LM, whose
+    expert capacity needs a concrete batch, exports only so, as in the
+    JAX package).  ``device`` (default ``cuda``) is where the program's
+    weights live and where it runs.  ``program.json`` beside it records
+    the config, device, input shape and dtype, ``batch_polymorphic``, and
+    the ops (``_program_ops``: each with its kernel route and padded head
+    dim, and the number of its calls in the graph).
     """
     from tensorflowonspark_torch.convert import flax_to_torch
     from tensorflowonspark_torch.gpu_info import default_device
@@ -700,25 +724,22 @@ def export_program(export_dir: str, params: Any, model_config: dict,
     dev = default_device(device)
     with torch.device("meta"):
         model = build(model_config).cast_matrices_()
-    route = _kernel_route(model) if dev.type == "cuda" else None
-    if route is not None:
-        raise NotImplementedError(
-            f"export_program on cuda: the {model_config.get('model')!r} forward "
-            f"reaches the attention kernel {route[0]} (head dim padded to "
-            f"{route[1]}, ops.attention._route), bound through ctypes, which "
-            "torch.export cannot trace; export on the CPU (device='cpu') "
-            "until the kernel is a torch.library.custom_op with a fake "
-            "implementation (ROADMAP (f))")
     model = model.to_empty(device=dev).eval()
     model.load_state_dict(flax_to_torch(params, model_config), strict=True)
     dtype = _as_torch_dtype(input_dtype)
-    # a batch of 2: torch.export specialises a dimension it sees at 0 or 1.
-    # Dim.DYNAMIC takes the batch's range from what the forward allows
-    # (cuDNN's convolutions cap it at 65535 on the card).
-    example = torch.zeros((2, *input_shape), dtype=dtype, device=dev)
+    if batch_polymorphic:
+        # a batch of 2: torch.export specialises a dimension it sees at 0
+        # or 1.  A named Dim makes the export raise where the forward pins
+        # the batch (the MoE's expert capacity) rather than write a program
+        # that takes only the example's; its max is the largest batch
+        # cuDNN's convolutions take on the card.
+        example = torch.zeros((2, *input_shape), dtype=dtype, device=dev)
+        dynamic = ({0: torch.export.Dim("batch", max=65535)},)
+    else:
+        example = torch.zeros(tuple(input_shape), dtype=dtype, device=dev)
+        dynamic = None
     with torch.no_grad():
-        program = torch.export.export(model, (example,),
-                                      dynamic_shapes=({0: torch.export.Dim.DYNAMIC},))
+        program = torch.export.export(model, (example,), dynamic_shapes=dynamic)
 
     local = resolve_uri(export_dir)
     os.makedirs(local, exist_ok=True)
@@ -726,7 +747,7 @@ def export_program(export_dir: str, params: Any, model_config: dict,
     meta = {"model_config": model_config, "device": dev.type,
             "input_shape": list(input_shape),
             "input_dtype": str(dtype).removeprefix("torch."),
-            "batch_polymorphic": True}
+            "batch_polymorphic": batch_polymorphic, **_program_ops(program)}
     with open(os.path.join(local, "program.json"), "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
     return local

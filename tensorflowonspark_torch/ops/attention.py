@@ -10,9 +10,12 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
   composes; ``chunk_attention`` is also the plain version of the kernel;
 - ``blockwise_attention`` — online softmax as a loop over checkpointed key
   blocks;
-- ``flash_attention`` / ``flash_attention_fwd`` — the public entry.  A CUDA
-  tensor goes to the kernels (through ``flash_attn_fwd_cuda``), a CPU
-  tensor to the plain version.  ``_route`` picks the kernel for every head
+- ``flash_attention`` / ``flash_attention_fwd`` — the public entry.  It
+  reaches attention only through the operator ``tos::flash_attn_fwd``
+  (``torch.ops.tos.flash_attn_fwd``, a ``torch.library.custom_op`` with a
+  fake implementation, so ``torch.export`` keeps its call in a program): a
+  CUDA tensor goes to the kernels (``flash_attn_fwd_cuda``), a CPU tensor
+  to the plain version.  ``_route`` picks the kernel for every head
   dim, zero-padding D as the TPU kernel pads to 128 lanes: bf16/fp16 runs
   the ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``) at 64, 128 or 256, and
   above 256 its wide route; f32 runs the 3xTF32 ``wgmma`` kernel
@@ -313,6 +316,49 @@ def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# The operator: tos::flash_attn_fwd, the kernels on a CUDA tensor and the
+# plain version on a CPU tensor, with a fake implementation, so that
+# torch.export traces the kernel's call into the graph.
+# ---------------------------------------------------------------------------
+
+OP_NAME = "tos::flash_attn_fwd"
+
+
+@torch.library.custom_op(
+    OP_NAME, mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float? sm_scale, "
+           "int kv_offset) -> (Tensor, Tensor)")
+def flash_attn_fwd_op(q, k, v, causal, sm_scale, kv_offset):
+    """``(out, lse)`` of attention as one operator.  On a CPU tensor it is
+    the plain version (``chunk_attention``); on a CUDA tensor it launches
+    the kernel ``_route`` picks (``flash_attn_fwd_cuda``) or raises.  Its
+    fake implementation gives the shapes without running anything, so a
+    traced or exported graph holds the call itself.  Registering it builds
+    nothing: the kernels build at their first launch.  Both
+    implementations return a contiguous ``out``, as the fake one does
+    (``opcheck`` compares strides)."""
+    out, lse = chunk_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               kv_offset=kv_offset)
+    return out.contiguous(), lse
+
+
+@flash_attn_fwd_op.register_kernel("cuda")
+def _flash_attn_fwd_op_cuda(q, k, v, causal, sm_scale, kv_offset):
+    # a zero-padded head dim comes back as a slice of the padded O: copied
+    # out, because the fake implementation's strides are contiguous
+    out, lse = flash_attn_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   kv_offset=kv_offset)
+    return out.contiguous(), lse
+
+
+@flash_attn_fwd_op.register_fake
+def _flash_attn_fwd_op_fake(q, k, v, causal, sm_scale, kv_offset):
+    b, sq, h, _ = q.shape
+    return (q.new_empty((b, sq, h, v.shape[-1])),
+            q.new_empty((b, sq, h), dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
 # Public entry.
 # ---------------------------------------------------------------------------
 
@@ -320,11 +366,9 @@ BWD_BLOCK_K = 512  # key block of the recompute backward (the JAX default)
 
 
 def _forward(q, k, v, causal, sm_scale, kv_offset, impl):
-    if impl == "kernel" or q.is_cuda:
-        return flash_attn_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
-                                   kv_offset=kv_offset)
-    return chunk_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                           kv_offset=kv_offset)
+    if impl == "kernel":
+        _check_inputs(q, k, v)
+    return torch.ops.tos.flash_attn_fwd(q, k, v, causal, sm_scale, kv_offset)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -332,8 +376,8 @@ class FlashAttention(torch.autograd.Function):
     counterpart of ``_flash_attention_tpu`` and its rules
     (``tensorflowonspark_tpu/ops/attention.py:283-312``).
 
-    Forward: the kernel for a CUDA tensor, ``chunk_attention`` for a CPU
-    tensor; it saves only ``q, k, v``.  Backward: the VJP of
+    Forward: ``tos::flash_attn_fwd``, the kernel for a CUDA tensor,
+    ``chunk_attention`` for a CPU tensor; it saves only ``q, k, v``.  Backward: the VJP of
     ``blockwise_attention`` (``block_k=BWD_BLOCK_K``, the same ``causal``,
     ``sm_scale`` and ``kv_offset``, each block checkpointed, so its memory
     is O(Sq·block_k)) through ``out`` and through ``lse`` — ring attention

@@ -575,3 +575,83 @@ def test_lse_only_cotangent_is_the_softmax_weighted_keys():
     keep = torch.arange(12)[None, :] <= torch.arange(12)[:, None]
     torch.logsumexp(torch.where(keep, logits, -torch.inf), dim=-1).sum().backward()
     np.testing.assert_allclose(q.grad.numpy(), q2.grad.numpy(), **GRAD_TOL)
+
+
+# -- the operator: tos::flash_attn_fwd ----------------------------------------
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("kv_offset", [0, 5])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_op_passes_opcheck_on_cpu(dtype, causal, kv_offset, d):
+    """``torch.library.opcheck`` on ``tos::flash_attn_fwd`` with CPU
+    tensors: its schema (no input mutated, no output aliasing an input),
+    its autograd registration (none: ``FlashAttention`` holds the one
+    backward), the fake implementation against the real one (shape, type
+    and strides of ``out`` and ``lse``), and the op under aot_autograd
+    with dynamic sizes, the batch among them."""
+    q, k, v = (x.to(getattr(torch, dtype))
+               for x in _t(*make_qkv(b=2, s=7, h=3, d=d, sk=9, seed=d)))
+    result = torch.library.opcheck(torch.ops.tos.flash_attn_fwd.default,
+                                   (q, k, v, causal, None, kv_offset))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_attention_reaches_the_plain_version_only_through_the_op():
+    """``flash_attention_fwd`` goes through ``tos::flash_attn_fwd`` in
+    inference and under autograd (inside ``FlashAttention``'s forward)
+    alike; on a CPU tensor the op is ``chunk_attention`` bit for bit, with
+    a contiguous ``out``, and launches nothing.  An explicit ``sm_scale``
+    passes through."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Calls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    q, k, v = _t(*make_qkv(b=2, s=12, h=2, d=8, sk=20, seed=3))
+    launches = dict(ta.LAUNCHES)
+    for grad in (False, True):
+        leaves = [x.clone().requires_grad_(grad) for x in (q, k, v)]
+        with Calls() as calls:
+            out, lse = ta.flash_attention_fwd(*leaves, causal=True, sm_scale=0.3,
+                                              kv_offset=4)
+        assert calls.ops.count(torch.ops.tos.flash_attn_fwd.default) == 1
+        assert (out.grad_fn is not None) == grad
+        want_o, want_lse = ta.chunk_attention(q, k, v, causal=True, sm_scale=0.3,
+                                              kv_offset=4)
+        assert out.is_contiguous()
+        np.testing.assert_array_equal(out.detach().numpy(), want_o.numpy())
+        np.testing.assert_array_equal(lse.detach().numpy(), want_lse.numpy())
+    assert ta.LAUNCHES == launches
+
+
+def test_flash_op_fake_gives_symbolic_shapes_and_f32_lse():
+    """The fake implementation under ``torch.export`` with a dynamic batch:
+    the graph holds the op's call, ``out`` keeps q's shape and type with
+    the batch symbolic, and ``lse`` is ``[B, Sq, H]`` float32."""
+
+    class Attend(torch.nn.Module):
+        def forward(self, q, k, v):
+            return torch.ops.tos.flash_attn_fwd(q, k, v, True, None, 0)
+
+    q, k, v = (x.bfloat16() for x in _t(*make_qkv(b=2, s=6, h=2, d=16, seed=1)))
+    batch = torch.export.Dim("batch")
+    program = torch.export.export(Attend(), (q, k, v),
+                                  dynamic_shapes=({0: batch}, {0: batch}, {0: batch}))
+    (call,) = [n for n in program.graph.nodes
+               if n.target is torch.ops.tos.flash_attn_fwd.default]
+    out, lse = (n.meta["val"] for n in call.users)
+    assert isinstance(out.shape[0], torch.SymInt) and out.shape[1:] == (6, 2, 16)
+    assert out.dtype == torch.bfloat16
+    assert lse.shape[1:] == (6, 2) and lse.dtype == torch.float32
+    q3, k3, v3 = (x.bfloat16() for x in _t(*make_qkv(b=3, s=6, h=2, d=16, seed=2)))
+    got = program.module()(q3, k3, v3)
+    want = ta.chunk_attention(q3, k3, v3, causal=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

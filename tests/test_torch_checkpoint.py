@@ -224,7 +224,8 @@ def test_program_export_consumable_without_package(tmp_path):
                         input_shape=(28, 28, 1), device="cpu")
     meta = json.loads((tmp_path / "program.json").read_text())
     assert meta == {"model_config": config, "device": "cpu", "input_shape": [28, 28, 1],
-                    "input_dtype": "float32", "batch_polymorphic": True}
+                    "input_dtype": "float32", "batch_polymorphic": True,
+                    "ops": [], "op_module": None, "op_routes": {}}
 
     x = np.random.RandomState(0).rand(5, 28, 28, 1).astype(np.float32)
     expected = np.asarray(model.apply({"params": params}, jnp.asarray(x)))
@@ -313,20 +314,184 @@ def test_every_family_exports_on_the_cpu(tmp_path, name):
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_cuda_export_of_the_lm_refuses_naming_the_kernel(tmp_path, monkeypatch):
-    """On ``cuda`` the LM's forward reaches the ctypes-bound attention
-    kernel, which ``torch.export`` cannot trace: ``export_program`` raises
-    before any weight moves, naming the route and the ROADMAP item (the
-    device is only resolved here; nothing runs on a card)."""
-    from tensorflowonspark_torch import gpu_info
+LM = FAMILIES["transformer"]
+MOE = {**LM, "n_experts": 4, "moe_top_k": 2}
+# the MoE LM against the JAX package's fixed-batch artifact: f32 sums in
+# other orders through two layers (tests/test_torch_moe.py's bound)
+MOE_TOL = dict(atol=2e-5, rtol=2e-5)
 
-    monkeypatch.setattr(gpu_info, "default_device", lambda d=None: torch.device("cuda"))
-    config = FAMILIES["transformer"]
-    with pytest.raises(NotImplementedError,
-                       match=r"flash_attn_fwd_tf32 .*ROADMAP \(f\)"):
-        ckpt.export_program(str(tmp_path), {}, config, input_shape=(16,),
-                            input_dtype=np.int32)
-    with pytest.raises(NotImplementedError, match=r"attention kernel flash_attn_fwd "):
-        ckpt.export_program(str(tmp_path), {}, {**config, "bf16": True},
-                            input_shape=(16,), input_dtype=np.int32)
-    assert not (tmp_path / "model.pt2").exists()
+
+def _jax_lm(config, seed, ids):
+    from tensorflowonspark_tpu.models import transformer as jtfm
+
+    jmodel = jtfm.build_transformer(config)
+    return jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(seed), ids)["params"])
+
+
+def _jax_program(tmp_path, params, config, input_shape, batch_polymorphic=True):
+    """``export_stablehlo``'s artifact on the CPU, deserialized."""
+    from jax import export as jexport
+
+    from tensorflowonspark_tpu import checkpoint as jckpt
+
+    path = str(tmp_path / "stablehlo")
+    jckpt.export_stablehlo(path, params, config, input_shape, input_dtype=jnp.int32,
+                           batch_polymorphic=batch_polymorphic, platforms=("cpu",))
+    with open(os.path.join(path, "model.stablehlo"), "rb") as f:
+        return jexport.deserialize(f.read())
+
+
+def _op_calls(path) -> int:
+    program = torch.export.load(os.path.join(path, "model.pt2"))
+    return sum(n.target is torch.ops.tos.flash_attn_fwd.default
+               for n in program.graph.nodes)
+
+
+def test_lm_program_calls_the_op_and_scores_like_jax_in_a_fresh_process(tmp_path):
+    """The tiny f32 LM exported on the CPU with a dynamic batch: its graph
+    calls ``tos::flash_attn_fwd`` once per layer, ``program.json`` names the
+    op, its module and the route the card would take (f32 at head dim 8:
+    the 3xTF32 kernel at 64), and a fresh process that imports only torch,
+    numpy and that module scores batches 2 and 3 as the JAX package's
+    ``export_stablehlo`` artifact does on the same weights (f32, 1e-5)."""
+    import subprocess
+    import sys
+
+    ids = np.random.RandomState(0).randint(0, 64, (3, 16)).astype(np.int32)
+    params = _jax_lm(LM, 0, ids)
+    out = str(tmp_path / "program")
+    ckpt.export_program(out, params, LM, input_shape=(16,), input_dtype=np.int32,
+                        device="cpu")
+    meta = json.loads((tmp_path / "program" / "program.json").read_text())
+    assert meta["batch_polymorphic"] is True and meta["ops"] == ["tos::flash_attn_fwd"]
+    assert meta["op_module"] == "tensorflowonspark_torch.ops.attention"
+    assert meta["op_routes"] == {"tos::flash_attn_fwd": [
+        {"kernel": "flash_attn_fwd_tf32", "padded_head_dim": 64, "nodes": LM["n_layers"]}]}
+    assert _op_calls(out) == LM["n_layers"]
+
+    np.save(tmp_path / "ids.npy", ids)
+    consumer = (
+        "import importlib, json, sys, numpy as np, torch\n"
+        f"meta = json.load(open(r'{out}/program.json'))\n"
+        "importlib.import_module(meta['op_module'])\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax', 'tensorflowonspark_tpu'))]\n"
+        f"prog = torch.export.load(r'{out}/model.pt2').module()\n"
+        f"ids = torch.from_numpy(np.load(r'{tmp_path}/ids.npy'))\n"
+        "with torch.no_grad():\n"
+        "    two, three = prog(ids[:2]), prog(ids)\n"
+        f"np.savez(r'{tmp_path}/got.npz', two=two.numpy(), three=three.numpy())\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", consumer], check=True, timeout=180,
+                   cwd=str(tmp_path), env={**os.environ, "PYTHONPATH": repo})
+    want = np.asarray(_jax_program(tmp_path, params, LM, (16,)).call(jnp.asarray(ids)))
+    got = np.load(tmp_path / "got.npz")
+    np.testing.assert_allclose(got["three"], want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got["two"], want[:2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bf16, kernel", [(False, "flash_attn_fwd_tf32"),
+                                          (True, "flash_attn_fwd")])
+def test_program_json_names_the_route_at_the_exported_type(tmp_path, bf16, kernel):
+    """``program.json`` records ``ops.attention._route`` at the exported
+    type and head dim: the bf16 LM at head dim 8 runs the wgmma kernel at
+    64, the f32 LM the 3xTF32 kernel at 64; the program equals
+    ``build_apply`` on the same weights (bf16 exactly: same ops, one
+    process)."""
+    from tensorflowonspark_torch.models import registry
+    from tensorflowonspark_torch.ops import attention
+
+    config = {**LM, "bf16": bf16}
+    ids = np.random.RandomState(1).randint(0, 64, (2, 16)).astype(np.int32)
+    params = _jax_lm(LM, 1, ids)
+    ckpt.export_program(str(tmp_path), params, config, input_shape=(16,),
+                        input_dtype=np.int32, device="cpu")
+    meta = json.loads((tmp_path / "program.json").read_text())
+    assert attention._route(torch.bfloat16 if bf16 else torch.float32, 8) == (kernel, 64)
+    assert meta["op_routes"]["tos::flash_attn_fwd"] == [
+        {"kernel": kernel, "padded_head_dim": 64, "nodes": LM["n_layers"]}]
+    program = torch.export.load(str(tmp_path / "model.pt2")).module()
+    with torch.no_grad():
+        got = program(torch.from_numpy(ids))
+    want = registry.build_apply(config, device="cpu")(params, ids)
+    torch.testing.assert_close(got, want, rtol=0 if bf16 else 1e-5, atol=0 if bf16 else 1e-5)
+
+
+def test_moe_fixed_batch_program_equals_jax_fixed_batch_artifact(tmp_path):
+    """The fault this repairs: the MoE LM's expert capacity
+    (``ceil(1.25 · tokens / experts)``) needs a concrete batch, so the JAX
+    package exports it with ``batch_polymorphic=False``; the port's
+    ``export_program`` now takes the same flag.  The fixed-batch program
+    (``input_shape`` is the whole ``[3, 16]``) equals JAX's fixed-batch
+    artifact on the same weights within ``MOE_TOL``, and ``program.json``
+    records ``batch_polymorphic: false``."""
+    ids = np.random.RandomState(2).randint(0, 64, (3, 16)).astype(np.int32)
+    params = _jax_lm(MOE, 2, ids)
+    ckpt.export_program(str(tmp_path / "moe"), params, MOE, input_shape=(3, 16),
+                        input_dtype=np.int32, device="cpu", batch_polymorphic=False)
+    meta = json.loads((tmp_path / "moe" / "program.json").read_text())
+    assert meta["batch_polymorphic"] is False and meta["input_shape"] == [3, 16]
+    assert meta["ops"] == ["tos::flash_attn_fwd"] and _op_calls(tmp_path / "moe") == 2
+    program = torch.export.load(str(tmp_path / "moe" / "model.pt2")).module()
+    with torch.no_grad():
+        got = program(torch.from_numpy(ids)).numpy()
+    want = np.asarray(_jax_program(tmp_path, params, MOE, (3, 16),
+                                   batch_polymorphic=False).call(jnp.asarray(ids)))
+    assert got.shape == (3, 16, 64)
+    np.testing.assert_allclose(got, want, **MOE_TOL)
+
+
+def test_moe_batch_polymorphic_export_raises_as_jax_does(tmp_path):
+    """With a symbolic batch the MoE's capacity cannot be computed: JAX's
+    ``export_stablehlo`` raises ``ConcretizationTypeError`` and the port's
+    ``export_program`` raises too (the batch is pinned by the capacity's
+    guard), writing no program."""
+    ids = np.random.RandomState(3).randint(0, 64, (2, 16)).astype(np.int32)
+    params = _jax_lm(MOE, 3, ids)
+    with pytest.raises(jax.errors.ConcretizationTypeError):
+        _jax_program(tmp_path, params, MOE, (16,))
+    with pytest.raises(RuntimeError, match=r"Constraints violated \(batch\)"):
+        ckpt.export_program(str(tmp_path / "moe"), params, MOE, input_shape=(16,),
+                            input_dtype=np.int32, device="cpu")
+    assert not (tmp_path / "moe" / "model.pt2").exists()
+
+
+def test_moe_fixed_batch_program_refuses_another_batch(tmp_path):
+    """A fixed-batch program takes only its batch: at another batch size
+    the loaded program's input guard raises instead of scoring rows whose
+    expert capacity it was not traced for."""
+    ids = np.random.RandomState(4).randint(0, 64, (3, 16)).astype(np.int32)
+    params = _jax_lm(MOE, 4, ids)
+    ckpt.export_program(str(tmp_path), params, MOE, input_shape=(3, 16),
+                        input_dtype=np.int32, device="cpu", batch_polymorphic=False)
+    program = torch.export.load(str(tmp_path / "model.pt2")).module()
+    with torch.no_grad():
+        assert program(torch.from_numpy(ids)).shape == (3, 16, 64)
+        for b in (2, 4):
+            with pytest.raises(AssertionError, match="size"):
+                program(torch.from_numpy(np.resize(ids, (b, 16))))
+
+
+def test_chip_smoke_lm_export_sub_step_runs_on_cpu(monkeypatch, tmp_path):
+    """``chip_smoke.py``'s LM programs shrunk onto the CPU: the bf16 LM with
+    a dynamic batch, the f32 LM and the fixed-batch MoE LM exported, each
+    ``program.json`` naming the op's route, and one fresh consumer process
+    scoring all three with n_layers op nodes a graph, 0 launches (no card)
+    and logits equal to ``build_apply``'s."""
+    import chip_smoke as cs
+
+    lm = {**LM, "vocab_size": 256, "d_model": 64, "n_layers": 3, "n_heads": 2,
+          "bf16": True, "attn_impl": "auto"}
+    monkeypatch.setattr(cs, "WORK_DIR", str(tmp_path))
+    monkeypatch.setattr(cs, "LM_CONFIG", lm)
+    monkeypatch.setattr(cs, "MOE_CONFIG", {**lm, "n_experts": 4, "moe_top_k": 2})
+    monkeypatch.setattr(cs, "SEQ_LEN", 32)
+    out = cs.export_lm_sub_step(0, "cpu", device="cpu")
+    programs = out["programs"]
+    assert sorted(programs) == ["lm_bf16", "lm_f32", "moe_bf16"]
+    assert [programs[t]["nodes"] for t in ("lm_bf16", "lm_f32", "moe_bf16")] == [3, 2, 2]
+    assert programs["moe_bf16"]["batch_polymorphic"] is False
+    for rec in programs.values():
+        assert rec["max_rel_err"] == 0.0
+        assert all(not any(x.values()) for x in rec["launches"])
+    assert "op_host" not in out and not os.path.exists(tmp_path / "lm_programs")

@@ -590,19 +590,139 @@ def test_cuda_export_program_scores_like_build_apply(tmp_path):
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
 
 
-def test_cuda_export_program_refuses_a_model_that_reaches_the_kernel(tmp_path):
-    """On the card the LM's forward reaches the ctypes-bound attention
-    kernel, which ``torch.export`` cannot trace: ``export_program`` raises
-    naming the route, and writes nothing."""
+@pytest.mark.parametrize("bf16", [True, False])
+def test_cuda_export_program_exports_the_lm_through_the_kernel(tmp_path, bf16):
+    """On the card the LM's forward reaches the attention kernels through
+    ``tos::flash_attn_fwd``: ``export_program`` exports a small LM (head
+    dim 128, 2 layers) with a dynamic batch, the graph holds one op call a
+    layer, ``program.json`` names the route, and the program scores
+    batches 1 and 3 as ``build_apply`` does on the same weights, launching
+    the named kernel once a layer (bf16 within 2e-2 of the largest logit,
+    f32 within 1e-4: the same kernels and aten ops, TF32 off)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    import json
+
     import numpy as np
 
     from tensorflowonspark_torch.checkpoint import export_program
+    from tensorflowonspark_torch.convert import torch_to_flax
+    from tensorflowonspark_torch.models import transformer
+    from tensorflowonspark_torch.models.registry import build_apply
 
-    config = {"model": "transformer", "vocab_size": 64, "d_model": 32, "n_layers": 2,
-              "n_heads": 4, "bf16": True}
-    with pytest.raises(NotImplementedError, match="attention kernel flash_attn_fwd "):
-        export_program(str(tmp_path), {}, config, (16,), input_dtype=np.int32,
-                       device="cuda")
-    assert not (tmp_path / "model.pt2").exists()
+    config = {"model": "transformer", "vocab_size": 64, "d_model": 256, "n_layers": 2,
+              "n_heads": 2, "bf16": bf16}
+    model = transformer.build_transformer(config)
+    model.init_weights(torch.Generator().manual_seed(0))
+    params = torch_to_flax(model.state_dict(), n_heads=2, config=config)
+    before = dict(ta.LAUNCHES)
+    export_program(str(tmp_path), params, config, (64,), input_dtype=np.int32,
+                   device="cuda")
+    assert ta.LAUNCHES == before  # the trace ran the fake implementation
+    kernel, padded = ta._route(torch.bfloat16 if bf16 else torch.float32, 128)
+    meta = json.loads((tmp_path / "program.json").read_text())
+    assert meta["ops"] == ["tos::flash_attn_fwd"] and meta["device"] == "cuda"
+    assert meta["op_routes"]["tos::flash_attn_fwd"] == [
+        {"kernel": kernel, "padded_head_dim": padded, "nodes": 2}]
+    exported = torch.export.load(str(tmp_path / "model.pt2"))
+    assert sum(n.target is torch.ops.tos.flash_attn_fwd.default
+               for n in exported.graph.nodes) == 2
+    program = exported.module()
+    apply = build_apply(config, "cuda")
+    tol = 2e-2 if bf16 else 1e-4
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for b in (1, 3):
+            ids = np.random.RandomState(b).randint(0, 64, (b, 64)).astype(np.int32)
+            before = dict(ta.LAUNCHES)
+            with torch.no_grad():
+                got = program(torch.from_numpy(ids).cuda())
+            torch.cuda.synchronize()
+            assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
+                n: 2 * (n == kernel) for n in ta.LAUNCHES}
+            want = apply(params, ids)
+            assert got.device.type == "cuda" and got.shape == (b, 64, 64)
+            rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+            assert rel <= tol, rel
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+OP_CASES = {
+    # (b, sq, sk, h, d, causal, kv_offset, dtype)
+    "bf16_serving_heads": (2, 300, 300, 8, 128, True, 0, torch.bfloat16),
+    "bf16_d32_padded": (2, 130, 170, 3, 32, False, 0, torch.bfloat16),
+    "fp16_kv_offset": (1, 100, 70, 2, 64, True, 37, torch.float16),
+    "f32_d128": (2, 200, 330, 3, 128, True, 5, torch.float32),
+    "f32_d33_padded": (2, 70, 45, 2, 33, False, 0, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OP_CASES))
+def test_cuda_flash_op_matches_plain_version(case):
+    """``torch.ops.tos.flash_attn_fwd`` on CUDA tensors launches the kernel
+    ``_route`` names, once, and equals the plain version at the kernel
+    gates (O 2e-2 and lse 1e-2 in bf16/fp16, both 1e-4 in f32); a padded
+    head dim comes back contiguous.  ``opcheck`` passes on the card too
+    (the fake implementation's strides against the kernel's output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, sq, sk, h, d, causal, off, dtype = OP_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = make_inputs(b, sq, sk, h, d, dtype, False, g)
+    route, _ = ta._route(dtype, d)
+    before = dict(ta.LAUNCHES)
+    o, lse = torch.ops.tos.flash_attn_fwd(q, k, v, causal, None, off)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
+        n: int(n == route) for n in ta.LAUNCHES}
+    assert o.shape == q.shape and o.dtype == dtype and o.is_contiguous()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        po, pl = ta.chunk_attention(q, k, v, causal=causal, kv_offset=off)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, po, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(lse, pl, atol=1e-4, rtol=1e-4)
+    else:
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(lse, pl, atol=1e-2, rtol=1e-2)
+    result = torch.library.opcheck(torch.ops.tos.flash_attn_fwd.default,
+                                   (q, k, v, causal, None, off),
+                                   atol=1e-4 if dtype == torch.float32 else 2e-2,
+                                   rtol=1e-4 if dtype == torch.float32 else 2e-2)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_cuda_padded_out_needs_the_copy_for_opcheck():
+    """Why ``tos::flash_attn_fwd``'s CUDA implementation returns
+    ``out.contiguous()``: an op with the same fake implementation that
+    returns ``flash_attn_fwd_cuda``'s ``out`` as it comes fails
+    ``opcheck``'s fake-tensor check where the head dim is padded (D=32
+    runs at 64: ``out`` is a slice of the padded O, the fake one is
+    contiguous), and passes where it is not (D=128: no copy is made)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+    @torch.library.custom_op(
+        "tos_test::flash_view", mutates_args=(), device_types="cuda",
+        schema="(Tensor q, Tensor k, Tensor v, bool causal, float? sm_scale, "
+               "int kv_offset) -> (Tensor, Tensor)")
+    def flash_view(q, k, v, causal, sm_scale, kv_offset):
+        return ta.flash_attn_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
+                                      kv_offset=kv_offset)
+
+    flash_view.register_fake(ta._flash_attn_fwd_op_fake)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for d, passes in ((32, False), (128, True)):
+        q, k, v = make_inputs(2, 130, 130, 3, d, torch.bfloat16, False, g)
+        args = (q, k, v, True, None, 0)
+        assert flash_view(*args)[0].is_contiguous() == passes
+        result = torch.library.opcheck(torch.ops.tos_test.flash_view.default, args,
+                                       raise_exception=False, atol=2e-2, rtol=2e-2)
+        assert (result["test_faketensor"] == "SUCCESS") == passes, result
+        assert set(torch.library.opcheck(torch.ops.tos.flash_attn_fwd.default, args,
+                                         atol=2e-2, rtol=2e-2).values()) == {"SUCCESS"}
