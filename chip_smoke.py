@@ -55,6 +55,17 @@ Phases (any failure propagates and the script exits non-zero):
    registered device (the card) and the replicas' kernel launches (8 per
    served batch, from ``cluster.metrics()``); prints per-request host
    latency beside the replicas' ``serve.node_batch_secs``;
+   orbax bundle — ``tests/data/orbax_lm/``, an f32 LM bundle the JAX
+   package wrote in its orbax layout (``tests/make_orbax_fixture.py``),
+   read where no JAX, orbax, tensorstore or zstd library is loaded (the
+   phase checks ``sys.modules``): ``load_bundle`` builds the package's zstd
+   decoder from the checkout and every leaf must match ``expected.json``
+   bit for bit; ``serve_and_check`` serves the bundle through the 3xTF32
+   kernel (n_layers launches a batch, logits against plain attention);
+   ``build_apply`` on the card against the JAX forward's logits within
+   ``ORBAX_LOGIT_TOL``; prints the fixture's size, the load's cold and warm
+   host-clock seconds, the decoder's output MB/s over the fixture's chunks
+   and, from that rate, an estimate of loading a bundle at the LM width;
 5. attention at the training shape (B=8, S=2048, H=8, D=128, causal bf16):
    the kernel's forward held against ``chunk_attention`` (O and lse) and
    timed, and the backward of ``FlashAttention`` (the plain
@@ -234,6 +245,10 @@ F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # slice logits, served (kernel attention) vs plain attention: bf16 compute
 # rounds at different places over 8 layers; held to 5% of the largest logit
 LOGIT_REL_TOL = 0.05
+# the same for an f32 model: 3xTF32 attention keeps within ~1e-6 of f32 and
+# the matmuls run in f32 on both sides (TF32 off, phase_device); the rest is
+# summation order; held to 1e-4 of the largest logit
+F32_LOGIT_REL_TOL = 1e-4
 
 LM_CONFIG = {"model": "transformer", "vocab_size": 32000, "d_model": 1024,
              "n_layers": 8, "n_heads": 8, "bf16": True, "attn_impl": "auto"}
@@ -270,6 +285,8 @@ KERNEL_CASES = [
 GENERIC_CASES = [
     ("f32_serving_shape", 4, 2048, 2048, 8, 128, True, 0, "float32", False),
     ("f32_d64_ragged_kv_offset", 2, 200, 330, 8, 64, True, 37, "float32", False),
+    # the orbax fixture LM's served shape (phase_orbax_bundle): many key blocks
+    ("f32_d64_orbax_served_shape", 4, 2048, 2048, 2, 64, True, 0, "float32", False),
     ("f32_ragged_200_330_noncausal", 2, 200, 330, 8, 128, False, 0, "float32", False),
     ("f32_kv_offset_masked_rows", 1, 100, 70, 8, 128, True, 37, "float32", False),
     ("f32_kv_offset_negative", 1, 64, 192, 4, 128, True, -64, "float32", False),
@@ -345,6 +362,16 @@ D256_HEADS, D256_LAYERS = 4, 2  # head dim 256 at the LM's width, depth cut
 D512_HEADS, D512_LAYERS = 2, 2  # head dim 512 at the LM's width, depth cut
 CLUSTER_ROWS = (4, 4, 3)  # gateway.predict requests; then one row over TCP
 CLUSTER_NODES = 2
+# the JAX package's orbax bundle read on the card (tests/make_orbax_fixture.py)
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "orbax_lm")
+# card logits vs the JAX package's f32 CPU logits, as a share of the largest
+# |logit|: 3xTF32 attention keeps within ~1e-6 of f32 and the matmuls run in
+# f32 (TF32 off, phase_device); the rest is summation order
+ORBAX_LOGIT_TOL = 1e-4
+ORBAX_RATE_BYTES = 64 << 20  # the decoder's rate: >= this much output a window
+ORBAX_RATE_WINDOWS = 5
+ORBAX_FORBIDDEN = ("jax", "jaxlib", "orbax", "tensorstore", "zstandard", "ml_dtypes",
+                   "tensorflowonspark_tpu")
 # SASS instructions that show the design: wgmma and TMA loads
 DESIGN_SASS = ("HGMMA", "UTMALDG")
 # ResNet-50 training, the JAX bench's setup (bench.py:49-110)
@@ -995,8 +1022,10 @@ def serve_and_check(export: str, cfg: dict, seed: int, tag: str, smi: str,
     results, n_layers kernel launches per batch, and the logits against the
     same bundle with plain attention on the padded batch (``reference(params,
     padded) -> logits``, by default ``build_apply`` with ``attn_impl:
-    xla``).  Returns the launches (every count set to 0 just before the
-    loop, read just after) and the request batches."""
+    xla``), at ``LOGIT_REL_TOL`` for a bf16 model and ``F32_LOGIT_REL_TOL``
+    for an f32 one.  Returns the launches of the kernel the model's type and
+    head dim route to (every count set to 0 just before the loop, read just
+    after) and the request batches."""
     import numpy as np
     import torch
 
@@ -1009,6 +1038,10 @@ def serve_and_check(export: str, cfg: dict, seed: int, tag: str, smi: str,
     from tensorflowonspark_torch.serving.batcher import CTL_KEY
     from tensorflowonspark_torch.serving.loop import serving_loop
 
+    bf16 = cfg.get("bf16", True)  # the transformer's default
+    kernel = att._route(torch.bfloat16 if bf16 else torch.float32,
+                        cfg.get("d_head") or cfg["d_model"] // cfg["n_heads"])[0]
+    tol = LOGIT_REL_TOL if bf16 else F32_LOGIT_REL_TOL
     rng = np.random.default_rng(seed + 1)
     batches = [[rng.integers(0, cfg["vocab_size"], SEQ_LEN, dtype=np.int32)
                 for _ in range(n)] for n in BATCH_ROWS]
@@ -1050,8 +1083,8 @@ def serve_and_check(export: str, cfg: dict, seed: int, tag: str, smi: str,
     serving_loop({"export_dir": export, "max_batch": MAX_BATCH, "device": device},
                  Ctx())
     wall = time.perf_counter() - t0
-    launches = att.LAUNCHES["flash_attn_fwd"]
-    log(f"[{tag}] serving_loop finished in {wall:.1f} s; flash_attn_fwd "
+    launches = att.LAUNCHES[kernel]
+    log(f"[{tag}] serving_loop finished in {wall:.1f} s; {kernel} "
         f"launches {launches}")
 
     out = []
@@ -1086,21 +1119,21 @@ def serve_and_check(export: str, cfg: dict, seed: int, tag: str, smi: str,
     agree = []
     for rows in batches:
         padded = rows + [rows[-1]] * (MAX_BATCH - len(rows))
-        before = att.LAUNCHES["flash_attn_fwd"]
+        before = att.LAUNCHES[kernel]
         ref = reference(ref_params, np.stack(padded))[:len(rows)]
-        if att.LAUNCHES["flash_attn_fwd"] != before:
+        if att.LAUNCHES[kernel] != before:
             raise AssertionError("the plain-attention reference launched the kernel")
         got = torch.from_numpy(np.stack(served[start:start + len(rows)])).to(device)
         scale = ref.abs().max().item()
         err = (got - ref).abs().max().item()
         worst = max(worst, err / scale)
         agree.append((got.argmax(-1) == ref.argmax(-1)).float().mean().item())
-        if err > LOGIT_REL_TOL * scale:
+        if err > tol * scale:
             raise AssertionError(f"served logits differ from plain attention by "
-                                 f"{err:.4f} > {LOGIT_REL_TOL} x {scale:.3f}")
+                                 f"{err:.4g} > {tol} x {scale:.3f}")
         start += len(rows)
     log(f"[{tag}] logits vs plain attention: worst max_abs_err/max|logit| "
-        f"{worst:.4f} (limit {LOGIT_REL_TOL}), argmax agreement "
+        f"{worst:.4g} (limit {tol}), argmax agreement "
         f"{', '.join(f'{a:.4f}' for a in agree)}")
     for i, (secs, rows) in enumerate(zip(round_secs, BATCH_ROWS)):
         log(f"[{tag}] batch {i}: {rows} rows x {SEQ_LEN} tokens, "
@@ -1231,6 +1264,173 @@ def phase_cluster(seed: int, smi: str, device: str = "cuda") -> dict:
     return {"launches": launches, "batches": batches,
             "request_ms": [x * 1e3 for x in latency], "node_batch_ms": node_ms,
             "reload_s": reload_s, "logit_rel_err": worst}
+
+
+def host_cpu() -> str:
+    """The host's CPU as ``/proc/cpuinfo`` names it, with its core count:
+    the model name, and where that says "unknown" (a virtual machine's CPU
+    may) or is missing, the vendor, family and model numbers."""
+    import platform
+
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if not name or name.lower() == "unknown":
+        ids = [f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model", "CPU part")
+               if k in fields]
+        name = f"model name {name or 'absent'} ({', '.join(ids) or platform.machine()})"
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def lm_param_bytes(cfg: dict) -> int:
+    """The bytes of an f32 dense LM's params (``make_lm_params``' shapes)."""
+    v, d, layers = cfg["vocab_size"], cfg["d_model"], cfg["n_layers"]
+    width = cfg["n_heads"] * cfg.get("d_head", d // cfg["n_heads"])
+    f = cfg.get("d_ff", 4 * d)
+    per_layer = 2 * d + 4 * d * width + 3 * d * f
+    return 4 * (2 * v * d + d + layers * per_layer)
+
+
+def decode_rate(store) -> dict:
+    """The zstd decoder's output MB/s over every chunk frame of ``store``
+    (an ``OcdbtStore``): the frames decoded again and again into one
+    buffer until ``ORBAX_RATE_BYTES`` have come out, ``ORBAX_RATE_WINDOWS``
+    windows, host clock; the median and the spread."""
+    import statistics
+
+    import numpy as np
+
+    from tensorflowonspark_torch.orbax_layout import zstd
+
+    frames = [store.read(k) for k in store.list() if not k.endswith("/.zarray")]
+    out = np.empty(max(len(zstd.decompress(f)) for f in frames), np.uint8)
+    rates = []
+    for _ in range(ORBAX_RATE_WINDOWS):
+        done, t0 = 0, time.perf_counter()
+        while done < ORBAX_RATE_BYTES:
+            for f in frames:
+                done += zstd.decompress_into(f, out)
+        rates.append(done / (time.perf_counter() - t0) / 1e6)
+    return {"frames": len(frames), "compressed_bytes": sum(len(f) for f in frames),
+            "mb_s": statistics.median(rates), "mb_s_min": min(rates),
+            "mb_s_max": max(rates)}
+
+
+def phase_orbax_bundle(seed: int, smi: str, device: str = "cuda") -> dict:
+    """The JAX package's orbax bundle (``ORBAX_FIXTURE``) read and served
+    by the port with none of JAX, orbax, tensorstore or a zstd library
+    loaded: (a) ``load_bundle`` (the decoder built from the checkout at
+    first use) bit for bit against ``expected.json``; (b) ``serve_and_check``
+    through the kernel the f32 model routes to; (c) ``build_apply`` against
+    the JAX forward's logits.  Prints the load's cost and the decoder's
+    rate beside the card and the host's CPU; returns the numbers and the
+    serving loop's launches."""
+    import hashlib
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.checkpoint import load_bundle
+    from tensorflowonspark_torch.models.registry import build_apply
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.orbax_layout import zstd
+    from tensorflowonspark_torch.orbax_layout.ocdbt import OcdbtStore
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ORBAX_FORBIDDEN)
+    if loaded:
+        raise AssertionError(f"[orbax] modules the port must not need are loaded: {loaded}")
+    cpu = host_cpu()
+    with open(os.path.join(ORBAX_FIXTURE, "expected.json")) as f:
+        expected = json.load(f)
+    cfg = expected["config"]
+    disk = sum(os.path.getsize(os.path.join(d, n))
+               for d, _, names in os.walk(os.path.join(ORBAX_FIXTURE, "params")) for n in names)
+    t0 = time.perf_counter()
+    zstd._lib()  # g++ of zstd_decode.cc (or the cached library)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, config = load_bundle(ORBAX_FIXTURE)
+    cold_s = time.perf_counter() - t0
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        load_bundle(ORBAX_FIXTURE)
+        warm.append(time.perf_counter() - t0)
+    if config != cfg:
+        raise AssertionError(f"[orbax] bundle.json {config} != expected {cfg}")
+
+    # (a) every leaf bit for bit
+    got = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}" if path else k)
+            return
+        a = np.ascontiguousarray(node)
+        got.append({"path": path, "dtype": str(a.dtype), "shape": list(a.shape),
+                    "sha256": hashlib.sha256(a.tobytes()).hexdigest()})
+
+    walk(params, "")
+    if got != expected["leaves"]:
+        bad = [w["path"] for g, w in zip(got, expected["leaves"]) if g != w]
+        raise AssertionError(f"[orbax] leaves differ from expected.json: {bad or 'the lists'}")
+    log(f"[orbax] load_bundle of the JAX package's orbax bundle ({len(got)} leaves, "
+        f"{disk / 1e6:.3f} MB on disk): every leaf's dtype, shape and SHA-256 match "
+        f"expected.json; decoder build {build_s:.2f} s, load cold {cold_s * 1e3:.1f} ms, "
+        f"warm median {statistics.median(warm) * 1e3:.1f} ms (host clock; {smi}; {cpu})")
+
+    # (b) served through the kernel its type routes to
+    launches, _ = serve_and_check(ORBAX_FIXTURE, cfg, seed, "orbax", smi, device)
+    kernel = att._route(torch.float32, cfg["d_head"])[0]
+
+    # (c) the card's logits against the JAX package's
+    ids = np.asarray(expected["ids"], np.int32)
+    want = np.load(os.path.join(ORBAX_FIXTURE, expected["logits"]))
+    apply = build_apply(cfg, device=device)
+    reset_launches()
+    out = apply(params, ids)
+    forward_launches = att.LAUNCHES[kernel]
+    if forward_launches != (cfg["n_layers"] if device == "cuda" else 0):
+        raise AssertionError(f"[orbax] the forward launched {kernel} {forward_launches} "
+                             f"times, expected n_layers")
+    out = out.float().cpu().numpy()
+    if out.shape != want.shape or not np.isfinite(out).all():
+        raise AssertionError(f"[orbax] logits {out.shape} not finite of shape {want.shape}")
+    scale = float(np.abs(want).max())
+    err = float(np.abs(out - want).max())
+    if err > ORBAX_LOGIT_TOL * scale:
+        raise AssertionError(f"[orbax] logits differ from the JAX package's by {err:.3g} > "
+                             f"{ORBAX_LOGIT_TOL} x {scale:.3f}")
+    log(f"[orbax] build_apply on {device} vs the JAX forward's logits "
+        f"{list(want.shape)}: max_abs_err {err:.3g}, {err / scale:.3g} of max|logit| "
+        f"{scale:.3f} (limit {ORBAX_LOGIT_TOL}); {kernel} launches {forward_launches}")
+
+    # the decoder's rate, and what it says of a bundle at the LM width
+    rate = decode_rate(OcdbtStore(os.path.join(ORBAX_FIXTURE, "params")))
+    full = lm_param_bytes(LM_CONFIG)
+    estimate = full / 1e6 / rate["mb_s"]
+    log(f"[orbax] zstd decoder: {rate['frames']} chunk frames "
+        f"({rate['compressed_bytes'] / 1e6:.3f} MB), output {rate['mb_s']:.1f} MB/s "
+        f"median of {ORBAX_RATE_WINDOWS} windows of >= {ORBAX_RATE_BYTES >> 20} MiB "
+        f"(min {rate['mb_s_min']:.1f}, max {rate['mb_s_max']:.1f}; host clock, one "
+        f"thread; {cpu}; {smi})")
+    log(f"[orbax] estimate, not measured: a bundle at the LM width "
+        f"(vocab {LM_CONFIG['vocab_size']}, d_model {LM_CONFIG['d_model']}, "
+        f"{LM_CONFIG['n_layers']} layers) holds {full / 1e6:.1f} MB of f32 params; "
+        f"{full / 1e6:.1f} MB / {rate['mb_s']:.1f} MB/s = {estimate:.2f} s of zstd "
+        f"decoding to load it ({cpu})")
+    return {"launches": launches, "forward_launches": forward_launches,
+            "fixture_mb": disk / 1e6, "build_s": build_s, "load_cold_s": cold_s,
+            "load_warm_s": statistics.median(warm), "decode_mb_s": rate["mb_s"],
+            "logit_rel_err_vs_jax": err / scale, "host_cpu": cpu}
 
 
 def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
@@ -3986,6 +4186,9 @@ def main() -> int:
         cluster = phase_cluster(args.seed, smi)
         record["cluster_launches"] = cluster.pop("launches")
         record["cluster"] = cluster
+        orbax = phase_orbax_bundle(args.seed, smi)
+        tf32["orbax_bundle_launches"] = orbax.pop("launches")
+        tf32["orbax_bundle"] = orbax
         torch.cuda.empty_cache()
         record["train_shape"] = phase_attention_train_shape(args.seed, smi)
         torch.cuda.empty_cache()

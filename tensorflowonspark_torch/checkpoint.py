@@ -11,9 +11,12 @@ does not match ``step_<digits>`` and committed by ``os.replace``, so
 ``latest_step_dir`` and ``CheckpointManager.restore_latest`` only ever see
 complete checkpoints; it is read with ``torch.load(..., map_location="cpu",
 weights_only=True)`` (numpy leaves ride as tensors and come back as numpy).
-These are the port's own format: the port does not read the JAX package's
-orbax checkpoint directories, nor they its.  ``hdfs://`` and ``hopsfs://``
-paths resolve through ``utils.paths.resolve_uri``.
+These are the port's own format, which the JAX package does not read.  The
+port reads the JAX package's orbax checkpoint directories (``_METADATA``
+and an OCDBT database of zarr arrays) through ``orbax_layout.restore_tree``:
+``restore_checkpoint`` of such a directory returns what the JAX function
+returns, so params trained on a TPU restore here.  ``hdfs://`` and
+``hopsfs://`` paths resolve through ``utils.paths.resolve_uri``.
 
 ``CheckpointManager`` keeps the newest K ``step_N`` directories of one
 model_dir and saves asynchronously by default: ``save`` returns once the
@@ -45,7 +48,12 @@ package: each side reads the other's bundles.  16-bit and 8-bit float
 leaves that numpy cannot name (bfloat16, float8) ride as raw bytes with
 their dtype names under the reserved ``_param_dtypes`` key of
 ``bundle.json``; the port reads them as unsigned integers viewed as the
-torch dtype, so it needs no ``ml_dtypes``.
+torch dtype, so it needs no ``ml_dtypes``.  ``load_bundle`` also reads the
+JAX package's other layout, an orbax checkpoint at ``<export_dir>/params``
+(its export of params sharded across processes, and its bundles from
+before the npz format).  The port's ``export_bundle`` of ``Shard`` leaves
+is a collective that writes the npz layout: rank 0 assembles every rank's
+blocks into whole tensors.
 
 **Embedding-shard checkpoints** (the reference's ``:506-614``, a copy):
 each node of a sharded embedding table commits its own row range as
@@ -57,9 +65,6 @@ shard files cover it (the layout is shared with the JAX package).
 ``export_program`` writes a ``torch.export`` program that scores without
 the model registry: with ``torch`` alone, or, where the model attends,
 with the module that registers the attention operator.
-
-The orbax bundle layout (a ``params/`` checkpoint directory, written by the
-JAX package for cross-process-sharded params) is not read by the port yet.
 """
 
 from __future__ import annotations
@@ -78,18 +83,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from tensorflowonspark_torch.orbax_layout import is_orbax_checkpoint, restore_tree
+from tensorflowonspark_torch.dtypes import EXTENDED_DTYPES, TORCH_TO_EXTENDED
 from tensorflowonspark_torch.utils.locks import tos_named_lock
 from tensorflowonspark_torch.utils.paths import resolve_uri
 
 logger = logging.getLogger(__name__)
-
-# ml_dtypes name -> (numpy storage type, torch dtype)
-_EXTENDED_DTYPES = {
-    "bfloat16": (np.uint16, torch.bfloat16),
-    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
-    "float8_e5m2": (np.uint8, torch.float8_e5m2),
-}
-_TORCH_TO_EXTENDED = {t: (name, st) for name, (st, t) in _EXTENDED_DTYPES.items()}
 
 
 # -- training checkpoints -----------------------------------------------------
@@ -400,8 +399,16 @@ def restore_checkpoint(path: str, target: Any | None = None) -> Any:
     A checkpoint saved collectively (``Shard`` leaves) comes back whole
     without a target; where the target holds a ``Shard``, the result holds
     a ``Shard`` of the same block read from disk.
+
+    A JAX package's orbax checkpoint directory (``_METADATA``, no
+    ``tree.pt``) is read by ``orbax_layout.restore_tree`` and comes back as
+    the JAX function returns it: without a target, dicts and lists of numpy
+    leaves (bfloat16 / float8 as torch tensors); with one, its leaves in the
+    target's containers, after the same leaf count and shape checks.
     """
     local = os.path.abspath(resolve_uri(path))
+    if not os.path.exists(os.path.join(local, _TREE_FILE)) and is_orbax_checkpoint(local):
+        return _restore_orbax(path, local, target)
     raw = _unsnapshot(torch.load(os.path.join(local, _TREE_FILE),
                                  map_location="cpu", weights_only=True))
     if glob.glob(os.path.join(local, "shards_*.pt")):
@@ -410,7 +417,11 @@ def restore_checkpoint(path: str, target: Any | None = None) -> Any:
             raw = _cut(raw, target)
     if target is None:
         return raw
-    got, want = _leaves(_prune_lazy(raw, target)), _leaves(target)
+    _check_leaves(path, _leaves(_prune_lazy(raw, target)), _leaves(target))
+    return raw
+
+
+def _check_leaves(path: str, got: list, want: list) -> None:
     if len(got) != len(want):
         raise ValueError(
             f"checkpoint at {path} has {len(got)} leaves but the restore target "
@@ -420,7 +431,35 @@ def restore_checkpoint(path: str, target: Any | None = None) -> Any:
         if gs != ws:
             raise ValueError(f"checkpoint leaf {gpath} shape {gs} != target shape "
                              f"{ws} at {path}")
-    return raw
+
+
+def _like(target: Any, leaves) -> Any:
+    """``target``'s containers (dicts, lists, tuples, NamedTuples) holding
+    the next leaves of ``leaves`` in ``_leaves`` order (``None`` is no
+    leaf, as in a JAX pytree)."""
+    if target is None:
+        return None
+    if isinstance(target, dict):
+        out = {k: _like(target[k], leaves)
+               for k in sorted(target, key=lambda k: (type(k).__name__, k))}
+        return {k: out[k] for k in target}
+    if isinstance(target, (list, tuple)):
+        items = [_like(v, leaves) for v in target]
+        if hasattr(target, "_fields"):  # a NamedTuple
+            return type(target)(*items)
+        return tuple(items) if isinstance(target, tuple) else items
+    return next(leaves)
+
+
+def _restore_orbax(path: str, local: str, target: Any | None) -> Any:
+    """The orbax branch of ``restore_checkpoint``."""
+    raw = restore_tree(local)
+    if target is None:
+        return raw
+    got, want = ([(p, leaf) for p, leaf in _leaves(tree) if leaf is not None]
+                 for tree in (raw, target))
+    _check_leaves(path, got, want)
+    return _like(target, iter(leaf for _, leaf in got))
 
 
 def _step_dirs(model_dir: str) -> list[tuple[int, str]]:
@@ -578,8 +617,8 @@ def _to_storage(leaf) -> tuple[np.ndarray, str | None]:
     """A leaf as the array npz stores, plus its extended dtype name (or None)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
-        if t.dtype in _TORCH_TO_EXTENDED:
-            name, storage = _TORCH_TO_EXTENDED[t.dtype]
+        if t.dtype in TORCH_TO_EXTENDED:
+            name, storage = TORCH_TO_EXTENDED[t.dtype]
             return t.contiguous().view(torch.uint16 if storage is np.uint16
                                        else torch.uint8).numpy(), name
         return t.numpy(), None
@@ -589,9 +628,38 @@ def _to_storage(leaf) -> tuple[np.ndarray, str | None]:
 def export_bundle(export_dir: str, params: Any, model_config: dict) -> str:
     """Export params + config for serving.  Leaves may be numpy arrays or
     tensors; ``model_config`` must rebuild the apply fn through the model
-    registry (``{"model": "transformer", ...}``)."""
+    registry (``{"model": "transformer", ...}``).
+
+    Params holding ``Shard``s (sharded across the processes of a
+    ``torch.distributed`` world) are exported collectively: every rank
+    calls this with its own blocks, rank 0 writes the whole tensors as the
+    npz layout, and no rank returns before that commit."""
     local = resolve_uri(export_dir)
     os.makedirs(local, exist_ok=True)
+    if has_shards(params):
+        return _export_sharded(local, params, model_config)
+    return _write_bundle(local, params, model_config)
+
+
+def _export_sharded(local: str, params: Any, model_config: dict) -> str:
+    """The params saved collectively (``_collective_save``) into a directory
+    in the bundle; rank 0 reads them back whole, commits the npz bundle and
+    then removes that directory.  No rank returns before that: one that
+    still finds the directory after the barrier knows the commit failed."""
+    blocks = os.path.join(local, ".params.collective")
+    _collective_save(blocks, params)
+    try:
+        if _rank_world()[0] == 0:
+            _write_bundle(local, restore_checkpoint(blocks), model_config)
+            shutil.rmtree(blocks)
+    finally:
+        _barrier()  # committed (or failed) before anyone looks
+    if os.path.exists(blocks):
+        raise RuntimeError(f"the collective export to {local} did not commit")
+    return local
+
+
+def _write_bundle(local: str, params: Any, model_config: dict) -> str:
     flat, extended = {}, {}
     for k, leaf in _flatten_tree(params).items():
         flat[k], name = _to_storage(leaf)
@@ -610,24 +678,26 @@ def export_bundle(export_dir: str, params: Any, model_config: dict) -> str:
 def load_bundle(export_dir: str) -> tuple[Any, dict]:
     """Load an exported bundle -> (params, model_config).  Leaves are numpy
     arrays, except extended-dtype leaves (bfloat16, float8), which are CPU
-    tensors of the matching torch dtype."""
+    tensors of the matching torch dtype.  Without ``params.npz`` the params
+    are the orbax checkpoint at ``<export_dir>/params`` (module docstring)."""
     local = resolve_uri(export_dir)
     with open(os.path.join(local, "bundle.json")) as f:
         config = json.load(f)
     extended = config.pop("_param_dtypes", {})
     npz = os.path.join(local, "params.npz")
-    if not os.path.exists(npz):
-        raise NotImplementedError(
-            f"{export_dir} holds no params.npz: the orbax bundle layout "
-            "(cross-process-sharded params) is not read by the port yet; "
-            "re-export the bundle with fully addressable params")
+    if not os.path.exists(npz):  # the JAX package's orbax layout
+        orbax_dir = os.path.join(local, "params")
+        if not is_orbax_checkpoint(orbax_dir):
+            raise FileNotFoundError(f"{export_dir} holds neither params.npz nor an orbax "
+                                    f"checkpoint at params/ ({orbax_dir})")
+        return restore_tree(orbax_dir), config
     with np.load(npz) as data:
         flat = {k: data[k] for k in data.files}
     for k, name in extended.items():
-        if name not in _EXTENDED_DTYPES:
+        if name not in EXTENDED_DTYPES:
             raise ValueError(f"bundle leaf {k!r} has dtype {name!r}, which the "
-                             f"port cannot read (knows {sorted(_EXTENDED_DTYPES)})")
-        storage, dtype = _EXTENDED_DTYPES[name]
+                             f"port cannot read (knows {sorted(EXTENDED_DTYPES)})")
+        storage, dtype = EXTENDED_DTYPES[name]
         flat[k] = torch.from_numpy(flat[k].view(storage)).view(dtype)
     return _unflatten_tree(flat), config
 

@@ -168,6 +168,27 @@ def test_collective_save_restores_bit_for_bit_and_reads_whole(world):
         np.testing.assert_array_equal(model[name].numpy(), v, err_msg=name)
 
 
+def test_collective_export_bundle_loads_whole_in_both_packages(world):
+    """Every rank called ``export_bundle`` with the model's ``Shard``s: the
+    bundle is the npz layout with whole tensors (no pickled ``Shard``), and
+    the port's and the JAX package's ``load_bundle`` both return each
+    parameter equal, bit for bit, to ``tp.full_parameters``."""
+    from tensorflowonspark_tpu import checkpoint as jckpt
+
+    outs, work = world
+    bundle = work / "bundle"
+    assert sorted(os.listdir(bundle)) == ["bundle.json", "params.npz"]
+    full = {k[len("full/"):]: v for k, v in outs[0].items() if k.startswith("full/")}
+    for load in (tckpt.load_bundle, jckpt.load_bundle):
+        params, config = load(str(bundle))
+        assert config["model"] == "resnet_cifar"
+        model = {param_name(k): np.asarray(v) for k, v in params.items()}
+        assert full and set(full) <= set(model)
+        for name, v in full.items():
+            assert model[name].dtype == v.dtype and model[name].shape == v.shape, name
+            np.testing.assert_array_equal(model[name], v, err_msg=name)
+
+
 def test_two_node_chief_save_collective_regime(tmp_path):
     """``chief_save`` on a 2-node ``torch_distributed`` cluster with fsdp
     state: both nodes write their blocks, the barrier releases after rank

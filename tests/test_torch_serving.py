@@ -184,17 +184,20 @@ def test_port_bundle_reads_in_jax_package(tmp_path):
 
 
 def test_orbax_bundle_layout_raises_clearly(tmp_path):
+    """A bundle with neither ``params.npz`` nor an orbax checkpoint at
+    ``params/`` (here an empty ``params/``) raises ``FileNotFoundError``
+    naming both; the orbax layout itself is read (tests/test_torch_orbax.py)."""
     export = tmp_path / "orbax"
     (export / "params").mkdir(parents=True)
     (export / "bundle.json").write_text(json.dumps({"model": "x"}))
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="neither params.npz nor an orbax"):
         tckpt.load_bundle(str(export))
 
 
 # -- hygiene: the port imports no JAX and nothing of the JAX package ----------
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
-             "tensorflowonspark_tpu")
+             "tensorflowonspark_tpu", "zstandard", "tensorstore")
 
 
 def _port_sources():

@@ -1,7 +1,8 @@
 """One rank of the gloo world that ``tests/test_torch_fsdp.py`` spawns (4 CPU
 processes, one ``dp=2 × fsdp=2`` mesh): the small ResNet's BN train step
 over the mesh, then a collective save of its fsdp state and a restore onto
-a fresh state of the same mesh.  The weights and the global batch come from
+a fresh state of the same mesh, and a collective ``export_bundle`` of the
+model's ``Shard``s into ``<dir>/bundle``.  The weights and the global batch come from
 ``<dir>/bn.pt`` (converted by the test from the JAX package's variables);
 results go to ``<dir>/rank<r>.npz`` (errors to ``<dir>/errors<r>.json``).
 Imports only the port.
@@ -89,6 +90,9 @@ def run(env_dir: str, out: dict) -> None:
     manager.wait()
     for k, v in numpy_tree(tplib.full_parameters(model, mesh)).items():
         out[f"full/{k}"] = v
+    # the same state's model as an inference bundle: a collective of every rank
+    ckptlib.export_bundle(os.path.join(env_dir, "bundle"), tree["model"],
+                          {"model": "resnet_cifar", "depth_blocks": 1, "width": 8})
     fresh, fresh_step = build(mesh, data["weights"])
     restored, at = manager.restore_latest(fresh.tree())
     fresh = fresh.restore(restored)
