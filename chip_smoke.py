@@ -10,32 +10,39 @@ Phases (any failure propagates and the script exits non-zero):
 2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` and
    ``flash_attn_fwd_tf32.cu`` from the checkout (one ``nvcc`` each, in
    parallel) and prints, per instantiation of the two ``wgmma`` kernels (D
-   64/128/256 and the wide route's slices of 64/128/256 x bf16/fp16; f32 as
-   3xTF32 at D 64/128 and the wide route's slices), the registers and
-   spills ptxas reports, the dynamic shared memory, and the counts of
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS
-   (``cuobjdump -sass``), failing if either is missing or a spill shows;
-   and the registers and spills of the 3xTF32 kernel's K/V and Q pre-passes;
+   64/128/256 and the wide route's 192 and 256 columns a consumer x
+   bf16/fp16; f32 as 3xTF32 at D 64/128 and the wide route's 128, 192 and
+   256 columns a consumer), the registers and spills ptxas reports, the
+   dynamic shared memory, and the counts of ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions in the SASS (``cuobjdump -sass``),
+   failing if either is missing, a spill shows, or ptxas serialises a
+   kernel's wgmma; and the registers and spills of the 3xTF32
+   kernel's K/V pre-pass, the wide route's V transpose and the split-KV
+   combine kernels;
 3. kernel — holds every route (``ops.attention._route``) against the plain
    PyTorch version (``chunk_attention``) on the card, O and lse, at the
    serving shape and at edge shapes (ragged tails, one query row,
    key-block-crossing offsets, strided q/k/v views of one packed tensor, a
    tile half fully masked), for bf16/fp16 at D 64/128 and at D=256 (and
-   129-255 padded to it) and on the wide route at D 320 and 512, for f32
-   through the 3xTF32 kernel at D <= 128 (and with every low mantissa bit
-   set) and on its wide route at D 160, 256, 320 and 512 (the head-dim-256
-   f32 step's shape, the head-dim-512 steps' shapes, decode rows), and the
-   zero-padded paths; each case launches its route's kernel once and no other
-   (``ops.attention.LAUNCHES``).  Times each as 50 launches back to back
+   129-255 padded to it) and on the wide route at D 264, 320, 512 and
+   1000, for f32 through the 3xTF32 kernel at D <= 128 (and with every low
+   mantissa bit set) and on its wide route at D 132, 160, 256, 320, 512 and
+   600 (the head-dim-256 f32 step's shape, the head-dim-512 steps' shapes,
+   decode rows, decode rows whose later key ranges see only masked keys),
+   and the zero-padded paths; each case launches its route's kernel once
+   and no other (``ops.attention.LAUNCHES``).  Times each as 50 launches back to back
    between two CUDA events, and the cases of ``REFERENCE_TIMED`` also
    against the plain version and ``F.scaled_dot_product_attention`` (the
    yardstick only: the port never calls it, and the record names the SDPA
    backend that answered); ``bound_ms`` is the function's own (its products
    over the live pairs at the unpadded head dim at its type's tensor-core
    rate, or its bytes), and ``bound_design_ms`` beside it what the route's
-   design does (padding, three TF32 products apiece, Q Kᵀ once per wide
-   slice); for f32 also the pre-passes and the attention kernel apart
-   (``torch.profiler``) and which SDPA backends take f32;
+   design does (padding, three TF32 products apiece, Q Kᵀ once per
+   512-column group of O); on the wide routes the kernels one call runs
+   (``torch.profiler``: one attention kernel, at most one combine, and for
+   f32 V's transpose) with no padding copy; for f32 also the pre-pass, the
+   attention kernel and the combine apart and which SDPA backends take
+   f32;
 4. slice — an LM serving replica at the width of the repo's chip LM
    configuration (vocab 32000, d_model 1024, 8 layers, 8 heads, bf16, 2048
    tokens), random weights from the seed in the JAX package's bundle layout:
@@ -280,8 +287,9 @@ KERNEL_CASES = [
 # the other routes (ops.attention._route), same fields: f32 up to D=128 on
 # the 3xTF32 kernel (padded to 64 or 128), bf16/fp16 at D=256 on the wgmma
 # kernel (129-255 padded to 256) and below 128 padded to 64 or 128, f32
-# above 128 and bf16/fp16 above 256 on the two kernels' wide routes; a name
-# with "low_bits" sets every low mantissa bit of the f32 inputs
+# above 128 and bf16/fp16 above 256 on the two kernels' wide routes at the
+# real head dim; a name with "low_bits" sets every low mantissa bit of the
+# f32 inputs
 GENERIC_CASES = [
     ("f32_serving_shape", 4, 2048, 2048, 8, 128, True, 0, "float32", False),
     ("f32_d64_ragged_kv_offset", 2, 200, 330, 8, 64, True, 37, "float32", False),
@@ -311,16 +319,16 @@ GENERIC_CASES = [
     # the head-dim-256 f32 train step's own shape, and its decode edge
     ("f32_d256", 2, 2048, 2048, 4, 256, True, 0, "float32", False),
     ("f32_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float32", False),
-    # the wide routes: f32 at 160 (padded to 256), 320 and 512, each plain
-    # and as a one-row decode with a kv_offset
+    # the wide routes: f32 at 160, 320 and 512, each plain and as a one-row
+    # decode with a kv_offset
     ("f32_d160_padded", 2, 300, 300, 4, 160, True, 0, "float32", False),
     ("f32_d160_sq_1_causal_decode", 2, 1, 517, 4, 160, True, -516, "float32", False),
     ("f32_d320", 2, 200, 330, 2, 320, True, 5, "float32", False),
     ("f32_d320_sq_1_causal_decode", 2, 1, 517, 2, 320, True, -516, "float32", False),
     ("f32_d512", 2, 2048, 2048, 2, 512, True, 0, "float32", False),
     ("f32_d512_sq_1_causal_decode", 2, 1, 517, 2, 512, True, -516, "float32", False),
-    # bf16/fp16 at 320 (padded to 384: slices 256 + 128) and 512: ragged non-causal, masked
-    # rows, a negative kv_offset, a one-row decode, a packed-qkv view
+    # bf16/fp16 at 320 and 512: ragged non-causal, masked rows, a negative
+    # kv_offset, a one-row decode, a packed-qkv view
     ("bf16_d320_ragged_noncausal", 2, 200, 330, 2, 320, False, 0, "bfloat16", False),
     ("fp16_d320_kv_offset_masked_rows", 1, 100, 70, 2, 320, True, 37, "float16", False),
     ("bf16_d320_kv_offset_negative", 1, 64, 192, 2, 320, True, -64, "bfloat16", False),
@@ -333,12 +341,24 @@ GENERIC_CASES = [
     ("bf16_d512_sq_1_causal_decode", 2, 1, 517, 2, 512, True, -516, "bfloat16", False),
     ("fp16_d512_packed_qkv_view", 2, 512, 512, 2, 512, True, 0, "float16", True),
     ("bf16_d512_consumer_half_masked", 1, 128, 128, 2, 512, True, 64, "bfloat16", False),
+    # bf16 at 320 causal at the long shape; head dims that end in a part box
+    # (bf16 264, f32 132); one-row decodes whose later key ranges see only
+    # masked keys (split-KV: those ranges drop out of the combine); heads
+    # above 512 (column groups of 512; bf16 in two contraction passes)
+    ("bf16_d320_causal", 2, 2048, 2048, 2, 320, True, 0, "bfloat16", False),
+    ("bf16_d264", 2, 150, 190, 2, 264, True, 3, "bfloat16", False),
+    ("f32_d132", 2, 100, 170, 2, 132, True, 5, "float32", False),
+    ("bf16_d512_sq_1_masked_split", 2, 1, 517, 2, 512, True, -300, "bfloat16", False),
+    ("f32_d320_sq_1_masked_split", 2, 1, 517, 2, 320, True, -300, "float32", False),
+    ("fp16_d1000_ragged", 1, 70, 90, 1, 1000, False, 0, "float16", False),
+    ("f32_d600_causal", 1, 70, 90, 1, 600, True, 0, "float32", False),
 ]
 # cases timed against the plain version and the library call as well
 REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d256",
                    "bf16_d256_train_shape", "f32_d256", "bf16_d32_padded",
                    "bf16_d96_padded", "bf16_d512", "f32_d512",
-                   "bf16_d320_ragged_noncausal", "f32_d320")
+                   "bf16_d320_ragged_noncausal", "f32_d320", "bf16_d320_causal",
+                   "bf16_d512_sq_1_causal_decode", "f32_d256_sq_1_causal_decode")
 
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
@@ -598,11 +618,12 @@ FUNCTION_BASIS = ("the function's own products over the live pairs at the "
                   "bf16/fp16, 495 TF32 for f32), or its bytes at 3.35 TB/s")
 # what bound_design_ms bounds: the work of the route's design on this input
 DESIGN_BASIS = {
-    "flash_attn_fwd": "the design: the products at the padded head dim at 989 TFLOP/s",
+    "flash_attn_fwd": "the design: the products at the head dim it runs at at 989 TFLOP/s",
     "flash_attn_fwd_tf32": ("the 3xTF32 design: three TF32 products per f32 "
-                            "product at the padded head dim at 495 TFLOP/s"),
+                            "product at the head dim it runs at at 495 TFLOP/s"),
 }
-WIDE_BASIS = "; on the wide route Q Kᵀ once per {} -column slice of O"
+WIDE_BASIS = ("; on the wide route Q Kᵀ once per query tile, and once more per "
+              "further {}-column group of O")
 
 
 def attention_bound(b, sq, sk, h, d, causal, kv_offset, itemsize,
@@ -618,20 +639,21 @@ def attention_bound(b, sq, sk, h, d, causal, kv_offset, itemsize,
 
 def design_bound(route, b, sq, sk, h, d, padded, causal, kv_offset, itemsize):
     """(bound_ms, bound_by, basis) of ``route``'s design on this input: the
-    products at the ``padded`` head dim, three apiece on the 3xTF32 kernel,
-    and on a wide route Q Kᵀ once per slice of O's columns (the slice width
-    from the kernel's library).  Not the function's bound: this is what the
-    design must do, padding and recomputation included."""
+    products at the ``padded`` head dim (the one ``_route`` runs it at),
+    three apiece on the 3xTF32 kernel, and on a wide route Q Kᵀ once per
+    group of O's columns one CTA covers (the width from the kernel's
+    library: one group up to D=512).  Not the function's bound: this is
+    what the design must do, padding and recomputation included."""
     from tensorflowonspark_torch.ops import attention as att
 
     products = 3 if route == "flash_attn_fwd_tf32" else 1
-    basis, slices = DESIGN_BASIS[route], 1
+    basis, groups = DESIGN_BASIS[route], 1
     if padded not in att._HEAD_DIMS[route]:
-        cols = getattr(att._kernel_lib(route), f"tos_{route}_slice_cols")()
-        slices = -(-padded // cols)
+        cols = getattr(att._kernel_lib(route), f"tos_{route}_cta_cols")()
+        groups = -(-padded // cols)
         basis += WIDE_BASIS.format(cols)
     return (*attention_bound(b, sq, sk, h, padded, causal, kv_offset, itemsize,
-                             PEAK_FLOPS[route], products, slices), basis)
+                             PEAK_FLOPS[route], products, groups), basis)
 
 
 def sdpa_choice(q, k, v, is_causal=True, attn_mask=None) -> str:
@@ -665,15 +687,18 @@ def phase_device():
 
 KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32")
 # the wgmma instantiations: (library, D, dtype name); D "wideW" is the wide
-# route's kernel for slices W columns wide
-WIDE_SLICES = ("wide128", "wide256")
-WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt) for d in (64, 128, 256, *WIDE_SLICES)
+# route's kernel with W columns of O per consumer warpgroup
+WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt) for d in (64, 128, 256, "wide192", "wide256")
                     for dt in ("bfloat16", "float16")]
                    + [("flash_attn_fwd_tf32", d, "float32")
-                      for d in (64, 128, *WIDE_SLICES)])
-# the 3xTF32 kernel's K/V and Q pre-passes, reported by ptxas only
+                      for d in (64, 128, "wide128", "wide192", "wide256")])
+# reported by ptxas only: the 3xTF32 kernel's K/V pre-pass (D <= 128), the
+# wide route's V transpose, and the wide routes' split-KV combine kernels
+COMBINE_KINDS = {"0": ("flash_attn_fwd", "bfloat16"), "1": ("flash_attn_fwd", "float16"),
+                 "2": ("flash_attn_fwd_tf32", "float32")}
 OTHER_INSTANCES = (("flash_attn_fwd_tf32", "split_kv", "float32"),
-                   ("flash_attn_fwd_tf32", "split_q", "float32"))
+                   ("flash_attn_fwd_tf32", "transpose_v", "float32"),
+                   *((lib, "combine", dt) for lib, dt in COMBINE_KINDS.values()))
 
 
 def kernel_key(text: str):
@@ -689,18 +714,26 @@ def kernel_key(text: str):
         return ("flash_attn_fwd_tf32", d, "float32")
     if "split_kv_kernel" in text:
         return OTHER_INSTANCES[0]
-    if "split_q_kernel" in text:
+    if "transpose_v_kernel" in text:
         return OTHER_INSTANCES[1]
+    m = re.search(r"combine_splits_kernelILi(\d)E", text)
+    if m:
+        lib, dt = COMBINE_KINDS[m.group(1)]
+        return (lib, "combine", dt)
     return None
 
 
 def ptxas_report(log_text: str) -> dict:
     """``{kernel_key: {"registers", "spill_stores", "spill_loads"}}`` for
-    each kernel instantiation, from nvcc's ``-Xptxas -v``."""
+    each kernel instantiation, from nvcc's ``-Xptxas -v``, and
+    ``"wgmma_serialized"`` where ptxas says it serialised the kernel's
+    wgmma (its C75xx "Potential Performance Loss" notes)."""
     report, cur = {}, None
     for line in log_text.splitlines():
         key = kernel_key(line)
-        if key and ("Compiling entry" in line or "Function properties" in line):
+        if key and "wgmma.mma_async instructions are serialized" in line:
+            report.setdefault(key, {})["wgmma_serialized"] = True  # C7510-C7520
+        elif key and ("Compiling entry" in line or "Function properties" in line):
             cur = report.setdefault(key, {})
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -738,8 +771,9 @@ def sass_counts(lib_path) -> dict:
 def phase_build() -> dict:
     """Build the two kernels from the checkout (one nvcc each, in
     parallel); print and return what ptxas and the SASS say about each
-    ``wgmma`` instantiation (failing on a spill or a missing HGMMA/UTMALDG)
-    and what ptxas says about the 3xTF32 kernel's pre-passes."""
+    ``wgmma`` instantiation (failing on a spill, a missing HGMMA/UTMALDG or
+    wgmma that ptxas serialises) and what ptxas says about the 3xTF32
+    kernel's pre-passes and the combine kernels."""
     from tensorflowonspark_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -776,6 +810,8 @@ def phase_build() -> dict:
                 raise AssertionError(f"{key}: SASS lacks one of {DESIGN_SASS}")
             if regs.get("spill_stores") or regs.get("spill_loads"):
                 raise AssertionError(f"{key}: ptxas reports spills")
+            if regs.get("wgmma_serialized"):
+                raise AssertionError(f"{key}: ptxas serialises its wgmma")
     return info
 
 
@@ -800,15 +836,18 @@ def kernel_device_ms(fn, reps: int = 10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out: dict = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0)
-            out[e.name] = out.get(e.name, 0.0) + us / 1e3 / reps
+    for _ in range(3):  # a session without its device records is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0)
+                out[e.name] = out.get(e.name, 0.0) + us / 1e3 / reps
+        if out:
+            break
     return out
 
 
@@ -831,6 +870,47 @@ def sdpa_backends(q, k, v, smi: str) -> dict:
         + "; ".join(f"{k} {v:.4f} ms" if isinstance(v, float) else f"{k} {v}"
                     for k, v in out.items()) + f" ({smi})")
     return out
+
+
+def wide_census(q, k, v, causal, off, route, name) -> dict:
+    """What one ``flash_attn_fwd_cuda`` call on a wide route runs, under
+    ``torch.profiler``: the kernels on the card by name and the aten ops
+    on the host.  Fails unless there is one attention kernel, at most one
+    combine kernel, V's transpose on the f32 route and nothing else, no
+    padding or copy of q, k or v where the head dim is whole 16-byte rows,
+    and one count in ``LAUNCHES``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowonspark_torch.ops import attention as att
+
+    # the profiler now and then hands back a session without its device
+    # records (CUPTI's buffer not flushed): such a session is taken again
+    for _ in range(3):
+        before = dict(att.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            att.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
+            torch.cuda.synchronize()
+        launched = {n: c - before[n] for n, c in att.LAUNCHES.items()}
+        kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if kernels:
+            break
+    host_ops = sorted({e.name for e in prof.events() if e.name.startswith("aten::")})
+    attention = sum("flash_fwd" in n for n in kernels)
+    combine = sum("combine_splits" in n for n in kernels)
+    prepass = sum("transpose_v" in n for n in kernels)
+    padded = att._route(q.dtype, q.shape[-1])[1] != q.shape[-1]
+    copies = [op for op in host_ops
+              if op in ("aten::constant_pad_nd", "aten::pad", "aten::copy_", "aten::clone")]
+    if (attention != 1 or combine > 1
+            or prepass != int(route == "flash_attn_fwd_tf32")
+            or len(kernels) != attention + combine + prepass
+            or launched != {n: int(n == route) for n in att.LAUNCHES}
+            or (copies and not padded)):
+        raise AssertionError(f"{name}: one call ran kernels {kernels}, host ops "
+                             f"{host_ops}, launches {launched}")
+    log(f"[kernel] {name}: one call runs {kernels} (host copies: {copies or 'none'})")
+    return {"call_kernels": kernels, "call_copies": copies}
 
 
 def phase_kernel(seed: int, smi: str) -> list[dict]:
@@ -923,16 +1003,24 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
                 f"kernel / library {ms / library_ms:.3f}; bounds {bound_ms:.5f} ms "
                 f"the function's own (share {bound_ms / ms:.3f}), {design_ms:.5f} ms "
                 f"on {design_basis} (share {design_ms / ms:.3f}) ({smi})")
-            if tf32:
+            wide = padded not in att._HEAD_DIMS[route]
+            if wide:
+                rec.update(wide_census(q, k, v, causal, off, route, name))
+                rec["splits"] = att._wide_splits(route, b, h, sq, sk, padded, causal, off)
+            if tf32 or wide:
                 parts = kernel_device_ms(lambda: att.flash_attn_fwd_cuda(
                     q, k, v, causal=causal, kv_offset=off))
-                rec["prepass_ms"] = sum(t for n, t in parts.items() if "split_" in n)
+                rec["prepass_ms"] = sum(t for n, t in parts.items()
+                                        if "split_kv" in n or "transpose_v" in n)
                 rec["attention_kernel_ms"] = sum(
-                    t for n, t in parts.items() if "flash_fwd_tf32" in n)
-                rec["sdpa_backends"] = sdpa_backends(qt, kt, vt, smi)
+                    t for n, t in parts.items() if "flash_fwd" in n)
+                rec["combine_ms"] = sum(t for n, t in parts.items() if "combine_splits" in n)
                 log(f"[kernel] {name}: pre-pass {rec['prepass_ms']:.4f} ms + "
-                    f"attention kernel {rec['attention_kernel_ms']:.4f} ms "
-                    f"(torch.profiler, device time per call) ({smi})")
+                    f"attention kernel {rec['attention_kernel_ms']:.4f} ms + combine "
+                    f"{rec['combine_ms']:.4f} ms (torch.profiler, device time per "
+                    f"call) ({smi})")
+            if tf32:
+                rec["sdpa_backends"] = sdpa_backends(qt, kt, vt, smi)
             timed[name] = rec
             del qt, kt, vt
         del q, k, v, o, lse, po, plse
@@ -949,10 +1037,13 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
                    d256_train_shape=timed["bf16_d256_train_shape"],
                    d32_padded=timed["bf16_d32_padded"],
                    d96_padded=timed["bf16_d96_padded"], d512=timed["bf16_d512"],
-                   d320=timed["bf16_d320_ragged_noncausal"]),
+                   d320=timed["bf16_d320_ragged_noncausal"],
+                   d320_causal=timed["bf16_d320_causal"],
+                   d512_decode=timed["bf16_d512_sq_1_causal_decode"]),
             record("flash_attn_fwd_tf32", "f32_serving_shape",
                    d256=timed["f32_d256"], d512=timed["f32_d512"],
-                   d320=timed["f32_d320"])]
+                   d320=timed["f32_d320"],
+                   d256_decode=timed["f32_d256_sq_1_causal_decode"])]
 
 
 def make_lm_params(cfg: dict, seed: int) -> dict:

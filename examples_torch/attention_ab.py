@@ -10,16 +10,21 @@ on the card:
 - one imports that checkout's ``tensorflowonspark_torch``, builds its
   kernels, and times ``flash_attn_fwd_cuda`` at ``CASES`` (50 calls back
   to back between two CUDA events behind a spin kernel, median of 5
-  windows: ``chip_smoke.time_ms`` of this script's checkout), and reports
-  the registers and spills (ptxas) and HGMMA/UTMALDG counts (SASS) of its
-  ``wgmma`` instantiations, bf16/fp16 and 3xTF32; where the checkout's
-  ``_launch`` takes ``wide``, it also times the wide route at one slice on
-  the cases of ``WIDE_ONE_SLICE`` (bf16 D=256, f32 D=128), held against the
-  plain version, beside the dedicated configuration of that head dim;
-- one runs that checkout's ``examples_torch/llm/train_lm.py`` in f32 at the
-  LM width of ``chip_smoke.py`` (vocab 32000, d_model 1024, 8 layers of 8
-  heads, B=2, S=2048) for ``--steps`` steps after one warm-up step, and
-  reports ms per step from its tokens/s (host clock over the steps).
+  windows, and the host's ms to queue one call: ``chip_smoke.time_ms`` of
+  this script's checkout), each held against the plain version
+  (``chunk_attention``) at ``chip_smoke.py``'s gates and beside
+  ``F.scaled_dot_product_attention`` on the same inputs (the yardstick,
+  with the backend that answered), and reports the registers and spills
+  (ptxas) and HGMMA/UTMALDG counts (SASS) of its ``wgmma``
+  instantiations, bf16/fp16 and 3xTF32; where the checkout's ``_launch``
+  takes ``wide``, it also times the wide route on the cases of
+  ``WIDE_ONE_SLICE`` (bf16 D=256, f32 D=128), held against the plain
+  version, beside the dedicated configuration of that head dim;
+- unless ``--steps 0``, one runs that checkout's
+  ``examples_torch/llm/train_lm.py`` in f32 at the LM width of
+  ``chip_smoke.py`` (vocab 32000, d_model 1024, 8 layers of 8 heads, B=2,
+  S=2048) for ``--steps`` steps after one warm-up step, and reports ms per
+  step from its tokens/s (host clock over the steps).
 
 Each directory's result is one line ``AB <dir> {json}``.  Needs one CUDA
 card; exits non-zero if any child fails.
@@ -36,13 +41,23 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (name, B, S, H, D, dtype name): causal, Sq == Sk, kv_offset 0
-CASES = (("serving_shape", 4, 2048, 8, 128, "bfloat16"),
-         ("head_dim_64", 4, 2048, 16, 64, "bfloat16"),
-         ("f32_serving_shape", 4, 2048, 8, 128, "float32"),
-         ("bf16_d256", 4, 2048, 4, 256, "bfloat16"),
+# (name, B, Sq, Sk, H, D, causal, kv_offset, dtype name)
+CASES = (("serving_shape", 4, 2048, 2048, 8, 128, True, 0, "bfloat16"),
+         ("head_dim_64", 4, 2048, 2048, 16, 64, True, 0, "bfloat16"),
+         ("f32_serving_shape", 4, 2048, 2048, 8, 128, True, 0, "float32"),
+         ("bf16_d256", 4, 2048, 2048, 4, 256, True, 0, "bfloat16"),
          # the head-dim-256 f32 train step's shape
-         ("f32_d256", 2, 2048, 4, 256, "float32"))
+         ("f32_d256", 2, 2048, 2048, 4, 256, True, 0, "float32"),
+         # the wide routes: the long causal shapes of the head-dim-512 steps
+         # and D=320, the ragged shape of chip_smoke.py's kernel phase, and
+         # one-row decodes
+         ("bf16_d512", 2, 2048, 2048, 2, 512, True, 0, "bfloat16"),
+         ("f32_d512", 2, 2048, 2048, 2, 512, True, 0, "float32"),
+         ("bf16_d320_causal", 2, 2048, 2048, 2, 320, True, 0, "bfloat16"),
+         ("bf16_d320_ragged_noncausal", 2, 200, 330, 2, 320, False, 0, "bfloat16"),
+         ("f32_d320", 2, 200, 330, 2, 320, True, 5, "float32"),
+         ("bf16_d512_sq_1_causal_decode", 2, 1, 517, 2, 512, True, -516, "bfloat16"),
+         ("f32_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float32"))
 # cases also run on the wide route at one slice: whether it could take over
 # from the dedicated configuration of the same head dim
 WIDE_ONE_SLICE = ("bf16_d256", "f32_serving_shape")
@@ -68,6 +83,7 @@ def time_kernels(tree: str) -> dict:
     import inspect
 
     import torch
+    import torch.nn.functional as F
 
     from tensorflowonspark_torch.ops import attention as att
     from tensorflowonspark_torch.ops import cuda_build
@@ -75,13 +91,34 @@ def time_kernels(tree: str) -> dict:
     smoke = _chip_smoke()
     out: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, b, s, h, d, dtype_name in CASES:
-        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
-                   .to(getattr(torch, dtype_name)) for _ in range(3))
-        out[name] = smoke.time_ms(lambda: att.flash_attn_fwd_cuda(q, k, v, causal=True))[0]
+    for name, b, sq, sk, h, d, causal, off, dtype_name in CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+                   for s in (sq, sk, sk))
+        tol = smoke.F32_TOL if dtype == torch.float32 else smoke.O_TOL
+        o, lse = att.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
+        po, plse = att.chunk_attention(q, k, v, causal=causal, kv_offset=off)
+        torch.testing.assert_close(o.float(), po.float(), **tol)
+        ms, host_ms = smoke.time_ms(lambda: att.flash_attn_fwd_cuda(
+            q, k, v, causal=causal, kv_offset=off))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = dict(is_causal=causal)
+        if causal and (sq != sk or off):  # SDPA's is_causal is top-left aligned
+            sdpa = dict(attn_mask=att._causal_keep(sq, sk, off, q.device))
+        library_ms = smoke.time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa))[0]
+        bound_ms, bound_by = smoke.attention_bound(
+            b, sq, sk, h, d, causal, off, q.element_size(),
+            smoke.PEAK_FLOPS[att._route(dtype, d)[0]])
+        out[name] = {"ms": ms, "host_ms": host_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_share": bound_ms / ms,
+                     "library_ms": library_ms,
+                     "library_backend": smoke.sdpa_choice(qt, kt, vt, **sdpa),
+                     "max_abs_err": (o.float() - po.float()).abs().max().item(),
+                     "lse_max_abs_err": (lse - plse).abs().max().item()}
+        del o, lse, po, plse, qt, kt, vt
         if name in WIDE_ONE_SLICE and "wide" in inspect.signature(att._launch).parameters:
             route = att._route(q.dtype, d)[0]
-            tol = smoke.F32_TOL if dtype_name == "float32" else smoke.O_TOL
 
             def wide():
                 return att._launch(route, q, k, v, True, d ** -0.5, 0, wide=True)
@@ -122,12 +159,15 @@ def time_train_step(tree: str, steps: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts, in the order to run them")
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=10, help="0: no train step")
     ap.add_argument("--kernels-of", help=argparse.SUPPRESS)  # the child's mode
     args = ap.parse_args()
     if args.kernels_of:
         print(json.dumps(time_kernels(os.path.abspath(args.kernels_of))))
         return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"AB card {smi.stdout.strip()}", flush=True)
     for tree in map(os.path.abspath, args.trees):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), tree,
                               "--kernels-of", tree],
@@ -136,7 +176,8 @@ def main() -> int:
             print(res.stderr[-3000:], file=sys.stderr)
             return 1
         result = json.loads(res.stdout.strip().splitlines()[-1])
-        result["f32_train_step_ms"] = time_train_step(tree, args.steps)
+        if args.steps:
+            result["f32_train_step_ms"] = time_train_step(tree, args.steps)
         print(f"AB {tree} {json.dumps(result)}", flush=True)
     return 0
 

@@ -44,17 +44,18 @@
 // S (32) and P (16) in its 240 registers; shared memory is Q 64 KB + 2
 // stages x (K 32 KB + V 32 KB) = 192 KB.  P V is one m64n256k16 per 16 keys.
 //
-// D > 256 (flash_fwd_wide_kernel, any head dim the wrapper pads to a multiple
-// of 128): O's columns in slices of 256 across a third grid dimension, Q K^T
-// streamed in 64-column boxes through a ring of its own; shared memory 4 x
-// 24 KB of Q/K stages + 2 x 32 KB of V stages = 160 KB.  Bound at B=2,
-// S=2048, H=2, D=512, causal: 17.2 GFLOP, 0.0174 ms at 989 TFLOP/s; sliced in
-// two, 25.8 GFLOP, 0.026 ms; the bytes take 0.010 ms.
+// D > 256 (flash_fwd_wide_kernel, at the real head dim): one tile of 64
+// query rows per CTA, the head dim split between the two consumers (each
+// owns half of Q K^T's contraction and up to 256 columns of O; the partial S
+// tiles summed through shared memory), Q resident, split-KV with a combine
+// kernel on small grids; see the section below.
 //
 // Tensor maps: rank 4, dims (D, S, H, B) with the tensors' own byte
 // strides, box (64, 128 or BK, 1, 1) with 128-byte swizzle, encoded on the
-// host on every call.  A head of D columns is D/64 boxes per tile, so the
-// K-steps of Q K^T cross from one box's base to the next after 4 steps.
+// host on every call (the shared-memory attribute is set once per
+// instantiation, configure_once).  A head of D columns is D/64 boxes per
+// tile, so the K-steps of Q K^T cross from one box's base to the next after
+// 4 steps.
 // The mbarrier, TMA and wgmma helpers are in hopper_pipeline.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -129,6 +130,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                " {" TOS_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
                : TOS_ACC128                                                    \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define TOS_RS_N192(TY)                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY      \
+               " {" TOS_R96 "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n" \
+               : TOS_ACC96                                                    \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 #define TOS_RS_N128(TY)                                                      \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                  \
                "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY     \
@@ -145,12 +152,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
 template <int N, bool kBf16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128 || N == 256, "P V is m64n64, n128 or n256");
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
+                "P V is m64n64, n128, n192 or n256");
   if constexpr (N == 256) {
     if constexpr (kBf16) {
       TOS_RS_N256("bf16");
     } else {
       TOS_RS_N256("f16");
+    }
+  } else if constexpr (N == 192) {
+    if constexpr (kBf16) {
+      TOS_RS_N192("bf16");
+    } else {
+      TOS_RS_N192("f16");
     }
   } else if constexpr (N == 128) {
     if constexpr (kBf16) {
@@ -364,39 +378,73 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// The wide route: D > 256 (the wrapper pads it to a multiple of 128, as the
-// TPU kernel pads its head dim).  Q (128 rows x D) and the K/V ring do not
-// fit one CTA's shared memory beside each other, nor O a consumer thread's
-// registers, so the grid gains a dimension over slices of O's columns,
-// W = kSliceCols = 256 wide (the D=256 configuration's key tile of 64 and
-// its P V m64n256k16; the last slice 128 wide where D is an odd multiple of
-// 128), and each CTA
-// streams the contraction of S = Q K^T through a ring of 4 stages, one
-// 64-column box of Q (128 rows) and of K (64 keys) each, 24 KB.  Every
-// slice computes the same S, m and l in the same order, then O += P V
-// against its own slice of V only, from a second ring of 2 stages (W/64
-// boxes of 64 keys).  Slice 0 alone writes lse.  Q K^T is recomputed once
-// per slice.  Within a key block a consumer keeps one chunk's wgmma group in
-// flight while it releases the stage of the chunk before.  The epilogue
-// stages O over the Q/K ring once both consumers are past their last wgmma.
+// The wide route: D > 256, at the real head dim (TMA zero-fills the columns
+// of a box past D; the wrapper pads only a D that is not a multiple of 8,
+// whose rows a tensor map cannot describe).  O (64 rows x D in f32) does not
+// fit one consumer's registers, so the CTA's two consumer warpgroups share
+// one tile of 64 query rows and split the head dim between them: each owns
+// W columns of O (W = 192 up to D = 384, else 256), and each computes the
+// partial S over its half of the head dim's 64-column boxes.  The two
+// partial S tiles (64 x 64 f32, 16 KB each) are summed through shared
+// memory, in the same order in both, so both hold the same S, run the same
+// online softmax (the same m, l and P), and run P V on their own columns.
+// So Q K^T is computed once per query tile: of the three designs (the
+// contraction split between the consumers; a 2-CTA cluster sharing S or P
+// through distributed shared memory; the slices kept with Q and K
+// multicast), this is the only one that neither recomputes S nor needs a
+// cluster's barriers, and its exchange costs 2 x 16 KB of shared memory and
+// two named barriers a key block.
+//
+// Q stays resident: its 64 rows at up to 512 columns are 64 KB, loaded once,
+// beside one stage of K and one of V (64 keys x up to 512 columns, 64 KB
+// each; two K stages at W = 192) and the exchange buffer: 224 KB.  One
+// producer thread loads Q and fills the K ring, another the V ring, so
+// neither ring's next load waits behind the other's.  Above
+// D = 512 the contraction runs in passes of 512 columns (Q reloaded per pass
+// and key block) and the grid's third dimension holds groups of 512 columns
+// of O, each recomputing S: no repo model has such a head.
+//
+// Split-KV: where the grid would leave most of the card idle (few heads,
+// short Sq, decode), or a causal grid is one wave whose longest tiles would
+// run alone at its end, the wrapper asks for `splits` key ranges
+// (ops/attention.py:_wide_splits states the rule) and every query tile cuts
+// its own key blocks into ranges of ceil(the longest tile's blocks /
+// splits) (tile_ranges, hopper_pipeline.cuh).  A tile of one range writes O
+// directly; in a tile of more, each range's CTA writes its O (normalised
+// over its keys, f32) and lse to scratch and combine_splits_kernel merges
+// them: one more launch.
+//
+// Bound at B=2, S=2048, H=2, D=512, causal: 17.2 GFLOP, 0.0174 ms at 989
+// TFLOP/s, against 8.4 MB of q/k/v/O/lse, 0.0025 ms at 3.35 TB/s.  A
+// 64-row tile moves K and V (128 KB a block of 64 keys at D=512) into shared
+// memory for 8.4 MFLOP, and its wgmma read Q, K, V and the exchange from
+// there: shared-memory traffic is the likely limit (a variant that
+// multicast each K and V stage to a 2-CTA cluster, halving the L2 reads,
+// ran slower: PERF.md, section 6).  The longest causal tile (all 2048 keys)
+// alone takes 0.036 ms at one SM's share of the peak rate.  No ping-pong: a
+// second S in registers beside O (128 f32 at W=256), S and P does not fit
+// the consumers' 240 registers.
 // ---------------------------------------------------------------------------
-constexpr int kSliceCols = 256;
-constexpr int kWideBlockK = 64;
-constexpr int kWideQKStages = 4;
-constexpr int kWideVStages = 2;
+constexpr int kWideRows = 64;       // query rows per CTA: both consumers
+constexpr int kWideBlockK = 64;     // keys per key block
+constexpr int kWideCtaCols = 512;   // most O columns of one CTA: 2 x 256
 
 template <int W>
 struct WideCfg {
-  static constexpr int kKBoxBytes = kWideBlockK * 128;             // 8 KB
-  static constexpr int kQKStageBytes = kBoxBytes + kKBoxBytes;     // 24 KB
-  static constexpr int kVStageBytes = (W / kBoxCols) * kKBoxBytes;  // 32 KB at W=256
-  static constexpr int kVOffset = kWideQKStages * kQKStageBytes;
-  static constexpr int kBarOffset = kVOffset + kWideVStages * kVStageBytes;
+  static constexpr int kBoxes = W / kBoxCols;            // O boxes per consumer
+  static constexpr int kPassBoxes = 2 * kBoxes;          // Q/K boxes per pass
+  static constexpr int kQBoxBytes = kWideRows * 128;     // 8 KB
+  static constexpr int kKVBoxBytes = kWideBlockK * 128;  // 8 KB
+  static constexpr int kKStageBytes = kPassBoxes * kKVBoxBytes;
+  static constexpr int kKStages = W == 192 ? 2 : 1;
+  static constexpr int kKOffset = kPassBoxes * kQBoxBytes;
+  static constexpr int kVOffset = kKOffset + kKStages * kKStageBytes;
+  static constexpr int kXOffset = kVOffset + kPassBoxes * kKVBoxBytes;
+  static constexpr int kXBytes = kWideRows * kWideBlockK * 4;  // one partial S
+  static constexpr int kBarOffset = kXOffset + 2 * kXBytes;
   // tiles, 1024 bytes to align the base for the swizzle, the mbarriers
-  static constexpr int kSmemBytes =
-      kBarOffset + 1024 + 8 * 2 * (kWideQKStages + kWideVStages);
-  static_assert((W / kBoxCols) * kBoxBytes <= kVOffset,
-                "the epilogue stages O (128 rows x W) over the Q/K ring");
+  static constexpr int kSmemBytes = kBarOffset + 1024 + 8 * (2 * kKStages + 4);
+  static_assert(kSmemBytes <= 232448, "a CTA has 227 KB of shared memory");
 };
 
 template <int W, bool kBf16>
@@ -404,94 +452,125 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      uint16_t* __restrict__ o, float* __restrict__ lse, int H,
-                      int Sq, int Sk, int nchunks, int col0, int64_t o_sb,
-                      int64_t o_ss, int64_t o_sh, int causal, int kv_offset,
-                      float scale_log2) {
+                      uint16_t* __restrict__ o, float* __restrict__ lse,
+                      float* __restrict__ o_part, float* __restrict__ lse_part,
+                      int B, int H, int Sq, int Sk, int D, int splits,
+                      int64_t o_sb, int64_t o_ss, int64_t o_sh, int causal,
+                      int kv_offset, float scale_log2) {
   using C = WideCfg<W>;
-  constexpr int QS = kWideQKStages;
-  constexpr int VS = kWideVStages;
+  constexpr int NB = C::kBoxes;
+  constexpr int PB = C::kPassBoxes;
+  constexpr int KS = C::kKStages;
   constexpr int BK = kWideBlockK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms 1024-aligned
-  uint8_t* const sbase = smem_raw + (base - raw);
-  const uint32_t v_ring = base + C::kVOffset;
-  // qk_full[QS], qk_empty[QS], v_full[VS], v_empty[VS]
-  const uint32_t qk_full = base + C::kBarOffset;
-  const uint32_t qk_empty = qk_full + 8 * QS;
-  const uint32_t v_full = qk_empty + 8 * QS;
-  const uint32_t v_empty = v_full + 8 * VS;
+  float* const xch = reinterpret_cast<float*>(smem_raw + (base - raw) + C::kXOffset);
+  const uint32_t q_s = base;
+  const uint32_t k_ring = base + C::kKOffset;
+  const uint32_t v_s = base + C::kVOffset;
+  // q_full, q_empty, k_full[KS], k_empty[KS], v_full, v_empty
+  const uint32_t q_full = base + C::kBarOffset;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t k_full = q_empty + 8;
+  const uint32_t k_empty = k_full + 8 * KS;
+  const uint32_t v_full = k_empty + 8 * KS;
+  const uint32_t v_empty = v_full + 8;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest first
-  const int c0 = col0 + blockIdx.z * W;                   // this CTA's columns
-  // Keys past the last one any row of this tile may see are never loaded.
-  int kend = Sk;
-  if (causal) {
-    const int qlast = min(q0 + kBlockQ, Sq) - 1;
-    kend = min(Sk, max(0, qlast - kv_offset + 1));
-  }
-  const int nkb = (kend + BK - 1) / BK;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWideRows;  // longest first
+  const int split = blockIdx.z % splits;
+  const int col0 = (blockIdx.z / splits) * 2 * W;  // this CTA's first column
+  // This tile's key ranges; a CTA of a range the tile does not have exits.
+  const TileRanges ranges = tile_ranges(q0, kWideRows, Sq, Sk, causal, kv_offset,
+                                        kWideBlockK, splits);
+  if (split >= ranges.count) return;
+  const bool part = ranges.count > 1;  // O to o_part, merged by the combine
+  const int nbox = (D + kBoxCols - 1) / kBoxCols;  // boxes of the contraction
+  const int passes = (nbox + PB - 1) / PB;
+  const bool q_once = passes == 1;  // Q resident for the whole key loop
+  // This range's key blocks, within those any row of the tile may see.
+  const int kb0 = split * ranges.per;
+  const int nkb = max(0, min(kb0 + ranges.per, ranges.blocks) - kb0);
+  // O boxes of this CTA that start below D: only those are loaded
+  const int vboxes = min(PB, (D - col0 + kBoxCols - 1) / kBoxCols);
 
   if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kEmptyArrivals);
 #pragma unroll
-    for (int s = 0; s < QS; ++s) {
-      mbar_init(qk_full + 8 * s, 1);
-      mbar_init(qk_empty + 8 * s, kEmptyArrivals);
+    for (int s = 0; s < KS; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kEmptyArrivals);
     }
-#pragma unroll
-    for (int s = 0; s < VS; ++s) {
-      mbar_init(v_full + 8 * s, 1);
-      mbar_init(v_empty + 8 * s, kEmptyArrivals);
-    }
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, kEmptyArrivals);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  // the warpgroup, broadcast from lane 0 so that ptxas knows it is uniform:
+  // the consumers' branches around wgmma (their boxes, chunks, units)
+  // derive from it, and a branch it cannot prove uniform serialises wgmma
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (wg == 0) {
-    // ---------------- producer: one thread keeps both rings full ---------
+    // ---------------- producers: lane 0 of warp 0 loads Q and fills the K
+    // ring, lane 0 of warp 1 fills the V ring, each in its own order -------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
     if (threadIdx.x == 0 && nkb > 0) {
       prefetch_map(&tm_q);
       prefetch_map(&tm_k);
-      prefetch_map(&tm_v);
-      int it = 0;  // Q/K stages filled, over (key block, chunk)
-      for (int kb = 0; kb < nkb; ++kb) {
-        for (int c = 0; c < nchunks; ++c, ++it) {
-          const int s = it % QS;
-          const uint32_t full = qk_full + 8 * s;
-          mbar_wait(qk_empty + 8 * s, ((it / QS) & 1) ^ 1);  // stage released
-          mbar_expect_tx(full, C::kQKStageBytes);
-          const uint32_t st = base + s * C::kQKStageBytes;
-          tma_load(st, &tm_q, full, c * kBoxCols, q0, h, b);
-          tma_load(st + kBoxBytes, &tm_k, full, c * kBoxCols, kb * BK, h, b);
+      int qi = 0;  // Q loads
+      int ki = 0;  // K stages filled, over (key block, pass)
+      for (int j = 0; j < nkb; ++j) {
+        const int k0 = (kb0 + j) * BK;
+        for (int p = 0; p < passes; ++p, ++ki) {
+          const int x0 = p * PB;
+          const int pb = min(PB, nbox - x0);
+          if (!q_once || j == 0) {
+            mbar_wait(q_empty, (qi & 1) ^ 1);  // the last pass released Q
+            mbar_expect_tx(q_full, pb * C::kQBoxBytes);
+            for (int x = 0; x < pb; ++x)
+              tma_load(q_s + x * C::kQBoxBytes, &tm_q, q_full, (x0 + x) * kBoxCols,
+                       q0, h, b);
+            ++qi;
+          }
+          const int s = ki % KS;
+          mbar_wait(k_empty + 8 * s, ((ki / KS) & 1) ^ 1);  // stage released
+          mbar_expect_tx(k_full + 8 * s, pb * C::kKVBoxBytes);
+          const uint32_t ks = k_ring + s * C::kKStageBytes;
+          for (int x = 0; x < pb; ++x)
+            tma_load(ks + x * C::kKVBoxBytes, &tm_k, k_full + 8 * s,
+                     (x0 + x) * kBoxCols, k0, h, b);
         }
-        const int sv = kb % VS;
-        const uint32_t full = v_full + 8 * sv;
-        mbar_wait(v_empty + 8 * sv, ((kb / VS) & 1) ^ 1);
-        mbar_expect_tx(full, C::kVStageBytes);
-        const uint32_t vs = v_ring + sv * C::kVStageBytes;
-#pragma unroll
-        for (int x = 0; x < W / kBoxCols; ++x)
-          tma_load(vs + x * C::kKBoxBytes, &tm_v, full, c0 + x * kBoxCols, kb * BK,
-                   h, b);
+      }
+    } else if (threadIdx.x == 32 && nkb > 0) {
+      prefetch_map(&tm_v);
+      for (int j = 0; j < nkb; ++j) {
+        mbar_wait(v_empty, (j & 1) ^ 1);
+        mbar_expect_tx(v_full, vboxes * C::kKVBoxBytes);
+        for (int x = 0; x < vboxes; ++x)
+          tma_load(v_s + x * C::kKVBoxBytes, &tm_v, v_full, col0 + x * kBoxCols,
+                   (kb0 + j) * BK, h, b);
       }
     }
   } else {
-    // ---------------- consumers: 64 query rows each ---------------------
+    // ---------------- consumers: the tile's 64 rows, W columns each ------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
-    const int cw = wg - 1;
+    const int c = wg - 1;
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane / 4;
     const int t = lane % 4;
-    const int qw0 = q0 + 64 * cw;          // this consumer's first row
-    const int r0 = qw0 + 16 * warp + g;    // this thread's rows: r0, r0 + 8
+    const int r0 = q0 + 16 * warp + g;  // this thread's rows: r0, r0 + 8
+    const int my_col0 = col0 + c * W;   // this consumer's first column of O
+    const bool has_cols = my_col0 < D;
+    float4* const x_own = reinterpret_cast<float4*>(xch) + c * (C::kXBytes / 16);
+    const float4* const x_other =
+        reinterpret_cast<const float4*>(xch) + (1 - c) * (C::kXBytes / 16);
 
     float acc[W / 2];
 #pragma unroll
@@ -499,40 +578,78 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {kNegInf, kNegInf};  // running max of the raw logits
     float l[2] = {0.f, 0.f};          // this thread's share of the row sums
 
-    int it = 0;  // Q/K stages consumed
-    for (int kb = 0; kb < nkb; ++kb) {
-      const int k0 = kb * BK;
+    int qi = 0;  // Q loads consumed
+    int ki = 0;  // K stages consumed
+    for (int j = 0; j < nkb; ++j) {
+      const int k0 = (kb0 + j) * BK;
 
-      // S = Q K^T chunk by chunk: 4 k-steps of 16 per 64-column box.
+      // Partial S = Q K^T over this consumer's boxes of each pass: 4 k-steps
+      // of 16 per 64-column box.
       float sc[BK / 2];
-      for (int c = 0; c < nchunks; ++c, ++it) {
-        const int s = it % QS;
-        mbar_wait(qk_full + 8 * s, (it / QS) & 1);
-        const uint32_t q_rows = base + s * C::kQKStageBytes + cw * 64 * 128;
-        const uint32_t ks = base + s * C::kQKStageBytes + kBoxBytes;
-        wgmma_fence();
+      int started = 0;
+      for (int p = 0; p < passes; ++p, ++ki) {
+        const int pb = min(PB, nbox - p * PB);
+        const int hb = (pb + 1) / 2;
+        const int xa = c * hb;
+        const int xb = min(pb, xa + hb);
+        if (!q_once || j == 0) {
+          mbar_wait(q_full, qi & 1);
+          ++qi;
+        }
+        const int s = ki % KS;
+        mbar_wait(k_full + 8 * s, (ki / KS) & 1);
+        const uint32_t ks = k_ring + s * C::kKStageBytes;
+        if (xa < xb) {
+          pin(sc);
+          wgmma_fence();
+          for (int x = xa; x < xb; ++x) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<BK, kBf16>(sc, smem_desc(q_rows + kk * 32, 16, 1024),
-                              smem_desc(ks + kk * 32, 16, 1024), c > 0 || kk > 0);
-        wgmma_commit();
-        if (c > 0) {  // the chunk before has completed: release its stage
-          wgmma_wait<1>();
-          __syncwarp();
-          if (lane == 0) mbar_arrive(qk_empty + 8 * ((it - 1) % QS));
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss<BK, kBf16>(sc, smem_desc(q_s + x * C::kQBoxBytes + kk * 32, 16, 1024),
+                                  smem_desc(ks + x * C::kKVBoxBytes + kk * 32, 16, 1024),
+                                  started | (kk > 0));
+            started = 1;
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin(sc);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(k_empty + 8 * s);  // release the K stage
+          if (!q_once) mbar_arrive(q_empty);
         }
       }
-      wgmma_wait<0>();
-      pin(sc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(qk_empty + 8 * ((it - 1) % QS));
+      if (!started) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      }
+
+      // The exchange: S = consumer 0's partial + consumer 1's, the same sum
+      // (IEEE addition commutes) in both.  Barrier 1: the other consumer has
+      // read this one's last partial; barrier 2: both partials are written.
+      if (j > 0) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+        x_own[i * 128 + tid] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2],
+                                           sc[4 * i + 3]);
+      asm volatile("bar.sync 2, 256;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        const float4 y = x_other[i * 128 + tid];
+        sc[4 * i] += y.x;
+        sc[4 * i + 1] += y.y;
+        sc[4 * i + 2] += y.z;
+        sc[4 * i + 3] += y.w;
+      }
 
       // The mask (on blocks that straddle the diagonal or the Sk tail) and
       // the online softmax: S becomes P; m, l and O are rescaled.
-      online_softmax_block<BK>(sc, acc, m, l, k0, qw0, r0, t, Sk, causal,
-                               kv_offset, scale_log2);
+      online_softmax_block<BK>(sc, acc, m, l, k0, q0, r0, t, Sk, causal, kv_offset,
+                               scale_log2);
 
-      // O[:, slice] += P V[:, slice]: BK/16 k-steps of 16 keys.
+      // O[:, my columns] += P V[:, my columns]: BK/16 k-steps of 16 keys, P
+      // from the S accumulator, V MN-major over this consumer's boxes.
       uint32_t pa[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
@@ -541,59 +658,58 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
         pa[kk][2] = pack2<kBf16>(sc[8 * kk + 4], sc[8 * kk + 5]);
         pa[kk][3] = pack2<kBf16>(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
-      const int sv = kb % VS;
-      mbar_wait(v_full + 8 * sv, (kb / VS) & 1);
-      const uint32_t vs = v_ring + sv * C::kVStageBytes;
-      pin(acc);
-      wgmma_fence();
+      mbar_wait(v_full, j & 1);
+      if (has_cols) {
+        const uint32_t vs = v_s + c * NB * C::kKVBoxBytes;
+        pin(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<W, kBf16>(acc, pa[kk],
-                           smem_desc(vs + kk * 16 * 128, C::kKBoxBytes, 1024));
-      wgmma_commit();
-      wgmma_wait_all();
-      pin(acc);
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<W, kBf16>(acc, pa[kk],
+                             smem_desc(vs + kk * 16 * 128, C::kKVBoxBytes, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(acc);
+      }
       __syncwarp();
-      if (lane == 0) mbar_arrive(v_empty + 8 * sv);  // release the V stage
+      if (lane == 0) mbar_arrive(v_empty);  // release the V stage
     }
 
-    // Epilogue: once both consumers are past their last wgmma on the ring,
-    // normalise, stage in this consumer's rows over the ring, store rows.
-    asm volatile("bar.sync 3, 256;\n" ::: "memory");
-    uint8_t* const stage = sbase + cw * 64 * 128;
+    // Epilogue from registers: O / l at this consumer's columns below D (in
+    // the input type, or f32 to this split's slot of o_part); consumer 0 of
+    // the first column group writes lse.
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       const float lsafe = fmaxf(l[i], 1e-30f);
       const float inv = 1.f / lsafe;
-      const int rl = 16 * warp + g + 8 * i;  // row within the consumer's 64
-#pragma unroll
-      for (int n = 0; n < W / 8; ++n) {
-        const int c = n % 8;  // 16-byte chunk within the 128-byte box row
-        *reinterpret_cast<uint32_t*>(stage + (n / 8) * kBoxBytes + rl * 128 +
-                                     ((c ^ (rl & 7)) << 4) + 4 * t) =
-            pack2<kBf16>(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
-      }
+      const float row_lse =
+          l[i] > 0.f ? fmaxf(m[i], kHalfNegInf) * (scale_log2 * kLn2) + logf(lsafe)
+                     : kNegInf;
       const int row = r0 + 8 * i;
-      if (t == 0 && row < Sq && c0 == 0) {
-        lse[(static_cast<int64_t>(b) * Sq + row) * H + h] =
-            l[i] > 0.f ? fmaxf(m[i], kHalfNegInf) * (scale_log2 * kLn2) + logf(lsafe)
-                       : kNegInf;
-      }
-    }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-    constexpr int kChunks = W / 8;  // 16-byte chunks per row
-    uint16_t* const obase = o + b * o_sb + h * o_sh + c0;
-#pragma unroll 4
-    for (int idx = tid; idx < 64 * kChunks; idx += 128) {
-      const int rl = idx / kChunks;
-      const int cc = idx % kChunks;
-      const int row = qw0 + rl;
-      if (row < Sq) {
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            stage + (cc / 8) * kBoxBytes + rl * 128 + (((cc % 8) ^ (rl & 7)) << 4));
-        *reinterpret_cast<uint4*>(obase + row * o_ss + cc * 8) = v;
+      const bool writes_lse = c == 0 && t == 0 && col0 == 0;
+      if (row < Sq && !part) {
+        uint16_t* const orow = o + b * o_sb + row * o_ss + h * o_sh;
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) {
+          const int col = my_col0 + 8 * n + 2 * t;
+          if (col < D)
+            *reinterpret_cast<uint32_t*>(orow + col) =
+                pack2<kBf16>(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+        }
+        if (writes_lse) lse[(static_cast<int64_t>(b) * Sq + row) * H + h] = row_lse;
+      } else if (row < Sq) {
+        const int64_t r = ((static_cast<int64_t>(split) * B + b) * Sq + row) * H + h;
+        float* const orow = o_part + r * D;
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) {
+          const int col = my_col0 + 8 * n + 2 * t;
+          if (col < D)
+            *reinterpret_cast<float2*>(orow + col) =
+                make_float2(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+        }
+        if (writes_lse) lse_part[r] = row_lse;
       }
     }
   }
@@ -605,8 +721,9 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // Map of a [B, S, H, D] operand read through its element strides
 // (batch, seq, head): dims (D, S, H, B), box (64, rows, 1, 1), 128-byte
-// swizzle, rows out of bounds zero-filled.  A dimension of size 1 is never
-// stepped over, so its stride is set to a legal 16 bytes.
+// swizzle, elements out of bounds (rows past S, columns past D)
+// zero-filled.  A dimension of size 1 is never stepped over, so its stride
+// is set to a legal 16 bytes.
 bool encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int S,
                 int H, int D, const int64_t* st, int rows) {
   const int s = S > 0 ? S : 1;  // Sk = 0: nothing is loaded, the map stays legal
@@ -622,6 +739,10 @@ bool encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int S,
                        ptr, dims, strides, box);
 }
 
+// setmaxnreg moves registers within the CTA's pool: the consumers' 240 are
+// only there if the launch reserves 24*128 + 240*256 = 168 * 384.
+constexpr int kLaunchRegs = kProducerRegs * 128 + kConsumerRegs * 256;
+
 template <int D, bool kBf16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Sk, int H, const int64_t* st,
@@ -635,15 +756,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   auto* kernel = flash_fwd_kernel<D, kBf16>;
   constexpr int smem = Cfg<D>::kSmemBytes;
-  // setmaxnreg moves registers within the CTA's pool: the consumers' 240
-  // are only there if the launch reserves 24*128 + 240*256 = 168 * 384.
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  if (attr.numRegs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
-    return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  cudaError_t err = configure_once(reinterpret_cast<const void*>(kernel), smem,
+                                   kLaunchRegs, kThreads);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -663,56 +777,54 @@ cudaError_t launch_typed(bool bf16, const void* q, const void* k, const void* v,
                                  kv_offset, sm_scale, s);
 }
 
-// The wide kernel over `slices` slices of O's columns, W wide, the first at
-// column col0.
+// The wide kernel with W columns of O per consumer, then, over `splits` key
+// ranges, the combine.
 template <int W, bool kBf16>
-cudaError_t launch_slices(const CUtensorMap& mq, const CUtensorMap& mk,
-                          const CUtensorMap& mv, void* o, float* lse, int B,
-                          int Sq, int Sk, int H, int D, int slices, int col0,
-                          const int64_t* st, int causal, int kv_offset,
-                          float sm_scale, cudaStream_t stream) {
+cudaError_t launch_wide_w(const CUtensorMap& mq, const CUtensorMap& mk,
+                          const CUtensorMap& mv, void* o, float* lse,
+                          float* scratch, int B, int Sq, int Sk, int H, int D,
+                          int splits, const int64_t* st, int causal,
+                          int kv_offset, float sm_scale, cudaStream_t stream) {
   auto* kernel = flash_fwd_wide_kernel<W, kBf16>;
   constexpr int smem = WideCfg<W>::kSmemBytes;
-  // setmaxnreg moves registers within the CTA's pool (see launch())
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  cudaError_t err = configure_once(reinterpret_cast<const void*>(kernel), smem,
+                                   kLaunchRegs, kThreads);
   if (err != cudaSuccess) return err;
-  if (attr.numRegs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
-    return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ, slices);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<uint16_t*>(o), lse, H, Sq, Sk, D / kBoxCols, col0,
-      st[9], st[10], st[11], causal, kv_offset, sm_scale * kLog2e);
-  return cudaGetLastError();
+  const int tiles = (Sq + kWideRows - 1) / kWideRows;
+  const int groups = (D + 2 * W - 1) / (2 * W);
+  if (tiles > 65535 || groups * splits > 65535) return cudaErrorInvalidValue;
+  float* const o_part = splits > 1 ? scratch : nullptr;
+  float* const lse_part =
+      splits > 1 ? scratch + static_cast<int64_t>(splits) * B * Sq * H * D : nullptr;
+  kernel<<<dim3(B * H, tiles, groups * splits), kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<uint16_t*>(o), lse, o_part, lse_part, B, H, Sq, Sk,
+      D, splits, st[9], st[10], st[11], causal, kv_offset, sm_scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_combine<kBf16 ? kOutBf16 : kOutFp16>(o_part, lse_part, o, lse, B, Sq, Sk,
+                                                     H, D, splits, causal, kv_offset,
+                                                     kWideRows, kWideBlockK, st, stream);
 }
 
-// The wide route at D, a multiple of 128: slices of 256 columns, then one of
-// 128 for the rest.
+// The wide route at D, a multiple of 8.
 template <bool kBf16>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int B, int Sq, int Sk, int H, int D,
-                        const int64_t* st, int causal, int kv_offset,
-                        float sm_scale, cudaStream_t stream) {
-  if (D <= 0 || D % 128 != 0) return cudaErrorInvalidValue;
+                        float* lse, float* scratch, int B, int Sq, int Sk, int H,
+                        int D, const int64_t* st, int causal, int kv_offset,
+                        float sm_scale, int splits, cudaStream_t stream) {
+  if (D <= 0 || D % 8 != 0 || splits < 1 || splits > kMaxSplits ||
+      (splits > 1 && scratch == nullptr))
+    return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(&mq, q, kBf16, B, Sq, H, D, st, kBlockQ) ||
+  if (!encode_map(&mq, q, kBf16, B, Sq, H, D, st, kWideRows) ||
       !encode_map(&mk, k, kBf16, B, Sk, H, D, st + 3, kWideBlockK) ||
       !encode_map(&mv, v, kBf16, B, Sk, H, D, st + 6, kWideBlockK))
     return cudaErrorInvalidValue;
-  const int full = D / kSliceCols;
-  cudaError_t err = cudaSuccess;
-  if (full > 0)
-    err = launch_slices<kSliceCols, kBf16>(mq, mk, mv, o, lse, B, Sq, Sk, H, D,
-                                           full, 0, st, causal, kv_offset,
-                                           sm_scale, stream);
-  if (err == cudaSuccess && D % kSliceCols != 0)
-    err = launch_slices<128, kBf16>(mq, mk, mv, o, lse, B, Sq, Sk, H, D, 1,
-                                    full * kSliceCols, st, causal, kv_offset,
-                                    sm_scale, stream);
-  return err;
+  if (D <= 384)
+    return launch_wide_w<192, kBf16>(mq, mk, mv, o, lse, scratch, B, Sq, Sk, H, D,
+                                     splits, st, causal, kv_offset, sm_scale, stream);
+  return launch_wide_w<256, kBf16>(mq, mk, mv, o, lse, scratch, B, Sq, Sk, H, D,
+                                   splits, st, causal, kv_offset, sm_scale, stream);
 }
 
 }  // namespace
@@ -720,28 +832,33 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
 // C entry point, loaded with ctypes.  `strides` holds 12 element strides:
 // (batch, seq, head) for q, k, v and o, in that order; the head_dim stride
 // is 1, every other stride a multiple of 8 and every base 16-byte aligned.
-// `wide` = 0: D is 64, 128 or 256; `wide` = 1: the wide route, D a multiple
-// of 128 (the wrapper takes it above 256); dtype: 0 = bf16, 1 = fp16.  Returns
-// cudaGetLastError() after the launch (0 on success), or
+// `wide` = 0: D is 64, 128 or 256; `wide` = 1: the wide route at D, a
+// multiple of 8 (the wrapper takes it above 256), over `splits` key ranges
+// (1 to 16; above 1 the split partials go to `scratch`, which holds
+// tos_flash_attn_fwd_scratch_bytes(...) bytes, 16-byte aligned, and a
+// combine kernel follows); dtype: 0 = bf16, 1 = fp16.  Returns
+// cudaGetLastError() after the launches (0 on success), or
 // cudaErrorInvalidValue for an input it does not take or a tensor map
 // cuTensorMapEncodeTiled refuses.  Launches on `stream`, does not
 // synchronise, and allocates nothing.
 extern "C" int tos_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                  void* o, void* lse, int B, int Sq, int Sk,
-                                  int H, int D, const int64_t* strides,
-                                  int causal, int kv_offset, float sm_scale,
-                                  int wide, int dtype, void* stream) {
+                                  void* o, void* lse, void* scratch, int B,
+                                  int Sq, int Sk, int H, int D,
+                                  const int64_t* strides, int causal,
+                                  int kv_offset, float sm_scale, int wide,
+                                  int splits, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;  // nothing to launch
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  float* sc = static_cast<float*>(scratch);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf16 = dtype == 0;
   cudaError_t err;
   if (wide) {
-    err = bf16 ? launch_wide<true>(q, k, v, o, l, B, Sq, Sk, H, D, strides,
-                                   causal, kv_offset, sm_scale, s)
-               : launch_wide<false>(q, k, v, o, l, B, Sq, Sk, H, D, strides,
-                                    causal, kv_offset, sm_scale, s);
+    err = bf16 ? launch_wide<true>(q, k, v, o, l, sc, B, Sq, Sk, H, D, strides,
+                                   causal, kv_offset, sm_scale, splits, s)
+               : launch_wide<false>(q, k, v, o, l, sc, B, Sq, Sk, H, D, strides,
+                                    causal, kv_offset, sm_scale, splits, s);
   } else if (D == 64) {
     err = launch_typed<64>(bf16, q, k, v, o, l, B, Sq, Sk, H, strides, causal,
                            kv_offset, sm_scale, s);
@@ -757,19 +874,29 @@ extern "C" int tos_flash_attn_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
+// Bytes of scratch a launch needs: on the wide route over more than one key
+// range, the ranges' O (f32) and lse; else 0.
+extern "C" int64_t tos_flash_attn_fwd_scratch_bytes(int B, int Sq, int Sk, int H,
+                                                    int D, int wide, int splits) {
+  (void)Sk;
+  if (!wide || splits <= 1) return 0;
+  return 4 * static_cast<int64_t>(splits) * B * Sq * H * (D + 1);
+}
+
 // Dynamic shared memory of one CTA: `wide` = 0, the configuration for head
-// dim D (64, 128 or 256); `wide` = 1, the wide kernel's for slices D columns
-// wide (128 or 256); else 0.
+// dim D (64, 128 or 256); `wide` = 1, the wide kernel's with D columns of O
+// per consumer (192 or 256); else 0.
 extern "C" int tos_flash_attn_fwd_smem_bytes(int D, int wide) {
   if (wide)
-    return D == 128 ? WideCfg<128>::kSmemBytes
-           : D == kSliceCols ? WideCfg<kSliceCols>::kSmemBytes
-                             : 0;
+    return D == 192 ? WideCfg<192>::kSmemBytes
+           : D == 256 ? WideCfg<256>::kSmemBytes
+                      : 0;
   return D == 64 ? Cfg<64>::kSmemBytes
          : D == 128 ? Cfg<128>::kSmemBytes
          : D == 256 ? Cfg<256>::kSmemBytes
                     : 0;
 }
 
-// Columns of O per CTA on the wide route (the last slice may be 128).
-extern "C" int tos_flash_attn_fwd_slice_cols() { return kSliceCols; }
+// Most columns of O one CTA of the wide route covers; a wider head runs
+// column groups of this many, each recomputing S.
+extern "C" int tos_flash_attn_fwd_cta_cols() { return kWideCtaCols; }

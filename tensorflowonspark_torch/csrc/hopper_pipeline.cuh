@@ -2,16 +2,22 @@
 // flash_attn_fwd.cu (bf16/fp16 on wgmma) and flash_attn_fwd_tf32.cu (f32 as
 // 3xTF32 on wgmma): mbarriers, TMA tile loads, wgmma descriptors, fences and
 // accumulator operand lists, the pipelined wgmma wait of the wide routes,
-// the masked online-softmax step of a key block, and the host-side
-// tensor-map encoder
+// the masked online-softmax step of a key block, the wide routes' split-KV
+// combine kernel, and on the host the tensor-map encoder
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the libraries
-// do not link libcuda).
+// do not link libcuda) and the once-per-instantiation launch setup.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -187,8 +193,183 @@ __device__ __forceinline__ void online_softmax_block(
 }
 
 // ---------------------------------------------------------------------------
+// Split-KV combine of the wide routes.  A call whose grid would leave most of
+// the card idle (ops/attention.py:_wide_splits) cuts each query tile's key
+// blocks into ranges (tile_ranges), one CTA each; in a tile of more than one
+// range every range writes its O normalised over its own keys (f32, o_part
+// [splits, B, Sq, H, D]) and its lse (lse_part [splits, B, Sq, H]), and this
+// kernel merges them as ops/attention.py:merge_attention merges two chunks:
+// lse = log sum_s exp(lse_s), O = sum_s exp(lse_s - lse) O_s, stored in the
+// output type through O's strides (the rows of a tile of one range were
+// written directly: the launch starts at the first row of a tile of more).  A row whose every range is
+// NEG_INF (every key it may see masked) gives O = 0 and lse = NEG_INF
+// exactly.  One thread per four columns of a row (D is a multiple of 4), so
+// the reads of the ranges' O are spread over the whole card; the row's few
+// lse values are read by each of its threads (from cache).
+// ---------------------------------------------------------------------------
+constexpr int kMaxSplits = 16;  // key ranges of one call at most
+
+// Key blocks (of BK keys) the query rows before q_end may see: all of Sk,
+// or, causal, those up to the last row's position.
+__host__ __device__ __forceinline__ int reach_blocks(int q_end, int Sq, int Sk,
+                                                     int causal, int kv_offset, int BK) {
+  int keys = Sk;
+  if (causal) {
+    const int q = q_end < Sq ? q_end : Sq;
+    keys = q - kv_offset < 0 ? 0 : q - kv_offset;
+    keys = keys < Sk ? keys : Sk;
+  }
+  return (keys + BK - 1) / BK;
+}
+
+// The key ranges of the query tile of `rows` rows from q0 over `splits`:
+// `per` blocks each, per = ceil(the longest tile's blocks / splits), over the
+// tile's own `blocks`; `count` of them (at least 1).  A tile of one range
+// writes O directly; a tile of more writes range k to o_part slot k.
+struct TileRanges {
+  int per, blocks, count;
+};
+__host__ __device__ __forceinline__ TileRanges tile_ranges(int q0, int rows, int Sq,
+                                                           int Sk, int causal,
+                                                           int kv_offset, int BK,
+                                                           int splits) {
+  const int longest = reach_blocks(Sq, Sq, Sk, causal, kv_offset, BK);
+  const int per_min = (longest + splits - 1) / splits;
+  const int per = per_min > 1 ? per_min : 1;
+  const int blocks = reach_blocks(q0 + rows, Sq, Sk, causal, kv_offset, BK);
+  const int count = (blocks + per - 1) / per;
+  return {per, blocks, count > 1 ? count : 1};
+}
+
+// The first query row of the tiles of more than one range: a tile's blocks
+// grow with its rows, so those tiles are the last ones.
+inline int first_split_row(int rows, int Sq, int Sk, int causal, int kv_offset, int BK,
+                           int splits) {
+  int q0 = (Sq + rows - 1) / rows * rows;
+  while (q0 > 0 &&
+         tile_ranges(q0 - rows, rows, Sq, Sk, causal, kv_offset, BK, splits).count > 1)
+    q0 -= rows;
+  return q0;
+}
+constexpr int kOutBf16 = 0, kOutFp16 = 1, kOutF32 = 2;  // the combine's O type
+constexpr int kCombineThreads = 256;
+
+template <int kKind>
+__device__ __forceinline__ void store4(void* o, int64_t at, float4 x) {
+  if constexpr (kKind == kOutF32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(o) + at) = x;
+  } else {
+    uint2 v;
+    if constexpr (kKind == kOutBf16) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+      v.x = *reinterpret_cast<uint32_t*>(&lo);
+      v.y = *reinterpret_cast<uint32_t*>(&hi);
+    } else {
+      __half2 lo = __floats2half2_rn(x.x, x.y);
+      __half2 hi = __floats2half2_rn(x.z, x.w);
+      v.x = *reinterpret_cast<uint32_t*>(&lo);
+      v.y = *reinterpret_cast<uint32_t*>(&hi);
+    }
+    *reinterpret_cast<uint2*>(static_cast<uint16_t*>(o) + at) = v;
+  }
+}
+
+template <int kKind>
+__global__ void __launch_bounds__(kCombineThreads)
+combine_splits_kernel(const float* __restrict__ o_part,
+                      const float* __restrict__ lse_part, void* __restrict__ o,
+                      float* __restrict__ lse, int B, int Sq, int Sk, int H, int D,
+                      int splits, int causal, int kv_offset, int tile_rows, int BK,
+                      int row0, int64_t o_sb, int64_t o_ss, int64_t o_sh) {
+  // this launch covers the rows from row0 on of every batch and head
+  const int64_t span = static_cast<int64_t>(Sq - row0) * H;
+  const int quads = D / 4;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kCombineThreads + threadIdx.x;
+  if (idx >= B * span * quads) return;
+  const int64_t local = idx / quads;
+  const int col = static_cast<int>(idx % quads) * 4;
+  const int b = static_cast<int>(local / span);
+  const int row = row0 + static_cast<int>((local % span) / H);
+  const int h = static_cast<int>(local % H);
+  const int64_t rows = static_cast<int64_t>(B) * Sq * H;
+  const int64_t r = (static_cast<int64_t>(b) * Sq + row) * H + h;  // as lse is laid out
+  const int ranges = tile_ranges(row / tile_rows * tile_rows, tile_rows, Sq, Sk, causal,
+                                 kv_offset, BK, splits).count;
+  if (ranges == 1) return;  // written directly
+  float mx = kNegInf;
+  for (int s = 0; s < ranges; ++s) mx = fmaxf(mx, lse_part[s * rows + r]);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float total = kNegInf;
+  if (mx > kHalfNegInf) {
+    float sum = 0.f;  // a NEG_INF range gives exp(...) = 0
+    for (int s = 0; s < ranges; ++s) sum += expf(lse_part[s * rows + r] - mx);
+    total = mx + logf(sum);
+    for (int s = 0; s < ranges; ++s) {
+      const float w = expf(lse_part[s * rows + r] - total);
+      const float4 x = *reinterpret_cast<const float4*>(o_part + (s * rows + r) * D + col);
+      acc.x += w * x.x;
+      acc.y += w * x.y;
+      acc.z += w * x.z;
+      acc.w += w * x.w;
+    }
+  }
+  if (col == 0) lse[r] = total;
+  store4<kKind>(o, b * o_sb + row * o_ss + h * o_sh + col, acc);
+}
+
+// Grid of the combine over `rows` rows of D columns.
+inline unsigned combine_blocks(int64_t rows, int D) {
+  return static_cast<unsigned>((rows * (D / 4) + kCombineThreads - 1) / kCombineThreads);
+}
+
+// The combine, on `stream`, over the rows of the tiles of more than one
+// range (ranges over `splits`, tiles of `tile_rows` rows, key blocks of BK).
+template <int kKind>
+cudaError_t launch_combine(const float* o_part, const float* lse_part, void* o,
+                           float* lse, int B, int Sq, int Sk, int H, int D, int splits,
+                           int causal, int kv_offset, int tile_rows, int BK,
+                           const int64_t* st, cudaStream_t stream) {
+  const int row0 = first_split_row(tile_rows, Sq, Sk, causal, kv_offset, BK, splits);
+  if (row0 >= Sq) return cudaSuccess;  // every tile wrote O directly
+  const int64_t rows = static_cast<int64_t>(B) * (Sq - row0) * H;
+  combine_splits_kernel<kKind><<<combine_blocks(rows, D), kCombineThreads, 0, stream>>>(
+      o_part, lse_part, o, lse, B, Sq, Sk, H, D, splits, causal, kv_offset, tile_rows, BK,
+      row0, st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
+
+// Launch setup of a kernel instantiation, done once per instantiation and
+// device (not on every call): the dynamic shared memory it asks for, and,
+// where it moves registers with setmaxnreg (min_regs > 0), that the launch
+// reserves at least min_regs registers for its `threads` threads (the
+// consumers' registers are only there if the launch reserves them).
+inline cudaError_t configure_once(const void* kernel, int smem, int min_regs,
+                                  int threads) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& e : done)
+    if (e.first == kernel && e.second == dev) return cudaSuccess;
+  if (min_regs > 0) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * threads < min_regs) return cudaErrorInvalidConfiguration;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  done.emplace_back(kernel, dev);
+  return cudaSuccess;
+}
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                    void*, const cuuint64_t*, const cuuint64_t*,
@@ -241,6 +422,7 @@ inline bool encode_map_4d(CUtensorMap* map, CUtensorMapDataType type,
 #define TOS_ACC16 TOS_ACC8(0), TOS_ACC8(8)
 #define TOS_ACC32 TOS_ACC16, TOS_ACC8(16), TOS_ACC8(24)
 #define TOS_ACC64 TOS_ACC32, TOS_ACC8(32), TOS_ACC8(40), TOS_ACC8(48), TOS_ACC8(56)
+#define TOS_ACC96 TOS_ACC64, TOS_ACC8(64), TOS_ACC8(72), TOS_ACC8(80), TOS_ACC8(88)
 #define TOS_ACC128                                                           \
   TOS_ACC64, TOS_ACC8(64), TOS_ACC8(72), TOS_ACC8(80), TOS_ACC8(88),          \
       TOS_ACC8(96), TOS_ACC8(104), TOS_ACC8(112), TOS_ACC8(120)
@@ -255,6 +437,11 @@ inline bool encode_map_4d(CUtensorMap* map, CUtensorMapDataType type,
   ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
   "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
   "%60, %61, %62, %63"
+#define TOS_R96                                                                \
+  TOS_R64                                                                      \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "   \
+  "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+  "%93, %94, %95"
 #define TOS_R128                                                               \
   TOS_R64                                                                      \
   ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "   \

@@ -16,13 +16,18 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
   fake implementation, so ``torch.export`` keeps its call in a program): a
   CUDA tensor goes to the kernels (``flash_attn_fwd_cuda``), a CPU tensor
   to the plain version.  ``_route`` picks the kernel for every head
-  dim, zero-padding D as the TPU kernel pads to 128 lanes: bf16/fp16 runs
-  the ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``) at 64, 128 or 256, and
+  dim: bf16/fp16 runs the ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``)
+  at 64, 128 or 256 (a narrower head zero-padded up to one of them), and
   above 256 its wide route; f32 runs the 3xTF32 ``wgmma`` kernel
   (``csrc/flash_attn_fwd_tf32.cu``) at 64 or 128, and above 128 its wide
-  route.  A wide route puts O's columns in slices of 256 across CTAs, each
-  recomputing Q Kᵀ, with D padded to a multiple of 128 (as the TPU kernel
-  pads it).  Only a type the kernels do not take raises.
+  route.  A wide route runs at the real head dim (TMA zero-fills a box
+  past D), padded only to a multiple of ``TMA_ROW_BYTES`` where a tensor
+  map cannot describe the rows; its two consumer warpgroups split the head
+  dim, so Q Kᵀ is computed once per query tile, and a grid that would
+  leave the card idle (a small one, or the long tail of a causal wave)
+  splits its tiles' keys into ranges merged by a combine kernel
+  (``_wide_splits``).
+  Only a type the kernels do not take raises.
   ``LAUNCHES`` counts each kernel's launches.  A CUDA tensor whose kernel
   fails to build or launch raises: nothing falls back.
   When autograd records the call, it goes through ``FlashAttention``, the
@@ -169,36 +174,92 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 
 KERNEL_HEAD_DIMS = (64, 128, 256)  # the wgmma kernel's head dims (bf16/fp16)
 TF32_HEAD_DIMS = (64, 128)         # the 3xTF32 wgmma kernel's head dims (f32)
-# above these the kernels' wide routes: O's columns in slices across CTAs,
-# Q Kᵀ streamed in chunks of the head dim, D padded to a multiple of
-# WIDE_PAD_TO
+# above these the kernels' wide routes, at the real head dim
 _HEAD_DIMS = {"flash_attn_fwd": KERNEL_HEAD_DIMS,
               "flash_attn_fwd_tf32": TF32_HEAD_DIMS}
-WIDE_PAD_TO = 128
+# a tensor map's rows (every stride but the head dim's) are multiples of 16
+# bytes: a wide route pads only a head dim whose rows are not (bf16/fp16 D
+# not a multiple of 8, f32 D not a multiple of 4)
+TMA_ROW_BYTES = 16
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}  # the wgmma kernel's
 _LIBS: dict = {}
-# C signatures: tos_<name>(q, k, v, o, lse, [scratch,] B, Sq, Sk, H, D,
-# strides, causal, kv_offset, sm_scale, wide, [dtype,] stream): the 3xTF32
-# kernel takes a scratch pointer, the wgmma kernel a dtype code
+# C signatures: tos_<name>(q, k, v, o, lse, scratch, B, Sq, Sk, H, D,
+# strides, causal, kv_offset, sm_scale, wide, splits, [dtype,] stream): the
+# wgmma kernel takes a dtype code
 _SHAPE_ARGS = ([ctypes.c_int] * 5
                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_int])
+                  ctypes.c_int, ctypes.c_int])
 _ARGTYPES = {
-    "flash_attn_fwd": ([ctypes.c_void_p] * 5 + _SHAPE_ARGS
+    "flash_attn_fwd": ([ctypes.c_void_p] * 6 + _SHAPE_ARGS
                        + [ctypes.c_int, ctypes.c_void_p]),
     "flash_attn_fwd_tf32": [ctypes.c_void_p] * 6 + _SHAPE_ARGS + [ctypes.c_void_p],
 }
 # each kernel's launches, by its name in _route; bumped only where _launch
-# has launched it
+# has launched it (once a call, the wide routes' combine step included)
 LAUNCHES = dict.fromkeys(_ARGTYPES, 0)
+
+# The wide routes' split-KV rule (both kernels take the count as an
+# argument and cut each query tile's own key blocks by it).  A grid of
+# B*H*ceil(Sq/WIDE_ROWS)*ceil(D/WIDE_CTA_COLS) CTAs that fills less than
+# half of SM_COUNT gets its key blocks split into ranges, as many as fill
+# the card, at most one a key block and at most MAX_SPLITS, then as few as
+# cover the blocks at that many blocks a range.  A causal grid of at most
+# one wave gets 2: its longest tiles (all the keys) would otherwise run
+# alone while the short ones idle, so each tile's keys are cut in ranges of
+# half the longest tile's, and a tile that needs one range (the shorter
+# half) writes O directly.  The blocks are those the longest tile may see
+# (`_reach_blocks`).  The kernels' own constants: kWideRows, kWideCtaCols,
+# kWideBlockK, and kMaxSplits (hopper_pipeline.cuh).
+SM_COUNT = 132                     # the H100 SXM's SMs
+WIDE_ROWS = 64                     # query rows per CTA on the wide routes
+WIDE_CTA_COLS = 512                # most columns of O one CTA covers
+WIDE_BLOCK_K = {"flash_attn_fwd": 64, "flash_attn_fwd_tf32": 32}
+MAX_SPLITS = 16
+
+
+def _reach_blocks(name: str, sq: int, sk: int, causal: bool, kv_offset: int,
+                  q_end: int | None = None) -> int:
+    """Key blocks the query rows before ``q_end`` (default ``sq``) may see:
+    all of ``sk`` or, causal, the keys up to the last row's position."""
+    keys = sk
+    if causal:
+        keys = min(sk, max(0, min(sq, sq if q_end is None else q_end) - kv_offset))
+    return -(-keys // WIDE_BLOCK_K[name])
+
+
+def _wide_splits(name: str, b: int, h: int, sq: int, sk: int, d: int,
+                 causal: bool = False, kv_offset: int = 0) -> int:
+    """Key ranges of a wide-route call of kernel ``name``: a function of
+    the shape and the mask only (the rule above)."""
+    ctas = b * h * -(-sq // WIDE_ROWS) * -(-d // WIDE_CTA_COLS)
+    blocks = _reach_blocks(name, sq, sk, causal, kv_offset)
+    if blocks < 2:
+        return 1
+    if 2 * ctas >= SM_COUNT:
+        return 2 if causal and ctas <= SM_COUNT else 1
+    splits = min(-(-SM_COUNT // ctas), blocks, MAX_SPLITS)
+    per = -(-blocks // splits)
+    return -(-blocks // per)
+
+
+def _tile_ranges(name: str, splits: int, q0: int, sq: int, sk: int, causal: bool,
+                 kv_offset: int) -> list[tuple[int, int]]:
+    """The key-block ranges ``[first, last)`` of the query tile from row
+    ``q0`` over ``splits`` ranges, as both kernels cut them: ranges of
+    ceil(longest tile's blocks / splits) blocks over the tile's own blocks
+    (one empty range where it sees none)."""
+    per = max(1, -(-_reach_blocks(name, sq, sk, causal, kv_offset) // splits))
+    mine = _reach_blocks(name, sq, sk, causal, kv_offset, q_end=q0 + WIDE_ROWS)
+    return [(k, min(k + per, mine)) for k in range(0, mine, per)] or [(0, 0)]
 
 
 def _route(dtype: torch.dtype, d: int) -> tuple[str, int]:
-    """``(kernel, padded head_dim)`` for inputs of ``dtype`` with head_dim
-    ``d``: bf16/fp16 to the wgmma kernel at 64, 128 or 256, f32 to the
-    3xTF32 kernel at 64 or 128, and a wider head to the same kernel's wide
-    route at ``d`` rounded up to ``WIDE_PAD_TO``.  Raises on a type the
-    kernels do not take (or a head_dim below 1)."""
+    """``(kernel, head_dim it runs at)`` for inputs of ``dtype`` with
+    head_dim ``d``: bf16/fp16 to the wgmma kernel at 64, 128 or 256, f32 to
+    the 3xTF32 kernel at 64 or 128 (zero-padded up to them), and a wider
+    head to the same kernel's wide route at ``d`` itself, rounded up only
+    to whole ``TMA_ROW_BYTES`` rows.  Raises on a type the kernels do not
+    take (or a head_dim below 1)."""
     if dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"the kernels take bf16, fp16 or f32, got {dtype}")
     if d < 1:
@@ -207,7 +268,8 @@ def _route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     dims = _HEAD_DIMS[name]
     if d <= dims[-1]:
         return name, next(p for p in dims if d <= p)
-    return name, -(-d // WIDE_PAD_TO) * WIDE_PAD_TO
+    row = TMA_ROW_BYTES // dtype.itemsize
+    return name, -(-d // row) * row
 
 
 def _kernel_lib(name: str):
@@ -219,9 +281,9 @@ def _kernel_lib(name: str):
         fn = getattr(lib, f"tos_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        if name == "flash_attn_fwd_tf32":
-            lib.tos_flash_attn_fwd_tf32_scratch_bytes.argtypes = [ctypes.c_int] * 6
-            lib.tos_flash_attn_fwd_tf32_scratch_bytes.restype = ctypes.c_int64
+        scratch = getattr(lib, f"tos_{name}_scratch_bytes")
+        scratch.argtypes = [ctypes.c_int] * 7
+        scratch.restype = ctypes.c_int64
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -259,30 +321,31 @@ def _check_inputs(q, k, v):
 def _launch(name, q, k, v, causal, scale, kv_offset, wide=None):
     """Run ``csrc/<name>.cu`` on checked inputs its kernel can read in
     place; returns ``(out, lse)``.  ``wide`` picks the wide route; by
-    default it takes a head_dim the kernel has no configuration for."""
+    default it takes a head_dim the kernel has no configuration for.  The
+    wide route runs over ``_wide_splits`` key ranges."""
     b, sq, h, d = q.shape
     if wide is None:
         wide = d not in _HEAD_DIMS[name]
     sk = k.shape[1]
+    splits = _wide_splits(name, b, h, sq, sk, d, causal, kv_offset) if wide else 1
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 12)(
         *(s for x in (q, k, v, out) for s in x.stride()[:3]))
     lib = _kernel_lib(name)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr()]
     shape = (b, sq, sk, h, d, ctypes.cast(strides, ctypes.c_void_p),
-             int(bool(causal)), int(kv_offset), float(scale), int(wide))
+             int(bool(causal)), int(kv_offset), float(scale), int(wide), splits)
     dtype_code = (_DTYPE_CODES[q.dtype],) if name == "flash_attn_fwd" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if name == "flash_attn_fwd_tf32":
-            # freed once the launch is queued: the caching allocator hands
-            # the block out again only to work queued later on this stream
-            scratch = torch.empty(
-                lib.tos_flash_attn_fwd_tf32_scratch_bytes(b, sq, sk, h, d,
-                                                          int(wide)),
-                dtype=torch.uint8, device=q.device)
-            ptrs.append(scratch.data_ptr())
+        # freed once the launch is queued: the caching allocator hands the
+        # block out again only to work queued later on this stream
+        nbytes = getattr(lib, f"tos_{name}_scratch_bytes")(b, sq, sk, h, d,
+                                                          int(wide), splits)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+                   if nbytes else None)
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), scratch.data_ptr() if nbytes else None]
         err = getattr(lib, f"tos_{name}")(*ptrs, *shape, *dtype_code, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -299,11 +362,14 @@ def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
     are CUDA tensors of one type (bf16, fp16 or f32), any head_dim; another
     type, or tensors off the card, raise.
 
-    ``_route`` picks the kernel and the head_dim it runs at: q, k and v are
-    zero-padded along D to it (zero columns change neither Q Kᵀ nor the
-    first head_dim columns of P V; ``sm_scale`` defaults to ``1/sqrt`` of
-    the unpadded head_dim), read in place where the kernel can, launched
-    (``LAUNCHES[kernel]`` counts it), and O is sliced back."""
+    ``_route`` picks the kernel and the head_dim it runs at: where that
+    differs from the head_dim, q, k and v are zero-padded along D to it
+    (zero columns change neither Q Kᵀ nor the first head_dim columns of P
+    V; ``sm_scale`` defaults to ``1/sqrt`` of the unpadded head_dim) and O
+    is sliced back.  The operands are read in place where the kernel can,
+    and the kernel launched (``LAUNCHES[kernel]`` counts it).  On a wide
+    route at a head_dim of whole 16-byte rows nothing is padded or copied,
+    and O comes back contiguous."""
     _check_inputs(q, k, v)
     d = q.shape[-1]
     name, padded = _route(q.dtype, d)
@@ -345,7 +411,9 @@ def flash_attn_fwd_op(q, k, v, causal, sm_scale, kv_offset):
 @flash_attn_fwd_op.register_kernel("cuda")
 def _flash_attn_fwd_op_cuda(q, k, v, causal, sm_scale, kv_offset):
     # a zero-padded head dim comes back as a slice of the padded O: copied
-    # out, because the fake implementation's strides are contiguous
+    # out, because the fake implementation's strides are contiguous (an O
+    # that is contiguous already, as every wide route's at whole 16-byte
+    # rows, is returned as it is)
     out, lse = flash_attn_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
                                    kv_offset=kv_offset)
     return out.contiguous(), lse

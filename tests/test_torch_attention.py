@@ -2,10 +2,11 @@
 package's: plain versions against ``mha_reference`` and the Pallas kernel in
 interpret mode (CPU, f32, atol/rtol 1e-5), at the head dims the kernels
 take; the kernel routing table; and the kernels' arithmetic emulated in
-torch — the f32 kernel's 3xTF32, and both kernels' wide routes (Q Kᵀ
-summed over the kernels' chunks of the head dim, O in slices of 256) —
-against the same
-references.  The kernels are held
+torch — the f32 kernel's 3xTF32, and both kernels' wide routes (at the
+real head dim, Q Kᵀ summed over the kernels' chunks of the head dim in the
+two consumer warpgroups' halves and the halves added, split-KV ranges
+merged as the combine step merges them) — against the same references.
+The kernels are held
 against their plain version on the card in ``tests/test_torch_cuda.py``."""
 
 import math
@@ -95,11 +96,13 @@ def test_plain_version_at_the_kernels_head_dims_matches_jax(case):
 
 @pytest.mark.parametrize("d, padded", [(32, 64), (96, 128), (80, 128),
                                        (160, 256), (192, 256), (33, 64),
-                                       (257, 384), (448, 512)])
+                                       (257, 384), (448, 512), (257, 264),
+                                       (131, 132)])
 def test_zero_padding_the_head_dim_changes_nothing(d, padded):
     """What ``flash_attn_fwd_cuda`` does for a head_dim the tensor-core
-    kernels lack (to 64, 128 or 256, and on the wide routes to a multiple
-    of 128, ``_route``): zero
+    kernels lack (to 64, 128 or 256; on the wide routes only to whole
+    16-byte rows, ``_route``), and what TMA's zero fill does past D in a
+    wide route's last box: zero
     columns change neither Q Kᵀ nor the first d columns of P V, so
     attention over inputs padded along D, at the unpadded ``1/sqrt(d)``
     scale and sliced back, is attention over the inputs."""
@@ -113,24 +116,25 @@ def test_zero_padding_the_head_dim_changes_nothing(d, padded):
     np.testing.assert_allclose(pl.numpy(), lse.numpy(), **TOL)
 
 
-# _route(dtype, head_dim) -> (kernel, padded head_dim): bf16/fp16 on the
-# wgmma kernel at 64, 128 or 256 and above 256 on its wide route; f32 on the
-# 3xTF32 kernel at 64 or 128 and above 128 on its wide route.  A wide route
-# runs at a multiple of 128, as the TPU kernel pads its head dim.
+# _route(dtype, head_dim) -> (kernel, head_dim it runs at): bf16/fp16 on
+# the wgmma kernel at 64, 128 or 256 and above 256 on its wide route; f32 on
+# the 3xTF32 kernel at 64 or 128 and above 128 on its wide route.  A wide
+# route runs at the real head dim, rounded up only to whole 16-byte rows
+# (bf16/fp16 to a multiple of 8, f32 to a multiple of 4).
 ROUTES = {
     1: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
     33: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
     64: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
     80: (("flash_attn_fwd", 128), ("flash_attn_fwd_tf32", 128)),
     128: (("flash_attn_fwd", 128), ("flash_attn_fwd_tf32", 128)),
-    129: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 256)),
-    160: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 256)),
+    129: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 132)),
+    160: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 160)),
     256: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 256)),
-    257: (("flash_attn_fwd", 384), ("flash_attn_fwd_tf32", 384)),
-    320: (("flash_attn_fwd", 384), ("flash_attn_fwd_tf32", 384)),
-    448: (("flash_attn_fwd", 512), ("flash_attn_fwd_tf32", 512)),
+    257: (("flash_attn_fwd", 264), ("flash_attn_fwd_tf32", 260)),
+    320: (("flash_attn_fwd", 320), ("flash_attn_fwd_tf32", 320)),
+    448: (("flash_attn_fwd", 448), ("flash_attn_fwd_tf32", 448)),
     512: (("flash_attn_fwd", 512), ("flash_attn_fwd_tf32", 512)),
-    1000: (("flash_attn_fwd", 1024), ("flash_attn_fwd_tf32", 1024)),
+    1000: (("flash_attn_fwd", 1000), ("flash_attn_fwd_tf32", 1000)),
 }
 
 
@@ -170,33 +174,42 @@ def _tf32_matmul(a, b, split: bool):
 
 
 def _emulated_attention(q, k, v, *, causal, kv_offset, sm_scale, qk, pv,
-                        block_k, chunk=None, slice_cols=None):
+                        block_k, parts=None, route=None, splits=1):
     """A kernel's arithmetic in torch: key blocks of ``block_k``, S = Q Kᵀ
-    through ``qk`` (summed over ``chunk``-column pieces of the head dim in
-    order, as the wide routes stream it), the kernels' online softmax (exp2
-    with the scale folded in, the NEG_INF guards) and O += ``pv(P, V)``;
-    with ``slice_cols``, O in slices of that many columns, each slice
-    running the whole loop again as a CTA of the wide route does, and lse
-    from slice 0.  Returns ``(out, lse)`` like ``chunk_attention``, in f32."""
+    through ``qk`` — with ``parts`` (lists of column slices of the head
+    dim), each part summed over its slices in order and the parts' sums
+    added in order, as the wide routes' consumer warpgroups each sum their
+    half of the head dim and then exchange their partial S — the kernels'
+    online softmax (exp2 with the scale folded in, the NEG_INF guards) and
+    O += ``pv(P, V)``.  With ``splits`` (on wide route ``route``), each
+    query tile's key blocks in the ranges ``ops.attention._tile_ranges``
+    gives, each range its own online softmax giving O normalised over its
+    keys and its lse, merged where a tile has more than one as the combine
+    kernel merges them (lse = log sum exp(lse_s), O = sum exp(lse_s - lse)
+    O_s; every range NEG_INF gives O = 0, lse = NEG_INF).  Returns ``(out,
+    lse)`` like ``chunk_attention``, in f32."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     c = math.log2(math.e) * sm_scale
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, S, D]
     neg = ta.NEG_INF
-    qpos = torch.arange(sq)[:, None]
-    chunks = [slice(0, d)] if chunk is None else [
-        slice(c0, c0 + chunk) for c0 in range(0, d, chunk)]
-    outs, lses = [], []
-    for c0 in range(0, d, slice_cols or d):
-        cols = slice(c0, c0 + (slice_cols or d))
-        m = torch.full((b, h, sq), neg)
-        l = torch.zeros((b, h, sq))
-        acc = torch.zeros((b, h, sq, vt[..., cols].shape[-1]))
-        for k0 in range(0, sk, block_k):
-            kc, vc = kt[:, :, k0:k0 + block_k], vt[:, :, k0:k0 + block_k, cols]
+    parts = [[slice(0, d)]] if parts is None else parts
+
+    def key_range(rows, first, last):
+        """(out, lse) of query rows ``rows`` over key blocks [first, last)."""
+        qpos = torch.arange(sq)[rows][:, None]
+        n = qpos.shape[0]
+        m = torch.full((b, h, n), neg)
+        l = torch.zeros((b, h, n))
+        acc = torch.zeros((b, h, n, d))
+        for k0 in range(first * block_k, min(last * block_k, sk), block_k):
+            kc, vc = kt[:, :, k0:k0 + block_k], vt[:, :, k0:k0 + block_k]
             s = 0.0
-            for part in chunks:
-                s = s + qk(qt[..., part], kc[..., part].transpose(-1, -2))
+            for part in parts:
+                ps = 0.0
+                for cols in part:
+                    ps = ps + qk(qt[:, :, rows][..., cols], kc[..., cols].transpose(-1, -2))
+                s = s + ps
             if causal:
                 kpos = kv_offset + k0 + torch.arange(kc.shape[2])[None, :]
                 s = torch.where(kpos <= qpos, s, neg)
@@ -208,17 +221,53 @@ def _emulated_attention(q, k, v, *, causal, kv_offset, sm_scale, qk, pv,
             m = mx
             acc = acc * alpha[..., None] + pv(p, vc)
         lsafe = torch.clamp(l, min=1e-30)
-        outs.append(acc / lsafe[..., None])
-        lses.append(torch.where(l > 0, torch.clamp(m, min=neg / 2) * c * math.log(2)
-                                + torch.log(lsafe), neg))
-    return torch.cat(outs, -1).transpose(1, 2), lses[0].transpose(1, 2)
+        return acc / lsafe[..., None], torch.where(
+            l > 0, torch.clamp(m, min=neg / 2) * c * math.log(2) + torch.log(lsafe), neg)
+
+    if splits == 1:
+        out, lse = key_range(slice(0, sq), 0, -(-sk // block_k))
+        return out.transpose(1, 2), lse.transpose(1, 2)
+    outs, lses = [], []
+    for q0 in range(0, sq, ta.WIDE_ROWS):
+        rows = slice(q0, min(q0 + ta.WIDE_ROWS, sq))
+        got = [key_range(rows, *r) for r in ta._tile_ranges(route, splits, q0, sq, sk,
+                                                            causal, kv_offset)]
+        if len(got) == 1:
+            outs.append(got[0][0])
+            lses.append(got[0][1])
+            continue
+        lse_s = torch.stack([g[1] for g in got])
+        mx = lse_s.amax(0)
+        seen = mx > neg / 2
+        total = mx + torch.log(torch.exp(lse_s - mx).sum(0))
+        w = torch.where(seen, torch.exp(lse_s - total), 0.0)
+        outs.append((w[..., None] * torch.stack([g[0] for g in got])).sum(0))
+        lses.append(torch.where(seen, total, neg))
+    return torch.cat(outs, 2).transpose(1, 2), torch.cat(lses, 2).transpose(1, 2)
+
+
+def _wide_parts(d, box, pass_boxes=None):
+    """The wide routes' contraction order at head dim ``d``: boxes of
+    ``box`` columns (the last one part past D, where TMA fills zeros), split
+    between the two consumer warpgroups, the first taking the larger half;
+    the bf16 route in passes of ``pass_boxes`` boxes (one pass up to
+    D=512), each pass's boxes halved so."""
+    nbox = -(-d // box)
+    pass_boxes = pass_boxes or nbox
+    halves = [[], []]
+    for x0 in range(0, nbox, pass_boxes):
+        pb = min(pass_boxes, nbox - x0)
+        hb = -(-pb // 2)
+        for x in range(x0, x0 + pb):
+            halves[int(x >= x0 + hb)].append(slice(x * box, min(d, (x + 1) * box)))
+    return halves
 
 
 def _emulated_tf32_attention(q, k, v, *, causal, kv_offset, sm_scale,
                              split=True, block_k=32, **wide):
-    """The arithmetic of ``csrc/flash_attn_fwd_tf32.cu``: key blocks of 32
-    (64 on the wide route), each product through ``_tf32_matmul``
-    (``wide``: the wide route's chunks and slices)."""
+    """The arithmetic of ``csrc/flash_attn_fwd_tf32.cu``: key blocks of 32,
+    each product through ``_tf32_matmul`` (``wide``: the wide route's
+    ``parts`` and ``splits``)."""
     def mm(a, b):
         return _tf32_matmul(a, b, split)
 
@@ -227,16 +276,33 @@ def _emulated_tf32_attention(q, k, v, *, causal, kv_offset, sm_scale,
                                **wide)
 
 
+def _emulated_wide_tf32_attention(q, k, v, *, causal, kv_offset, sm_scale):
+    """The f32 wide route: 3xTF32 in key blocks of 32, Q Kᵀ over 32-column
+    chunks halved between the consumers, the route's split-KV ranges."""
+    b, sq, h, d = q.shape
+    return _emulated_tf32_attention(
+        q, k, v, causal=causal, kv_offset=kv_offset, sm_scale=sm_scale,
+        block_k=ta.WIDE_BLOCK_K["flash_attn_fwd_tf32"], parts=_wide_parts(d, 32),
+        route="flash_attn_fwd_tf32",
+        splits=ta._wide_splits("flash_attn_fwd_tf32", b, h, sq, k.shape[1], d, causal,
+                               kv_offset))
+
+
 def _emulated_wgmma_attention(q, k, v, *, causal, kv_offset, sm_scale, dtype):
     """The arithmetic of the wide route of ``csrc/flash_attn_fwd.cu`` on
     inputs of ``dtype`` (bf16/fp16): key blocks of 64, exact products of the
-    16-bit operands summed in f32 over 64-column chunks, P rounded to
-    ``dtype`` for P V, O in slices of 256, stored in ``dtype``."""
+    16-bit operands summed in f32 over 64-column boxes halved between the
+    consumers (passes of 8 boxes), P rounded to ``dtype`` for P V, the
+    route's split-KV ranges merged in f32, O stored in ``dtype``."""
+    b, sq, h, d = q.shape
     out, lse = _emulated_attention(
         *(x.to(dtype).float() for x in (q, k, v)), causal=causal,
         kv_offset=kv_offset, sm_scale=sm_scale, qk=torch.matmul,
-        pv=lambda p, vc: p.to(dtype).float() @ vc, block_k=64, chunk=64,
-        slice_cols=SLICE_COLS)
+        pv=lambda p, vc: p.to(dtype).float() @ vc,
+        block_k=ta.WIDE_BLOCK_K["flash_attn_fwd"], parts=_wide_parts(d, 64, 8),
+        route="flash_attn_fwd",
+        splits=ta._wide_splits("flash_attn_fwd", b, h, sq, k.shape[1], d, causal,
+                               kv_offset))
     return out.to(dtype), lse
 
 
@@ -287,23 +353,21 @@ def test_emulated_3xtf32_attention_matches_jax_f32(case):
 
 
 # (b, sq, h, sk, kv_offset) per head dim of the wide routes' test: ragged key
-# tails, offsets that cut key blocks (a negative one too); 160 runs padded to
-# 256, 320 padded to 384 as slices of 256 + 128, 512 as two slices of 256
+# tails, offsets that cut key blocks (a negative one too); every head dim at
+# its real value: 132, 160, 264 and 320 end in a part box, 512 is two halves
+# of four boxes; the small grids split their keys
 WIDE_CASES = {160: (1, 24, 2, 45, 5), 256: (1, 20, 2, 70, 9),
-              320: (1, 17, 2, 60, -30), 512: (1, 40, 1, 52, 4)}
+              320: (1, 17, 2, 60, -30), 512: (1, 40, 1, 52, 4),
+              132: (2, 30, 2, 75, 3), 264: (1, 21, 2, 130, -7)}
 # the bf16 tolerance of this file (test_bf16_plain_version_close_to_f32)
 BF16_TOL = dict(atol=3e-2, rtol=3e-2)
-# the wide routes' slices of O's columns (kSliceCols in both kernels'
-# sources; the last slice is 128 where the padded head dim is an odd
-# multiple of 128)
-SLICE_COLS = 256
 
 
-def _wide_case(d, causal, dtype=None):
+def _wide_case(d, causal, dtype=None, case=None):
     """Inputs of a wide-route case (rounded to ``dtype`` and back to f32,
     so that the f32 references see what the kernel sees), the JAX Pallas
     kernel's ``(out, lse)`` in interpret mode and ``mha_reference``."""
-    b, s, h, sk, off = WIDE_CASES[d]
+    b, s, h, sk, off = case or WIDE_CASES[d]
     q, k, v = make_qkv(b=b, s=s, h=h, d=d, sk=sk, seed=8)
     if dtype is not None:
         q, k, v = (torch.from_numpy(x).to(dtype).float().numpy() for x in (q, k, v))
@@ -314,49 +378,162 @@ def _wide_case(d, causal, dtype=None):
     return (q, k, v), off, np.asarray(jo), np.asarray(jl), ref
 
 
-def _pad_as_routed(dtype, d, *xs):
-    """``xs`` zero-padded along D to the head dim ``_route`` runs ``d`` at."""
-    padded = ta._route(dtype, d)[1]
-    return [torch.nn.functional.pad(x, (0, padded - d)) for x in xs]
-
-
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", sorted(WIDE_CASES))
-def test_emulated_wide_3xtf32_route_matches_jax_f32(d, causal):
-    """The f32 wide route — 3xTF32 with Q Kᵀ summed over 32-column chunks in
-    the kernel's order and O in slices of 256, each slice recomputing S —
-    meets the f32 gate against the JAX package's f32 references."""
-    (q, k, v), off, jo, jl, ref = _wide_case(d, causal)
-    tq, tk, tv = _pad_as_routed(torch.float32, d, *_t(q, k, v))
-    o, lse = _emulated_tf32_attention(tq, tk, tv, causal=causal, kv_offset=off,
-                                      sm_scale=d ** -0.5, block_k=64, chunk=32,
-                                      slice_cols=SLICE_COLS)
-    o = o[..., :d].numpy()
+def _check_wide_tf32(d, causal, case=None):
+    (q, k, v), off, jo, jl, ref = _wide_case(d, causal, case=case)
+    assert ta._route(torch.float32, d) == ("flash_attn_fwd_tf32", d)  # no padding
+    o, lse = _emulated_wide_tf32_attention(*_t(q, k, v), causal=causal, kv_offset=off,
+                                           sm_scale=d ** -0.5)
+    o = o.numpy()
     np.testing.assert_allclose(o, jo, **TF32_TOL)
     np.testing.assert_allclose(lse.numpy(), jl, **TF32_TOL)
     seen = lse.numpy() > ta.NEG_INF / 2
     assert seen.any()
     np.testing.assert_allclose(o[seen], ref[seen], **TF32_TOL)
+    np.testing.assert_array_equal(o[~seen], 0.0)  # fully masked rows: exactly 0
+
+
+def _check_wide_wgmma(d, causal, case=None):
+    for dtype in (torch.bfloat16, torch.float16):
+        (q, k, v), off, jo, jl, ref = _wide_case(d, causal, dtype, case=case)
+        o, lse = _emulated_wgmma_attention(*_t(q, k, v), causal=causal, kv_offset=off,
+                                           sm_scale=d ** -0.5, dtype=dtype)
+        assert o.dtype == dtype
+        o = o.float().numpy()
+        np.testing.assert_allclose(o, jo, **BF16_TOL)
+        np.testing.assert_allclose(lse.numpy(), jl, **BF16_TOL)
+        seen = lse.numpy() > ta.NEG_INF / 2
+        np.testing.assert_allclose(o[seen], ref[seen], **BF16_TOL)
+        np.testing.assert_array_equal(o[~seen], 0.0)
+        np.testing.assert_array_equal(lse.numpy()[~seen], np.float32(ta.NEG_INF))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", sorted(WIDE_CASES))
+def test_emulated_wide_3xtf32_route_matches_jax_f32(d, causal):
+    """The f32 wide route — 3xTF32 at the real head dim, Q Kᵀ summed over
+    32-column chunks in the two consumers' halves and the halves added, the
+    split-KV ranges merged — meets the f32 gate against the JAX package's
+    f32 references."""
+    _check_wide_tf32(d, causal)
 
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", sorted(WIDE_CASES))
 def test_emulated_wide_wgmma_route_matches_jax(d, causal):
     """The bf16 wide route — 16-bit products summed in f32 over 64-column
-    chunks, P rounded to bf16, O in slices of 256 stored in bf16 — within
-    the bf16 tolerance of the JAX package's f32 references on the same
-    (bf16-rounded) inputs; fp16 likewise."""
+    boxes in the two consumers' halves, P rounded to bf16, the split-KV
+    ranges merged in f32, O stored in bf16 — within the bf16 tolerance of
+    the JAX package's f32 references on the same (bf16-rounded) inputs;
+    fp16 likewise."""
+    _check_wide_wgmma(d, causal)
+
+
+# (d, (b, sq, h, sk, kv_offset), causal) at the split-KV boundaries: a
+# decode row whose keys past its position are masked (the ranges stop at
+# its reach), a tile whose later range its first rows see nothing of (those
+# rows' lse NEG_INF there, dropping out of the merge) beside a tile of one
+# range written directly, Sk shorter than one key block (one range), the
+# ranges of the longest tiles cut inside the causal reach, and a head above
+# 512 (bf16: two contraction passes; both: two column groups of O)
+SPLIT_CASES = {
+    "decode_ranges_stop_at_the_reach_d320": (320, (2, 1, 2, 517, -300), True),
+    "rows_masked_in_a_range_d264": (264, (1, 128, 2, 128, 10), True),
+    "sk_under_one_block_d320": (320, (1, 5, 2, 20, 0), False),
+    "sk_under_one_block_causal_d132": (132, (1, 9, 2, 20, -5), True),
+    "ranges_cut_the_reach_d512": (512, (1, 70, 1, 300, -100), True),
+    "wide_head_d1000": (1000, (1, 10, 1, 150, 0), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_emulated_wide_routes_at_split_kv_boundaries(case):
+    """Both wide routes at the edges of the split-KV rule (``_wide_splits``,
+    ``_tile_ranges``) against the JAX package's Pallas kernel in interpret
+    mode and ``mha_reference``: f32 at ``TF32_TOL``, bf16/fp16 at
+    ``BF16_TOL``."""
+    d, shape, causal = SPLIT_CASES[case]
+    b, sq, h, sk, off = shape
+    for n, bk in ta.WIDE_BLOCK_K.items():
+        splits = ta._wide_splits(n, b, h, sq, sk, d, causal, off)
+        ranges = [ta._tile_ranges(n, splits, q0, sq, sk, causal, off)
+                  for q0 in range(0, sq, ta.WIDE_ROWS)]
+        if case.startswith("decode"):  # the last range ends at the row's reach
+            assert splits > 1 and ranges[0][-1][1] == -(-(sq - off) // bk) < -(-sk // bk)
+        if case.startswith("rows_masked"):  # rows 64-73 see no key of a range
+            assert len(ranges[1]) > 1
+            assert any(first * bk > 73 - off for first, _ in ranges[1])
+            assert len(ranges[0]) == (1 if n == "flash_attn_fwd" else 2)
+        if case.startswith("sk_under"):
+            assert splits == 1
+    _check_wide_tf32(d, causal, case=shape)
+    _check_wide_wgmma(d, causal, case=shape)
+
+
+def test_emulated_wide_routes_balance_a_causal_wave():
+    """A causal grid of one wave (33 heads x 2 tiles of 64 rows = 66 CTAs):
+    the rule gives 2 ranges, so the longer tile's keys are split and merged
+    while the shorter tile writes directly; both routes against the JAX
+    package's ``mha_reference`` (O) and ``chunk_attention`` (lse) at their
+    tolerances."""
+    b, sq, h, sk, d, off = 1, 128, 33, 128, 264, 0
+    q, k, v = make_qkv(b=b, s=sq, h=h, d=d, sk=sk, seed=11)
+    for n in ta.WIDE_BLOCK_K:
+        splits = ta._wide_splits(n, b, h, sq, sk, d, True, off)
+        assert splits == 2 and ta._wide_splits(n, b, h, sq, sk, d) == 1
+        assert len(ta._tile_ranges(n, splits, 64, sq, sk, True, off)) == 2
+        assert len(ta._tile_ranges(n, splits, 0, sq, sk, True, off)) == 1
+    jo, jl = ja.chunk_attention(*_j(q, k, v), causal=True, kv_offset=off)
+    ref = np.asarray(ja.mha_reference(*_j(q, k, v), causal=True, kv_offset=off))
+    o, lse = _emulated_wide_tf32_attention(*_t(q, k, v), causal=True, kv_offset=off,
+                                           sm_scale=d ** -0.5)
+    np.testing.assert_allclose(o.numpy(), ref, **TF32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), **TF32_TOL)
     for dtype in (torch.bfloat16, torch.float16):
-        (q, k, v), off, jo, jl, ref = _wide_case(d, causal, dtype)
-        tq, tk, tv = _pad_as_routed(dtype, d, *_t(q, k, v))
-        o, lse = _emulated_wgmma_attention(tq, tk, tv, causal=causal, kv_offset=off,
+        qd, kd, vd = (torch.from_numpy(x).to(dtype).float() for x in (q, k, v))
+        o, lse = _emulated_wgmma_attention(qd, kd, vd, causal=True, kv_offset=off,
                                            sm_scale=d ** -0.5, dtype=dtype)
-        assert o.dtype == dtype
-        o = o[..., :d].float().numpy()
-        np.testing.assert_allclose(o, jo, **BF16_TOL)
-        np.testing.assert_allclose(lse.numpy(), jl, **BF16_TOL)
-        seen = lse.numpy() > ta.NEG_INF / 2
-        np.testing.assert_allclose(o[seen], ref[seen], **BF16_TOL)
+        rd = np.asarray(ja.mha_reference(*_j(*(x.numpy() for x in (qd, kd, vd))),
+                                         causal=True, kv_offset=off))
+        np.testing.assert_allclose(o.float().numpy(), rd, **BF16_TOL)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(jl), **BF16_TOL)
+
+
+def test_wide_splits_rule():
+    """``_wide_splits`` at the shapes ``chip_smoke.py`` times: 2 ranges for a
+    causal grid of one wave, none for one that fills two, enough ranges to
+    fill the card on small grids, never more than the blocks the longest
+    tile may see nor ``MAX_SPLITS``, and (``_tile_ranges``) never an empty
+    range, no more than ``splits`` a tile, and every tile's blocks covered
+    once."""
+    f, t = "flash_attn_fwd", "flash_attn_fwd_tf32"
+    assert ta._wide_splits(f, 2, 2, 2048, 2048, 512, True) == 2   # 128 CTAs
+    assert ta._wide_splits(t, 2, 2, 2048, 2048, 512, True) == 2
+    assert ta._wide_splits(f, 2, 2, 2048, 2048, 512) == 1         # not causal
+    assert ta._wide_splits(t, 2, 4, 2048, 2048, 256, True) == 1   # 256 CTAs
+    assert ta._wide_splits(f, 2, 2, 200, 330, 320) == 6           # 16 CTAs, 6 blocks
+    assert ta._wide_splits(t, 2, 2, 200, 330, 320, True, 5) == 7  # 195 keys reached
+    assert ta._wide_splits(f, 2, 2, 1, 517, 512, True, -516) == 9  # decode
+    assert ta._wide_splits(t, 2, 4, 1, 517, 256, True, -516) == 9
+    assert ta._wide_splits(f, 1, 1, 1, 10 ** 6, 512) == ta.MAX_SPLITS
+    # the longest causal tile (32 blocks) in two ranges of 16; a tile of 16
+    # blocks or fewer in one
+    assert ta._tile_ranges(f, 2, 1984, 2048, 2048, True, 0) == [(0, 16), (16, 32)]
+    assert ta._tile_ranges(f, 2, 960, 2048, 2048, True, 0) == [(0, 16)]
+    for n in (f, t):
+        for b, h, sq, sk, d, causal, off in [
+                (1, 1, 1, 1000, 300, False, 0), (2, 3, 100, 777, 600, True, 3),
+                (1, 2, 64, 64, 512, True, 0), (4, 4, 1, 5000, 264, True, -4999),
+                (2, 2, 2048, 2048, 320, True, 0), (1, 1, 300, 40, 264, True, 100)]:
+            s = ta._wide_splits(n, b, h, sq, sk, d, causal, off)
+            blocks = ta._reach_blocks(n, sq, sk, causal, off)
+            assert 1 <= s <= max(1, min(blocks, ta.MAX_SPLITS))
+            for q0 in range(0, sq, ta.WIDE_ROWS):
+                ranges = ta._tile_ranges(n, s, q0, sq, sk, causal, off)
+                mine = ta._reach_blocks(n, sq, sk, causal, off, q_end=q0 + ta.WIDE_ROWS)
+                assert 1 <= len(ranges) <= s
+                assert ranges[0][0] == 0 and ranges[-1][1] == mine
+                assert all(a < b_ for a, b_ in ranges) or mine == 0
+                assert all(r[1] == nxt[0] for r, nxt in zip(ranges, ranges[1:]))
 
 
 # (b, s, h, d, causal, kv_offset): q, k, v as strided views of one packed

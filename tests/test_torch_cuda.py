@@ -1,7 +1,8 @@
 """The attention kernels (the Hopper ``wgmma`` kernel for bf16/fp16 at head
 dims up to 256 with its zero-padded path and above 256 on its wide route,
 the 3xTF32 ``wgmma`` kernel for f32 up to 128 and above 128 on its wide
-route) against their plain PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
+route; the wide routes at the real head dim, split-KV on small grids)
+against their plain PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py
 
@@ -70,9 +71,9 @@ def test_cuda_kernel_matches_plain_version(case):
 # (b, sq, sk, h, d, causal, kv_offset, dtype, packed) for the routes other
 # than bf16/fp16 at 64 and 128: bf16/fp16 at 129-256 (the wgmma kernel at
 # D=256, zero-padded), bf16/fp16 below 128 (padded to 64 or 128), bf16/fp16
-# above 256 (the wgmma kernel's wide route, slices of 256), f32 up to 128
-# (the 3xTF32 kernel, padded to 64 or 128) and f32 above 128 (its wide
-# route, padded to a multiple of 128, slices of 256)
+# above 256 (the wgmma kernel's wide route at the real head dim), f32 up to
+# 128 (the 3xTF32 kernel, padded to 64 or 128) and f32 above 128 (its wide
+# route at the real head dim)
 GENERIC_CASES = {
     "f32_serving_shape": (4, 2048, 2048, 8, 128, True, 0, torch.float32, False),
     "f32_d64_ragged_kv_offset": (2, 100, 170, 3, 64, True, 37, torch.float32, False),
@@ -102,8 +103,8 @@ GENERIC_CASES = {
     "bf16_d32_padded": (2, 300, 300, 4, 32, True, 0, torch.bfloat16, False),
     "bf16_d96_padded": (2, 200, 330, 3, 96, True, 0, torch.bfloat16, False),
     "fp16_d80_padded_masked_rows": (1, 100, 70, 2, 80, True, 37, torch.float16, False),
-    # the wide routes, slices of 256: f32 and bf16/fp16 at 320 (padded to
-    # 384), 384 (256 + 128), 448 (padded to 512) and 512
+    # the wide routes at the real head dim: f32 and bf16/fp16 at 320, 384,
+    # 448 and 512
     "f32_d320": (2, 200, 330, 2, 320, True, 5, torch.float32, False),
     "f32_d384_ragged_noncausal": (1, 100, 150, 2, 384, False, 0, torch.float32, False),
     "f32_d448_padded_kv_offset_negative": (1, 64, 192, 2, 448, True, -64,
@@ -120,6 +121,21 @@ GENERIC_CASES = {
     "fp16_d512_sq_1_decode": (2, 1, 517, 2, 512, True, -516, torch.float16, False),
     "bf16_d512_packed_qkv_view": (2, 300, 300, 2, 512, True, 0, torch.bfloat16, True),
     "bf16_d512_consumer_half_masked": (1, 128, 128, 2, 512, True, 64, torch.bfloat16, False),
+    # head dims that are not multiples of 64 (the last box part zeros), a
+    # packed view read in place at D=320, one-row decodes whose later key
+    # ranges see only masked keys (split-KV), and heads above 512 (column
+    # groups; bf16 in two contraction passes)
+    "bf16_d264": (2, 150, 190, 2, 264, True, 3, torch.bfloat16, False),
+    "f32_d132": (2, 100, 170, 2, 132, True, 5, torch.float32, False),
+    "bf16_d320_packed_qkv_view_split": (2, 200, 200, 2, 320, True, 0, torch.bfloat16, True),
+    "bf16_d512_sq_1_masked_split": (2, 1, 517, 2, 512, True, -300, torch.bfloat16, False),
+    "f32_d320_sq_1_masked_split": (2, 1, 517, 2, 320, True, -300, torch.float32, False),
+    "fp16_d1000_ragged": (1, 70, 90, 1, 1000, False, 0, torch.float16, False),
+    "f32_d600_causal": (1, 70, 90, 1, 600, True, 0, torch.float32, False),
+    # causal grids of one wave (128 CTAs): the longer tiles' keys in two
+    # ranges, merged by the combine, the shorter tiles written directly
+    "bf16_d320_causal_one_wave": (2, 2048, 2048, 2, 320, True, 0, torch.bfloat16, False),
+    "f32_d512_causal_one_wave": (2, 1024, 1024, 4, 512, True, 0, torch.float32, False),
 }
 
 
@@ -150,7 +166,7 @@ def test_cuda_generic_and_padded_paths_match_plain_version(case):
     b, sq, sk, h, d, causal, off, dtype, packed = GENERIC_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = make_inputs(b, sq, sk, h, d, dtype, packed, g)
-    if packed and d in ta.KERNEL_HEAD_DIMS + (512,):  # read in place, not copied
+    if packed and ta._route(dtype, d)[1] == d:  # read in place, not copied
         assert ta._kernel_operand(q) is q
     # f32 at every head dim on the 3xTF32 kernel, bf16/fp16 on the wgmma one
     assert ta._route(dtype, d)[0] == ("flash_attn_fwd_tf32" if dtype == torch.float32
@@ -703,7 +719,8 @@ def test_cuda_padded_out_needs_the_copy_for_opcheck():
     returns ``flash_attn_fwd_cuda``'s ``out`` as it comes fails
     ``opcheck``'s fake-tensor check where the head dim is padded (D=32
     runs at 64: ``out`` is a slice of the padded O, the fake one is
-    contiguous), and passes where it is not (D=128: no copy is made)."""
+    contiguous), and passes where it is not (D=128, and D=320 on the bf16
+    wide route: no copy is made)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
@@ -717,7 +734,8 @@ def test_cuda_padded_out_needs_the_copy_for_opcheck():
 
     flash_view.register_fake(ta._flash_attn_fwd_op_fake)
     g = torch.Generator(device="cuda").manual_seed(4)
-    for d, passes in ((32, False), (128, True)):
+    # D=320 is the wide route at the real head dim: no pad, no slice
+    for d, passes in ((32, False), (128, True), (320, True)):
         q, k, v = make_inputs(2, 130, 130, 3, d, torch.bfloat16, False, g)
         args = (q, k, v, True, None, 0)
         assert flash_view(*args)[0].is_contiguous() == passes
@@ -726,3 +744,55 @@ def test_cuda_padded_out_needs_the_copy_for_opcheck():
         assert (result["test_faketensor"] == "SUCCESS") == passes, result
         assert set(torch.library.opcheck(torch.ops.tos.flash_attn_fwd.default, args,
                                          atol=2e-2, rtol=2e-2).values()) == {"SUCCESS"}
+
+
+# (b, sq, sk, h, d, causal, kv_offset, dtype): the D=320 shapes chip_smoke.py
+# times, on the two wide routes; both split their keys (a combine follows)
+CENSUS_CASES = {
+    "bf16_d320": (2, 200, 330, 2, 320, False, 0, torch.bfloat16),
+    "f32_d320": (2, 200, 330, 2, 320, True, 5, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CENSUS_CASES))
+def test_cuda_wide_route_call_pads_nothing_and_launches_one_kernel(case):
+    """One ``flash_attn_fwd_cuda`` call on a wide route at a head dim of
+    whole 16-byte rows, under ``torch.profiler``: no ``aten::constant_pad_nd``
+    and no copy of q, k or v; on the card one attention kernel, at most one
+    combine kernel (here exactly one: the grid is small, so the keys are
+    split) and, for f32, V's transpose, and nothing else; one count in
+    ``LAUNCHES``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    b, sq, sk, h, d, causal, off, dtype = CENSUS_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = make_inputs(b, sq, sk, h, d, dtype, False, g)
+    route, run_d = ta._route(dtype, d)
+    assert run_d == d and ta._wide_splits(route, b, h, sq, sk, d, causal, off) > 1
+    ta.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)  # builds
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session without its device records is taken again
+        before = dict(ta.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            o, lse = ta.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
+            torch.cuda.synchronize()
+        assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
+            n: int(n == route) for n in ta.LAUNCHES}
+        kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if kernels:
+            break
+    assert o.is_contiguous() and o.shape == q.shape
+    names = [e.name for e in prof.events()]
+    for op in ("aten::constant_pad_nd", "aten::pad", "aten::copy_", "aten::clone"):
+        assert op not in names, (op, names)
+    attention = [n for n in kernels if "flash_fwd" in n]
+    combine = [n for n in kernels if "combine_splits" in n]
+    prepass = [n for n in kernels if "transpose_v" in n]
+    assert len(attention) == 1 and len(combine) == 1, kernels
+    assert len(prepass) == int(dtype == torch.float32), kernels
+    assert len(kernels) == len(attention) + len(combine) + len(prepass), kernels
+    po, pl = ta.chunk_attention(q, k, v, causal=causal, kv_offset=off)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), po.float(), **tol)
