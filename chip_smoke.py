@@ -9,10 +9,11 @@ Phases (any failure propagates and the script exits non-zero):
    ``torch.cuda.get_device_name``;
 2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` and
    ``flash_attn_fwd_tf32.cu`` from the checkout (one ``nvcc`` each, in
-   parallel) and prints, per instantiation of the two ``wgmma`` kernels (D
-   64/128/256 and the wide route's 192 and 256 columns a consumer x
-   bf16/fp16; f32 as 3xTF32 at D 64/128 and the wide route's 128, 192 and
-   256 columns a consumer), the registers and spills ptxas reports, the
+   parallel) and prints, per instantiation of the two ``wgmma`` kernels (the
+   tiles of D 32/64/96/128/192/256 and the wide route's 192 and 256 columns
+   a consumer x bf16/fp16; f32 as 3xTF32 on the tiles of D 32/64/96/128 and
+   the wide route's 128, 192 and 256 columns a consumer), the registers and
+   spills ptxas reports, the
    dynamic shared memory, and the counts of ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA load) instructions in the SASS (``cuobjdump -sass``),
    failing if either is missing, a spill shows, or ptxas serialises a
@@ -23,13 +24,15 @@ Phases (any failure propagates and the script exits non-zero):
    PyTorch version (``chunk_attention``) on the card, O and lse, at the
    serving shape and at edge shapes (ragged tails, one query row,
    key-block-crossing offsets, strided q/k/v views of one packed tensor, a
-   tile half fully masked), for bf16/fp16 at D 64/128 and at D=256 (and
-   129-255 padded to it) and on the wide route at D 264, 320, 512 and
-   1000, for f32 through the 3xTF32 kernel at D <= 128 (and with every low
-   mantissa bit set) and on its wide route at D 132, 160, 256, 320, 512 and
-   600 (the head-dim-256 f32 step's shape, the head-dim-512 steps' shapes,
-   decode rows, decode rows whose later key ranges see only masked keys),
-   and the zero-padded paths; each case launches its route's kernel once
+   tile half fully masked), for bf16/fp16 on the tiles up to D=256 at the
+   real head dim (D 8 to 256: the tiles' own widths and the head dims
+   between them, the example LM's D=32 at its shape) and on the wide route
+   at D 264, 320, 512 and 1000, for f32 through the 3xTF32 kernel's tiles
+   at D <= 128 (and with every low mantissa bit set) and on its wide route
+   at D 132, 160, 256, 320, 512 and 600 (the head-dim-256 f32 step's shape,
+   the head-dim-512 steps' shapes, decode rows, decode rows whose later key
+   ranges see only masked keys), and the head dims padded to whole 16-byte
+   rows (bf16 D 33, f32 D 33); each case launches its route's kernel once
    and no other (``ops.attention.LAUNCHES``).  Times each as 50 launches back to back
    between two CUDA events, and the cases of ``REFERENCE_TIMED`` also
    against the plain version and ``F.scaled_dot_product_attention`` (the
@@ -37,12 +40,12 @@ Phases (any failure propagates and the script exits non-zero):
    backend that answered); ``bound_ms`` is the function's own (its products
    over the live pairs at the unpadded head dim at its type's tensor-core
    rate, or its bytes), and ``bound_design_ms`` beside it what the route's
-   design does (padding, three TF32 products apiece, Q Kᵀ once per
-   512-column group of O); on the wide routes the kernels one call runs
-   (``torch.profiler``: one attention kernel, at most one combine, and for
-   f32 V's transpose) with no padding copy; for f32 also the pre-pass, the
-   attention kernel and the combine apart and which SDPA backends take
-   f32;
+   design does (the tile's width in P V and the k-steps it runs in Q Kᵀ,
+   three TF32 products apiece, Q Kᵀ once per 512-column group of O); the
+   kernels one call runs (``torch.profiler``: one attention kernel, at most
+   one combine on a wide route, for f32 its pre-pass) with no padding copy;
+   for f32 and the wide routes also the pre-pass, the attention kernel and
+   the combine apart, and which SDPA backends take f32;
 4. slice — an LM serving replica at the width of the repo's chip LM
    configuration (vocab 32000, d_model 1024, 8 layers, 8 heads, bf16, 2048
    tokens), random weights from the seed in the JAX package's bundle layout:
@@ -102,13 +105,25 @@ Phases (any failure propagates and the script exits non-zero):
    kernel, and loss and gradients against plain attention;
 11. head dim 512 — the same two steps for the LM with 2 heads of 512 (depth
    cut to ``D512_LAYERS``), both on the kernels' wide routes;
+11a. the example LM — ``examples/llm/train_lm.py``'s and
+   ``examples_torch/llm/train_lm.py``'s defaults (``EXAMPLE_LM_CONFIG``:
+   vocab 4096, d_model 256, 4 layers of 8 heads of 32, S=1024, B=8), in f32
+   (the examples' default: the 3xTF32 kernel's 32-column tile) and in bf16
+   (``--bf16``: the wgmma kernel's): the first step's loss and gradients
+   against plain attention on the same weights, ``EXAMPLE_STEPS`` AdamW
+   steps (finite, falling losses, n_layers launches a step, step ms), then
+   one batch served through ``export_bundle`` → ``build_apply``: its logits
+   against plain attention's, n_layers launches of the route's kernel, and
+   a ``torch.profiler`` census of the forward (n_layers attention kernels,
+   for f32 n_layers pre-passes, and no pad, copy or slice inside the
+   operator's calls);
 12. moe-slice — the MoE LM at the same width with top-2 of 8 experts
    (``MOE_CONFIG``: Mixtral 8x7B's routing, capacity factor 1.25, the sort
-   dispatch; about 0.97 B parameters), random weights from the seed in the
+   dispatch; depth cut to ``MOE_LAYERS``, about 0.49 B parameters), random weights from the seed in the
    JAX package's bundle layout, through ``export_bundle`` →
    ``serving_loop`` exactly as the slice (batches of 4, 4 and 3 rows, the
    last padded, so its pad rows take expert capacity; a ping and a
-   reload): ordered, exactly-count, finite results, 8 launches a batch,
+   reload): ordered, exactly-count, finite results, n_layers launches a batch,
    the logits against plain attention on the padded batch at the kernel
    path's routing, and with the routing free the share of tokens a layer
    that the two paths send to other experts within a bound (in bf16 and
@@ -117,7 +132,7 @@ Phases (any failure propagates and the script exits non-zero):
    attention kernel, the rest) and the peak memory;
 13. moe-train — ``make_train_step`` with AdamW on that model, B=8, 3
    warm-up and 10 timed steps: finite losses, aux and router-z losses, a
-   falling loss, 8 launches a step; step ms, tokens/s, the model-FLOPs
+   falling loss, n_layers launches a step; step ms, tokens/s, the model-FLOPs
    share (top-2 of 8 experts active), the peak memory; one step's loss and
    gradients against plain attention at the kernel step's routing, and
    the share of tokens re-routed with the routing free within the bound;
@@ -285,11 +300,11 @@ KERNEL_CASES = [
     ("consumer_half_masked", 1, 128, 128, 8, 128, True, 64, "bfloat16", False),
 ]
 # the other routes (ops.attention._route), same fields: f32 up to D=128 on
-# the 3xTF32 kernel (padded to 64 or 128), bf16/fp16 at D=256 on the wgmma
-# kernel (129-255 padded to 256) and below 128 padded to 64 or 128, f32
-# above 128 and bf16/fp16 above 256 on the two kernels' wide routes at the
-# real head dim; a name with "low_bits" sets every low mantissa bit of the
-# f32 inputs
+# the 3xTF32 kernel's tiles, bf16/fp16 on the wgmma kernel's tiles at the
+# head dims other than 64 and 128 up to 256, f32 above 128 and bf16/fp16
+# above 256 on the two kernels' wide routes, all at the real head dim
+# (padded only to whole 16-byte rows); a name with "low_bits" sets every
+# low mantissa bit of the f32 inputs
 GENERIC_CASES = [
     ("f32_serving_shape", 4, 2048, 2048, 8, 128, True, 0, "float32", False),
     ("f32_d64_ragged_kv_offset", 2, 200, 330, 8, 64, True, 37, "float32", False),
@@ -302,10 +317,31 @@ GENERIC_CASES = [
     ("f32_packed_qkv_view", 2, 512, 512, 8, 128, True, 0, "float32", True),
     ("f32_consumer_half_masked", 1, 128, 128, 8, 128, True, 64, "float32", False),
     ("f32_d33_padded", 2, 70, 45, 8, 33, False, 0, "float32", False),
-    ("f32_d80_padded_packed", 2, 130, 130, 8, 80, True, 0, "float32", True),
+    ("f32_d80_packed", 2, 130, 130, 8, 80, True, 0, "float32", True),
     ("f32_low_bits", 2, 512, 512, 8, 128, True, 0, "float32", False),
-    ("bf16_d32_padded", 4, 512, 512, 8, 32, True, 0, "bfloat16", False),
-    ("bf16_d96_padded", 2, 300, 300, 8, 96, True, 0, "bfloat16", False),
+    ("bf16_d32", 4, 512, 512, 8, 32, True, 0, "bfloat16", False),
+    ("bf16_d96", 2, 300, 300, 8, 96, True, 0, "bfloat16", False),
+    # the example LM's attention (EXAMPLE_LM_CONFIG: B=8 S=1024 H=8 D=32),
+    # f32 (its default) and bf16; the 192 tile at a long causal shape
+    ("example_lm_d32_f32", 8, 1024, 1024, 8, 32, True, 0, "float32", False),
+    ("example_lm_d32_bf16", 8, 1024, 1024, 8, 32, True, 0, "bfloat16", False),
+    ("bf16_d192", 4, 2048, 2048, 4, 192, True, 0, "bfloat16", False),
+    # the tiles at the real head dim: the head dims between the tiles' widths
+    # (the columns past D zero-filled by TMA), ragged tails, offsets, decodes,
+    # packed views read in place; a head dim padded to whole 16-byte rows
+    ("bf16_d8_ragged_noncausal", 2, 70, 45, 4, 8, False, 0, "bfloat16", False),
+    ("fp16_d40_kv_offset_masked_rows", 1, 100, 70, 4, 40, True, 37, "float16", False),
+    ("bf16_d80_sq_1_causal_decode", 2, 1, 517, 4, 80, True, -516, "bfloat16", False),
+    ("bf16_d96_packed_qkv_view", 2, 300, 300, 4, 96, True, 0, "bfloat16", True),
+    ("fp16_d32_kv_offset_negative", 1, 64, 192, 4, 32, True, -64, "float16", False),
+    ("bf16_d160_ragged_noncausal", 2, 200, 330, 4, 160, False, 0, "bfloat16", False),
+    ("fp16_d224_sq_1_causal_decode", 2, 1, 517, 4, 224, True, -516, "float16", False),
+    ("bf16_d192_packed_qkv_view", 2, 300, 300, 2, 192, True, 0, "bfloat16", True),
+    ("bf16_d33_padded", 2, 70, 45, 4, 33, True, 3, "bfloat16", False),
+    ("f32_d36_ragged_kv_offset", 2, 100, 170, 4, 36, True, 5, "float32", False),
+    ("f32_d96_packed_qkv_view", 2, 300, 300, 4, 96, True, 0, "float32", True),
+    ("f32_d8_sq_1_causal_decode", 2, 1, 517, 4, 8, True, -516, "float32", False),
+    ("f32_d40_consumer_half_masked", 1, 128, 128, 4, 40, True, 64, "float32", False),
     ("bf16_d256", 4, 2048, 2048, 4, 256, True, 0, "bfloat16", False),
     ("bf16_d256_train_shape", 8, 2048, 2048, 4, 256, True, 0, "bfloat16", False),
     ("bf16_d256_ragged_noncausal", 2, 200, 330, 4, 256, False, 0, "bfloat16", False),
@@ -314,14 +350,14 @@ GENERIC_CASES = [
     ("fp16_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float16", False),
     ("bf16_d256_packed_qkv_view", 2, 512, 512, 4, 256, True, 0, "bfloat16", True),
     ("bf16_d256_consumer_half_masked", 1, 128, 128, 4, 256, True, 64, "bfloat16", False),
-    ("bf16_d160_padded", 2, 300, 300, 4, 160, True, 0, "bfloat16", False),
-    ("fp16_d192_padded", 2, 200, 330, 4, 192, True, 5, "float16", False),
+    ("bf16_d160", 2, 300, 300, 4, 160, True, 0, "bfloat16", False),
+    ("fp16_d192_ragged_kv_offset", 2, 200, 330, 4, 192, True, 5, "float16", False),
     # the head-dim-256 f32 train step's own shape, and its decode edge
     ("f32_d256", 2, 2048, 2048, 4, 256, True, 0, "float32", False),
     ("f32_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float32", False),
     # the wide routes: f32 at 160, 320 and 512, each plain and as a one-row
     # decode with a kv_offset
-    ("f32_d160_padded", 2, 300, 300, 4, 160, True, 0, "float32", False),
+    ("f32_d160", 2, 300, 300, 4, 160, True, 0, "float32", False),
     ("f32_d160_sq_1_causal_decode", 2, 1, 517, 4, 160, True, -516, "float32", False),
     ("f32_d320", 2, 200, 330, 2, 320, True, 5, "float32", False),
     ("f32_d320_sq_1_causal_decode", 2, 1, 517, 2, 320, True, -516, "float32", False),
@@ -355,8 +391,9 @@ GENERIC_CASES = [
 ]
 # cases timed against the plain version and the library call as well
 REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d256",
-                   "bf16_d256_train_shape", "f32_d256", "bf16_d32_padded",
-                   "bf16_d96_padded", "bf16_d512", "f32_d512",
+                   "bf16_d256_train_shape", "f32_d256", "bf16_d32", "bf16_d96",
+                   "bf16_d192", "example_lm_d32_f32", "example_lm_d32_bf16",
+                   "bf16_d512", "f32_d512",
                    "bf16_d320_ragged_noncausal", "f32_d320", "bf16_d320_causal",
                    "bf16_d512_sq_1_causal_decode", "f32_d256_sq_1_causal_decode")
 
@@ -380,6 +417,13 @@ DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 64
 F32_TRAIN_BATCH = 2  # the f32 step: f32 products and an f32 recompute backward
 D256_HEADS, D256_LAYERS = 4, 2  # head dim 256 at the LM's width, depth cut
 D512_HEADS, D512_LAYERS = 2, 2  # head dim 512 at the LM's width, depth cut
+# the LM examples' defaults (examples/llm/train_lm.py:49-51,
+# examples_torch/llm/train_lm.py: vocab 4096, d_model 256, 4 layers of 8
+# heads of 32, S=1024, B=8; f32 unless --bf16), uncut: EXAMPLE_STEPS AdamW
+# steps on one batch, then one batch served
+EXAMPLE_LM_CONFIG = {"model": "transformer", "vocab_size": 4096, "d_model": 256,
+                     "n_layers": 4, "n_heads": 8, "attn_impl": "auto"}
+EXAMPLE_SEQ, EXAMPLE_BATCH, EXAMPLE_STEPS = 1024, 8, 3
 CLUSTER_ROWS = (4, 4, 3)  # gateway.predict requests; then one row over TCP
 CLUSTER_NODES = 2
 # the JAX package's orbax bundle read on the card (tests/make_orbax_fixture.py)
@@ -493,8 +537,10 @@ SHARDED_TOL = dict(rtol=1e-4, atol=1e-5)
 # the MoE LM: the chip LM's width with top-2 of 8 experts, Mixtral 8x7B's
 # routing (arXiv:2401.04088 §2.1), and the JAX package's capacity_factor
 # 1.25 and sort dispatch; served like the slice (batches of BATCH_ROWS) and
-# trained like the LM (AdamW, MOE_WARMUP + MOE_TIMED steps)
-MOE_CONFIG = {**LM_CONFIG, "n_experts": 8, "moe_top_k": 2}
+# trained like the LM (AdamW, MOE_WARMUP + MOE_TIMED steps); depth cut to
+# MOE_LAYERS (of the LM's 8) to keep the script well inside its time limit
+MOE_LAYERS = 4
+MOE_CONFIG = {**LM_CONFIG, "n_layers": MOE_LAYERS, "n_experts": 8, "moe_top_k": 2}
 MOE_TRAIN_BATCH = 8
 MOE_WARMUP, MOE_TIMED = 3, 10
 MOE_STAGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
@@ -622,6 +668,7 @@ DESIGN_BASIS = {
     "flash_attn_fwd_tf32": ("the 3xTF32 design: three TF32 products per f32 "
                             "product at the head dim it runs at at 495 TFLOP/s"),
 }
+TILE_BASIS = "; on a tile Q Kᵀ and P V at the tile's {} columns (all its k-steps)"
 WIDE_BASIS = ("; on the wide route Q Kᵀ once per query tile, and once more per "
               "further {}-column group of O")
 
@@ -637,21 +684,59 @@ def attention_bound(b, sq, sk, h, d, causal, kv_offset, itemsize,
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# exp2 results a clock on one SM (the SFU's rate at compute capability 9.0):
+# at head dims up to 64 the softmax's exps may bound a call before its
+# products or bytes do
+SFU_EXPS_PER_CLOCK = 16
+EXP_BOUND_MAX_D = 64
+
+
+@functools.cache
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=30, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def exp_bound(b, sq, sk, h, causal, kv_offset) -> tuple[int, float]:
+    """(exps, ms): one exp per live (query, key) pair, at the SFU's rate on
+    every SM of the card at its highest clock."""
+    import torch
+
+    exps = b * h * live_pairs(sq, sk, causal, kv_offset)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps, exps / (sms * SFU_EXPS_PER_CLOCK * max_sm_clock_hz()) * 1e3
+
+
 def design_bound(route, b, sq, sk, h, d, padded, causal, kv_offset, itemsize):
     """(bound_ms, bound_by, basis) of ``route``'s design on this input: the
     products at the ``padded`` head dim (the one ``_route`` runs it at),
-    three apiece on the 3xTF32 kernel, and on a wide route Q Kᵀ once per
-    group of O's columns one CTA covers (the width from the kernel's
-    library: one group up to D=512).  Not the function's bound: this is
-    what the design must do, padding and recomputation included."""
+    three apiece on the 3xTF32 kernel; on a tile Q Kᵀ and P V at the
+    tile's width (both kernels run all of a tile's k-steps), and on a wide
+    route Q Kᵀ once per group of O's columns one CTA covers (the width from
+    the kernel's library: one group up to D=512).  Not the function's bound: this is what the design must
+    do, padding and recomputation included."""
     from tensorflowonspark_torch.ops import attention as att
 
     products = 3 if route == "flash_attn_fwd_tf32" else 1
-    basis, groups = DESIGN_BASIS[route], 1
-    if padded not in att._HEAD_DIMS[route]:
-        cols = getattr(att._kernel_lib(route), f"tos_{route}_cta_cols")()
-        groups = -(-padded // cols)
-        basis += WIDE_BASIS.format(cols)
+    basis = DESIGN_BASIS[route]
+    tiles = att._HEAD_DIMS[route]
+    if padded <= tiles[-1]:
+        tile = next(t for t in tiles if padded <= t)
+        t_ops = (products * 2 * 2 * tile * b * h
+                 * live_pairs(sq, sk, causal, kv_offset) / PEAK_FLOPS[route] * 1e3)
+        # the bytes of the head dim it reads (an infinite rate: bytes only)
+        t_bytes = attention_bound(b, sq, sk, h, padded, causal, kv_offset, itemsize,
+                                  peak=math.inf)[0]
+        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+                basis + TILE_BASIS.format(tile))
+    cols = getattr(att._kernel_lib(route), f"tos_{route}_cta_cols")()
+    groups = -(-padded // cols)
+    basis += WIDE_BASIS.format(cols)
     return (*attention_bound(b, sq, sk, h, padded, causal, kv_offset, itemsize,
                              PEAK_FLOPS[route], products, groups), basis)
 
@@ -688,11 +773,12 @@ def phase_device():
 KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32")
 # the wgmma instantiations: (library, D, dtype name); D "wideW" is the wide
 # route's kernel with W columns of O per consumer warpgroup
-WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt) for d in (64, 128, 256, "wide192", "wide256")
+WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt)
+                    for d in (32, 64, 96, 128, 192, 256, "wide192", "wide256")
                     for dt in ("bfloat16", "float16")]
                    + [("flash_attn_fwd_tf32", d, "float32")
-                      for d in (64, 128, "wide128", "wide192", "wide256")])
-# reported by ptxas only: the 3xTF32 kernel's K/V pre-pass (D <= 128), the
+                      for d in (32, 64, 96, 128, "wide128", "wide192", "wide256")])
+# reported by ptxas only: the 3xTF32 kernel's K/V pre-pass (its tiles), the
 # wide route's V transpose, and the wide routes' split-KV combine kernels
 COMBINE_KINDS = {"0": ("flash_attn_fwd", "bfloat16"), "1": ("flash_attn_fwd", "float16"),
                  "2": ("flash_attn_fwd_tf32", "float32")}
@@ -872,13 +958,14 @@ def sdpa_backends(q, k, v, smi: str) -> dict:
     return out
 
 
-def wide_census(q, k, v, causal, off, route, name) -> dict:
-    """What one ``flash_attn_fwd_cuda`` call on a wide route runs, under
-    ``torch.profiler``: the kernels on the card by name and the aten ops
-    on the host.  Fails unless there is one attention kernel, at most one
-    combine kernel, V's transpose on the f32 route and nothing else, no
-    padding or copy of q, k or v where the head dim is whole 16-byte rows,
-    and one count in ``LAUNCHES``."""
+def call_census(q, k, v, causal, off, route, name) -> dict:
+    """What one ``flash_attn_fwd_cuda`` call runs, under ``torch.profiler``:
+    the kernels on the card by name and the aten ops on the host.  Fails
+    unless there is one attention kernel, a combine kernel only on a wide
+    route (at most one), on the f32 route its one pre-pass (the tiles' K/V
+    split, the wide route's V transpose) and nothing else, no padding or
+    copy of q, k or v where the head dim is whole 16-byte rows, and one
+    count in ``LAUNCHES``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -898,11 +985,14 @@ def wide_census(q, k, v, causal, off, route, name) -> dict:
     host_ops = sorted({e.name for e in prof.events() if e.name.startswith("aten::")})
     attention = sum("flash_fwd" in n for n in kernels)
     combine = sum("combine_splits" in n for n in kernels)
-    prepass = sum("transpose_v" in n for n in kernels)
-    padded = att._route(q.dtype, q.shape[-1])[1] != q.shape[-1]
+    prepass = sum("transpose_v" in n or "split_kv" in n for n in kernels)
+    run_d = att._route(q.dtype, q.shape[-1])[1]
+    padded = run_d != q.shape[-1]
+    wide = run_d > att._HEAD_DIMS[route][-1]
     copies = [op for op in host_ops
-              if op in ("aten::constant_pad_nd", "aten::pad", "aten::copy_", "aten::clone")]
-    if (attention != 1 or combine > 1
+              if op in ("aten::constant_pad_nd", "aten::pad", "aten::copy_", "aten::clone",
+                        "aten::contiguous", "aten::slice")]
+    if (attention != 1 or combine > int(wide)
             or prepass != int(route == "flash_attn_fwd_tf32")
             or len(kernels) != attention + combine + prepass
             or launched != {n: int(n == route) for n in att.LAUNCHES}
@@ -1003,10 +1093,19 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
                 f"kernel / library {ms / library_ms:.3f}; bounds {bound_ms:.5f} ms "
                 f"the function's own (share {bound_ms / ms:.3f}), {design_ms:.5f} ms "
                 f"on {design_basis} (share {design_ms / ms:.3f}) ({smi})")
-            wide = padded not in att._HEAD_DIMS[route]
+            if d <= EXP_BOUND_MAX_D:
+                # arithmetic from an SFU rate outside the guide's table of
+                # peaks: logged beside the kernel's time, not in its record
+                exps, exp_ms = exp_bound(b, sq, sk, h, causal, off)
+                log(f"[kernel] {name}: {exps} exps, {exp_ms:.5f} ms at "
+                    f"{SFU_EXPS_PER_CLOCK} a clock on every SM at "
+                    f"{max_sm_clock_hz() / 1e6:.0f} MHz (share "
+                    f"{exp_ms / ms:.3f}) ({smi})")
+            wide = padded > att._HEAD_DIMS[route][-1]
+            rec.update(call_census(q, k, v, causal, off, route, name))
             if wide:
-                rec.update(wide_census(q, k, v, causal, off, route, name))
-                rec["splits"] = att._wide_splits(route, b, h, sq, sk, padded, causal, off)
+                rec["splits"] = att._wide_splits(route, b, h, sq, sk, padded, causal, off,
+                                                 sm_count=att._sm_count(q.device))
             if tf32 or wide:
                 parts = kernel_device_ms(lambda: att.flash_attn_fwd_cuda(
                     q, k, v, causal=causal, kv_offset=off))
@@ -1035,12 +1134,13 @@ def phase_kernel(seed: int, smi: str) -> list[dict]:
     return [record("flash_attn_fwd", "serving_shape",
                    head_dim_64=timed["head_dim_64"], d256=timed["bf16_d256"],
                    d256_train_shape=timed["bf16_d256_train_shape"],
-                   d32_padded=timed["bf16_d32_padded"],
-                   d96_padded=timed["bf16_d96_padded"], d512=timed["bf16_d512"],
+                   d32=timed["bf16_d32"], d96=timed["bf16_d96"], d192=timed["bf16_d192"],
+                   example_lm_d32=timed["example_lm_d32_bf16"], d512=timed["bf16_d512"],
                    d320=timed["bf16_d320_ragged_noncausal"],
                    d320_causal=timed["bf16_d320_causal"],
                    d512_decode=timed["bf16_d512_sq_1_causal_decode"]),
             record("flash_attn_fwd_tf32", "f32_serving_shape",
+                   example_lm_d32=timed["example_lm_d32_f32"],
                    d256=timed["f32_d256"], d512=timed["f32_d512"],
                    d320=timed["f32_d320"],
                    d256_decode=timed["f32_d256_sq_1_causal_decode"])]
@@ -2035,6 +2135,169 @@ def phase_train_d512(seed: int, smi: str, device: str = "cuda") -> dict:
     """The head-dim-512 steps (``D512_HEADS`` heads, ``D512_LAYERS``
     layers): both on the kernels' wide routes."""
     return phase_train_heads(D512_HEADS, D512_LAYERS, seed + 17, smi, device)
+
+
+def forward_census(fn, route: str, layers: int, tag: str) -> dict:
+    """One ``fn()`` forward under ``torch.profiler``: the attention kernels
+    and pre-passes it ran on the card, and the aten ops inside each
+    ``tos::flash_attn_fwd`` call on the host.  Fails unless there are
+    ``layers`` attention kernels (and, on the f32 route, ``layers`` K/V
+    pre-passes), and no pad, copy, clone, contiguous or slice inside the
+    operator's calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a session without its device records is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if kernels:
+            break
+    attention = [n for n in kernels if "flash_fwd" in n]
+    prepass = [n for n in kernels if "split_kv" in n or "transpose_v" in n]
+    calls = [e for e in prof.events() if e.name == "tos::flash_attn_fwd"]
+    inside, stack = set(), [c for e in calls for c in e.cpu_children]
+    while stack:
+        e = stack.pop()
+        inside.add(e.name)
+        stack.extend(e.cpu_children)
+    copies = sorted(inside & {"aten::constant_pad_nd", "aten::pad", "aten::copy_",
+                              "aten::clone", "aten::contiguous", "aten::slice"})
+    tf32 = route == "flash_attn_fwd_tf32"
+    if (len(attention) != layers or len(prepass) != (layers if tf32 else 0)
+            or len(calls) != layers or copies):
+        raise AssertionError(f"{tag}: one forward ran {len(attention)} attention kernels "
+                             f"{sorted(set(attention))}, {len(prepass)} pre-passes, "
+                             f"{len(calls)} operator calls with {copies or 'no'} copies "
+                             f"inside; expected {layers} each and none")
+    log(f"[{tag}] census of one forward: {len(attention)} x {sorted(set(attention))}, "
+        f"{len(prepass)} pre-passes, {len(calls)} tos::flash_attn_fwd calls, no pad, "
+        f"copy or slice inside them")
+    return {"attention_kernels": len(attention), "prepasses": len(prepass),
+            "kernel_names": sorted(set(attention))}
+
+
+def example_lm_run(cfg: dict, seed: int, route: str, tag: str, smi: str,
+                   device: str = "cuda") -> dict:
+    """The example LM (``cfg``, ``EXAMPLE_BATCH`` x ``EXAMPLE_SEQ``) on
+    ``route``: the first step's loss and gradients against plain attention
+    on the same weights, ``EXAMPLE_STEPS`` AdamW steps (every count set to
+    0 just before them and read just after: n_layers launches of ``route``
+    a step and none of the others), then one batch served through the
+    bundle: logits against plain attention's, n_layers launches, and the
+    forward's census."""
+    import numpy as np
+    import torch
+
+    from examples_torch.llm.train_lm import synthetic_ids
+    from tensorflowonspark_torch.checkpoint import export_bundle, load_bundle
+    from tensorflowonspark_torch.convert import torch_to_flax
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.models.registry import build_apply
+    from tensorflowonspark_torch.ops import attention as att
+    from tensorflowonspark_torch.parallel import dp
+
+    cuda = device == "cuda"
+    layers = cfg["n_layers"]
+    per_step = layers if cuda else 0  # the CPU path has no kernel
+    model = make_train_model(cfg, seed, device)
+    loss_fn = tfm.make_loss_fn(model)
+    ids = synthetic_ids(EXAMPLE_BATCH, EXAMPLE_SEQ, cfg["vocab_size"], seed)
+    batch = {"input_ids": torch.from_numpy(ids).to(device)}
+    with torch.device(device):
+        plain = tfm.build_transformer({**cfg, "attn_impl": "xla"})
+    plain.load_state_dict(model.state_dict())
+    plain_loss, plain_grads = loss_and_grads(plain, tfm.make_loss_fn(plain), batch)
+    del plain
+    loss, grads = loss_and_grads(model, loss_fn, batch)
+    loss_err = abs(plain_loss - loss) / abs(loss)
+    grad_err, worst = grad_disagreement(grads, plain_grads)
+    del grads, plain_grads
+    compute = "bf16" if cfg["bf16"] else "f32"
+    log(f"[{tag}] {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M params, "
+        f"{compute} compute, {layers} layers of {cfg['n_heads']} heads of "
+        f"{cfg['d_model'] // cfg['n_heads']}, B={EXAMPLE_BATCH} S={EXAMPLE_SEQ}: first "
+        f"step's loss {loss:.5f} (plain attention {plain_loss:.5f}, rel {loss_err:.2e}, "
+        f"limit {LOSS_REL_TOL}); worst gradient rel L2 error {grad_err:.3e} at {worst} "
+        f"(limit {GRAD_REL_TOL})")
+    if not math.isfinite(loss) or loss_err > LOSS_REL_TOL or grad_err > GRAD_REL_TOL:
+        raise AssertionError(f"{tag}: the first step disagrees with plain attention")
+
+    optimizer = dp.adamw(model.parameters(), TRAIN_LR)
+    step = dp.make_train_step(loss_fn, optimizer)
+    state = dp.TrainState.create(model, optimizer)
+    if cuda:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+    losses, per = [], []
+    reset_launches()
+    for i in range(EXAMPLE_STEPS):
+        if i == 1 and cuda:  # the steps after the first, timed
+            start.record()
+        before = dict(att.LAUNCHES)
+        state, metrics = step(state, batch)
+        per.append({n: c - before[n] for n, c in att.LAUNCHES.items()})
+        losses.append(metrics["loss"])
+    if cuda:
+        end.record()
+        end.synchronize()
+    launched = dict(att.LAUNCHES)
+    losses = [x.item() for x in losses]
+    log(f"[{tag}] losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses} not finite or not falling")
+    want = {n: per_step if n == route else 0 for n in att.LAUNCHES}
+    if any(p != want for p in per):
+        raise AssertionError(f"{tag}: launches per step {per}, expected {want}")
+    out = {"launches": launched[route], "loss": loss, "plain_loss": plain_loss,
+           "grad_rel_err": grad_err, "losses": losses}
+    if cuda:
+        step_ms = start.elapsed_time(end) / (EXAMPLE_STEPS - 1)
+        out.update(step_ms=step_ms, tokens_per_s=EXAMPLE_BATCH * EXAMPLE_SEQ / step_ms * 1e3)
+        log(f"[{tag}] {EXAMPLE_STEPS} AdamW steps, {launched[route]} launches of {route} "
+            f"({per_step} a step, none of the others); {step_ms:.2f} ms a step over the "
+            f"last {EXAMPLE_STEPS - 1} (CUDA events), {out['tokens_per_s']:.0f} tokens/s "
+            f"({smi})")
+
+    export = os.path.join(WORK_DIR, tag)
+    export_bundle(export, torch_to_flax(model.state_dict(), cfg["n_heads"]), cfg)
+    del model, optimizer, state
+    params, config = load_bundle(export)
+    apply = build_apply(config, device=device)
+    x = synthetic_ids(EXAMPLE_BATCH, EXAMPLE_SEQ, cfg["vocab_size"], seed=seed + 1)
+    reset_launches()
+    served = apply(params, x)
+    served_launches = dict(att.LAUNCHES)
+    want = {n: per_step if n == route else 0 for n in att.LAUNCHES}
+    if served_launches != want:
+        raise AssertionError(f"{tag}: the served batch launched {served_launches}, "
+                             f"expected {want}")
+    reference = build_apply({**config, "attn_impl": "xla"}, device=device)(params, x)
+    scale = reference.float().abs().max().item()
+    err = (served.float() - reference.float()).abs().max().item()
+    tol = LOGIT_REL_TOL if cfg["bf16"] else F32_LOGIT_REL_TOL
+    log(f"[{tag}] served batch {tuple(served.shape)}: logits vs plain attention's "
+        f"max_abs_err {err:.3e} (limit {tol} x {scale:.3f}), {served_launches[route]} "
+        f"launches of {route}")
+    if not (torch.isfinite(served).all() and err <= tol * scale):
+        raise AssertionError(f"{tag}: served logits disagree with plain attention")
+    out.update(served_launches=served_launches[route], served_logit_max_abs_err=err,
+               served_logit_scale=scale)
+    if cuda:
+        out["census"] = forward_census(lambda: apply(params, x), route, layers, tag)
+    return out
+
+
+def phase_example_lm(seed: int, smi: str, device: str = "cuda") -> dict:
+    """The LM examples' default configuration (``EXAMPLE_LM_CONFIG``, head
+    dim 32) in f32 (the examples' default, the 3xTF32 kernel) and in bf16
+    (``--bf16``, the wgmma kernel); returns each run's numbers by route."""
+    return {route: example_lm_run({**EXAMPLE_LM_CONFIG, "bf16": bf16}, seed + 19, route,
+                                  f"example-lm-{kind}", smi, device)
+            for route, bf16, kind in (("flash_attn_fwd_tf32", False, "f32"),
+                                      ("flash_attn_fwd", True, "bf16"))}
 
 
 # -- the image families (BASELINE configs 1, 2, 3 and 5) ----------------------
@@ -4271,7 +4534,11 @@ def main() -> int:
     try:
         smi = phase_device()
         build = phase_build()
+        t_kernel = time.perf_counter()
         record, tf32 = phase_kernel(args.seed, smi)
+        log(f"[kernel] the kernel phase took {time.perf_counter() - t_kernel:.1f} s "
+            f"(host clock; {smi})")
+        t_lm = time.perf_counter()
         record["build"] = build
         record["launches"] = phase_slice(args.seed, smi)
         cluster = phase_cluster(args.seed, smi)
@@ -4301,6 +4568,15 @@ def main() -> int:
             record[f"train_d{dim}"] = steps["flash_attn_fwd"]
             tf32[f"d{dim}_launches"] = steps["flash_attn_fwd_tf32"].pop("launches")
             tf32[f"train_d{dim}_f32"] = steps["flash_attn_fwd_tf32"]
+        # the LM examples' defaults: head dim 32 on both kernels' 32-column tiles
+        torch.cuda.empty_cache()
+        example = phase_example_lm(args.seed, smi)
+        record["example_lm_launches"] = example["flash_attn_fwd"].pop("launches")
+        record["example_lm_bf16"] = example["flash_attn_fwd"]
+        tf32["example_lm_launches"] = example["flash_attn_fwd_tf32"].pop("launches")
+        tf32["example_lm_f32"] = example["flash_attn_fwd_tf32"]
+        log(f"[lm] the slice, cluster, orbax and LM phases took "
+            f"{time.perf_counter() - t_lm:.1f} s (host clock; {smi})")
         # the MoE LM served and trained, and ring attention's hops
         torch.cuda.empty_cache()
         t_moe = time.perf_counter()

@@ -57,7 +57,21 @@ CASES = (("serving_shape", 4, 2048, 2048, 8, 128, True, 0, "bfloat16"),
          ("bf16_d320_ragged_noncausal", 2, 200, 330, 2, 320, False, 0, "bfloat16"),
          ("f32_d320", 2, 200, 330, 2, 320, True, 5, "float32"),
          ("bf16_d512_sq_1_causal_decode", 2, 1, 517, 2, 512, True, -516, "bfloat16"),
-         ("f32_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float32"))
+         ("f32_d256_sq_1_causal_decode", 2, 1, 517, 4, 256, True, -516, "float32"),
+         # the head dims below the widest tiles: chip_smoke.py's D=32 and
+         # D=96 shapes, D=192 at a long causal shape, and the LM examples'
+         # attention (B=8 S=1024 H=8 D=32) in f32 and bf16
+         ("bf16_d32", 4, 512, 512, 8, 32, True, 0, "bfloat16"),
+         ("bf16_d96", 2, 300, 300, 8, 96, True, 0, "bfloat16"),
+         ("bf16_d192", 4, 2048, 2048, 4, 192, True, 0, "bfloat16"),
+         ("example_lm_d32_f32", 8, 1024, 1024, 8, 32, True, 0, "float32"),
+         ("example_lm_d32_bf16", 8, 1024, 1024, 8, 32, True, 0, "bfloat16"),
+         # head dims between two tiles, at long causal shapes: the tile's
+         # k-steps of zero columns in Q K^T
+         ("bf16_d48", 4, 2048, 2048, 16, 48, True, 0, "bfloat16"),
+         ("bf16_d80", 4, 2048, 2048, 8, 80, True, 0, "bfloat16"),
+         ("bf16_d160", 4, 2048, 2048, 4, 160, True, 0, "bfloat16"),
+         ("bf16_d224", 4, 2048, 2048, 4, 224, True, 0, "bfloat16"))
 # cases also run on the wide route at one slice: whether it could take over
 # from the dedicated configuration of the same head dim
 WIDE_ONE_SLICE = ("bf16_d256", "f32_serving_shape")
@@ -76,9 +90,10 @@ def _chip_smoke():
     return mod
 
 
-def time_kernels(tree: str) -> dict:
-    """In this process: ``tree``'s kernels timed at ``CASES``, and what
-    ptxas and the SASS say of its ``wgmma`` instantiations."""
+def time_kernels(tree: str, names: set[str] | None = None) -> dict:
+    """In this process: ``tree``'s kernels timed at ``CASES`` (those in
+    ``names`` where it is given), and what ptxas and the SASS say of its
+    ``wgmma`` instantiations."""
     sys.path.insert(0, tree)
     import inspect
 
@@ -92,6 +107,8 @@ def time_kernels(tree: str) -> dict:
     out: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, b, sq, sk, h, d, causal, off, dtype_name in CASES:
+        if names and name not in names:
+            continue
         dtype = getattr(torch, dtype_name)
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
                    for s in (sq, sk, sk))
@@ -134,6 +151,8 @@ def time_kernels(tree: str) -> dict:
         del q, k, v
     report, sass = {}, {}
     for lib in ("flash_attn_fwd", "flash_attn_fwd_tf32"):
+        if not cuda_build.library_path(lib).exists():  # no case of its route ran
+            continue
         report.update(smoke.ptxas_report(cuda_build.build_log(lib)))
         sass.update(smoke.sass_counts(cuda_build.library_path(lib)))
     out["build"] = {f"{lib}_D{d}_{dt}": {**regs, **sass.get((lib, d, dt), {})}
@@ -160,17 +179,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts, in the order to run them")
     ap.add_argument("--steps", type=int, default=10, help="0: no train step")
+    ap.add_argument("--cases", help="comma-separated names of CASES to time (default: all)")
     ap.add_argument("--kernels-of", help=argparse.SUPPRESS)  # the child's mode
     args = ap.parse_args()
+    names = set(args.cases.split(",")) if args.cases else None
+    if names and not names <= {c[0] for c in CASES}:
+        ap.error(f"unknown cases: {sorted(names - {c[0] for c in CASES})}")
     if args.kernels_of:
-        print(json.dumps(time_kernels(os.path.abspath(args.kernels_of))))
+        print(json.dumps(time_kernels(os.path.abspath(args.kernels_of), names)))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"AB card {smi.stdout.strip()}", flush=True)
     for tree in map(os.path.abspath, args.trees):
+        cases = ["--cases", args.cases] if args.cases else []
         res = subprocess.run([sys.executable, os.path.abspath(__file__), tree,
-                              "--kernels-of", tree],
+                              "--kernels-of", tree, *cases],
                              capture_output=True, text=True, timeout=900, cwd=tree)
         if res.returncode != 0:
             print(res.stderr[-3000:], file=sys.stderr)

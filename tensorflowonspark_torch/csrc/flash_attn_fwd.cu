@@ -21,11 +21,12 @@
 // longest causal tiles first; 3 warpgroups, 384 threads):
 // - Warpgroup 0 is the producer.  After `setmaxnreg.dec` to 24 registers one
 //   thread starts every load with TMA: the Q tile once, then K and V tiles of
-//   BK keys (128, or 64 at D=256) into a ring of shared-memory stages (3 at
-//   D=64, 2 at D=128 and D=256), each stage guarded by a "full" mbarrier
-//   (TMA transaction bytes) and an "empty" one (one arrival per consumer
-//   warp).  Rows past Sq or Sk arrive zero-filled, so 0 * garbage cannot
-//   become NaN.
+//   BK keys (128, or 64 at tiles of 192 and 256 columns) into a ring of
+//   shared-memory stages (4 at 32 columns, 3 at 64, 96 and 192, 2 at 128
+//   and 256), each stage guarded by a "full" mbarrier (TMA transaction
+//   bytes) and an "empty" one (one arrival per consumer warp).  Rows past
+//   Sq or Sk, and columns past the head dim, arrive zero-filled, so
+//   0 * garbage cannot become NaN.
 // - Warpgroups 1 and 2 are consumers (`setmaxnreg.inc` to 240), each owning
 //   64 query rows.  Per key block: S = Q K^T by `wgmma` m64nBKk16 with both
 //   operands K-major in 128-byte-swizzled shared memory; the online softmax
@@ -37,12 +38,39 @@
 //   releases the stage once its wgmma groups on it have completed.
 // - Epilogue: O is scaled by 1/l, staged 16-bit in the consumer's rows of
 //   the Q tile (swizzled, no bank conflicts) and written out with 16-byte
-//   stores through O's strides; lse = m + log l, or NEG_INF where l = 0.
+//   stores through O's strides, only its columns below the head dim;
+//   lse = m + log l, or NEG_INF where l = 0.
 //
-// D=256 (bf16/fp16 heads of 129-256, zero-padded to 256 by the wrapper):
-// the key tile halves to BK=64 so that a consumer thread holds O (128 f32),
-// S (32) and P (16) in its 240 registers; shared memory is Q 64 KB + 2
-// stages x (K 32 KB + V 32 KB) = 192 KB.  P V is one m64n256k16 per 16 keys.
+// The real head dim (every d up to 256 whose rows are whole 16-byte rows:
+// a multiple of 8).  The kernel is compiled for tiles of D = 32, 64, 96,
+// 128, 192 and 256 columns and a head of d columns runs on the narrowest
+// tile that holds it, straight from the caller's tensors: the tensor maps
+// are encoded at d, so TMA zero-fills the tile's columns past d (zero
+// columns change neither Q K^T nor O's first d columns), and the epilogue
+// writes only O's d columns into the caller's [B,Sq,H,d] tensor.  Q K^T
+// and P V run at the tile's width: wgmma's N is an immediate, and the
+// tiles are spaced so that every box of a tile holds a real column (at most
+// 24 zero columns past d on the tiles of 32 to 128 columns, 56 on those of
+// 192 and 256).  Issuing only the k-steps of Q K^T with real columns took
+// one straight run of wgmma per count (up to three times the code) and won
+// nothing at B=4 S=2048 causal on an H100 SXM: 2.7% at d=48, level at 80
+// and 224, 1.4% slower at 160, and 0.4-1.2% slower on the full tiles.
+// Nothing is padded or copied in device memory.
+// - Tiles of 32 and 96 columns take boxes of 32 columns (64-byte rows) with
+//   the 64-byte swizzle: wgmma reads an MN-major operand (V in P V) in whole
+//   swizzle atoms, 32 columns wide at the 64-byte swizzle, so N = 32 and
+//   N = 96 are whole atoms, where a 128-byte-swizzled box of 64 columns
+//   would leave P V's last atom half read.  The K-major descriptors step
+//   8-row groups at 512 bytes and a k-step of 16 columns within a row at 32
+//   bytes, as at the 128-byte swizzle.  So a D=32 stage is 8 KB of K and 8 KB
+//   of V, and the ring is 4 stages deep: at that width the kernel is bound
+//   by the bytes it reads and the exps it takes (33.5 M at the example LM's
+//   B=8 S=1024 H=8 causal, 16 a clock on each SM), not by products.
+// - Tiles of 192 and 256 columns halve the key tile to BK=64 so that a
+//   consumer thread holds O (96 or 128 f32), S (32) and P (16) in its 240
+//   registers; shared memory is Q 48 KB + 3 stages x (K 24 KB + V 24 KB) =
+//   192 KB at 192, Q 64 KB + 2 x (32 + 32) = 192 KB at 256.  P V is one
+//   m64n192k16 or m64n256k16 per 16 keys.
 //
 // D > 256 (flash_fwd_wide_kernel, at the real head dim): one tile of 64
 // query rows per CTA, the head dim split between the two consumers (each
@@ -50,12 +78,12 @@
 // tiles summed through shared memory), Q resident, split-KV with a combine
 // kernel on small grids; see the section below.
 //
-// Tensor maps: rank 4, dims (D, S, H, B) with the tensors' own byte
-// strides, box (64, 128 or BK, 1, 1) with 128-byte swizzle, encoded on the
-// host on every call (the shared-memory attribute is set once per
-// instantiation, configure_once).  A head of D columns is D/64 boxes per
-// tile, so the K-steps of Q K^T cross from one box's base to the next after
-// 4 steps.
+// Tensor maps: rank 4, dims (d, S, H, B) with the tensors' own byte
+// strides, box (64 or 32, 128 or BK, 1, 1) with the 128- or 64-byte
+// swizzle, encoded on the host on every call (the shared-memory attribute
+// is set once per instantiation, configure_once).  A tile of D columns is
+// D/64 (or D/32) boxes, so the k-steps of Q K^T cross from one box's base to
+// the next after 4 (or 2) steps.
 // The mbarrier, TMA and wgmma helpers are in hopper_pipeline.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -71,24 +99,39 @@ namespace {
 constexpr int kBlockQ = 128;           // query rows per CTA, 64 per consumer
 constexpr int kThreads = 384;          // producer + two consumer warpgroups
 constexpr int kBoxCols = 64;           // 128-byte swizzle: 64 16-bit values
-constexpr int kBoxBytes = 128 * 128;   // one 128-row x 64-column box of Q
 constexpr int kEmptyArrivals = 8;      // one per consumer warp
+constexpr int kMaxTile = 256;          // the widest tile; wider heads: the wide route
 constexpr int kProducerRegs = 24;      // setmaxnreg: 128 * 24 + 256 * 240
 constexpr int kConsumerRegs = 240;     //   = 64,512 <= 65,536 registers
 
+// The tile of D columns (D = 32, 64, 96, 128, 192 or 256).
 template <int D>
 struct Cfg {
-  // keys per ring stage: 128, or 64 at D=256 so that O (128 registers),
-  // S and P fit a consumer thread's 240 registers and two stages fit
-  static constexpr int kBlockK = D == 256 ? 64 : 128;
-  static constexpr int kBoxes = D / kBoxCols;              // boxes per tile
-  static constexpr int kKVBoxBytes = kBlockK * 128;        // one K or V box
-  static constexpr int kQTileBytes = kBoxes * kBoxBytes;
+  static_assert(D == 32 || D == 64 || D == 96 || D == 128 || D == 192 || D == 256,
+                "the tiles of the D <= 256 route");
+  // boxes of 32 columns with the 64-byte swizzle at 32 and 96 (whole
+  // swizzle atoms for P V's N), else of 64 with the 128-byte swizzle
+  static constexpr bool kNarrowBox = D == 32 || D == 96;
+  static constexpr int kBoxCols = kNarrowBox ? 32 : 64;
+  static constexpr int kRowBytes = 2 * kBoxCols;            // a box row
+  static constexpr int kSteps = kBoxCols / 16;              // k-steps per box
+  static constexpr uint32_t kLayout = kNarrowBox ? kSwizzle64 : kSwizzle128;
+  static constexpr int kGroupBytes = 8 * kRowBytes;         // 8 rows: SBO
+  static constexpr int kQKSteps = D / 16;                   // Q K^T's k-steps of 16
+  // keys per ring stage: 128, or 64 at 192 and 256 so that O (96 or 128
+  // registers), S and P fit a consumer thread's 240 registers
+  static constexpr int kBlockK = D >= 192 ? 64 : 128;
+  static constexpr int kBoxes = D / kBoxCols;               // boxes per tile
+  static constexpr int kQBoxBytes = kBlockQ * kRowBytes;    // one Q box
+  static constexpr int kKVBoxBytes = kBlockK * kRowBytes;   // one K or V box
+  static constexpr int kQTileBytes = kBoxes * kQBoxBytes;
   static constexpr int kKVTileBytes = kBoxes * kKVBoxBytes;
-  static constexpr int kStages = D == 64 ? 3 : 2;          // K/V ring depth
+  // K/V ring depth: as deep as shared memory allows where a stage is small
+  static constexpr int kStages = D == 32 ? 4 : (D == 128 || D == 256) ? 2 : 3;
   static constexpr int kBarOffset = kQTileBytes + 2 * kStages * kKVTileBytes;
   // tiles, 1024 bytes to align the base for the swizzle, the mbarriers
   static constexpr int kSmemBytes = kBarOffset + 1024 + 8 * (2 * kStages + 1);
+  static_assert(kSmemBytes <= 232448, "a CTA has 227 KB of shared memory");
 };
 
 // S (64 x N, f32) = A (64 x 16, smem K-major) * B^T (N x 16, smem K-major);
@@ -142,18 +185,30 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                " {" TOS_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
                : TOS_ACC64                                                   \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define TOS_RS_N96(TY)                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY      \
+               " {" TOS_R48 "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n" \
+               : TOS_ACC48                                                   \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 #define TOS_RS_N64(TY)                                                       \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
                "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY      \
                " {" TOS_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
                : TOS_ACC32                                                   \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define TOS_RS_N32(TY)                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY      \
+               " {" TOS_R16 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+               : TOS_ACC16                                                   \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
 template <int N, bool kBf16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
-                "P V is m64n64, n128, n192 or n256");
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 192 || N == 256,
+                "P V is m64n32, n64, n96, n128, n192 or n256");
   if constexpr (N == 256) {
     if constexpr (kBf16) {
       TOS_RS_N256("bf16");
@@ -172,11 +227,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     } else {
       TOS_RS_N128("f16");
     }
-  } else {
+  } else if constexpr (N == 96) {
+    if constexpr (kBf16) {
+      TOS_RS_N96("bf16");
+    } else {
+      TOS_RS_N96("f16");
+    }
+  } else if constexpr (N == 64) {
     if constexpr (kBf16) {
       TOS_RS_N64("bf16");
     } else {
       TOS_RS_N64("f16");
+    }
+  } else {
+    if constexpr (kBf16) {
+      TOS_RS_N32("bf16");
+    } else {
+      TOS_RS_N32("f16");
     }
   }
 }
@@ -195,6 +262,34 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return r;
 }
 
+// A count fixed at compile time that reads as an int: the full tile's
+// chunks of O in the epilogue, so that its loops fold as they did when D
+// was the only head dim.
+template <int N>
+struct Count {
+  __host__ __device__ constexpr operator int() const { return N; }
+};
+
+// S = Q K^T over the tile's k-steps of 16 columns, one straight run of
+// wgmma from the fence to the wait: after kSteps steps the next box.
+template <class C, bool kBf16>
+__device__ __forceinline__ void qk_product(float (&sc)[C::kBlockK / 2], uint32_t q_rows,
+                                           uint32_t ks) {
+  pin(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < C::kQKSteps; ++kk) {
+    const uint32_t col = (kk % C::kSteps) * 32;
+    const int x = kk / C::kSteps;
+    wgmma_ss<C::kBlockK, kBf16>(
+        sc, smem_desc(q_rows + x * C::kQBoxBytes + col, 16, C::kGroupBytes, C::kLayout),
+        smem_desc(ks + x * C::kKVBoxBytes + col, 16, C::kGroupBytes, C::kLayout), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(sc);
+}
+
 // Accumulator layout of wgmma m64nN (f32), per warp w of the warpgroup and
 // lane = 4g + t: d[4n + e] holds row 16w + g + 8*(e >> 1), column
 // 8n + 2t + (e & 1).  Read as the A registers of a k16 step, the 16 columns
@@ -206,7 +301,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  uint16_t* __restrict__ o, float* __restrict__ lse, int H,
-                 int Sq, int Sk, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                 int Sq, int Sk, int d, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                  int causal, int kv_offset, float scale_log2) {
   using C = Cfg<D>;
   constexpr int S = C::kStages;
@@ -251,7 +346,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(qbar, C::kQTileBytes);
 #pragma unroll
       for (int x = 0; x < C::kBoxes; ++x)
-        tma_load(base + x * kBoxBytes, &tm_q, qbar, x * kBoxCols, q0, h, b);
+        tma_load(base + x * C::kQBoxBytes, &tm_q, qbar, x * C::kBoxCols, q0, h, b);
       for (int kb = 0; kb < nkb; ++kb) {
         const int s = kb % S;
         const uint32_t full = bars + 8 * s;
@@ -261,9 +356,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t vs = base + C::kQTileBytes + C::kKVTileBytes * (S + s);
 #pragma unroll
         for (int x = 0; x < C::kBoxes; ++x) {
-          tma_load(ks + x * C::kKVBoxBytes, &tm_k, full, x * kBoxCols, kb * BK,
+          tma_load(ks + x * C::kKVBoxBytes, &tm_k, full, x * C::kBoxCols, kb * BK,
                    h, b);
-          tma_load(vs + x * C::kKVBoxBytes, &tm_v, full, x * kBoxCols, kb * BK,
+          tma_load(vs + x * C::kKVBoxBytes, &tm_v, full, x * C::kBoxCols, kb * BK,
                    h, b);
         }
       }
@@ -279,7 +374,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int t = lane % 4;
     const int qw0 = q0 + 64 * cw;          // this consumer's first row
     const int r0 = qw0 + 16 * warp + g;    // this thread's rows: r0, r0 + 8
-    const uint32_t q_rows = base + cw * 64 * 128;  // its rows of each Q box
+    const uint32_t q_rows = base + cw * 64 * C::kRowBytes;  // its rows of each Q box
 
     float acc[D / 2];
 #pragma unroll
@@ -295,20 +390,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t vs = base + C::kQTileBytes + C::kKVTileBytes * (S + s);
       mbar_wait(bars + 8 * s, (kb / S) & 1);
 
-      // S = Q K^T: D/16 k-steps of 16; after 4 steps the next 64-column box.
+      // S = Q K^T: the tile's D/16 k-steps of 16.
       float sc[BK / 2];
-      pin(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t col = (kk % 4) * 32;
-        wgmma_ss<BK, kBf16>(sc, smem_desc(q_rows + (kk / 4) * kBoxBytes + col, 16, 1024),
-                            smem_desc(ks + (kk / 4) * C::kKVBoxBytes + col, 16, 1024),
-                            kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      pin(sc);
+      qk_product<C, kBf16>(sc, q_rows, ks);
 
       // The mask (on blocks that straddle the diagonal or the Sk tail) and
       // the online softmax: S becomes P; m, l and O are rescaled.
@@ -329,7 +413,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
         wgmma_rs<D, kBf16>(acc, pa[kk],
-                           smem_desc(vs + kk * 16 * 128, C::kKVBoxBytes, 1024));
+                           smem_desc(vs + kk * 16 * C::kRowBytes, C::kKVBoxBytes,
+                                     C::kGroupBytes, C::kLayout));
       wgmma_commit();
       wgmma_wait_all();
       pin(acc);
@@ -337,22 +422,25 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(bars + 8 * (S + s));  // release the stage
     }
 
-    // Epilogue: normalise, stage in this consumer's Q rows, store rows.
-    uint8_t* const stage = sbase + cw * 64 * 128;
+    // Epilogue: normalise, stage O's d columns in this consumer's Q rows
+    // (stage_at: 16-byte chunk n of row rl, its place in the box row
+    // swizzled by the row, so the 8 rows of a store hit 8 different 16-byte
+    // bank groups), store rows.
+    uint8_t* const stage = sbase + cw * 64 * C::kRowBytes;
+    constexpr int kRowChunks = C::kRowBytes / 16;  // 16-byte chunks a box row
+    auto stage_at = [&](int rl, int n) {
+      const int c = n % kRowChunks;
+      const int swz = kRowChunks == 8 ? (rl & 7) : ((rl >> 1) & 3);
+      return stage + (n / kRowChunks) * C::kQBoxBytes + rl * C::kRowBytes +
+             ((c ^ swz) << 4);
+    };
+    float inv[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       const float lsafe = fmaxf(l[i], 1e-30f);
-      const float inv = 1.f / lsafe;
-      const int rl = 16 * warp + g + 8 * i;  // row within the consumer's 64
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int c = n % 8;  // 16-byte chunk within the 128-byte box row
-        *reinterpret_cast<uint32_t*>(stage + (n / 8) * kBoxBytes + rl * 128 +
-                                     ((c ^ (rl & 7)) << 4) + 4 * t) =
-            pack2<kBf16>(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
-      }
+      inv[i] = 1.f / lsafe;
       const int row = r0 + 8 * i;
       if (t == 0 && row < Sq) {
         lse[(static_cast<int64_t>(b) * Sq + row) * H + h] =
@@ -360,19 +448,39 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                        : kNegInf;
       }
     }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-    constexpr int kChunks = D / 8;  // 16-byte chunks per row
-    uint16_t* const obase = o + b * o_sb + h * o_sh;
-#pragma unroll 4
-    for (int idx = tid; idx < 64 * kChunks; idx += 128) {
-      const int rl = idx / kChunks;
-      const int cc = idx % kChunks;
-      const int row = qw0 + rl;
-      if (row < Sq) {
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            stage + (cc / 8) * kBoxBytes + rl * 128 + (((cc % 8) ^ (rl & 7)) << 4));
-        *reinterpret_cast<uint4*>(obase + row * o_ss + cc * 8) = v;
+    // O's `chunks` 16-byte chunks a row (d / 8): a compile-time count on a
+    // full tile (d == D), as the kernel had before it took d; with the
+    // count read from d on every tile the tiles of 128 and 256 columns ran
+    // 2-4% slower on an H100 SXM
+    auto write_o = [&](auto chunks) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rl = 16 * warp + g + 8 * i;  // row within the consumer's 64
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          if (n < chunks)
+            *reinterpret_cast<uint32_t*>(stage_at(rl, n) + 4 * t) = pack2<kBf16>(
+                acc[4 * n + 2 * i] * inv[i], acc[4 * n + 2 * i + 1] * inv[i]);
+        }
       }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      uint16_t* const obase = o + b * o_sb + h * o_sh;
+      constexpr int kTileChunks = D / 8;  // a constant divisor: no division
+#pragma unroll 4
+      for (int idx = tid; idx < 64 * kTileChunks; idx += 128) {
+        const int rl = idx / kTileChunks;
+        const int cc = idx % kTileChunks;
+        const int row = qw0 + rl;
+        if (row < Sq && cc < chunks) {
+          const uint4 v = *reinterpret_cast<const uint4*>(stage_at(rl, cc));
+          *reinterpret_cast<uint4*>(obase + row * o_ss + cc * 8) = v;
+        }
+      }
+    };
+    if (d == D) {
+      write_o(Count<D / 8>{});
+    } else {
+      write_o(d / 8);
     }
   }
 }
@@ -720,12 +828,12 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 
 // Map of a [B, S, H, D] operand read through its element strides
-// (batch, seq, head): dims (D, S, H, B), box (64, rows, 1, 1), 128-byte
-// swizzle, elements out of bounds (rows past S, columns past D)
-// zero-filled.  A dimension of size 1 is never stepped over, so its stride
-// is set to a legal 16 bytes.
+// (batch, seq, head): dims (D, S, H, B), box (cols, rows, 1, 1) with the
+// 128-byte swizzle at 64 columns and the 64-byte one at 32, elements out of
+// bounds (rows past S, columns past D) zero-filled.  A dimension of size 1
+// is never stepped over, so its stride is set to a legal 16 bytes.
 bool encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int S,
-                int H, int D, const int64_t* st, int rows) {
+                int H, int D, const int64_t* st, int rows, int cols = kBoxCols) {
   const int s = S > 0 ? S : 1;  // Sk = 0: nothing is loaded, the map stays legal
   auto bytes = [](int64_t stride, int n) -> cuuint64_t {
     return n == 1 ? 16 : static_cast<cuuint64_t>(stride) * 2;
@@ -733,48 +841,77 @@ bool encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int S,
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {bytes(st[1], s), bytes(st[2], H), bytes(st[0], B)};
-  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows),
+                             1, 1};
   return encode_map_4d(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                       ptr, dims, strides, box);
+                       ptr, dims, strides, box,
+                       cols == kBoxCols ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // setmaxnreg moves registers within the CTA's pool: the consumers' 240 are
 // only there if the launch reserves 24*128 + 240*256 = 168 * 384.
 constexpr int kLaunchRegs = kProducerRegs * 128 + kConsumerRegs * 256;
 
+// The tile of D columns at head dim d (d <= D, a multiple of 8).
 template <int D, bool kBf16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int Sq, int Sk, int H, const int64_t* st,
+                   float* lse, int B, int Sq, int Sk, int H, int d, const int64_t* st,
                    int causal, int kv_offset, float sm_scale,
                    cudaStream_t stream) {
-  constexpr int kRowsKV = Cfg<D>::kBlockK;
+  using C = Cfg<D>;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(&mq, q, kBf16, B, Sq, H, D, st, kBlockQ) ||
-      !encode_map(&mk, k, kBf16, B, Sk, H, D, st + 3, kRowsKV) ||
-      !encode_map(&mv, v, kBf16, B, Sk, H, D, st + 6, kRowsKV))
+  if (!encode_map(&mq, q, kBf16, B, Sq, H, d, st, kBlockQ, C::kBoxCols) ||
+      !encode_map(&mk, k, kBf16, B, Sk, H, d, st + 3, C::kBlockK, C::kBoxCols) ||
+      !encode_map(&mv, v, kBf16, B, Sk, H, d, st + 6, C::kBlockK, C::kBoxCols))
     return cudaErrorInvalidValue;
   auto* kernel = flash_fwd_kernel<D, kBf16>;
-  constexpr int smem = Cfg<D>::kSmemBytes;
+  constexpr int smem = C::kSmemBytes;
   cudaError_t err = configure_once(reinterpret_cast<const void*>(kernel), smem,
                                    kLaunchRegs, kThreads);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBlockQ - 1) / kBlockQ);
   kernel<<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<uint16_t*>(o), lse, H, Sq, Sk, st[9], st[10],
+      mq, mk, mv, static_cast<uint16_t*>(o), lse, H, Sq, Sk, d, st[9], st[10],
       st[11], causal, kv_offset, sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_typed(bool bf16, const void* q, const void* k, const void* v,
-                         void* o, float* lse, int B, int Sq, int Sk, int H,
+                         void* o, float* lse, int B, int Sq, int Sk, int H, int d,
                          const int64_t* st, int causal, int kv_offset,
                          float sm_scale, cudaStream_t s) {
-  return bf16 ? launch<D, true>(q, k, v, o, lse, B, Sq, Sk, H, st, causal,
+  return bf16 ? launch<D, true>(q, k, v, o, lse, B, Sq, Sk, H, d, st, causal,
                                 kv_offset, sm_scale, s)
-              : launch<D, false>(q, k, v, o, lse, B, Sq, Sk, H, st, causal,
+              : launch<D, false>(q, k, v, o, lse, B, Sq, Sk, H, d, st, causal,
                                  kv_offset, sm_scale, s);
+}
+
+// The narrowest tile that holds head dim d (a multiple of 8, at most 256).
+cudaError_t launch_tile(bool bf16, const void* q, const void* k, const void* v,
+                        void* o, float* lse, int B, int Sq, int Sk, int H, int d,
+                        const int64_t* st, int causal, int kv_offset, float sm_scale,
+                        cudaStream_t s) {
+  if (d <= 0 || d % 8 != 0 || d > kMaxTile) return cudaErrorInvalidValue;
+  if (d <= 32)
+    return launch_typed<32>(bf16, q, k, v, o, lse, B, Sq, Sk, H, d, st, causal,
+                            kv_offset, sm_scale, s);
+  if (d <= 64)
+    return launch_typed<64>(bf16, q, k, v, o, lse, B, Sq, Sk, H, d, st, causal,
+                            kv_offset, sm_scale, s);
+  if (d <= 96)
+    return launch_typed<96>(bf16, q, k, v, o, lse, B, Sq, Sk, H, d, st, causal,
+                            kv_offset, sm_scale, s);
+  if (d <= 128)
+    return launch_typed<128>(bf16, q, k, v, o, lse, B, Sq, Sk, H, d, st, causal,
+                             kv_offset, sm_scale, s);
+  if (d <= 192)
+    return launch_typed<192>(bf16, q, k, v, o, lse, B, Sq, Sk, H, d, st, causal,
+                             kv_offset, sm_scale, s);
+  return launch_typed<256>(bf16, q, k, v, o, lse, B, Sq, Sk, H, d, st, causal,
+                           kv_offset, sm_scale, s);
 }
 
 // The wide kernel with W columns of O per consumer, then, over `splits` key
@@ -832,7 +969,8 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
 // C entry point, loaded with ctypes.  `strides` holds 12 element strides:
 // (batch, seq, head) for q, k, v and o, in that order; the head_dim stride
 // is 1, every other stride a multiple of 8 and every base 16-byte aligned.
-// `wide` = 0: D is 64, 128 or 256; `wide` = 1: the wide route at D, a
+// `wide` = 0: D is a multiple of 8 up to 256, run on the narrowest tile
+// that holds it; `wide` = 1: the wide route at D, a
 // multiple of 8 (the wrapper takes it above 256), over `splits` key ranges
 // (1 to 16; above 1 the split partials go to `scratch`, which holds
 // tos_flash_attn_fwd_scratch_bytes(...) bytes, 16-byte aligned, and a
@@ -859,17 +997,9 @@ extern "C" int tos_flash_attn_fwd(const void* q, const void* k, const void* v,
                                    causal, kv_offset, sm_scale, splits, s)
                : launch_wide<false>(q, k, v, o, l, sc, B, Sq, Sk, H, D, strides,
                                     causal, kv_offset, sm_scale, splits, s);
-  } else if (D == 64) {
-    err = launch_typed<64>(bf16, q, k, v, o, l, B, Sq, Sk, H, strides, causal,
-                           kv_offset, sm_scale, s);
-  } else if (D == 128) {
-    err = launch_typed<128>(bf16, q, k, v, o, l, B, Sq, Sk, H, strides, causal,
-                            kv_offset, sm_scale, s);
-  } else if (D == 256) {
-    err = launch_typed<256>(bf16, q, k, v, o, l, B, Sq, Sk, H, strides, causal,
-                            kv_offset, sm_scale, s);
   } else {
-    err = cudaErrorInvalidValue;
+    err = launch_tile(bf16, q, k, v, o, l, B, Sq, Sk, H, D, strides, causal,
+                      kv_offset, sm_scale, s);
   }
   return static_cast<int>(err);
 }
@@ -883,16 +1013,19 @@ extern "C" int64_t tos_flash_attn_fwd_scratch_bytes(int B, int Sq, int Sk, int H
   return 4 * static_cast<int64_t>(splits) * B * Sq * H * (D + 1);
 }
 
-// Dynamic shared memory of one CTA: `wide` = 0, the configuration for head
-// dim D (64, 128 or 256); `wide` = 1, the wide kernel's with D columns of O
-// per consumer (192 or 256); else 0.
+// Dynamic shared memory of one CTA: `wide` = 0, the tile of D columns (32,
+// 64, 96, 128, 192 or 256); `wide` = 1, the wide kernel's with D columns of
+// O per consumer (192 or 256); else 0.
 extern "C" int tos_flash_attn_fwd_smem_bytes(int D, int wide) {
   if (wide)
     return D == 192 ? WideCfg<192>::kSmemBytes
            : D == 256 ? WideCfg<256>::kSmemBytes
                       : 0;
-  return D == 64 ? Cfg<64>::kSmemBytes
+  return D == 32 ? Cfg<32>::kSmemBytes
+         : D == 64 ? Cfg<64>::kSmemBytes
+         : D == 96 ? Cfg<96>::kSmemBytes
          : D == 128 ? Cfg<128>::kSmemBytes
+         : D == 192 ? Cfg<192>::kSmemBytes
          : D == 256 ? Cfg<256>::kSmemBytes
                     : 0;
 }

@@ -4,10 +4,12 @@
 //
 // Replaces, for f32 inputs at every head dim, the TPU kernel
 // tensorflowonspark_tpu/ops/attention.py:_flash_fwd_kernel (launched by
-// _flash_fwd_pallas through pl.pallas_call), which computes in f32.  The
-// wrapper (ops/attention.py) zero-pads D up to 128 to 64 or 128; a D over
-// 128 runs on the wide route (below) at its real value, padded only to a
-// multiple of 4 where it is not one.  The contract is the other kernels':
+// _flash_fwd_pallas through pl.pallas_call), which computes in f32.  Every
+// head dim runs at its real value, padded by the wrapper (ops/attention.py)
+// only to a multiple of 4 where it is not one: up to 128 on the tile of 32,
+// 64, 96 or 128 columns that holds it (TMA zero-fills the tile's columns
+// past D), above 128 on the wide route (below).  The contract is the other
+// kernels':
 //   q [B,Sq,H,D], k/v [B,Sk,H,D] in f32 with unit stride along D ->
 //   O [B,Sq,H,D] in f32 and lse [B,Sq,H] in f32;
 //   key j sits at global position kpos = kv_offset + j; the causal mask keeps
@@ -62,8 +64,19 @@
 //
 // Tiles and shared memory at D=128: Q_hi + Q_lo 2 x 32 KB; a stage K_hi,
 // K_lo, Vt_hi, Vt_lo 4 x 16 KB; 2 stages: 192 KB + the mbarriers.  At D=64
-// half of that (96 KB).  Registers per consumer thread: O 64 (D/2), S 16,
-// P hi/lo 32, plus the row state.
+// half of that (96 KB), at D=96 three quarters (144 KB); at D=32 16 KB of Q
+// and 16 KB a stage, 4 stages deep (80 KB).  Registers per consumer thread:
+// O D/2, S 16, P hi/lo 32, plus the row state.
+//
+// The real head dim d (a multiple of 4 up to 128) runs on the tile of D =
+// 32, 64, 96 or 128 columns that holds it: a box is 32 f32 columns (one
+// 128-byte swizzle row), so every tile is whole boxes and every box holds a
+// real column.  The tensor maps of q, k and the pre-pass's planes are
+// encoded at d, so TMA zero-fills the columns (of Vt: the rows) past d; the
+// pre-pass reads and writes d columns, Q K^T and P V run at the tile's
+// width (the zero columns' products included: see the main kernel), and the
+// epilogue writes O's d columns into the caller's tensor.  Nothing is padded
+// or copied in device memory.
 //
 // D > 128 (flash_fwd_tf32_wide_kernel, at the real head dim): one tile of
 // 64 query rows per CTA, the head dim split between two consumer
@@ -82,23 +95,28 @@ namespace {
 
 constexpr int kBlockQ = 64;        // query rows per CTA: one consumer warpgroup
 constexpr int kBlockK = 32;        // keys per ring stage
-constexpr int kStages = 2;
 constexpr int kThreads = 160;      // consumer warps 0-3, producer warp 4
 constexpr int kBoxCols = 32;       // 128-byte swizzle: 32 f32 values
 constexpr int kEmptyArrivals = 4;  // one per consumer warp
 
+// The tile of D columns (32, 64, 96 or 128).
 template <int D>
 struct Cfg {
+  static_assert(D == 32 || D == 64 || D == 96 || D == 128, "the tiles of D <= 128");
   static constexpr int kBoxes = D / kBoxCols;             // 32-column boxes
   static constexpr int kQBoxBytes = kBlockQ * 128;
   static constexpr int kKBoxBytes = kBlockK * 128;
   static constexpr int kQTileBytes = kBoxes * kQBoxBytes;  // Q_hi or Q_lo
   static constexpr int kKTileBytes = kBoxes * kKBoxBytes;  // K_hi or K_lo
   static constexpr int kVTileBytes = D * 128;              // D rows x 32 keys
+  static constexpr int kQKSteps = D / 8;                   // Q K^T's k-steps of 8
   static constexpr int kStageBytes = 2 * kKTileBytes + 2 * kVTileBytes;
+  // ring depth: deeper where a stage is small
+  static constexpr int kStages = D == 32 ? 4 : 2;
   static constexpr int kBarOffset = 2 * kQTileBytes + kStages * kStageBytes;
   // tiles, 1024 bytes to align the base for the swizzle, the mbarriers
   static constexpr int kSmemBytes = kBarOffset + 1024 + 8 * (2 * kStages + 1);
+  static_assert(kSmemBytes <= 232448, "a CTA has 227 KB of shared memory");
 };
 
 // x with its low 13 mantissa bits cleared: what a .tf32 operand reads.
@@ -127,7 +145,8 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 64 || N == 128 || N == 256, "P V is m64n64, n128 or n256, k8");
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 256,
+                "P V is m64n32, n64, n96, n128 or n256, k8");
   if constexpr (N == 256) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32"
@@ -140,18 +159,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                  " {" TOS_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
                  : TOS_ACC64
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else {
+  } else if constexpr (N == 96) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32"
+                 " {" TOS_R48 "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+                 : TOS_ACC48
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 64) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32"
                  " {" TOS_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
                  : TOS_ACC32
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32"
+                 " {" TOS_R16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : TOS_ACC16
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 }
 
 // ---------------------------------------------------------------------------
-// Pre-pass: K_lo, and V transposed (keys contiguous, permuted in groups of
-// 8) as Vt_hi and Vt_lo.  Grid (ceil(Skp / 32), D / 32, B*H), 32 x 8 threads.
+// Pre-pass: K_lo [B,H,Sk,D], and V transposed (keys contiguous, permuted in
+// groups of 8) as Vt_hi and Vt_lo [B,H,D,Skp], at the real head dim D.  Grid
+// (ceil(Skp / 32), ceil(D / 32), B*H), 32 x 8 threads.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(256)
 split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
@@ -173,11 +205,11 @@ split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
   for (int r = ty; r < 32; r += 8) {
     const int j = j0 + r;
     float y = 0.f;
-    if (j < Sk) {
+    if (j < Sk && d0 + tx < D) {
       klo[(static_cast<int64_t>(bh) * Sk + j) * D + d0 + tx] = tf32_lo(kh[j * k_ss]);
       y = vh[j * v_ss];
     }
-    tile[r][tx] = y;  // zero past Sk
+    tile[r][tx] = y;  // zero past Sk and D
   }
   __syncthreads();
   // position tx of its group of 8 holds key pi(tx & 7) of the group
@@ -185,12 +217,39 @@ split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
   if (j0 + tx < Skp) {
 #pragma unroll
     for (int r = ty; r < 32; r += 8) {
-      const float y = tile[src][r];
-      const int64_t at = (static_cast<int64_t>(bh) * D + d0 + r) * Skp + j0 + tx;
-      vt_hi[at] = tf32_hi(y);
-      vt_lo[at] = tf32_lo(y);
+      if (d0 + r < D) {
+        const float y = tile[src][r];
+        const int64_t at = (static_cast<int64_t>(bh) * D + d0 + r) * Skp + j0 + tx;
+        vt_hi[at] = tf32_hi(y);
+        vt_lo[at] = tf32_lo(y);
+      }
     }
   }
+}
+
+// S = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi over the tile's k-steps of 8
+// columns, one straight run of wgmma from the fence to the wait: after 4
+// steps the next 32-column box.
+template <class C>
+__device__ __forceinline__ void qk_product(float (&sc)[16], uint32_t q_hi, uint32_t q_lo,
+                                           uint32_t k_hi, uint32_t k_lo) {
+  pin(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int term = 0; term < 3; ++term) {
+    const uint32_t qa = term == 0 ? q_lo : q_hi;
+    const uint32_t kb_ = term == 1 ? k_lo : k_hi;
+#pragma unroll
+    for (int kk = 0; kk < C::kQKSteps; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss_n32(sc, smem_desc(qa + (kk / 4) * C::kQBoxBytes + col, 16, 1024),
+                   smem_desc(kb_ + (kk / 4) * C::kKBoxBytes + col, 16, 1024),
+                   term > 0 || kk > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(sc);
 }
 
 // ---------------------------------------------------------------------------
@@ -211,10 +270,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_vt_hi,
                       const __grid_constant__ CUtensorMap tm_vt_lo,
                       float* __restrict__ o, float* __restrict__ lse, int H,
-                      int Sq, int Sk, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                      int Sq, int Sk, int d, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                       int causal, int kv_offset, float scale_log2) {
   using C = Cfg<D>;
-  constexpr int S = kStages;
+  constexpr int S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms 1024-aligned
@@ -323,26 +382,14 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t vt_lo = vt_hi + C::kVTileBytes;
     mbar_wait(bars + 8 * s, (kb / S) & 1);
 
-    // S = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi: D/8 k-steps of 8 each; after 4
-    // steps the next 32-column box.
+    // S = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi over the tile's k-steps: a head
+    // dim between two tiles multiplies its zero columns too (at most 28 of
+    // them, 3 k-steps of 8).  Issuing only the k-steps with real columns
+    // took one straight run of wgmma per count (a branch inside a run is
+    // slow, a guarded first step serialised, C7515): four runs, 186 HGMMA
+    // at D=128 against 60, and the full tiles ran 3% slower on an H100 SXM.
     float sc[16];
-    pin(sc);
-    wgmma_fence();
-#pragma unroll
-    for (int term = 0; term < 3; ++term) {
-      const uint32_t qa = term == 0 ? q_lo : q_hi;
-      const uint32_t kb_ = term == 1 ? k_lo : k_hi;
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const uint32_t col = (kk % 4) * 32;
-        wgmma_ss_n32(sc, smem_desc(qa + (kk / 4) * C::kQBoxBytes + col, 16, 1024),
-                     smem_desc(kb_ + (kk / 4) * C::kKBoxBytes + col, 16, 1024),
-                     term > 0 || kk > 0);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    pin(sc);
+    qk_product<C>(sc, q_hi, q_lo, k_hi, k_lo);
 
     // The mask (on blocks that straddle the diagonal or the Sk tail) and
     // the online softmax: S becomes P; m, l and O are rescaled.
@@ -382,7 +429,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(bars + 8 * (S + s));  // release the stage
   }
 
-  // Epilogue: O / l from registers, lse = m + log l.
+  // Epilogue: O / l from registers at O's d columns, lse = m + log l.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -393,9 +440,11 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (row < Sq) {
       float* const orow = o + b * o_sb + row * o_ss + h * o_sh + 2 * t;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(orow + 8 * n) =
-            make_float2(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+      for (int n = 0; n < D / 8; ++n) {
+        if (8 * n + 2 * t < d)  // d is a multiple of 4: the pair is whole
+          *reinterpret_cast<float2*>(orow + 8 * n) =
+              make_float2(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+      }
       if (t == 0)
         lse[(static_cast<int64_t>(b) * Sq + row) * H + h] =
             l[i] > 0.f ? fmaxf(m[i], kHalfNegInf) * (scale_log2 * kLn2) + logf(lsafe)
@@ -934,32 +983,36 @@ bool encode_f32(CUtensorMap* map, const void* ptr, int64_t d0, int64_t d1,
                        box);
 }
 
+// The pre-pass, then the tile of D columns at head dim d (d <= D, a
+// multiple of 4).
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   float* lse, float* scratch, int B, int Sq, int Sk, int H,
+                   float* lse, float* scratch, int B, int Sq, int Sk, int H, int d,
                    const int64_t* st, int causal, int kv_offset, float sm_scale,
                    cudaStream_t stream) {
   const int64_t skp = padded_keys(Sk);
-  const int64_t klo_n = static_cast<int64_t>(B) * H * Sk * D;
-  const int64_t vt_n = static_cast<int64_t>(B) * H * D * skp;
+  const int64_t klo_n = static_cast<int64_t>(B) * H * Sk * d;
+  const int64_t vt_n = static_cast<int64_t>(B) * H * d * skp;
   float* const klo = scratch;
   float* const vt_hi = scratch + klo_n;
   float* const vt_lo = vt_hi + vt_n;
 
-  const dim3 pgrid(static_cast<unsigned>((skp + 31) / 32), D / 32, B * H);
+  const dim3 pgrid(static_cast<unsigned>((skp + 31) / 32),
+                   static_cast<unsigned>((d + 31) / 32), B * H);
   split_kv_kernel<<<pgrid, dim3(32, 8), 0, stream>>>(
-      k, v, klo, vt_hi, vt_lo, H, Sk, static_cast<int>(skp), D, st[3], st[4],
+      k, v, klo, vt_hi, vt_lo, H, Sk, static_cast<int>(skp), d, st[3], st[4],
       st[5], st[6], st[7], st[8]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  // d columns (Vt: d rows) of a tile of D: TMA zero-fills the rest
   CUtensorMap mq, mk, mklo, mvh, mvl;
-  if (!encode_f32(&mq, q, D, Sq, H, B, st[1], st[2], st[0], kBlockQ) ||
-      !encode_f32(&mk, k, D, Sk, H, B, st[4], st[5], st[3], kBlockK) ||
-      !encode_f32(&mklo, klo, D, Sk, H, B, D, static_cast<int64_t>(Sk) * D,
-                  static_cast<int64_t>(H) * Sk * D, kBlockK) ||
-      !encode_f32(&mvh, vt_hi, skp, D, H, B, skp, D * skp, H * D * skp, D) ||
-      !encode_f32(&mvl, vt_lo, skp, D, H, B, skp, D * skp, H * D * skp, D))
+  if (!encode_f32(&mq, q, d, Sq, H, B, st[1], st[2], st[0], kBlockQ) ||
+      !encode_f32(&mk, k, d, Sk, H, B, st[4], st[5], st[3], kBlockK) ||
+      !encode_f32(&mklo, klo, d, Sk, H, B, d, static_cast<int64_t>(Sk) * d,
+                  static_cast<int64_t>(H) * Sk * d, kBlockK) ||
+      !encode_f32(&mvh, vt_hi, skp, d, H, B, skp, d * skp, H * d * skp, D) ||
+      !encode_f32(&mvl, vt_lo, skp, d, H, B, skp, d * skp, H * d * skp, D))
     return cudaErrorInvalidValue;
   auto* kernel = flash_fwd_tf32_kernel<D>;
   constexpr int smem = Cfg<D>::kSmemBytes;
@@ -969,9 +1022,28 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   if (tiles > 65535) return cudaErrorInvalidValue;
   const dim3 grid(B * H, tiles);
   kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mklo, mvh, mvl, o, lse, H, Sq,
-                                           Sk, st[9], st[10], st[11], causal,
+                                           Sk, d, st[9], st[10], st[11], causal,
                                            kv_offset, sm_scale * kLog2e);
   return cudaGetLastError();
+}
+
+// The narrowest tile that holds head dim d (a multiple of 4, at most 128).
+cudaError_t launch_tile(const float* q, const float* k, const float* v, float* o,
+                        float* lse, float* scratch, int B, int Sq, int Sk, int H, int d,
+                        const int64_t* st, int causal, int kv_offset, float sm_scale,
+                        cudaStream_t s) {
+  if (d <= 0 || d % 4 != 0 || d > 128) return cudaErrorInvalidValue;
+  if (d <= 32)
+    return launch<32>(q, k, v, o, lse, scratch, B, Sq, Sk, H, d, st, causal, kv_offset,
+                      sm_scale, s);
+  if (d <= 64)
+    return launch<64>(q, k, v, o, lse, scratch, B, Sq, Sk, H, d, st, causal, kv_offset,
+                      sm_scale, s);
+  if (d <= 96)
+    return launch<96>(q, k, v, o, lse, scratch, B, Sq, Sk, H, d, st, causal, kv_offset,
+                      sm_scale, s);
+  return launch<128>(q, k, v, o, lse, scratch, B, Sq, Sk, H, d, st, causal, kv_offset,
+                     sm_scale, s);
 }
 
 // The wide kernel with W columns of O per consumer, then, over `splits` key
@@ -1038,9 +1110,9 @@ cudaError_t launch_wide(const float* q, const float* k, const float* v, float* o
 }  // namespace
 
 // C entry point, loaded with ctypes.  q, k, v, o are f32; `wide` = 0: head
-// dim D = 64 or 128; `wide` = 1: the wide route at D, a multiple of 4 (the
-// wrapper takes it above 128 and zero-pads other head dims up to one of
-// those), over `splits` key ranges (1 to 16).  `strides` holds 12 element
+// dim D a multiple of 4 up to 128, on the narrowest tile that holds it;
+// `wide` = 1: the wide route at D, a multiple of 4 (the wrapper takes it
+// above 128), over `splits` key ranges (1 to 16).  `strides` holds 12 element
 // strides, (batch, seq, head) for q, k, v and o in that order, the head_dim
 // stride 1, every other stride a multiple of 4 and every base 16-byte
 // aligned.  `scratch` holds tos_flash_attn_fwd_tf32_scratch_bytes(...)
@@ -1068,14 +1140,9 @@ extern "C" int tos_flash_attn_fwd_tf32(const void* q, const void* k,
   if (wide) {
     err = launch_wide(fq, fk, fv, fo, fl, sc, B, Sq, Sk, H, D, strides, causal,
                       kv_offset, sm_scale, splits, s);
-  } else if (D == 64) {
-    err = launch<64>(fq, fk, fv, fo, fl, sc, B, Sq, Sk, H, strides, causal,
-                     kv_offset, sm_scale, s);
-  } else if (D == 128) {
-    err = launch<128>(fq, fk, fv, fo, fl, sc, B, Sq, Sk, H, strides, causal,
-                      kv_offset, sm_scale, s);
   } else {
-    err = cudaErrorInvalidValue;
+    err = launch_tile(fq, fk, fv, fo, fl, sc, B, Sq, Sk, H, D, strides, causal,
+                      kv_offset, sm_scale, s);
   }
   return static_cast<int>(err);
 }
@@ -1087,8 +1154,8 @@ extern "C" int64_t tos_flash_attn_fwd_tf32_scratch_bytes(int B, int Sq, int Sk,
   return 4 * scratch_floats(B, Sq, Sk, H, D, wide != 0, splits);
 }
 
-// Dynamic shared memory of one CTA: `wide` = 0, the configuration for head
-// dim D (64 or 128); `wide` = 1, the wide kernel's with D columns of O per
+// Dynamic shared memory of one CTA: `wide` = 0, the tile of D columns (32,
+// 64, 96 or 128); `wide` = 1, the wide kernel's with D columns of O per
 // consumer (128, 192 or 256); else 0.
 extern "C" int tos_flash_attn_fwd_tf32_smem_bytes(int D, int wide) {
   if (wide)
@@ -1096,7 +1163,11 @@ extern "C" int tos_flash_attn_fwd_tf32_smem_bytes(int D, int wide) {
            : D == 192 ? WideCfg<192>::kSmemBytes
            : D == 256 ? WideCfg<256>::kSmemBytes
                       : 0;
-  return D == 64 ? Cfg<64>::kSmemBytes : D == 128 ? Cfg<128>::kSmemBytes : 0;
+  return D == 32    ? Cfg<32>::kSmemBytes
+         : D == 64  ? Cfg<64>::kSmemBytes
+         : D == 96  ? Cfg<96>::kSmemBytes
+         : D == 128 ? Cfg<128>::kSmemBytes
+                    : 0;
 }
 
 // Most columns of O one CTA of the wide route covers; a wider head runs

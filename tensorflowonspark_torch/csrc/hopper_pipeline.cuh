@@ -81,15 +81,20 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
                : "memory");
 }
 
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand (layout
-// type 1 in bits 62-63).  K-major: LBO unused (16), SBO = 1024, the stride
-// between 8-row groups.  MN-major: LBO = stride between 128-byte-wide boxes,
-// SBO = 1024, the stride between groups of 8 rows along K.
+// wgmma shared-memory descriptor for a swizzled operand: `layout` in bits
+// 62-63 is 1 for the 128-byte swizzle (rows of 128 bytes) and 2 for the
+// 64-byte one (rows of 64 bytes).  K-major: LBO unused (16), SBO = the
+// stride between 8-row groups (8 rows: 1024 or 512 bytes).  MN-major: LBO =
+// the stride between swizzle-wide boxes along MN, SBO = the stride between
+// groups of 8 rows along K.
+constexpr uint32_t kSwizzle128 = 1, kSwizzle64 = 2;
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint32_t layout = kSwizzle128) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -396,19 +401,20 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Rank-4 map with 128-byte swizzle, elements out of bounds zero-filled.
-// `dims` innermost first, `strides` the byte strides of dims 1..3 (a
-// dimension of size 1 is never stepped over: pass any legal stride).
+// Rank-4 map with a 128-byte (or `swizzle`) swizzle, elements out of bounds
+// zero-filled.  `dims` innermost first, `strides` the byte strides of dims
+// 1..3 (a dimension of size 1 is never stepped over: pass any legal
+// stride).
 inline bool encode_map_4d(CUtensorMap* map, CUtensorMapDataType type,
                           const void* ptr, const cuuint64_t (&dims)[4],
                           const cuuint64_t (&strides)[3],
-                          const cuuint32_t (&box)[4]) {
+                          const cuuint32_t (&box)[4],
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -422,6 +428,7 @@ inline bool encode_map_4d(CUtensorMap* map, CUtensorMapDataType type,
 #define TOS_ACC16 TOS_ACC8(0), TOS_ACC8(8)
 #define TOS_ACC32 TOS_ACC16, TOS_ACC8(16), TOS_ACC8(24)
 #define TOS_ACC64 TOS_ACC32, TOS_ACC8(32), TOS_ACC8(40), TOS_ACC8(48), TOS_ACC8(56)
+#define TOS_ACC48 TOS_ACC32, TOS_ACC8(32), TOS_ACC8(40)
 #define TOS_ACC96 TOS_ACC64, TOS_ACC8(64), TOS_ACC8(72), TOS_ACC8(80), TOS_ACC8(88)
 #define TOS_ACC128                                                           \
   TOS_ACC64, TOS_ACC8(64), TOS_ACC8(72), TOS_ACC8(80), TOS_ACC8(88),          \
@@ -432,6 +439,10 @@ inline bool encode_map_4d(CUtensorMap* map, CUtensorMapDataType type,
   TOS_R16                                                                    \
   ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
   "%30, %31"
+#define TOS_R48                                                              \
+  TOS_R32                                                                    \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47"
 #define TOS_R64                                                              \
   TOS_R32                                                                    \
   ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \

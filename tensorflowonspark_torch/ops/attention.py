@@ -17,16 +17,18 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
   CUDA tensor goes to the kernels (``flash_attn_fwd_cuda``), a CPU tensor
   to the plain version.  ``_route`` picks the kernel for every head
   dim: bf16/fp16 runs the ``wgmma`` kernel (``csrc/flash_attn_fwd.cu``)
-  at 64, 128 or 256 (a narrower head zero-padded up to one of them), and
-  above 256 its wide route; f32 runs the 3xTF32 ``wgmma`` kernel
-  (``csrc/flash_attn_fwd_tf32.cu``) at 64 or 128, and above 128 its wide
-  route.  A wide route runs at the real head dim (TMA zero-fills a box
-  past D), padded only to a multiple of ``TMA_ROW_BYTES`` where a tensor
-  map cannot describe the rows; its two consumer warpgroups split the head
-  dim, so Q Kᵀ is computed once per query tile, and a grid that would
-  leave the card idle (a small one, or the long tail of a causal wave)
-  splits its tiles' keys into ranges merged by a combine kernel
-  (``_wide_splits``).
+  up to 256 on the tile of 32, 64, 96, 128, 192 or 256 columns that holds
+  the head, and above 256 its wide route; f32 runs the 3xTF32 ``wgmma``
+  kernel (``csrc/flash_attn_fwd_tf32.cu``) up to 128 on the tile of 32,
+  64, 96 or 128 columns, and above 128 its wide route.  Every route runs
+  at the real head dim: the tensor maps are encoded at it and TMA
+  zero-fills a tile's columns past it, so nothing is padded in device
+  memory but a head dim whose rows a tensor map cannot describe (not a
+  multiple of ``TMA_ROW_BYTES``), and O is written at the real head dim.
+  A wide route's two consumer warpgroups split the head dim, so Q Kᵀ is
+  computed once per query tile, and a grid that would leave the card idle
+  (a small one, or the long tail of a causal wave) splits its tiles' keys
+  into ranges merged by a combine kernel (``_wide_splits``).
   Only a type the kernels do not take raises.
   ``LAUNCHES`` counts each kernel's launches.  A CUDA tensor whose kernel
   fails to build or launch raises: nothing falls back.
@@ -42,6 +44,7 @@ All softmax accumulation is float32 whatever the input type.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -172,14 +175,17 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
 # through ctypes.
 # ---------------------------------------------------------------------------
 
-KERNEL_HEAD_DIMS = (64, 128, 256)  # the wgmma kernel's head dims (bf16/fp16)
-TF32_HEAD_DIMS = (64, 128)         # the 3xTF32 wgmma kernel's head dims (f32)
-# above these the kernels' wide routes, at the real head dim
+# the kernels' tiles: a head dim runs on the narrowest tile that holds it,
+# TMA filling the tile's columns past it with zeros (bf16/fp16 on the wgmma
+# kernel, f32 on the 3xTF32 wgmma kernel); above the widest, the kernels'
+# wide routes
+KERNEL_HEAD_DIMS = (32, 64, 96, 128, 192, 256)
+TF32_HEAD_DIMS = (32, 64, 96, 128)
 _HEAD_DIMS = {"flash_attn_fwd": KERNEL_HEAD_DIMS,
               "flash_attn_fwd_tf32": TF32_HEAD_DIMS}
 # a tensor map's rows (every stride but the head dim's) are multiples of 16
-# bytes: a wide route pads only a head dim whose rows are not (bf16/fp16 D
-# not a multiple of 8, f32 D not a multiple of 4)
+# bytes: only a head dim whose rows are not (bf16/fp16 D not a multiple of
+# 8, f32 D not a multiple of 4) is padded, to the next one that is
 TMA_ROW_BYTES = 16
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}  # the wgmma kernel's
 _LIBS: dict = {}
@@ -201,7 +207,7 @@ LAUNCHES = dict.fromkeys(_ARGTYPES, 0)
 # The wide routes' split-KV rule (both kernels take the count as an
 # argument and cut each query tile's own key blocks by it).  A grid of
 # B*H*ceil(Sq/WIDE_ROWS)*ceil(D/WIDE_CTA_COLS) CTAs that fills less than
-# half of SM_COUNT gets its key blocks split into ranges, as many as fill
+# half of the card's SMs gets its key blocks split into ranges, as many as fill
 # the card, at most one a key block and at most MAX_SPLITS, then as few as
 # cover the blocks at that many blocks a range.  A causal grid of at most
 # one wave gets 2: its longest tiles (all the keys) would otherwise run
@@ -209,8 +215,8 @@ LAUNCHES = dict.fromkeys(_ARGTYPES, 0)
 # half the longest tile's, and a tile that needs one range (the shorter
 # half) writes O directly.  The blocks are those the longest tile may see
 # (`_reach_blocks`).  The kernels' own constants: kWideRows, kWideCtaCols,
-# kWideBlockK, and kMaxSplits (hopper_pipeline.cuh).
-SM_COUNT = 132                     # the H100 SXM's SMs
+# kWideBlockK, and kMaxSplits (hopper_pipeline.cuh).  The SM count is the
+# card's own (_sm_count: 132 on an H100 SXM, 114 on an H100 PCIe).
 WIDE_ROWS = 64                     # query rows per CTA on the wide routes
 WIDE_CTA_COLS = 512                # most columns of O one CTA covers
 WIDE_BLOCK_K = {"flash_attn_fwd": 64, "flash_attn_fwd_tf32": 32}
@@ -227,17 +233,24 @@ def _reach_blocks(name: str, sq: int, sk: int, causal: bool, kv_offset: int,
     return -(-keys // WIDE_BLOCK_K[name])
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` names, read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _wide_splits(name: str, b: int, h: int, sq: int, sk: int, d: int,
-                 causal: bool = False, kv_offset: int = 0) -> int:
-    """Key ranges of a wide-route call of kernel ``name``: a function of
-    the shape and the mask only (the rule above)."""
+                 causal: bool = False, kv_offset: int = 0, *, sm_count: int) -> int:
+    """Key ranges of a wide-route call of kernel ``name`` on a card of
+    ``sm_count`` SMs: a function of the shape, the mask and the card only
+    (the rule above)."""
     ctas = b * h * -(-sq // WIDE_ROWS) * -(-d // WIDE_CTA_COLS)
     blocks = _reach_blocks(name, sq, sk, causal, kv_offset)
     if blocks < 2:
         return 1
-    if 2 * ctas >= SM_COUNT:
-        return 2 if causal and ctas <= SM_COUNT else 1
-    splits = min(-(-SM_COUNT // ctas), blocks, MAX_SPLITS)
+    if 2 * ctas >= sm_count:
+        return 2 if causal and ctas <= sm_count else 1
+    splits = min(-(-sm_count // ctas), blocks, MAX_SPLITS)
     per = -(-blocks // splits)
     return -(-blocks // per)
 
@@ -255,19 +268,16 @@ def _tile_ranges(name: str, splits: int, q0: int, sq: int, sk: int, causal: bool
 
 def _route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     """``(kernel, head_dim it runs at)`` for inputs of ``dtype`` with
-    head_dim ``d``: bf16/fp16 to the wgmma kernel at 64, 128 or 256, f32 to
-    the 3xTF32 kernel at 64 or 128 (zero-padded up to them), and a wider
-    head to the same kernel's wide route at ``d`` itself, rounded up only
-    to whole ``TMA_ROW_BYTES`` rows.  Raises on a type the kernels do not
-    take (or a head_dim below 1)."""
+    head_dim ``d``: bf16/fp16 to the wgmma kernel, f32 to the 3xTF32
+    kernel (each on its tile up to ``_HEAD_DIMS``' widest, above it on its
+    wide route), at ``d`` itself rounded up only to whole
+    ``TMA_ROW_BYTES`` rows.  Raises on a type the kernels do not take (or a
+    head_dim below 1)."""
     if dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"the kernels take bf16, fp16 or f32, got {dtype}")
     if d < 1:
         raise ValueError(f"head_dim must be at least 1, got {d}")
     name = "flash_attn_fwd_tf32" if dtype == torch.float32 else "flash_attn_fwd"
-    dims = _HEAD_DIMS[name]
-    if d <= dims[-1]:
-        return name, next(p for p in dims if d <= p)
     row = TMA_ROW_BYTES // dtype.itemsize
     return name, -(-d // row) * row
 
@@ -293,7 +303,7 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     head_dim stride, 16-byte rows, no broadcast dimension, 16-byte aligned
     base), else a contiguous copy."""
     if (x.stride(-1) == 1
-            and all(s % 8 == 0 and (s > 0 or n == 1)
+            and all(s * x.element_size() % TMA_ROW_BYTES == 0 and (s > 0 or n == 1)
                     for s, n in zip(x.stride()[:-1], x.shape[:-1]))
             and x.data_ptr() % 16 == 0):
         return x
@@ -320,14 +330,15 @@ def _check_inputs(q, k, v):
 
 def _launch(name, q, k, v, causal, scale, kv_offset, wide=None):
     """Run ``csrc/<name>.cu`` on checked inputs its kernel can read in
-    place; returns ``(out, lse)``.  ``wide`` picks the wide route; by
-    default it takes a head_dim the kernel has no configuration for.  The
-    wide route runs over ``_wide_splits`` key ranges."""
+    place, at their head_dim; returns ``(out, lse)``.  ``wide`` picks the
+    wide route; by default it takes a head_dim wider than the kernel's
+    widest tile.  The wide route runs over ``_wide_splits`` key ranges."""
     b, sq, h, d = q.shape
     if wide is None:
-        wide = d not in _HEAD_DIMS[name]
+        wide = d > _HEAD_DIMS[name][-1]
     sk = k.shape[1]
-    splits = _wide_splits(name, b, h, sq, sk, d, causal, kv_offset) if wide else 1
+    splits = (_wide_splits(name, b, h, sq, sk, d, causal, kv_offset,
+                           sm_count=_sm_count(q.device)) if wide else 1)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 12)(
@@ -362,14 +373,16 @@ def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
     are CUDA tensors of one type (bf16, fp16 or f32), any head_dim; another
     type, or tensors off the card, raise.
 
-    ``_route`` picks the kernel and the head_dim it runs at: where that
-    differs from the head_dim, q, k and v are zero-padded along D to it
-    (zero columns change neither Q Kᵀ nor the first head_dim columns of P
-    V; ``sm_scale`` defaults to ``1/sqrt`` of the unpadded head_dim) and O
-    is sliced back.  The operands are read in place where the kernel can,
-    and the kernel launched (``LAUNCHES[kernel]`` counts it).  On a wide
-    route at a head_dim of whole 16-byte rows nothing is padded or copied,
-    and O comes back contiguous."""
+    ``_route`` picks the kernel and the head_dim it runs at: the head_dim
+    itself where its rows are whole ``TMA_ROW_BYTES`` (bf16/fp16 a
+    multiple of 8, f32 of 4), and then nothing is padded or copied, the
+    operands are read in place where the kernel can, and O comes back
+    contiguous as the kernel wrote it.  Another head_dim is zero-padded
+    along D to the next whole row (zero columns change neither Q Kᵀ nor
+    the first head_dim columns of P V; ``sm_scale`` defaults to ``1/sqrt``
+    of the unpadded head_dim) and O sliced back.  One call is one launch of
+    the kernel (``LAUNCHES[kernel]`` counts it); what the kernel refuses
+    raises."""
     _check_inputs(q, k, v)
     d = q.shape[-1]
     name, padded = _route(q.dtype, d)
@@ -410,10 +423,11 @@ def flash_attn_fwd_op(q, k, v, causal, sm_scale, kv_offset):
 
 @flash_attn_fwd_op.register_kernel("cuda")
 def _flash_attn_fwd_op_cuda(q, k, v, causal, sm_scale, kv_offset):
-    # a zero-padded head dim comes back as a slice of the padded O: copied
-    # out, because the fake implementation's strides are contiguous (an O
-    # that is contiguous already, as every wide route's at whole 16-byte
-    # rows, is returned as it is)
+    # O at a head dim of whole 16-byte rows is contiguous as the kernel
+    # wrote it and is returned as it is (.contiguous() copies nothing); only
+    # a head dim padded to whole rows comes back as a slice of the padded O
+    # and is copied out, because the fake implementation's strides are
+    # contiguous
     out, lse = flash_attn_fwd_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
                                    kv_offset=kv_offset)
     return out.contiguous(), lse

@@ -20,6 +20,7 @@ import pytest
 
 from tensorflowonspark_torch.analysis import core
 from tensorflowonspark_torch.utils import envtune, knobs
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 PKG = "tensorflowonspark_torch"
 

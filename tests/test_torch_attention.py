@@ -2,7 +2,9 @@
 package's: plain versions against ``mha_reference`` and the Pallas kernel in
 interpret mode (CPU, f32, atol/rtol 1e-5), at the head dims the kernels
 take; the kernel routing table; and the kernels' arithmetic emulated in
-torch — the f32 kernel's 3xTF32, and both kernels' wide routes (at the
+torch — the f32 kernel's 3xTF32, both kernels' tiles at the real head dim
+(TMA's zero fill past D, Q Kᵀ over the k-steps that hold real columns, P V
+at the tile's width), and both kernels' wide routes (at the
 real head dim, Q Kᵀ summed over the kernels' chunks of the head dim in the
 two consumer warpgroups' halves and the halves added, split-KV ranges
 merged as the combine step merges them) — against the same references.
@@ -18,8 +20,12 @@ import torch
 
 from tensorflowonspark_torch.ops import attention as ta
 from tensorflowonspark_tpu.ops import attention as ja
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+# the SMs of an H100 SXM: the card the wide routes' split rule is pinned on
+# here (on a card the rule reads the card's own count, ops.attention._sm_count)
+H100_SMS = 132
 
 
 def make_qkv(b=2, s=64, h=4, d=16, sk=None, seed=0):
@@ -67,13 +73,18 @@ def test_plain_kernel_version_matches_pallas_interpret(case):
 
 
 # (b, sq, h, d, sk, causal, kv_offset): the head dims the card's kernels
-# take besides 64 and 128 — 32 and 96 zero-padded (to 64 / 128), 256 on
-# the wgmma kernel's D=256 configuration (bf16/fp16) and the 3xTF32 kernel's
+# take besides 64 and 128 — 32, 96 and 192 on tiles of their own, 48, 80
+# and 160 on the next tile at the real head dim (TMA's zero fill past D),
+# 256 on the wgmma kernel's widest tile (bf16/fp16) and the 3xTF32 kernel's
 # wide route (f32) — at ragged lengths and a nonzero kv_offset
 HEAD_DIM_CASES = {
     "d32_ragged_causal_offset": (2, 20, 2, 32, 37, True, 5),
+    "d48_ragged_noncausal": (1, 19, 2, 48, 41, False, 0),
+    "d80_causal_offset": (1, 26, 2, 80, 33, True, 4),
     "d96_noncausal": (1, 24, 2, 96, 40, False, 0),
     "d96_causal": (1, 33, 2, 96, None, True, 0),
+    "d160_causal_offset_negative": (1, 15, 1, 160, 29, True, -6),
+    "d192_causal_offset": (1, 18, 1, 192, 27, True, 3),
     "d256_causal_offset": (1, 17, 1, 256, 30, True, 9),
 }
 
@@ -99,10 +110,11 @@ def test_plain_version_at_the_kernels_head_dims_matches_jax(case):
                                        (257, 384), (448, 512), (257, 264),
                                        (131, 132)])
 def test_zero_padding_the_head_dim_changes_nothing(d, padded):
-    """What ``flash_attn_fwd_cuda`` does for a head_dim the tensor-core
-    kernels lack (to 64, 128 or 256; on the wide routes only to whole
-    16-byte rows, ``_route``), and what TMA's zero fill does past D in a
-    wide route's last box: zero
+    """What TMA's zero fill does past D in the kernels' shared memory (a
+    head dim on the next tile of 32, 64, 96, 128, 192 or 256 columns, a
+    wide route's last box), and what ``flash_attn_fwd_cuda`` does for a
+    head dim whose rows are not whole 16-byte rows (padded only to the next
+    that is, ``_route``): zero
     columns change neither Q Kᵀ nor the first d columns of P V, so
     attention over inputs padded along D, at the unpadded ``1/sqrt(d)``
     scale and sliced back, is attention over the inputs."""
@@ -117,18 +129,18 @@ def test_zero_padding_the_head_dim_changes_nothing(d, padded):
 
 
 # _route(dtype, head_dim) -> (kernel, head_dim it runs at): bf16/fp16 on
-# the wgmma kernel at 64, 128 or 256 and above 256 on its wide route; f32 on
-# the 3xTF32 kernel at 64 or 128 and above 128 on its wide route.  A wide
-# route runs at the real head dim, rounded up only to whole 16-byte rows
+# the wgmma kernel (its tiles up to 256, its wide route above), f32 on the
+# 3xTF32 kernel (its tiles up to 128, its wide route above).  Every route
+# runs at the real head dim, rounded up only to whole 16-byte rows
 # (bf16/fp16 to a multiple of 8, f32 to a multiple of 4).
 ROUTES = {
-    1: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
-    33: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
+    1: (("flash_attn_fwd", 8), ("flash_attn_fwd_tf32", 4)),
+    33: (("flash_attn_fwd", 40), ("flash_attn_fwd_tf32", 36)),
     64: (("flash_attn_fwd", 64), ("flash_attn_fwd_tf32", 64)),
-    80: (("flash_attn_fwd", 128), ("flash_attn_fwd_tf32", 128)),
+    80: (("flash_attn_fwd", 80), ("flash_attn_fwd_tf32", 80)),
     128: (("flash_attn_fwd", 128), ("flash_attn_fwd_tf32", 128)),
-    129: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 132)),
-    160: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 160)),
+    129: (("flash_attn_fwd", 136), ("flash_attn_fwd_tf32", 132)),
+    160: (("flash_attn_fwd", 160), ("flash_attn_fwd_tf32", 160)),
     256: (("flash_attn_fwd", 256), ("flash_attn_fwd_tf32", 256)),
     257: (("flash_attn_fwd", 264), ("flash_attn_fwd_tf32", 260)),
     320: (("flash_attn_fwd", 320), ("flash_attn_fwd_tf32", 320)),
@@ -285,7 +297,7 @@ def _emulated_wide_tf32_attention(q, k, v, *, causal, kv_offset, sm_scale):
         block_k=ta.WIDE_BLOCK_K["flash_attn_fwd_tf32"], parts=_wide_parts(d, 32),
         route="flash_attn_fwd_tf32",
         splits=ta._wide_splits("flash_attn_fwd_tf32", b, h, sq, k.shape[1], d, causal,
-                               kv_offset))
+                               kv_offset, sm_count=H100_SMS))
 
 
 def _emulated_wgmma_attention(q, k, v, *, causal, kv_offset, sm_scale, dtype):
@@ -302,13 +314,13 @@ def _emulated_wgmma_attention(q, k, v, *, causal, kv_offset, sm_scale, dtype):
         block_k=ta.WIDE_BLOCK_K["flash_attn_fwd"], parts=_wide_parts(d, 64, 8),
         route="flash_attn_fwd",
         splits=ta._wide_splits("flash_attn_fwd", b, h, sq, k.shape[1], d, causal,
-                               kv_offset))
+                               kv_offset, sm_count=H100_SMS))
     return out.to(dtype), lse
 
 
 # (b, sq, h, d, sk, causal, kv_offset): the TF32 kernel's head dims, 64 and
-# 128, and 33 zero-padded to 64 as the wrapper pads it; ragged key tails
-# and offsets that cut key blocks
+# 128, and 33 zero-padded to 36 (whole 16-byte rows) as the wrapper pads
+# it; ragged key tails and offsets that cut key blocks
 TF32_CASES = {
     "d128_causal": (1, 70, 2, 128, None, True, 0),
     "d128_cross_noncausal": (2, 20, 2, 128, 75, False, 0),
@@ -334,7 +346,7 @@ def test_emulated_3xtf32_attention_matches_jax_f32(case):
                                   interpret=True)
     jo, jl = np.asarray(jo), np.asarray(jl)
     tq, tk, tv = _t(q, k, v)
-    padded = 64 if d < 64 else d
+    padded = ta._route(torch.float32, d)[1]
     if padded != d:  # as the wrapper pads: zeros, at the unpadded scale
         tq, tk, tv = (torch.nn.functional.pad(x, (0, padded - d)) for x in (tq, tk, tv))
     o, lse = _emulated_tf32_attention(tq, tk, tv, causal=causal, kv_offset=off,
@@ -350,6 +362,70 @@ def test_emulated_3xtf32_attention_matches_jax_f32(case):
     o1, _ = _emulated_tf32_attention(tq, tk, tv, causal=causal, kv_offset=off,
                                      sm_scale=d ** -0.5, split=False)
     assert np.abs(o1[..., :d].numpy() - jo).max() > 10 * TF32_TOL["atol"]
+
+
+def _emulated_tile_attention(q, k, v, *, causal, kv_offset, dtype):
+    """A head dim at or below the widest tile, as ``csrc/flash_attn_fwd.cu``
+    (bf16/fp16) and ``csrc/flash_attn_fwd_tf32.cu`` (f32, 3xTF32) run it at
+    the real head dim d: q, k and v on the narrowest tile of ``_HEAD_DIMS``
+    that holds d, its columns past d zero (TMA's fill), Q Kᵀ summed over
+    all the tile's k-steps (of 16 columns in bf16/fp16, of 8 in 3xTF32),
+    the zero columns' too, key blocks of the kernel's, P V at the tile's
+    width, and O's d columns kept.  Checks on the way that the columns past
+    d hold only zeros and that O's columns past d come out zero."""
+    d = q.shape[-1]
+    f32 = dtype == torch.float32
+    name = "flash_attn_fwd_tf32" if f32 else "flash_attn_fwd"
+    tile = next(t for t in ta._HEAD_DIMS[name] if d <= t)
+    step = 8 if f32 else 16
+    if not f32:  # the kernel reads the 16-bit operands
+        q, k, v = (x.to(dtype).float() for x in (q, k, v))
+    q, k, v = (torch.nn.functional.pad(x, (0, tile - d)) for x in (q, k, v))
+    assert not q[..., d:].any() and not k[..., d:].any()
+    parts = [[slice(s * step, (s + 1) * step) for s in range(tile // step)]]
+    if f32:
+        o, lse = _emulated_tf32_attention(q, k, v, causal=causal, kv_offset=kv_offset,
+                                          sm_scale=d ** -0.5, parts=parts)
+    else:
+        o, lse = _emulated_attention(q, k, v, causal=causal, kv_offset=kv_offset,
+                                     sm_scale=d ** -0.5, qk=torch.matmul,
+                                     pv=lambda p, vc: p.to(dtype).float() @ vc,
+                                     block_k=64 if tile >= 192 else 128, parts=parts)
+        o = o.to(dtype).float()
+    assert not o[..., d:].any()  # P V at the tile's width: zero columns past d
+    return o[..., :d], lse
+
+
+# (b, sq, h, sk, kv_offset): ragged keys over several of both kernels' key
+# blocks (32 keys in TF32; 128, and 64 on the 192 tile, in bf16/fp16)
+TILE_CASE = (1, 30, 2, 150, 7)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 40, 96, 192])
+def test_emulated_tile_routes_at_the_real_head_dim_match_jax(d, causal):
+    """The D <= 256 (bf16/fp16) and D <= 128 (f32) routes at the real head
+    dim — the tile that holds d (32 and 96 their own, 40 on the 64 tile,
+    192 its own in bf16/fp16 and on the f32 wide route), Q Kᵀ and P V at
+    the tile's width — against the JAX package's f32 references: f32 (3xTF32) at ``TF32_TOL``, bf16 and fp16 at
+    ``BF16_TOL`` on the same rounded inputs."""
+    b, s, h, sk, off = TILE_CASE
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        name = "flash_attn_fwd_tf32" if dtype == torch.float32 else "flash_attn_fwd"
+        if d > ta._HEAD_DIMS[name][-1]:
+            continue  # above the widest f32 tile: the wide route's tests
+        assert ta._route(dtype, d) == (name, d)  # no padding
+        (q, k, v), off, jo, jl, ref = _wide_case(
+            d, causal, None if dtype == torch.float32 else dtype, case=(b, s, h, sk, off))
+        o, lse = _emulated_tile_attention(*_t(q, k, v), causal=causal, kv_offset=off,
+                                          dtype=dtype)
+        tol = TF32_TOL if dtype == torch.float32 else BF16_TOL
+        np.testing.assert_allclose(o.numpy(), jo, **tol)
+        np.testing.assert_allclose(lse.numpy(), jl, **tol)
+        seen = lse.numpy() > ta.NEG_INF / 2
+        assert seen.any()
+        np.testing.assert_allclose(o.numpy()[seen], ref[seen], **tol)
+        np.testing.assert_array_equal(o.numpy()[~seen], 0.0)
 
 
 # (b, sq, h, sk, kv_offset) per head dim of the wide routes' test: ragged key
@@ -454,7 +530,7 @@ def test_emulated_wide_routes_at_split_kv_boundaries(case):
     d, shape, causal = SPLIT_CASES[case]
     b, sq, h, sk, off = shape
     for n, bk in ta.WIDE_BLOCK_K.items():
-        splits = ta._wide_splits(n, b, h, sq, sk, d, causal, off)
+        splits = ta._wide_splits(n, b, h, sq, sk, d, causal, off, sm_count=H100_SMS)
         ranges = [ta._tile_ranges(n, splits, q0, sq, sk, causal, off)
                   for q0 in range(0, sq, ta.WIDE_ROWS)]
         if case.startswith("decode"):  # the last range ends at the row's reach
@@ -478,8 +554,8 @@ def test_emulated_wide_routes_balance_a_causal_wave():
     b, sq, h, sk, d, off = 1, 128, 33, 128, 264, 0
     q, k, v = make_qkv(b=b, s=sq, h=h, d=d, sk=sk, seed=11)
     for n in ta.WIDE_BLOCK_K:
-        splits = ta._wide_splits(n, b, h, sq, sk, d, True, off)
-        assert splits == 2 and ta._wide_splits(n, b, h, sq, sk, d) == 1
+        splits = ta._wide_splits(n, b, h, sq, sk, d, True, off, sm_count=H100_SMS)
+        assert splits == 2 and ta._wide_splits(n, b, h, sq, sk, d, sm_count=H100_SMS) == 1
         assert len(ta._tile_ranges(n, splits, 64, sq, sk, True, off)) == 2
         assert len(ta._tile_ranges(n, splits, 0, sq, sk, True, off)) == 1
     jo, jl = ja.chunk_attention(*_j(q, k, v), causal=True, kv_offset=off)
@@ -499,22 +575,23 @@ def test_emulated_wide_routes_balance_a_causal_wave():
 
 
 def test_wide_splits_rule():
-    """``_wide_splits`` at the shapes ``chip_smoke.py`` times: 2 ranges for a
-    causal grid of one wave, none for one that fills two, enough ranges to
+    """``_wide_splits`` at the shapes ``chip_smoke.py`` times, on a card of
+    132 SMs (an H100 SXM, passed in): 2 ranges for a causal grid of one wave, none for one that fills two, enough ranges to
     fill the card on small grids, never more than the blocks the longest
     tile may see nor ``MAX_SPLITS``, and (``_tile_ranges``) never an empty
     range, no more than ``splits`` a tile, and every tile's blocks covered
     once."""
     f, t = "flash_attn_fwd", "flash_attn_fwd_tf32"
-    assert ta._wide_splits(f, 2, 2, 2048, 2048, 512, True) == 2   # 128 CTAs
-    assert ta._wide_splits(t, 2, 2, 2048, 2048, 512, True) == 2
-    assert ta._wide_splits(f, 2, 2, 2048, 2048, 512) == 1         # not causal
-    assert ta._wide_splits(t, 2, 4, 2048, 2048, 256, True) == 1   # 256 CTAs
-    assert ta._wide_splits(f, 2, 2, 200, 330, 320) == 6           # 16 CTAs, 6 blocks
-    assert ta._wide_splits(t, 2, 2, 200, 330, 320, True, 5) == 7  # 195 keys reached
-    assert ta._wide_splits(f, 2, 2, 1, 517, 512, True, -516) == 9  # decode
-    assert ta._wide_splits(t, 2, 4, 1, 517, 256, True, -516) == 9
-    assert ta._wide_splits(f, 1, 1, 1, 10 ** 6, 512) == ta.MAX_SPLITS
+    sms = dict(sm_count=H100_SMS)
+    assert ta._wide_splits(f, 2, 2, 2048, 2048, 512, True, **sms) == 2   # 128 CTAs
+    assert ta._wide_splits(t, 2, 2, 2048, 2048, 512, True, **sms) == 2
+    assert ta._wide_splits(f, 2, 2, 2048, 2048, 512, **sms) == 1         # not causal
+    assert ta._wide_splits(t, 2, 4, 2048, 2048, 256, True, **sms) == 1   # 256 CTAs
+    assert ta._wide_splits(f, 2, 2, 200, 330, 320, **sms) == 6           # 16 CTAs, 6 blocks
+    assert ta._wide_splits(t, 2, 2, 200, 330, 320, True, 5, **sms) == 7  # 195 keys reached
+    assert ta._wide_splits(f, 2, 2, 1, 517, 512, True, -516, **sms) == 9  # decode
+    assert ta._wide_splits(t, 2, 4, 1, 517, 256, True, -516, **sms) == 9
+    assert ta._wide_splits(f, 1, 1, 1, 10 ** 6, 512, **sms) == ta.MAX_SPLITS
     # the longest causal tile (32 blocks) in two ranges of 16; a tile of 16
     # blocks or fewer in one
     assert ta._tile_ranges(f, 2, 1984, 2048, 2048, True, 0) == [(0, 16), (16, 32)]
@@ -524,7 +601,7 @@ def test_wide_splits_rule():
                 (1, 1, 1, 1000, 300, False, 0), (2, 3, 100, 777, 600, True, 3),
                 (1, 2, 64, 64, 512, True, 0), (4, 4, 1, 5000, 264, True, -4999),
                 (2, 2, 2048, 2048, 320, True, 0), (1, 1, 300, 40, 264, True, 100)]:
-            s = ta._wide_splits(n, b, h, sq, sk, d, causal, off)
+            s = ta._wide_splits(n, b, h, sq, sk, d, causal, off, **sms)
             blocks = ta._reach_blocks(n, sq, sk, causal, off)
             assert 1 <= s <= max(1, min(blocks, ta.MAX_SPLITS))
             for q0 in range(0, sq, ta.WIDE_ROWS):
@@ -574,8 +651,11 @@ def test_kernel_operand_copies_only_what_tensor_maps_cannot_read():
     assert ta._kernel_operand(view) is view
     bcast = torch.zeros((1, 16, 4, 64)).expand(3, 16, 4, 64)  # batch stride 0
     assert ta._kernel_operand(bcast).stride(0) == 16 * 4 * 64
-    odd = torch.zeros((2, 16, 4, 68))[..., :64]  # rows of 68: not 16-byte strides
+    odd = torch.zeros((2, 16, 4, 66))[..., :64]  # rows of 66 f32: not 16-byte strides
     assert ta._kernel_operand(odd).is_contiguous()
+    # 16-byte rows whatever the element: 36 f32 (144 bytes) read in place
+    f32_rows = torch.zeros((2, 16, 4, 36))
+    assert ta._kernel_operand(f32_rows) is f32_rows
     one = torch.zeros((1, 16, 4, 64)).expand(1, 16, 4, 64)  # size-1 dim, any stride
     assert ta._kernel_operand(one) is one
 
@@ -832,3 +912,23 @@ def test_flash_op_fake_gives_symbolic_shapes_and_f32_lse():
     want = ta.chunk_attention(q3, k3, v3, causal=True)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_chip_smoke_example_lm_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """``chip_smoke.py``'s example-LM phase at a narrow width on the CPU (no
+    kernel: 0 launches expected), in f32 and bf16: the first step against
+    plain attention, ``EXAMPLE_STEPS`` AdamW steps with falling losses, and
+    the served batch's logits against plain attention's."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "WORK_DIR", str(tmp_path))
+    monkeypatch.setattr(cs, "EXAMPLE_LM_CONFIG", {**cs.EXAMPLE_LM_CONFIG, "vocab_size": 64,
+                                                  "d_model": 32, "n_layers": 2, "n_heads": 4})
+    monkeypatch.setattr(cs, "EXAMPLE_SEQ", 16)
+    monkeypatch.setattr(cs, "EXAMPLE_BATCH", 2)
+    runs = cs.phase_example_lm(0, "cpu", device="cpu")
+    assert set(runs) == {"flash_attn_fwd", "flash_attn_fwd_tf32"}
+    for run in runs.values():
+        assert run["launches"] == 0 and run["served_launches"] == 0
+        assert len(run["losses"]) == cs.EXAMPLE_STEPS
+        assert run["losses"][-1] < run["losses"][0]

@@ -43,6 +43,7 @@ from tensorflowonspark_torch.autoscale import (
 from tensorflowonspark_tpu.checkpoint import export_bundle
 from tensorflowonspark_torch.cluster import _PartitionLedger
 from tensorflowonspark_tpu.models import linear as linmod
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 

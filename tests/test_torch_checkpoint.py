@@ -18,6 +18,7 @@ from tensorflowonspark_torch import checkpoint as ckpt
 from tensorflowonspark_torch.parallel import dp
 from tensorflowonspark_torch.utils.paths import register_fs_root
 from tensorflowonspark_tpu.parallel import dp as jdp
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 
 def tree():
@@ -366,7 +367,7 @@ def test_lm_program_calls_the_op_and_scores_like_jax_in_a_fresh_process(tmp_path
     assert meta["batch_polymorphic"] is True and meta["ops"] == ["tos::flash_attn_fwd"]
     assert meta["op_module"] == "tensorflowonspark_torch.ops.attention"
     assert meta["op_routes"] == {"tos::flash_attn_fwd": [
-        {"kernel": "flash_attn_fwd_tf32", "padded_head_dim": 64, "nodes": LM["n_layers"]}]}
+        {"kernel": "flash_attn_fwd_tf32", "padded_head_dim": 8, "nodes": LM["n_layers"]}]}
     assert _op_calls(out) == LM["n_layers"]
 
     np.save(tmp_path / "ids.npy", ids)
@@ -395,7 +396,8 @@ def test_lm_program_calls_the_op_and_scores_like_jax_in_a_fresh_process(tmp_path
 def test_program_json_names_the_route_at_the_exported_type(tmp_path, bf16, kernel):
     """``program.json`` records ``ops.attention._route`` at the exported
     type and head dim: the bf16 LM at head dim 8 runs the wgmma kernel at
-    64, the f32 LM the 3xTF32 kernel at 64; the program equals
+    8, the f32 LM the 3xTF32 kernel at 8 (each on its 32-column tile, no
+    padding); the program equals
     ``build_apply`` on the same weights (bf16 exactly: same ops, one
     process)."""
     from tensorflowonspark_torch.models import registry
@@ -407,9 +409,9 @@ def test_program_json_names_the_route_at_the_exported_type(tmp_path, bf16, kerne
     ckpt.export_program(str(tmp_path), params, config, input_shape=(16,),
                         input_dtype=np.int32, device="cpu")
     meta = json.loads((tmp_path / "program.json").read_text())
-    assert attention._route(torch.bfloat16 if bf16 else torch.float32, 8) == (kernel, 64)
+    assert attention._route(torch.bfloat16 if bf16 else torch.float32, 8) == (kernel, 8)
     assert meta["op_routes"]["tos::flash_attn_fwd"] == [
-        {"kernel": kernel, "padded_head_dim": 64, "nodes": LM["n_layers"]}]
+        {"kernel": kernel, "padded_head_dim": 8, "nodes": LM["n_layers"]}]
     program = torch.export.load(str(tmp_path / "model.pt2")).module()
     with torch.no_grad():
         got = program(torch.from_numpy(ids))

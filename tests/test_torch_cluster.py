@@ -23,6 +23,7 @@ from chip_smoke import make_lm_params
 from tensorflowonspark_torch.cluster import InputMode, TorchCluster
 from tensorflowonspark_tpu import checkpoint as jckpt
 from tensorflowonspark_tpu.models import registry as jreg
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 

@@ -35,6 +35,7 @@ from tensorflowonspark_torch.collective.transport import (
 )
 from tensorflowonspark_torch.coordinator import CoordinatorServer, _reduce
 from tensorflowonspark_torch.launcher import SubprocessLauncher
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 

@@ -1,7 +1,7 @@
-"""The attention kernels (the Hopper ``wgmma`` kernel for bf16/fp16 at head
-dims up to 256 with its zero-padded path and above 256 on its wide route,
-the 3xTF32 ``wgmma`` kernel for f32 up to 128 and above 128 on its wide
-route; the wide routes at the real head dim, split-KV on small grids)
+"""The attention kernels (the Hopper ``wgmma`` kernel for bf16/fp16 on its
+tiles of 32 to 256 columns and above 256 on its wide route, the 3xTF32
+``wgmma`` kernel for f32 on its tiles of 32 to 128 columns and above 128 on
+its wide route; every route at the real head dim, split-KV on small grids)
 against their plain PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tensorflowonspark_torch.ops import attention as ta
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 # (b, sq, sk, h, d, causal, kv_offset, dtype, packed): `packed` makes q, k, v
 # strided views of one [B, S, 3, H, D] tensor (needs sq == sk).
@@ -69,11 +70,11 @@ def test_cuda_kernel_matches_plain_version(case):
 
 
 # (b, sq, sk, h, d, causal, kv_offset, dtype, packed) for the routes other
-# than bf16/fp16 at 64 and 128: bf16/fp16 at 129-256 (the wgmma kernel at
-# D=256, zero-padded), bf16/fp16 below 128 (padded to 64 or 128), bf16/fp16
-# above 256 (the wgmma kernel's wide route at the real head dim), f32 up to
-# 128 (the 3xTF32 kernel, padded to 64 or 128) and f32 above 128 (its wide
-# route at the real head dim)
+# than bf16/fp16 at 64 and 128: bf16/fp16 on the wgmma kernel's other tiles
+# (32, 96, 192, 256) and between them, bf16/fp16 above 256 (its wide
+# route), f32 up to 128 (the 3xTF32 kernel's tiles) and f32 above 128 (its
+# wide route), all at the real head dim (TMA zero-fills a tile's columns
+# past it); a head dim whose rows are not whole 16 bytes is padded to them
 GENERIC_CASES = {
     "f32_serving_shape": (4, 2048, 2048, 8, 128, True, 0, torch.float32, False),
     "f32_d64_ragged_kv_offset": (2, 100, 170, 3, 64, True, 37, torch.float32, False),
@@ -103,6 +104,33 @@ GENERIC_CASES = {
     "bf16_d32_padded": (2, 300, 300, 4, 32, True, 0, torch.bfloat16, False),
     "bf16_d96_padded": (2, 200, 330, 3, 96, True, 0, torch.bfloat16, False),
     "fp16_d80_padded_masked_rows": (1, 100, 70, 2, 80, True, 37, torch.float16, False),
+    # the tiles at the real head dim: 8, 32, 40, 80, 96, 160, 192 and 224 in
+    # bf16/fp16 and f32 up to 128; ragged keys, offsets (a negative one),
+    # one-row decodes, packed views read in place, a masked consumer half
+    "bf16_d8_ragged": (2, 70, 45, 3, 8, False, 0, torch.bfloat16, False),
+    "fp16_d8_decode": (2, 1, 517, 2, 8, True, -516, torch.float16, False),
+    "f32_d8_ragged_kv_offset": (2, 70, 45, 3, 8, True, 5, torch.float32, False),
+    "bf16_d32_kv_offset_masked_rows": (1, 100, 70, 2, 32, True, 37, torch.bfloat16, False),
+    "fp16_d32_packed_qkv_view": (2, 300, 300, 3, 32, True, 0, torch.float16, True),
+    "f32_d32_ragged_noncausal": (2, 200, 330, 3, 32, False, 0, torch.float32, False),
+    "f32_d32_decode": (2, 1, 517, 4, 32, True, -516, torch.float32, False),
+    "bf16_d32_consumer_half_masked": (1, 128, 128, 4, 32, True, 64, torch.bfloat16, False),
+    "bf16_d40_ragged_causal": (2, 200, 330, 2, 40, True, 0, torch.bfloat16, False),
+    "f32_d40_packed_qkv_view": (2, 130, 130, 3, 40, True, 0, torch.float32, True),
+    "fp16_d40_kv_offset_negative": (1, 64, 192, 2, 40, True, -64, torch.float16, False),
+    "bf16_d80_decode": (2, 1, 517, 4, 80, True, -516, torch.bfloat16, False),
+    "f32_d80_kv_offset": (1, 100, 170, 2, 80, True, 37, torch.float32, False),
+    "fp16_d96_ragged_noncausal": (2, 200, 330, 3, 96, False, 0, torch.float16, False),
+    "bf16_d96_packed_qkv_view": (2, 300, 300, 3, 96, True, 0, torch.bfloat16, True),
+    "f32_d96_kv_offset_negative": (1, 64, 192, 2, 96, True, -64, torch.float32, False),
+    "f32_d96_first_tile_masked": (1, 128, 128, 4, 96, True, 64, torch.float32, False),
+    "bf16_d160_decode": (2, 1, 517, 2, 160, True, -516, torch.bfloat16, False),
+    "fp16_d160_kv_offset": (1, 100, 170, 2, 160, True, 37, torch.float16, False),
+    "bf16_d192_ragged_noncausal": (2, 200, 330, 2, 192, False, 0, torch.bfloat16, False),
+    "fp16_d192_packed_qkv_view": (2, 300, 300, 2, 192, True, 0, torch.float16, True),
+    "bf16_d192_consumer_half_masked": (1, 128, 128, 2, 192, True, 64, torch.bfloat16, False),
+    "bf16_d224_kv_offset_negative": (1, 64, 192, 2, 224, True, -64, torch.bfloat16, False),
+    "fp16_d224_decode": (2, 1, 517, 2, 224, True, -516, torch.float16, False),
     # the wide routes at the real head dim: f32 and bf16/fp16 at 320, 384,
     # 448 and 512
     "f32_d320": (2, 200, 330, 2, 320, True, 5, torch.float32, False),
@@ -669,6 +697,8 @@ OP_CASES = {
     # (b, sq, sk, h, d, causal, kv_offset, dtype)
     "bf16_serving_heads": (2, 300, 300, 8, 128, True, 0, torch.bfloat16),
     "bf16_d32_padded": (2, 130, 170, 3, 32, False, 0, torch.bfloat16),
+    "bf16_d96": (2, 130, 170, 3, 96, True, 5, torch.bfloat16),
+    "f32_d36": (2, 70, 45, 2, 36, False, 0, torch.float32),
     "fp16_kv_offset": (1, 100, 70, 2, 64, True, 37, torch.float16),
     "f32_d128": (2, 200, 330, 3, 128, True, 5, torch.float32),
     "f32_d33_padded": (2, 70, 45, 2, 33, False, 0, torch.float32),
@@ -717,10 +747,11 @@ def test_cuda_padded_out_needs_the_copy_for_opcheck():
     """Why ``tos::flash_attn_fwd``'s CUDA implementation returns
     ``out.contiguous()``: an op with the same fake implementation that
     returns ``flash_attn_fwd_cuda``'s ``out`` as it comes fails
-    ``opcheck``'s fake-tensor check where the head dim is padded (D=32
-    runs at 64: ``out`` is a slice of the padded O, the fake one is
-    contiguous), and passes where it is not (D=128, and D=320 on the bf16
-    wide route: no copy is made)."""
+    ``opcheck``'s fake-tensor check where the head dim is padded (bf16
+    D=33 runs at 40, whole 16-byte rows: ``out`` is a slice of the padded O,
+    the fake one is contiguous), and passes where it is not (D=32 on its
+    tile, D=128, and D=320 on the bf16 wide route: O is written at the real
+    head dim and no copy is made)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
@@ -735,7 +766,7 @@ def test_cuda_padded_out_needs_the_copy_for_opcheck():
     flash_view.register_fake(ta._flash_attn_fwd_op_fake)
     g = torch.Generator(device="cuda").manual_seed(4)
     # D=320 is the wide route at the real head dim: no pad, no slice
-    for d, passes in ((32, False), (128, True), (320, True)):
+    for d, passes in ((33, False), (32, True), (128, True), (320, True)):
         q, k, v = make_inputs(2, 130, 130, 3, d, torch.bfloat16, False, g)
         args = (q, k, v, True, None, 0)
         assert flash_view(*args)[0].is_contiguous() == passes
@@ -770,7 +801,8 @@ def test_cuda_wide_route_call_pads_nothing_and_launches_one_kernel(case):
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v = make_inputs(b, sq, sk, h, d, dtype, False, g)
     route, run_d = ta._route(dtype, d)
-    assert run_d == d and ta._wide_splits(route, b, h, sq, sk, d, causal, off) > 1
+    assert run_d == d and ta._wide_splits(route, b, h, sq, sk, d, causal, off,
+                                          sm_count=ta._sm_count(q.device)) > 1
     ta.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)  # builds
     torch.cuda.synchronize()
     for _ in range(3):  # a profiler session without its device records is taken again
@@ -793,6 +825,69 @@ def test_cuda_wide_route_call_pads_nothing_and_launches_one_kernel(case):
     assert len(attention) == 1 and len(combine) == 1, kernels
     assert len(prepass) == int(dtype == torch.float32), kernels
     assert len(kernels) == len(attention) + len(combine) + len(prepass), kernels
+    po, pl = ta.chunk_attention(q, k, v, causal=causal, kv_offset=off)
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), po.float(), **tol)
+
+
+# (b, sq, sk, h, d, causal, kv_offset, dtype): the tiles at the real head
+# dim, at the shapes chip_smoke.py times (the example LM's D=32 in both
+# types, bf16 D=96 and D=192) and one between two tiles (bf16 D=40 on the
+# 64 tile, f32 D=36 on the 64 tile)
+TILE_CENSUS_CASES = {
+    "bf16_d32": (4, 512, 512, 8, 32, True, 0, torch.bfloat16),
+    "f32_d32": (2, 512, 512, 8, 32, True, 0, torch.float32),
+    "bf16_d96": (2, 300, 300, 8, 96, True, 0, torch.bfloat16),
+    "f32_d96": (2, 300, 300, 4, 96, False, 0, torch.float32),
+    "bf16_d192": (2, 300, 300, 4, 192, True, 0, torch.bfloat16),
+    "bf16_d40": (2, 130, 170, 3, 40, True, 5, torch.bfloat16),
+    "f32_d36": (2, 130, 170, 3, 36, True, 5, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CENSUS_CASES))
+def test_cuda_tile_route_call_pads_nothing_and_launches_one_kernel(case):
+    """One call on a tile route (a head dim up to 256 in bf16/fp16, up to 128
+    in f32) at a head dim of whole 16-byte rows, under ``torch.profiler``,
+    through ``flash_attn_fwd_cuda`` and through ``tos::flash_attn_fwd``: no
+    pad, copy, clone, contiguous or slice on the host; on the card one
+    attention kernel (and, for f32, its K/V pre-pass) and nothing else; one
+    count in ``LAUNCHES``; O at the real head dim, contiguous, equal to the
+    plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    b, sq, sk, h, d, causal, off, dtype = TILE_CENSUS_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = make_inputs(b, sq, sk, h, d, dtype, False, g)
+    route, run_d = ta._route(dtype, d)
+    assert run_d == d <= ta._HEAD_DIMS[route][-1]
+    calls = {"wrapper": lambda: ta.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off),
+             "op": lambda: torch.ops.tos.flash_attn_fwd(q, k, v, causal, None, off)}
+    for how, call in calls.items():
+        call()  # builds
+        torch.cuda.synchronize()
+        for _ in range(3):  # a profiler session without its device records is taken again
+            before = dict(ta.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                o, lse = call()
+                torch.cuda.synchronize()
+            assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
+                n: int(n == route) for n in ta.LAUNCHES}, how
+            kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+            if kernels:
+                break
+        names = [e.name for e in prof.events()]
+        for op in ("aten::constant_pad_nd", "aten::pad", "aten::copy_", "aten::clone",
+                   "aten::contiguous", "aten::slice"):
+            assert op not in names, (how, op, names)
+        attention = [n for n in kernels if "flash_fwd" in n]
+        prepass = [n for n in kernels if "split_kv" in n]
+        assert len(attention) == 1, (how, kernels)
+        assert len(prepass) == int(dtype == torch.float32), (how, kernels)
+        assert len(kernels) == len(attention) + len(prepass), (how, kernels)
+        assert o.is_contiguous() and o.shape == q.shape and o.dtype == dtype
     po, pl = ta.chunk_attention(q, k, v, causal=causal, kv_offset=off)
     tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(o.float(), po.float(), **tol)

@@ -5,6 +5,7 @@ CPU (nothing is compiled)."""
 import pytest
 
 from tensorflowonspark_torch.ops import cuda_build
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 
 @pytest.fixture

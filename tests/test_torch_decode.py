@@ -13,6 +13,7 @@ import torch
 from tensorflowonspark_torch import convert
 from tensorflowonspark_torch.models import transformer as ttfm
 from tensorflowonspark_tpu.models import transformer as jtfm
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 CFG = {"model": "transformer", "vocab_size": 29, "d_model": 16, "n_layers": 2,
        "n_heads": 2, "bf16": False, "attn_impl": "xla"}

@@ -10,6 +10,7 @@ import pytest
 import tensorflowonspark_torch as tos
 from tensorflowonspark_torch.checkpoint import latest_step_dir
 from tensorflowonspark_torch.cluster import InputMode
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 

@@ -45,6 +45,7 @@ from tensorflowonspark_torch.embedding import (
 )
 from tensorflowonspark_torch.launcher import SubprocessLauncher
 from tensorflowonspark_torch.models import wide_deep
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 

@@ -39,6 +39,7 @@ from tensorflowonspark_torch import convert
 from tensorflowonspark_torch.parallel.tp import param_name
 from tensorflowonspark_tpu.models import resnet as jres
 from tensorflowonspark_tpu.parallel import dp as jdp
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 from tests.torch_image_refs import images, random_variables

@@ -27,6 +27,7 @@ from tensorflowonspark_torch.serving import (
 from tensorflowonspark_tpu import checkpoint as jckpt
 from tensorflowonspark_tpu.models import linear as jlin
 from tensorflowonspark_tpu.models import registry as jreg
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 LINEAR = {"model": "linear", "in_dim": 4, "out_dim": 4}
 LM = {"model": "transformer", "vocab_size": 64, "d_model": 32, "n_layers": 2,

@@ -7,6 +7,7 @@ import pytest
 
 from tensorflowonspark_torch import gpu_info
 from tensorflowonspark_tpu import tpu_info
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 
 @pytest.mark.parametrize("counts", [[4, 4, 8], [1], [1, 1, 1, 1], [8, 0, 2]])

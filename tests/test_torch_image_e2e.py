@@ -16,6 +16,7 @@ from tensorflowonspark_torch.checkpoint import latest_step_dir, load_bundle
 from tensorflowonspark_torch.inference import bundle_inference_loop
 from tensorflowonspark_torch.models.inception import synthetic_images
 from tensorflowonspark_torch.models.registry import build_apply
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 
 def _serve(export_dir, rows, tmp_path, batch_size=4, executors=2, partitions=3):

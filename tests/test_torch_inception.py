@@ -18,6 +18,7 @@ from tensorflowonspark_torch import convert
 from tensorflowonspark_torch.models import inception as tinc
 from tensorflowonspark_torch.models import registry as treg
 from tensorflowonspark_tpu.models import inception as jinc
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests.torch_image_refs import images, random_variables
 

@@ -36,6 +36,7 @@ from tensorflowonspark_torch.ingest import (
     split_shards,
 )
 from tensorflowonspark_torch.marker import EndOfFeed, EndPartition
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 

@@ -51,6 +51,7 @@ from tensorflowonspark_torch.ingest import (
 )
 from tensorflowonspark_torch.ingest.service import schema_fingerprint
 from tensorflowonspark_torch.marker import EndOfFeed, EndPartition
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 

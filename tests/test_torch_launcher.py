@@ -32,6 +32,7 @@ from tensorflowonspark_torch import launcher as launchermod
 from tensorflowonspark_torch.launcher import GPUPodLauncher
 from tensorflowonspark_torch.node import NodeConfig
 from tensorflowonspark_torch.utils.net import local_ip
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 

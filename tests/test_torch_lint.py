@@ -10,6 +10,7 @@ import functools
 from pathlib import Path
 
 from tensorflowonspark_torch.analysis import core
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -25,6 +25,7 @@ from tensorflowonspark_tpu import checkpoint as jckpt
 from tensorflowonspark_tpu.models import mnist as jmnist
 from tensorflowonspark_tpu.models import registry as jreg
 from tensorflowonspark_tpu.parallel import dp as jdp
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 SMALL = {"model": "mnist_cnn", "num_classes": 10, "features": [4, 8], "dense": 16}
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -11,6 +11,7 @@ import tensorflowonspark_torch as tos
 from examples_torch.mnist import mnist_dist, mnist_tfr
 from tensorflowonspark_torch.checkpoint import latest_step_dir
 from tensorflowonspark_torch.models.mnist import synthetic_mnist
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 TINY = {"features": [4, 8], "dense": 16, "batch_size": 16, "lr": 0.05, "device": "cpu"}
 

@@ -17,6 +17,7 @@ from tensorflowonspark_torch.models import transformer as ttfm
 from tensorflowonspark_torch.parallel import ep as tep
 from tensorflowonspark_tpu.models import transformer as jtfm
 from tensorflowonspark_tpu.parallel import ep as jep
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 OUT_TOL = dict(atol=2e-5, rtol=2e-5)   # f32 forward, the JAX parallel tests' bound
 GRAD_TOL = dict(atol=1e-6, rtol=2e-4)  # f32 gradients summed in other orders

@@ -35,6 +35,7 @@ from tensorflowonspark_torch.orbax_layout import restore_tree, zarr2, zstd
 from tensorflowonspark_torch.orbax_layout.ocdbt import OcdbtStore
 from tensorflowonspark_tpu import checkpoint as jckpt
 from tensorflowonspark_tpu.models import transformer as jtfm
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 zstandard = pytest.importorskip("zstandard")
 tensorstore = pytest.importorskip("tensorstore")

@@ -23,6 +23,7 @@ from tensorflowonspark_torch import pipeline
 from tensorflowonspark_torch.cluster import InputMode
 from tensorflowonspark_torch.data import PartitionedDataset
 from tensorflowonspark_torch.models import wide_deep
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests import torch_mapfuns
 
@@ -267,6 +268,33 @@ def test_direct_fit_stages_rows_for_a_self_service_train_fn(tmp_path):
     est.setTFRecordDir(str(tmp_path / "staged"))
     os.makedirs(tmp_path / "logs")
     est.fit(PartitionedDataset.from_iterable(rows, 4))
+    counts = [int((tmp_path / "logs" / f"staged_{i}.txt").read_text()) for i in range(2)]
+    assert sum(counts) == 40 and all(c > 0 for c in counts)
+
+
+def test_direct_fit_stages_rows_for_a_self_service_train_fn_in_jax(tmp_path):
+    """The scenario of ``test_direct_fit_stages_rows_for_a_self_service_train_fn``
+    through the JAX package's ``TPUEstimator`` with a JAX-side train_fn
+    (``count_staged_rows_jax``, the same self-service read): the JAX
+    reference of that test, held to exactly its assertions, so that a
+    failure of the port's can be told from a fault of the port.  The
+    train_fn never reads the feed that ``fit`` drives over the staged
+    shards, so both packages race its exit against the feeder's writes
+    (``cluster.train``): run alone, each fails now and then with the
+    feeder's broken pipe or reset connection (ROADMAP §3, "Not faults",
+    gives the command that counts them)."""
+    from tensorflowonspark_tpu import pipeline as jpipeline
+    from tensorflowonspark_tpu.cluster import InputMode as JInputMode
+    from tensorflowonspark_tpu.data import PartitionedDataset as JPartitionedDataset
+
+    rows = [{"x": float(i), "label": i % 2} for i in range(40)]
+    est = jpipeline.TPUEstimator(torch_mapfuns.count_staged_rows_jax, {})
+    est.setNumExecutors(2).setInputMode(JInputMode.DIRECT)
+    est.set("export_dir", str(tmp_path / "export"))
+    est.set("log_dir", str(tmp_path / "logs"))
+    est.setTFRecordDir(str(tmp_path / "staged"))
+    os.makedirs(tmp_path / "logs")
+    est.fit(JPartitionedDataset.from_iterable(rows, 4))
     counts = [int((tmp_path / "logs" / f"staged_{i}.txt").read_text()) for i in range(2)]
     assert sum(counts) == 40 and all(c > 0 for c in counts)
 

@@ -37,6 +37,7 @@ from tensorflowonspark_torch.parallel import pp as tpp
 from tensorflowonspark_tpu.models import transformer as jtfm
 from tensorflowonspark_tpu.parallel import mesh as jmesh
 from tensorflowonspark_tpu.parallel import pp as jpp
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 REPO = Path(__file__).resolve().parent.parent
 WORLD = 4

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tensorflowonspark_torch import profiling
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -27,6 +27,7 @@ from tensorflowonspark_tpu import checkpoint as jckpt
 from tensorflowonspark_tpu.models import registry as jreg
 from tensorflowonspark_tpu.models import resnet as jres
 from tensorflowonspark_tpu.parallel import dp as jdp
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 from tests.torch_image_refs import images, random_variables
 

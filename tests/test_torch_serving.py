@@ -26,6 +26,7 @@ from tensorflowonspark_torch.serving.loop import serving_loop
 from tensorflowonspark_tpu import checkpoint as jckpt
 from tensorflowonspark_tpu.models import registry as jreg
 from tensorflowonspark_tpu.models import transformer as jtfm
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 REPO = Path(__file__).resolve().parent.parent
 CFG = {"model": "transformer", "vocab_size": 64, "d_model": 32, "n_layers": 2,

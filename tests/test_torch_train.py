@@ -27,6 +27,7 @@ from tensorflowonspark_torch.models import transformer as ttfm
 from tensorflowonspark_torch.parallel import dp as tdp
 from tensorflowonspark_tpu.models import transformer as jtfm
 from tensorflowonspark_tpu.parallel import dp as jdp
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = {"model": "transformer", "vocab_size": 37, "d_model": 16, "n_layers": 2,

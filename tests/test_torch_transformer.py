@@ -13,6 +13,7 @@ from tensorflowonspark_torch import convert
 from tensorflowonspark_torch.models import registry as treg
 from tensorflowonspark_torch.models import transformer as ttfm
 from tensorflowonspark_tpu.models import transformer as jtfm
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 SMALL = {"model": "transformer", "vocab_size": 64, "d_model": 32,
          "n_layers": 2, "n_heads": 4, "attn_impl": "pallas_interpret"}

@@ -33,6 +33,7 @@ from tensorflowonspark_tpu import checkpoint as jckpt
 from tensorflowonspark_tpu.models import registry as jreg
 from tensorflowonspark_tpu.models import wide_deep as jwd
 from tensorflowonspark_tpu.parallel import dp as jdp
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 SMALL = {"model": "wide_deep", "vocab_size": 1009, "embed_dim": 4,
          "hidden": [8, 4], "bf16": False}

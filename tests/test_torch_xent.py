@@ -11,6 +11,7 @@ import torch.nn.functional as F
 
 from tensorflowonspark_torch.ops.xent import blockwise_cross_entropy
 from tensorflowonspark_tpu.ops import xent as jxent
+from torch_lock_gate import torch_lock_witness_gate  # noqa: F401 - the port's lock-witness gate
 
 N, D, V = 24, 16, 50
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)  # f32, the same chunk sums

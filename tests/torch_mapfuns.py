@@ -891,6 +891,19 @@ def count_staged_rows(args, ctx):
         f.write(str(n))
 
 
+def count_staged_rows_jax(args, ctx):
+    """``count_staged_rows`` written against the JAX package (its
+    ``dfutil``), for the JAX ``TPUEstimator`` twin of the port's DIRECT
+    staging test: the same self-service read of the staged shards."""
+    from tensorflowonspark_tpu import dfutil
+
+    files = dfutil.shard_files(args.data_dir)[ctx.executor_id::ctx.num_executors]
+    schema = dfutil.read_schema(args.data_dir)
+    n = sum(1 for f in files for _ in dfutil.read_shard(f, schema))
+    with open(os.path.join(args.log_dir, f"staged_{ctx.executor_id}.txt"), "w") as f:
+        f.write(str(n))
+
+
 def train_wide_deep_sync(args, ctx):
     """Monolithic wide-and-deep in ``mode="sync"``: every node trains the
     whole model on its device from the same seed, and each step's gradients
