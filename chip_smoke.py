@@ -7,9 +7,9 @@ Phases (any failure propagates and the script exits non-zero):
 
 1. device — the card's name and power limit (``nvidia-smi``) and
    ``torch.cuda.get_device_name``;
-2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu`` and
-   ``flash_attn_fwd_tf32.cu`` from the checkout (one ``nvcc`` each, in
-   parallel) and prints, per instantiation of the two ``wgmma`` kernels (the
+2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu``,
+   ``flash_attn_fwd_tf32.cu`` and ``flash_attn_bwd.cu`` from the checkout
+   (one ``nvcc`` each, in parallel) and prints, per instantiation of the two ``wgmma`` kernels (the
    tiles of D 32/64/96/128/192/256 and the wide route's 192 and 256 columns
    a consumer x bf16/fp16; f32 as 3xTF32 on the tiles of D 32/64/96/128 and
    the wide route's 128, 192 and 256 columns a consumer), the registers and
@@ -19,7 +19,8 @@ Phases (any failure propagates and the script exits non-zero):
    failing if either is missing, a spill shows, or ptxas serialises a
    kernel's wgmma; and the registers and spills of the 3xTF32
    kernel's K/V pre-pass, the wide route's V transpose and the split-KV
-   combine kernels;
+   combine kernels, and of the backward's kernels (the Δ pass, dK/dV
+   and dQ on the tiles of D 32/64/96/128 x bf16/fp16);
 3. kernel — holds every route (``ops.attention._route``) against the plain
    PyTorch version (``chunk_attention``) on the card, O and lse, at the
    serving shape and at edge shapes (ragged tails, one query row,
@@ -78,16 +79,24 @@ Phases (any failure propagates and the script exits non-zero):
    and, from that rate, an estimate of loading a bundle at the LM width;
 5. attention at the training shape (B=8, S=2048, H=8, D=128, causal bf16):
    the kernel's forward held against ``chunk_attention`` (O and lse) and
-   timed, and the backward of ``FlashAttention`` (the plain
-   recompute VJP through ``blockwise_attention``) against its bound and the
-   library's backward;
+   timed; the backward kernels (``tos::flash_attn_bwd``) held against their
+   plain version (``flash_attn_bwd_reference``: dq, dk, dv each within
+   ``BWD_REL_TOL`` relative L2) and timed beside their bound, the plain
+   version, the library's backward and, once, the recompute VJP through
+   ``blockwise_attention`` that they replace on this route; then
+   ``BWD_CASES`` (every tile, a head dim between tiles, a padded one,
+   masked rows, offsets, a cotangent on lse or out alone, packed views,
+   fp16) against the plain version, and keys sharing a large common
+   component against the f32 gradient, untimed;
 6. train — the LM at the same width, B=8, S=2048, bf16 compute with f32
    master weights, AdamW as ``optax.adamw(3e-4)``, random weights from the
    seed: 3 warm-up and 10 timed steps through ``make_batch_iterator`` over a
    ``DataFeed`` that repeats one Zipf batch; checks every loss is finite,
-   the last below the first, and the kernel's launches per step (n_layers;
-   2 x n_layers with remat); one step's loss and gradients with the kernel
-   against plain attention, with ``vocab_chunk`` and with ``remat``; prints
+   the last below the first, and the kernels' launches per step (n_layers
+   of the forward, 2 x n_layers with remat; n_layers of the backward, remat
+   or not, and no recompute VJP); one step's loss and gradients with the
+   kernels against plain attention, with ``vocab_chunk`` and with
+   ``remat``; prints
    step ms, tokens/s, the forward / backward / optimizer split, the peak
    memory and the model-FLOPs share of the step;
 7. train→serve — the trained weights exported as a bundle and loaded with
@@ -228,7 +237,8 @@ Phases (any failure propagates and the script exits non-zero):
    names, logits against ``build_apply``'s; the op's host cost per call
    against the undispatched implementation.
 
-The line before the last is the ``kernels`` JSON record; the last line is
+The line before the last is the ``kernels`` JSON record (the forward's two
+kernels and the backward's); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 with 1 and prints no result.
 """
@@ -397,6 +407,38 @@ REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d2
                    "bf16_d320_ragged_noncausal", "f32_d320", "bf16_d320_causal",
                    "bf16_d512_sq_1_causal_decode", "f32_d256_sq_1_causal_decode")
 
+# the backward kernels' cases (name, B, Sq, Sk, H, D, causal, kv_offset,
+# dtype name, packed, cotangents), each held against the plain version
+# (flash_attn_bwd_reference) on the same q, k, v, out, lse and cotangents:
+# every tile (32, 64, 96, 128) and a head dim between two (80), a head dim
+# of part 16-byte rows (36, padded to 40) at a ragged non-causal shape,
+# masked rows at kv_offset 37, a negative offset, a cotangent on lse alone
+# and on out alone, packed q/k/v views read in place, fp16
+BWD_CASES = [
+    ("bwd_d32", 2, 512, 512, 8, 32, True, 0, "bfloat16", False, "out"),
+    ("bwd_d64", 2, 512, 512, 8, 64, True, 0, "bfloat16", False, "out"),
+    ("bwd_d96", 2, 300, 300, 8, 96, True, 0, "bfloat16", False, "out"),
+    ("bwd_d128", 2, 512, 512, 8, 128, True, 0, "bfloat16", False, "out"),
+    ("bwd_d80_between_tiles", 2, 300, 300, 8, 80, True, 0, "bfloat16", False, "out"),
+    ("bwd_d36_ragged_20_52_noncausal", 2, 20, 52, 8, 36, False, 0, "bfloat16", False,
+     "out"),
+    ("bwd_kv_offset_37_masked_rows", 1, 100, 70, 8, 128, True, 37, "bfloat16", False,
+     "out+lse"),
+    ("bwd_kv_offset_negative", 1, 64, 192, 4, 128, True, -64, "bfloat16", False,
+     "out+lse"),
+    ("bwd_lse_cotangent_only", 2, 200, 330, 8, 128, True, 5, "bfloat16", False, "lse"),
+    ("bwd_out_cotangent_only", 2, 200, 330, 8, 64, False, 0, "bfloat16", False, "out"),
+    ("bwd_packed_qkv_view", 2, 512, 512, 8, 128, True, 0, "bfloat16", True, "out+lse"),
+    ("bwd_fp16_d64", 2, 300, 300, 8, 64, True, 0, "float16", False, "out+lse"),
+    ("bwd_fp16_d128_ragged", 2, 200, 330, 8, 128, False, 0, "float16", False, "out"),
+]
+# dq, dk, dv of the backward kernels against the plain version, relative L2
+# each: the kernels round P and dS to bf16/fp16 as the A operands of their
+# products and store the gradients in it (2^-9 relative in bf16), the plain
+# version keeps f32 throughout; a wrong mask, tile or fragment gives errors
+# of order 1
+BWD_REL_TOL = 2e-2
+
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 TRAIN_LR = 3e-4
@@ -438,6 +480,7 @@ ORBAX_FORBIDDEN = ("jax", "jaxlib", "orbax", "tensorstore", "zstandard", "ml_dty
                    "tensorflowonspark_tpu")
 # SASS instructions that show the design: wgmma and TMA loads
 DESIGN_SASS = ("HGMMA", "UTMALDG")
+BWD_SASS = ("HMMA",)  # the backward kernels' mma.sync on the tensor cores
 # ResNet-50 training, the JAX bench's setup (bench.py:49-110)
 RESNET_CONFIG = {"model": "resnet50", "num_classes": 1000, "bf16": True}
 RESNET_BATCH, RESNET_SIZE = 256, 224
@@ -770,7 +813,7 @@ def phase_device():
     return smi[0]
 
 
-KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32")
+KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32", "flash_attn_bwd")
 # the wgmma instantiations: (library, D, dtype name); D "wideW" is the wide
 # route's kernel with W columns of O per consumer warpgroup
 WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt)
@@ -785,6 +828,11 @@ COMBINE_KINDS = {"0": ("flash_attn_fwd", "bfloat16"), "1": ("flash_attn_fwd", "f
 OTHER_INSTANCES = (("flash_attn_fwd_tf32", "split_kv", "float32"),
                    ("flash_attn_fwd_tf32", "transpose_v", "float32"),
                    *((lib, "combine", dt) for lib, dt in COMBINE_KINDS.values()))
+# the backward's mma.sync kernels (reported by ptxas): the Δ pass, dK/dV
+# and dQ on each tile, x bf16/fp16
+BWD_INSTANCES = tuple(("flash_attn_bwd", f"{kind}{d}", dt)
+                      for dt in ("bfloat16", "float16")
+                      for kind in ("delta", "dkdv", "dq") for d in (32, 64, 96, 128))
 
 
 def kernel_key(text: str):
@@ -806,6 +854,10 @@ def kernel_key(text: str):
     if m:
         lib, dt = COMBINE_KINDS[m.group(1)]
         return (lib, "combine", dt)
+    m = re.search(r"flash_bwd_(delta|dkdv|dq)_kernelILi(\d+)ELb([01])E", text)
+    if m:
+        return ("flash_attn_bwd", f"{m.group(1)}{m.group(2)}",
+                "bfloat16" if m.group(3) == "1" else "float16")
     return None
 
 
@@ -832,8 +884,9 @@ def ptxas_report(log_text: str) -> dict:
 
 
 def sass_counts(lib_path) -> dict:
-    """``{kernel_key: {instruction: count}}`` for ``DESIGN_SASS`` in each
-    instantiation's SASS, from ``cuobjdump -sass`` of the library."""
+    """``{kernel_key: {instruction: count}}`` for ``DESIGN_SASS`` (the
+    backward's: ``BWD_SASS``) in each instantiation's SASS, from
+    ``cuobjdump -sass`` of the library."""
     import subprocess
     from pathlib import Path
 
@@ -847,19 +900,23 @@ def sass_counts(lib_path) -> dict:
         if "Function :" in line:
             key = kernel_key(line)
             cur = None if key is None else counts.setdefault(
-                key, dict.fromkeys(DESIGN_SASS, 0))
+                key, dict.fromkeys(BWD_SASS if key[0] == "flash_attn_bwd"
+                                   else DESIGN_SASS, 0))
         elif cur is not None:
-            for ins in DESIGN_SASS:
+            for ins in cur:
                 cur[ins] += ins in line
     return counts
 
 
 def phase_build() -> dict:
-    """Build the two kernels from the checkout (one nvcc each, in
-    parallel); print and return what ptxas and the SASS say about each
+    """Build the three kernel libraries from the checkout (one nvcc each,
+    in parallel); print and return what ptxas and the SASS say about each
     ``wgmma`` instantiation (failing on a spill, a missing HGMMA/UTMALDG or
-    wgmma that ptxas serialises) and what ptxas says about the 3xTF32
-    kernel's pre-passes and the combine kernels."""
+    wgmma that ptxas serialises), what ptxas says about the 3xTF32
+    kernel's pre-passes and the combine kernels, and about the backward's
+    kernels (failing where one of them has no HMMA: its products
+    left the tensor cores; a spill is reported, not failed: the backward
+    is a first, unpipelined design)."""
     from tensorflowonspark_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -874,17 +931,21 @@ def phase_build() -> dict:
         ptxas.update(ptxas_report(text))
         sass.update(sass_counts(cuda_build.library_path(name)))
     info = {}
-    for key in WGMMA_INSTANCES + list(OTHER_INSTANCES):
+    for key in WGMMA_INSTANCES + list(OTHER_INSTANCES) + list(BWD_INSTANCES):
         lib_name, d, dt = key
         regs, ins = ptxas.get(key), sass.get(key, {})
         if not regs:
             raise AssertionError(f"no ptxas report for {key}")
         label = f"D={d}" if isinstance(d, int) else d
         wide = isinstance(d, str)
-        smem = 0 if key in OTHER_INSTANCES else getattr(
-            libs[lib_name], f"tos_{lib_name}_smem_bytes")(
-                int(d[4:]) if wide else d, int(wide))
-        tag = {"flash_attn_fwd": "", "flash_attn_fwd_tf32": "tf32_"}[lib_name]
+        if key in BWD_INSTANCES:
+            smem = libs[lib_name].tos_flash_attn_bwd_smem_bytes(int(re.sub(r"\D", "", d)))
+        else:
+            smem = 0 if key in OTHER_INSTANCES else getattr(
+                libs[lib_name], f"tos_{lib_name}_smem_bytes")(
+                    int(d[4:]) if wide else d, int(wide))
+        tag = {"flash_attn_fwd": "", "flash_attn_fwd_tf32": "tf32_",
+               "flash_attn_bwd": "bwd_"}[lib_name]
         info[f"{tag}{label.replace('=', '')}_{dt}"] = {**regs, "smem_bytes": smem, **ins}
         log(f"[build] {lib_name} {label} {dt}: {regs.get('registers')} registers, "
             f"{regs.get('spill_stores')} B spill stores, "
@@ -898,6 +959,8 @@ def phase_build() -> dict:
                 raise AssertionError(f"{key}: ptxas reports spills")
             if regs.get("wgmma_serialized"):
                 raise AssertionError(f"{key}: ptxas serialises its wgmma")
+        if key in BWD_INSTANCES and not (ins and all(ins.values())):
+            raise AssertionError(f"{key}: SASS lacks {BWD_SASS}")
     return info
 
 
@@ -1660,10 +1723,12 @@ def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
         f"({out.numel() * out.element_size() / 1e9:.2f} GB) ({smi})")
 
 
-def phase_attention_train_shape(seed: int, smi: str) -> dict:
-    """The kernel's forward and ``FlashAttention``'s backward (the plain
-    recompute VJP) at the training shape, each beside its bound, the plain
-    version and the library call."""
+def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict]:
+    """The kernel's forward and the backward kernels at the training shape,
+    each held against its plain version and timed beside its bound, the
+    plain version and the library call; the recompute VJP the backward
+    kernels replace timed once.  Returns the forward's numbers and the
+    backward's ``kernels`` record."""
     import torch
     import torch.nn.functional as F
 
@@ -1682,45 +1747,165 @@ def phase_attention_train_shape(seed: int, smi: str) -> dict:
     torch.testing.assert_close(lse, plse, **LSE_TOL)
     err = max((o.float() - po.float()).abs().max().item(),
               (lse - plse).abs().max().item())
-    del o, lse, po, plse
+    del po, plse
     fwd_ms = time_ms(lambda: att.flash_attn_fwd_cuda(q, k, v, causal=True))[0]
     fwd_bound, fwd_by = attention_bound(b, s, s, h, d, True, 0, 2)
     plain_ms = time_ms(lambda: att.chunk_attention(q, k, v, causal=True),
                        reps=5, windows=3)[0]
-    qkv = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = att.flash_attention(*qkv, causal=True)
-    bwd_ms = time_ms(lambda: torch.autograd.grad(out, qkv, cot, retain_graph=True),
-                     reps=5, windows=3, warmup=1)[0]
-    # backward: S = QK^T again, dP = dO V^T, dV = P^T dO, dQ = dS K,
-    # dK = dS^T Q: five products over the live pairs; q, k, v, dO read,
-    # dq, dk, dv written
-    bwd_flops = 10 * d * b * h * pairs
-    t_ops, t_bytes = bwd_flops / PEAK_BF16_FLOPS, 7 * b * s * h * d * 2 / PEAK_BYTES
-    bwd_bound, bwd_by = max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
+    shape = f"B={b} S={s} H={h} D={d} causal bfloat16"
     qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    cot_t = cot.transpose(1, 2).contiguous()
-    bwd_library_ms = time_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), cot_t, retain_graph=True), reps=5, windows=3)[0]
     fwd_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt.detach(), kt.detach(), vt.detach(), is_causal=True))[0]
-    shape = f"B={b} S={s} H={h} D={d} causal bfloat16"
     log(f"[attn-train] {shape}: kernel vs plain ok, max_abs_err {err:.3e} "
         f"(tolerance O {O_TOL}, lse {LSE_TOL}); kernel forward {fwd_ms:.4f} ms (bound "
         f"{fwd_bound:.5f} ms, {fwd_by}, share {fwd_bound / fwd_ms:.3f}); plain "
         f"{plain_ms:.4f} ms; F.scaled_dot_product_attention {fwd_library_ms:.4f} ms "
         f"({smi})")
-    log(f"[attn-train] backward (recompute VJP through blockwise_attention, "
-        f"block_k {att.BWD_BLOCK_K}): {bwd_ms:.4f} ms per layer (bound "
-        f"{bwd_bound:.5f} ms, {bwd_by}, share {bwd_bound / bwd_ms:.4f}); "
-        f"library backward {bwd_library_ms:.4f} ms ({smi})")
-    return {"shape": shape, "max_abs_err": err, "ms": fwd_ms,
-            "bound_ms": fwd_bound, "bound_by": fwd_by,
-            "plain_ms": plain_ms, "library_ms": fwd_library_ms, "bwd_ms": bwd_ms,
-            "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
-            "bwd_library_ms": bwd_library_ms}
+
+    # the backward kernels against their plain version on the same inputs
+    args = (q, k, v, lse, cot, None, True, None, 0)
+    reset_launches()
+    got = torch.ops.tos.flash_attn_bwd(*args)
+    torch.cuda.synchronize()
+    launched = dict(att.LAUNCHES)
+    if launched != {n: int(n == "flash_attn_bwd") for n in att.LAUNCHES}:
+        raise AssertionError(f"[attn-train] one backward call launched {launched}")
+    want = att.flash_attn_bwd_reference(q, k, v, lse, cot, None, causal=True)
+    rel = {n: rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+    bwd_err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+    log(f"[attn-train] backward kernels vs flash_attn_bwd_reference: rel L2 "
+        + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+        + f" (limit {BWD_REL_TOL} each: P and dS rounded to bf16 as product operands), "
+        f"max_abs_err {bwd_err:.3e}")
+    if max(rel.values()) > BWD_REL_TOL or not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError("[attn-train] the backward kernels disagree with the plain "
+                             "version")
+    del got, want
+    bwd_ms, bwd_host_ms = time_ms(lambda: torch.ops.tos.flash_attn_bwd(*args))
+    bwd_plain_ms = time_ms(lambda: att.flash_attn_bwd_reference(
+        q, k, v, lse, cot, None, causal=True), reps=3, windows=3, warmup=1)[0]
+    # the function: S = QK^T again, dP = dO V^T, dV = P^T dO, dQ = dS K,
+    # dK = dS^T Q, five products over the live pairs; q, k, v, dO and lse
+    # read, dq, dk, dv written.  The design: the Δ, dK/dV and dQ passes
+    # each compute S and dP, nine products
+    bwd_flops = 10 * d * b * h * pairs
+    t_ops = bwd_flops / PEAK_BF16_FLOPS
+    t_bytes = (7 * b * s * h * d * 2 + b * s * h * 4) / PEAK_BYTES
+    bwd_bound, bwd_by = max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+    bwd_design = max(t_ops * 9 / 5, t_bytes) * 1e3
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    cot_t = cot.transpose(1, 2).contiguous()
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), cot_t, retain_graph=True), reps=5, windows=3)[0]
+    library = sdpa_choice(qt, kt, vt)
+    del qt, kt, vt, lib_out, cot_t
+    # what the kernels replace on this route: the recompute VJP through
+    # blockwise_attention (f32 and heads above 128 still take it), once
+    recompute_ms = time_ms(lambda: att._recompute_bwd(q, k, v, cot, None, True, None, 0),
+                           reps=3, windows=3, warmup=1)[0]
+    # and FlashAttention's whole backward under autograd, the kernels' caller
+    qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = att.flash_attention(*qkv, causal=True)
+    autograd_ms = time_ms(lambda: torch.autograd.grad(out, qkv, cot, retain_graph=True),
+                          reps=10, windows=3)[0]
+    log(f"[attn-train] backward kernels (tos::flash_attn_bwd: Δ, dK/dV, dQ; no atomics): "
+        f"{bwd_ms:.4f} ms per layer, host {bwd_host_ms:.4f} ms per call (bound "
+        f"{bwd_bound:.5f} ms, {bwd_by}, the function's five products, share "
+        f"{bwd_bound / bwd_ms:.4f}; the design's nine {bwd_design:.5f} ms, share "
+        f"{bwd_design / bwd_ms:.4f}); under autograd {autograd_ms:.4f} ms; plain "
+        f"version {bwd_plain_ms:.4f} ms; library backward {bwd_library_ms:.4f} ms "
+        f"({library}); the recompute VJP through blockwise_attention (block_k "
+        f"{att.BWD_BLOCK_K}) it replaces {recompute_ms:.4f} ms ({smi})")
+    del out, qkv
+    fwd = {"shape": shape, "max_abs_err": err, "ms": fwd_ms,
+           "bound_ms": fwd_bound, "bound_by": fwd_by,
+           "plain_ms": plain_ms, "library_ms": fwd_library_ms}
+    bwd = {"name": "flash_attn_bwd", "ok": True, "route": "cuda",
+           "source": "tensorflowonspark_torch/csrc/flash_attn_bwd.cu",
+           "replaces": "tensorflowonspark_tpu/ops/attention.py:299",
+           "launches": None, "shape": shape, "max_abs_err": bwd_err, "rel_l2": rel,
+           "rel_l2_limit": BWD_REL_TOL, "ms": bwd_ms, "host_ms": bwd_host_ms,
+           "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+           "bound_basis": "the function's five products over the live pairs at 989 "
+                          "TFLOP/s, or q, k, v, dO, lse, dq, dk, dv at 3.35 TB/s",
+           "bound_share": bwd_bound / bwd_ms, "bound_design_ms": bwd_design,
+           "bound_design_basis": "nine products (the Δ, dK/dV and dQ passes each "
+                                 "compute S and dP)",
+           "library_ms": bwd_library_ms, "library_backend": library,
+           "autograd_ms": autograd_ms, "recompute_ms": recompute_ms}
+    return fwd, bwd
+
+
+def phase_attention_bwd(seed: int, smi: str) -> list:
+    """``BWD_CASES`` through ``tos::flash_attn_bwd`` on the card, each held
+    against ``flash_attn_bwd_reference`` on the same q, k, v, the kernel
+    forward's lse, and the cotangents: one launch of the backward
+    kernels and none of the forward's, dq, dk, dv finite and within
+    ``BWD_REL_TOL`` relative L2, a fully masked row's dq exactly 0, packed
+    views read in place; then keys sharing a large common component against
+    the f32 gradient of the same inputs.  Untimed."""
+    import torch
+
+    from tensorflowonspark_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    results = []
+    for name, b, sq, sk, h, d, causal, off, dtype_name, packed, cot in BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v = kernel_inputs(b, sq, sk, h, d, dtype, packed, gen)
+        if packed and att._kernel_operand(q) is not q:
+            raise AssertionError(f"{name}: packed views were copied, not read in place")
+        _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
+        g_out = (torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+                 if "out" in cot else None)
+        g_lse = (torch.randn(lse.shape, generator=gen, device="cuda")
+                 if "lse" in cot else None)
+        reset_launches()
+        got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, g_lse, causal, None, off)
+        torch.cuda.synchronize()
+        launched = dict(att.LAUNCHES)
+        if launched != {n: int(n == "flash_attn_bwd") for n in att.LAUNCHES}:
+            raise AssertionError(f"{name}: launches {launched}")
+        want = att.flash_attn_bwd_reference(q, k, v, lse, g_out, g_lse, causal=causal,
+                                            kv_offset=off)
+        rel = {n: rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+        masked = lse <= att.NEG_INF / 2
+        ok = (max(rel.values()) <= BWD_REL_TOL
+              and all(torch.isfinite(x).all() and x.shape == y.shape
+                      and x.dtype == dtype for x, y in zip(got, (q, k, v)))
+              and (got[0][masked] == 0).all())
+        mask = f"causal kv_offset {off}" if causal else "non-causal"
+        log(f"[attn-bwd] {name} (B={b} Sq={sq} Sk={sk} H={h} D={d} -> "
+            f"{att._bwd_route(dtype, d)[1]}, {mask}, {dtype_name}, cotangent on {cot}): rel L2 "
+            + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+            + f" (limit {BWD_REL_TOL}), masked rows {int(masked.sum())}: "
+            + ("ok" if ok else "FAILED"))
+        if not ok:
+            raise AssertionError(f"{name}: the backward kernels disagree with the plain "
+                                 "version")
+        results.append({"case": name, "rel_l2": rel, "masked_rows": int(masked.sum())})
+    # keys and values sharing a large common component (as a trained LM's
+    # do): dq must not see it; against the f32 gradient of the same inputs
+    b, s, h, d = 2, 512, 8, 128
+    common = 4 * torch.randn((1, 1, h, d), generator=gen, device="cuda")
+    q, k, v, g_out = (
+        (torch.randn((b, s, h, d), generator=gen, device="cuda") + c).bfloat16()
+        for c in (0, common, common, 0))
+    _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
+    got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, None, True, None, 0)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    att.blockwise_attention(*leaves, causal=True).backward(g_out.float())
+    rel = {n: rel_l2(x, y.grad) for n, x, y in zip(("dq", "dk", "dv"), got, leaves)}
+    log(f"[attn-bwd] keys sharing a large component (B={b} S={s} H={h} D={d} causal): "
+        f"against the f32 gradient of the same inputs rel L2 "
+        + ", ".join(f"{n} {e:.3e}" for n, e in rel.items()) + f" (limit {BWD_REL_TOL})")
+    if max(rel.values()) > BWD_REL_TOL:
+        raise AssertionError("the backward kernels' dq sees a common key component")
+    results.append({"case": "common_key_component_vs_f32", "rel_l2": rel})
+    log(f"[attn-bwd] {len(results)} cases ok ({smi})")
+    return results
 
 
 def make_train_model(cfg: dict, seed: int, device: str):
@@ -1753,6 +1938,45 @@ def grad_disagreement(got: dict, want: dict) -> tuple[float, str]:
                 / want[n].float().norm().clamp_min(1e-30)).item() for n in want}
     name = max(errs, key=errs.get)
     return errs[name], name
+
+
+@contextlib.contextmanager
+def count_recompute():
+    """Counts, while the block runs, the calls of the recompute VJP
+    (``ops.attention._recompute_bwd``: the backward f32 and heads above 128
+    take on the card); yields a one-item list holding the count."""
+    from tensorflowonspark_torch.ops import attention as att
+
+    calls, inner = [0], att._recompute_bwd
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return inner(*args, **kwargs)
+
+    att._recompute_bwd = counted
+    try:
+        yield calls
+    finally:
+        att._recompute_bwd = inner
+
+
+def step_launches(cfg: dict, route: str, cuda: bool, forwards: int = 1) -> dict:
+    """The launches one training pass of ``cfg`` makes, by kernel: per layer
+    ``forwards`` of ``route`` (2 where the block's forward runs again in
+    the backward) and one of the backward kernels where ``_bwd_route``
+    sends its type and head dim there (bf16/fp16 up to 128); none on the
+    CPU, which has no kernel."""
+    import torch
+
+    from tensorflowonspark_torch.ops import attention as att
+
+    want = dict.fromkeys(att.LAUNCHES, 0)
+    if cuda:
+        dtype = torch.bfloat16 if cfg["bf16"] else torch.float32
+        want[route] = forwards * cfg["n_layers"]
+        if att._bwd_route(dtype, cfg["d_model"] // cfg["n_heads"])[0] == "flash_attn_bwd":
+            want["flash_attn_bwd"] = cfg["n_layers"]
+    return want
 
 
 def phase_train(seed: int, smi: str, device: str = "cuda"):
@@ -1799,22 +2023,26 @@ def phase_train(seed: int, smi: str, device: str = "cuda"):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
     losses, launches = [], []
+    want = step_launches(LM_CONFIG, "flash_attn_fwd", cuda)
     reset_launches()
-    for i, (batch, n) in enumerate(dp.make_batch_iterator(feed, TRAIN_BATCH, to_arrays)):
-        if n != TRAIN_BATCH:
-            raise AssertionError(f"step {i}: {n} real rows, expected {TRAIN_BATCH}")
-        if i == TRAIN_WARMUP and cuda:
-            start.record()
-            t_host = time.perf_counter()
-        before = att.LAUNCHES["flash_attn_fwd"]
-        state, metrics = step(state, batch)
-        launches.append(att.LAUNCHES["flash_attn_fwd"] - before)
-        losses.append(metrics["loss"])
-    if cuda:
-        end.record()
-        end.synchronize()
-        host_ms = (time.perf_counter() - t_host) * 1e3 / TRAIN_TIMED
+    with count_recompute() as recomputes:
+        for i, (batch, n) in enumerate(dp.make_batch_iterator(feed, TRAIN_BATCH,
+                                                              to_arrays)):
+            if n != TRAIN_BATCH:
+                raise AssertionError(f"step {i}: {n} real rows, expected {TRAIN_BATCH}")
+            if i == TRAIN_WARMUP and cuda:
+                start.record()
+                t_host = time.perf_counter()
+            before = dict(att.LAUNCHES)
+            state, metrics = step(state, batch)
+            launches.append({n: c - before[n] for n, c in att.LAUNCHES.items()})
+            losses.append(metrics["loss"])
+        if cuda:
+            end.record()
+            end.synchronize()
+            host_ms = (time.perf_counter() - t_host) * 1e3 / TRAIN_TIMED
     train_launches = att.LAUNCHES["flash_attn_fwd"]
+    bwd_launches = att.LAUNCHES["flash_attn_bwd"]
     losses = [x.item() for x in losses]
     log("[train] losses: " + ", ".join(f"{x:.4f}" for x in losses))
     if len(losses) != n_steps or state.step != n_steps:
@@ -1824,12 +2052,14 @@ def phase_train(seed: int, smi: str, device: str = "cuda"):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall on a repeated batch: "
                              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-    if set(launches) != {per_step}:
-        raise AssertionError(f"kernel launches per step {launches}, expected "
-                             f"{per_step} (one per layer)")
-    log(f"[train] kernel launches: {per_step} per step, {train_launches} over "
-        f"{n_steps} steps")
-    record = {"launches": train_launches, "losses": losses}
+    if any(x != want for x in launches) or recomputes[0]:
+        raise AssertionError(f"kernel launches per step {launches}, expected {want} "
+                             f"(the forward's and the backward's once per layer); "
+                             f"{recomputes[0]} recompute VJPs, expected none")
+    log(f"[train] kernel launches: {per_step} of the forward and {per_step} of the "
+        f"backward per step, {train_launches} and {bwd_launches} over {n_steps} steps; "
+        f"no recompute VJP")
+    record = {"launches": train_launches, "bwd_launches": bwd_launches, "losses": losses}
 
     batch = {"input_ids": torch.from_numpy(ids).to(device)}
     if cuda:
@@ -1890,10 +2120,19 @@ def model_flops(model) -> tuple[float, str]:
     return 6 * params * b * s + attn, formula
 
 
+def f32_attention(q, k, v, causal=True):
+    """``blockwise_attention`` on f32 copies of q, k, v, cast back."""
+    from tensorflowonspark_torch.ops import attention as att
+
+    return att.blockwise_attention(q.float(), k.float(), v.float(),
+                                   causal=causal).to(q.dtype)
+
+
 def train_agreement(model, loss_fn, batch, per_step: int, device: str) -> dict:
     """One step's loss and gradients at the same weights and batch: the
-    kernel path against plain attention (``attn_impl="xla"``), against
-    ``vocab_chunk`` and against ``remat``; counts a remat step's launches."""
+    kernel path against plain attention (``attn_impl="xla"``, in bf16 and
+    with its attention in f32), against ``vocab_chunk`` and against
+    ``remat``; counts a remat step's launches."""
     import torch
 
     from tensorflowonspark_torch.models import transformer as tfm
@@ -1903,22 +2142,29 @@ def train_agreement(model, loss_fn, batch, per_step: int, device: str) -> dict:
     with torch.device(device):
         plain = tfm.build_transformer({**LM_CONFIG, "attn_impl": "xla"})
     plain.load_state_dict(model.state_dict())
-    before = att.LAUNCHES["flash_attn_fwd"]
+    before = dict(att.LAUNCHES)
     others = {"xla": loss_and_grads(plain, tfm.make_loss_fn(plain), batch)}
+    # the same bf16 model with its attention in f32: the exact attention
+    # gradient of the bf16 inputs, which neither path's rounding shares
+    for block in plain.blocks:
+        block.attn.attend = f32_attention
+    others["xla_f32_attention"] = loss_and_grads(plain, tfm.make_loss_fn(plain), batch)
     del plain
-    if att.LAUNCHES["flash_attn_fwd"] != before:
-        raise AssertionError("the plain-attention step launched the kernel")
+    if att.LAUNCHES != before:
+        raise AssertionError("the plain-attention step launched a kernel")
     others["vocab_chunk"] = loss_and_grads(
         model, tfm.make_loss_fn(model, vocab_chunk=VOCAB_CHUNK), batch)
     model.remat = True
-    before = att.LAUNCHES["flash_attn_fwd"]
+    before = dict(att.LAUNCHES)
     others["remat"] = loss_and_grads(model, loss_fn, batch)
-    remat_launches = att.LAUNCHES["flash_attn_fwd"] - before
+    remat_launches = att.LAUNCHES["flash_attn_fwd"] - before["flash_attn_fwd"]
+    remat_bwd = att.LAUNCHES["flash_attn_bwd"] - before["flash_attn_bwd"]
     model.remat = False
-    if remat_launches != 2 * per_step:
-        raise AssertionError(f"a remat step launched the kernel {remat_launches} "
-                             f"times, expected {2 * per_step}")
-    out = {"remat_launches": remat_launches}
+    if (remat_launches, remat_bwd) != (2 * per_step, per_step):
+        raise AssertionError(f"a remat step launched the forward {remat_launches} and the "
+                             f"backward {remat_bwd} times, expected {2 * per_step} and "
+                             f"{per_step}")
+    out = {"remat_launches": remat_launches, "remat_bwd_launches": remat_bwd}
     for name, (other_loss, other_grads) in others.items():
         loss_err = abs(other_loss - loss) / abs(loss)
         grad_err, worst = grad_disagreement(other_grads, grads)
@@ -1930,7 +2176,8 @@ def train_agreement(model, loss_fn, batch, per_step: int, device: str) -> dict:
             raise AssertionError(f"{name} step disagrees with the kernel's step")
         out[f"{name}_grad_rel_err"] = grad_err
         del other_grads
-    log(f"[train] remat step: {remat_launches} kernel launches (2 x n_layers)")
+    log(f"[train] remat step: {remat_launches} forward launches (2 x n_layers), "
+        f"{remat_bwd} of the backward (n_layers)")
     return out
 
 
@@ -2072,10 +2319,9 @@ def step_against_plain(cfg: dict, seed: int, rows: int, route: str, tag: str,
     loss, grads = loss_and_grads(model, loss_fn, batch)
     step_s = time.perf_counter() - t0
     launched = dict(att.LAUNCHES)
-    want = cfg["n_layers"] if cuda else 0  # the CPU path has no kernel
-    if launched != {n: want if n == route else 0 for n in att.LAUNCHES}:
-        raise AssertionError(f"{tag} step: launches {launched}, expected {want} "
-                             f"of {route} and none of the others")
+    want = step_launches(cfg, route, cuda)
+    if launched != want:
+        raise AssertionError(f"{tag} step: launches {launched}, expected {want}")
     if not math.isfinite(loss):
         raise AssertionError(f"{tag} step: loss {loss}")
     loss_err = abs(plain_loss - loss) / abs(loss)
@@ -2094,8 +2340,8 @@ def step_against_plain(cfg: dict, seed: int, rows: int, route: str, tag: str,
         f"{step_s * 1e3:.1f} ms host clock ({smi})")
     if loss_err > LOSS_REL_TOL or grad_err > GRAD_REL_TOL:
         raise AssertionError(f"the {tag} step disagrees with plain attention")
-    return {"launches": launched[route], "loss": loss, "grad_rel_err": grad_err,
-            "fwd_bwd_ms": step_s * 1e3}
+    return {"launches": launched[route], "bwd_launches": launched["flash_attn_bwd"],
+            "loss": loss, "grad_rel_err": grad_err, "fwd_bwd_ms": step_s * 1e3}
 
 
 def phase_train_f32(seed: int, smi: str, device: str = "cuda") -> dict:
@@ -2248,16 +2494,18 @@ def example_lm_run(cfg: dict, seed: int, route: str, tag: str, smi: str,
     log(f"[{tag}] losses: " + ", ".join(f"{x:.4f}" for x in losses))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: losses {losses} not finite or not falling")
-    want = {n: per_step if n == route else 0 for n in att.LAUNCHES}
+    want = step_launches(cfg, route, cuda)
     if any(p != want for p in per):
         raise AssertionError(f"{tag}: launches per step {per}, expected {want}")
-    out = {"launches": launched[route], "loss": loss, "plain_loss": plain_loss,
-           "grad_rel_err": grad_err, "losses": losses}
+    out = {"launches": launched[route], "bwd_launches": launched["flash_attn_bwd"],
+           "loss": loss, "plain_loss": plain_loss, "grad_rel_err": grad_err,
+           "losses": losses}
     if cuda:
         step_ms = start.elapsed_time(end) / (EXAMPLE_STEPS - 1)
         out.update(step_ms=step_ms, tokens_per_s=EXAMPLE_BATCH * EXAMPLE_SEQ / step_ms * 1e3)
         log(f"[{tag}] {EXAMPLE_STEPS} AdamW steps, {launched[route]} launches of {route} "
-            f"({per_step} a step, none of the others); {step_ms:.2f} ms a step over the "
+            f"({per_step} a step) and {launched['flash_attn_bwd']} of the backward "
+            f"kernels ({want['flash_attn_bwd']} a step); {step_ms:.2f} ms a step over the "
             f"last {EXAMPLE_STEPS - 1} (CUDA events), {out['tokens_per_s']:.0f} tokens/s "
             f"({smi})")
 
@@ -2622,6 +2870,7 @@ def phase_moe_train(seed: int, smi: str, device: str = "cuda") -> dict:
         end.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3 / MOE_TIMED
     launches = att.LAUNCHES["flash_attn_fwd"]
+    bwd_launches = att.LAUNCHES["flash_attn_bwd"]
     want = MOE_CONFIG["n_layers"] * n_steps if cuda else 0
     series = {k: [m[k].item() for m in metrics] for k in ("loss", "aux_loss", "router_z_loss")}
     log("[moe-train] losses: " + ", ".join(f"{x:.4f}" for x in series["loss"]))
@@ -2632,9 +2881,11 @@ def phase_moe_train(seed: int, smi: str, device: str = "cuda") -> dict:
     if not series["loss"][-1] < series["loss"][0]:
         raise AssertionError(f"MoE loss did not fall: {series['loss'][0]:.4f} -> "
                              f"{series['loss'][-1]:.4f}")
-    if launches != want:
-        raise AssertionError(f"[moe-train] launches {launches}, expected {want}")
-    record = {"launches": launches, "batch": MOE_TRAIN_BATCH, **series}
+    if (launches, bwd_launches) != (want, want):
+        raise AssertionError(f"[moe-train] launches {launches} of the forward and "
+                             f"{bwd_launches} of the backward, expected {want} of each")
+    record = {"launches": launches, "bwd_launches": bwd_launches, "batch": MOE_TRAIN_BATCH,
+              **series}
     if cuda:
         step_ms = start.elapsed_time(end) / MOE_TIMED
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2765,24 +3016,31 @@ def phase_ring_hops(seed: int, smi: str, device: str = "cuda") -> dict:
     grads = {}
     for name in ("ring", "plain"):
         xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        before = att.LAUNCHES["flash_attn_bwd"]
         if name == "ring":
-            before = att.LAUNCHES["flash_attn_fwd"]
+            fwd_before = att.LAUNCHES["flash_attn_fwd"]
             o2, l2 = run(*xs)
-            grad_launches = att.LAUNCHES["flash_attn_fwd"] - before
+            grad_launches = att.LAUNCHES["flash_attn_fwd"] - fwd_before
         else:
             o2, l2 = att.chunk_attention(*xs, causal=True)
         ((o2.float() * g_o.float()).sum() + (l2 * g_l).sum()).backward()
+        if name == "ring":
+            bwd_launches = att.LAUNCHES["flash_attn_bwd"] - before
         grads[name] = {c: x.grad for c, x in zip("qkv", xs)}
     grad_err, worst = grad_disagreement(grads["ring"], grads["plain"])
+    if bwd_launches != want:
+        raise AssertionError(f"[ring] {bwd_launches} backward launches, expected {want} "
+                             "(one a hop, through O and lse)")
     log(f"[ring] {n} shards of {s // n} (B={b} H={h} D={d} causal bf16): {launches} "
-        f"launches ({grad_launches} more under autograd); O max err {o_err:.4f}, lse "
+        f"launches ({grad_launches} more under autograd, and {bwd_launches} of the "
+        f"backward kernels through O and lse); O max err {o_err:.4f}, lse "
         f"{lse_err:.4f} against one causal kernel call; gradients through O and lse "
         f"against the plain version: worst rel L2 {grad_err:.3e} at {worst} (limit "
         f"{GRAD_REL_TOL})")
     if grad_err > GRAD_REL_TOL:
         raise AssertionError("ring gradients disagree with the plain version's")
-    record = {"launches": launches, "o_max_err": o_err, "lse_max_err": lse_err,
-              "grad_rel_err": grad_err}
+    record = {"launches": launches, "bwd_launches": bwd_launches, "o_max_err": o_err,
+              "lse_max_err": lse_err, "grad_rel_err": grad_err}
     if cuda:
         with torch.no_grad():
             ring_ms = time_ms(lambda: run(q, k, v), reps=5, windows=3, warmup=1)[0]
@@ -2845,17 +3103,20 @@ def pp_against_sequential(cfg: dict, seed: int, rows: int, stages: int, micro: i
         torch.cuda.synchronize()
     pass_s = time.perf_counter() - t0
     launched = dict(att.LAUNCHES)
-    want = 2 * cfg["n_layers"] * micro if device == "cuda" else 0  # no kernel on the CPU
-    if launched != {n: want if n == route else 0 for n in att.LAUNCHES}:
-        raise AssertionError(f"pp pass: launches {launched}, expected {want} of {route} "
-                             "(a forward and a recompute per block per microbatch)")
+    want = {n: c * micro for n, c in
+            step_launches(cfg, route, device == "cuda", forwards=2).items()}
+    if launched != want:
+        raise AssertionError(f"pp pass: launches {launched}, expected {want} (a forward "
+                             "and a recompute of the forward per block per microbatch, "
+                             "and a backward where the backward kernels take the head)")
     loss = loss.item()
     if not math.isfinite(loss):
         raise AssertionError(f"pp pass: loss {loss}")
     named = pp_named_grads(grads, cfg["n_layers"] // stages)
     if set(named) != set(seq_grads):
         raise AssertionError(f"pp gradients name {sorted(set(named) ^ set(seq_grads))}")
-    out = {"launches": launched[route], "loss": loss, "seq_loss": seq_loss,
+    out = {"launches": launched[route], "bwd_launches": launched["flash_attn_bwd"],
+           "loss": loss, "seq_loss": seq_loss,
            "loss_rel_err": abs(loss - seq_loss) / abs(seq_loss),
            "grad_rel_err": group_rel_l2(named, seq_grads),
            "worst_param": grad_disagreement(named, seq_grads), "pass_ms": pass_s * 1e3}
@@ -2881,7 +3142,8 @@ def phase_pp(seed: int, smi: str, device: str = "cuda") -> dict:
     bubble = (s - 1) / (m + s - 1)
     log(f"[pp] 1F1B, {s} stages of {cfg['n_layers'] // s} blocks in one process, B={PP_BATCH} "
         f"S={SEQ_LEN} in {m} microbatches (bubble {bubble:.4f}): {run['launches']} launches "
-        f"of flash_attn_fwd (2 x {cfg['n_layers']} layers x {m}); loss {run['loss']:.5f} "
+        f"of flash_attn_fwd (2 x {cfg['n_layers']} layers x {m}) and {run['bwd_launches']} "
+        f"of flash_attn_bwd ({cfg['n_layers']} x {m}); loss {run['loss']:.5f} "
         f"against the sequential step's {run['seq_loss']:.5f} (rel {run['loss_rel_err']:.2e}, "
         f"limit {LOSS_REL_TOL}); gradients rel L2 stages {errs['stages']:.3e}, head "
         f"{errs['head']:.3e}, embedding {errs['embed']:.3e} (limit {GRAD_REL_TOL}; worst "
@@ -2932,6 +3194,7 @@ def phase_pp(seed: int, smi: str, device: str = "cuda") -> dict:
         end.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3 / PP_TIMED
         per_step = att.LAUNCHES["flash_attn_fwd"] / PP_TIMED
+        bwd_per_step = att.LAUNCHES["flash_attn_bwd"] / PP_TIMED
         step_ms = start.elapsed_time(end) / PP_TIMED
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         tokens = PP_BATCH * SEQ_LEN
@@ -2940,8 +3203,10 @@ def phase_pp(seed: int, smi: str, device: str = "cuda") -> dict:
             f"steps; host {host_ms:.2f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, bubble "
             f"{bubble:.4f}, peak memory {peak_gb:.2f} GB, {per_step:g} launches a step; "
             "losses " + ", ".join(f"{x:.4f}" for x in losses) + f" ({smi})")
-        if per_step != run["launches"] or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"pp steps: {per_step} launches a step, losses {losses}")
+        if (per_step != run["launches"] or bwd_per_step != run["bwd_launches"]
+                or not all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"pp steps: {per_step} forward and {bwd_per_step} "
+                                 f"backward launches a step, losses {losses}")
         # the card's busy time in one step (torch.profiler), against the step
         census = profile_census(lambda: lm.step(ids))
         idle = max(0.0, 1.0 - census["device_ms"] / step_ms)
@@ -4548,10 +4813,13 @@ def main() -> int:
         tf32["orbax_bundle_launches"] = orbax.pop("launches")
         tf32["orbax_bundle"] = orbax
         torch.cuda.empty_cache()
-        record["train_shape"] = phase_attention_train_shape(args.seed, smi)
+        record["train_shape"], bwd = phase_attention_train_shape(args.seed, smi)
+        bwd["cases"] = phase_attention_bwd(args.seed, smi)
         torch.cuda.empty_cache()
         model, train = phase_train(args.seed, smi)
         record["train_launches"] = train.pop("launches")
+        # the backward kernels' main path: the LM training step
+        bwd["launches"] = train.pop("bwd_launches")
         apply, params = phase_train_serve(model, smi)
         del model
         torch.cuda.empty_cache()
@@ -4653,7 +4921,7 @@ def main() -> int:
             f"(host clock; {smi}); summary {json.dumps(pod)}")
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
-    print(json.dumps({"kernels": [record, tf32]}))
+    print(json.dumps({"kernels": [record, tf32, bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

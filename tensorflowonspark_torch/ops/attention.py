@@ -34,9 +34,15 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
   fails to build or launch raises: nothing falls back.
   When autograd records the call, it goes through ``FlashAttention``, the
   counterpart of the JAX package's ``custom_vjp`` ``_flash_attention_tpu``:
-  the same forward, and a backward that recomputes through
-  ``blockwise_attention`` from the saved ``q, k, v`` (there is no backward
-  kernel, in the reference either), through ``out`` and ``lse`` both.
+  the same forward, and a backward through ``out`` and ``lse`` both.  The
+  backward is the operator ``tos::flash_attn_bwd`` (the FA2 gradient from
+  the saved ``q, k, v`` and ``lse``, with Δ summed from P and dP in f32):
+  on a CUDA tensor the hand-written
+  kernels of ``csrc/flash_attn_bwd.cu`` (bf16/fp16 up to D=128,
+  ``_bwd_route``), on a CPU tensor their plain version
+  (``flash_attn_bwd_reference``).  f32, and bf16/fp16 above 128, take the
+  JAX package's own backward on the card: the VJP of
+  ``blockwise_attention``, recomputed from ``q, k, v``.
 
 All softmax accumulation is float32 whatever the input type.
 """
@@ -195,13 +201,19 @@ _LIBS: dict = {}
 _SHAPE_ARGS = ([ctypes.c_int] * 5
                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                   ctypes.c_int, ctypes.c_int])
+# tos_flash_attn_bwd(q, k, v, dout, lse, g_lse, dq, dk, dv, scratch, B, Sq,
+# Sk, H, D, strides, causal, kv_offset, sm_scale, dtype, stream)
 _ARGTYPES = {
     "flash_attn_fwd": ([ctypes.c_void_p] * 6 + _SHAPE_ARGS
                        + [ctypes.c_int, ctypes.c_void_p]),
     "flash_attn_fwd_tf32": [ctypes.c_void_p] * 6 + _SHAPE_ARGS + [ctypes.c_void_p],
+    "flash_attn_bwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_int, ctypes.c_void_p]),
 }
-# each kernel's launches, by its name in _route; bumped only where _launch
-# has launched it (once a call, the wide routes' combine step included)
+# each kernel's launches, by its name in _route / _bwd_route; bumped only
+# where _run has launched it (once a call: the wide routes' combine step and
+# the backward's three kernels included)
 LAUNCHES = dict.fromkeys(_ARGTYPES, 0)
 
 # The wide routes' split-KV rule (both kernels take the count as an
@@ -291,9 +303,10 @@ def _kernel_lib(name: str):
         fn = getattr(lib, f"tos_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        scratch = getattr(lib, f"tos_{name}_scratch_bytes")
-        scratch.argtypes = [ctypes.c_int] * 7
-        scratch.restype = ctypes.c_int64
+        if name in _HEAD_DIMS:  # the forward kernels size their own scratch
+            scratch = getattr(lib, f"tos_{name}_scratch_bytes")
+            scratch.argtypes = [ctypes.c_int] * 7
+            scratch.restype = ctypes.c_int64
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -347,24 +360,31 @@ def _launch(name, q, k, v, causal, scale, kv_offset, wide=None):
     shape = (b, sq, sk, h, d, ctypes.cast(strides, ctypes.c_void_p),
              int(bool(causal)), int(kv_offset), float(scale), int(wide), splits)
     dtype_code = (_DTYPE_CODES[q.dtype],) if name == "flash_attn_fwd" else ()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        # freed once the launch is queued: the caching allocator hands the
-        # block out again only to work queued later on this stream
-        nbytes = getattr(lib, f"tos_{name}_scratch_bytes")(b, sq, sk, h, d,
-                                                          int(wide), splits)
-        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=q.device)
-                   if nbytes else None)
-        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), scratch.data_ptr() if nbytes else None]
-        err = getattr(lib, f"tos_{name}")(*ptrs, *shape, *dtype_code, stream)
+    nbytes = getattr(lib, f"tos_{name}_scratch_bytes")(b, sq, sk, h, d, int(wide), splits)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
+    _run(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+         lse.data_ptr(), scratch.data_ptr() if nbytes else None, *shape, *dtype_code)
+    return out, lse
+
+
+def _run(name, device, *args):
+    """Launch ``tos_<name>(*args, stream)`` on ``device``'s current
+    stream, raise if the C function returns a CUDA error, and count the
+    launch (``LAUNCHES`` and the kernel's telemetry counter): the one place
+    every kernel is launched and counted.  Scratch the caller allocated is
+    freed once the launch is queued: the caching allocator hands the block
+    out again only to work queued later on this stream."""
+    lib = _kernel_lib(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"tos_{name}")(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
     # every kernel's launches, as node processes report them to
-    # cluster.metrics()
-    telemetry.counter("attn.flash_fwd_launches").inc()
-    return out, lse
+    # cluster.metrics(): the forward's two kernels on one counter
+    telemetry.counter("attn.flash_bwd_launches" if name == "flash_attn_bwd"
+                      else "attn.flash_fwd_launches").inc()
 
 
 def flash_attn_fwd_cuda(q, k, v, *, causal: bool = True,
@@ -441,10 +461,195 @@ def _flash_attn_fwd_op_fake(q, k, v, causal, sm_scale, kv_offset):
 
 
 # ---------------------------------------------------------------------------
-# Public entry.
+# The backward: tos::flash_attn_bwd, the FA2 gradient from the saved lse —
+# csrc/flash_attn_bwd.cu on a CUDA tensor (bf16/fp16 up to D=128),
+# flash_attn_bwd_reference on a CPU tensor.
 # ---------------------------------------------------------------------------
 
-BWD_BLOCK_K = 512  # key block of the recompute backward (the JAX default)
+BWD_BLOCK_K = 512  # key block of the plain backward and of the recompute VJP (the JAX default)
+# the backward kernels' tiles: a head dim runs on the narrowest that holds
+# it, its columns past D zero (csrc/flash_attn_bwd.cu, launch_bwd_tile)
+BWD_HEAD_DIMS = (32, 64, 96, 128)
+# the rows a CTA of the backward kernels holds (their kBwdRows): the dK/dV
+# kernel's 64 key rows walk the query rows in tiles of bwd_inner_rows; the
+# Δ and dQ kernels' 64 query rows walk the keys in tiles of as many rows
+BWD_CTA_ROWS = 64
+
+
+def bwd_inner_rows(tile: int) -> int:
+    """Rows of the loop tile of the backward kernels at tile width ``tile``
+    (``BwdTile<DT>::kInner``: the dK/dV kernel's query tile, the Δ and dQ
+    kernels' key tile)."""
+    return 64 if tile <= 64 else 32
+
+
+def _bwd_route(dtype: torch.dtype, d: int) -> tuple[str, int]:
+    """``(backward, head_dim it runs at)`` for inputs of ``dtype`` with
+    head_dim ``d``, by type and head dim alone: bf16/fp16 whose head dim,
+    rounded up to whole ``TMA_ROW_BYTES`` rows as ``_route`` rounds it, is
+    at most ``BWD_HEAD_DIMS``' widest go to the kernels
+    (``"flash_attn_bwd"``); f32, and wider heads, to the recompute VJP
+    through ``blockwise_attention`` (``"recompute"``, at ``d`` itself),
+    the JAX package's own backward."""
+    if dtype in (torch.bfloat16, torch.float16) and d >= 1:
+        row = TMA_ROW_BYTES // dtype.itemsize
+        padded = -(-d // row) * row
+        if padded <= BWD_HEAD_DIMS[-1]:
+            return "flash_attn_bwd", padded
+    return "recompute", d
+
+
+def flash_attn_bwd_reference(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
+                             sm_scale: float | None = None, kv_offset: int = 0):
+    """``(dq, dk, dv)`` of attention from the forward's saved ``lse`` and
+    the cotangents of ``out`` and ``lse``: the FA2 backward in plain
+    PyTorch, in f32 over key blocks of ``BWD_BLOCK_K`` (memory
+    O(Sq·block)), cast to the inputs' types — the plain version of
+    ``csrc/flash_attn_bwd.cu``.
+
+    Per block ``P = exp(S·scale − lse)``, 0 where the mask drops a key or
+    the row is fully masked (``lse ≤ NEG_INF/2``, so such a row gets zero
+    gradients), and ``dP = dO Vᵀ``; ``Δ = rowsum(P ∘ dP) − g_lse``
+    (``∂lse/∂s = P``: the ``lse`` cotangent folds in here) over a first
+    pass of the blocks; then ``dV = Pᵀ dO``, ``dS = P ∘ (dP − Δ)``,
+    ``dQ = scale · dS K``, ``dK = scale · dSᵀ Q``.  A ``None`` cotangent
+    counts as zero.  ``rowsum(P ∘ dP)`` is ``rowsum(dO ∘ O)`` (FA2's Δ)
+    for the exact O; FA2's form over the forward's stored O is not used,
+    because that O is rounded to its type (bf16: 2^-9 of ``|dO||O|``) and
+    the error breaks ``Σ_j dS_ij = 0``, which dQ needs where the keys share
+    a large common component (a trained LM's do)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    gof = None if g_out is None else g_out.float()
+    lse_t = lse.float().transpose(1, 2)[..., None]                   # [B,H,Sq,1]
+    live = lse_t > NEG_INF / 2
+    qpos = torch.arange(sq, device=q.device)[:, None]
+
+    def block(start):
+        """P and dP (None without an ``out`` cotangent) of the keys from
+        ``start``."""
+        kc = kf[:, start:start + BWD_BLOCK_K]
+        keep = live
+        if causal:
+            kpos = kv_offset + start + torch.arange(kc.shape[1], device=q.device)
+            keep = keep & (kpos[None, :] <= qpos)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc) * scale
+        p = torch.where(keep, torch.exp(torch.where(keep, s - lse_t, 0.0)), 0.0)
+        dp = (None if gof is None else
+              torch.einsum("bqhd,bkhd->bhqk", gof, vf[:, start:start + BWD_BLOCK_K]))
+        return kc, p, dp
+
+    delta = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    if gof is not None:
+        for start in range(0, sk, BWD_BLOCK_K):
+            _, p, dp = block(start)
+            delta += (p * dp).sum(-1, keepdim=True)
+    if g_lse is not None:
+        delta -= g_lse.float().transpose(1, 2)[..., None]
+    dq = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, sk, h, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, sk, h, d), dtype=torch.float32, device=q.device)
+    for start in range(0, sk, BWD_BLOCK_K):
+        kc, p, dp = block(start)
+        if gof is not None:
+            dv[:, start:start + BWD_BLOCK_K] = torch.einsum("bhqk,bqhd->bkhd", p, gof)
+            ds = p * (dp - delta)
+        else:
+            ds = p * -delta
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, kc)
+        dk[:, start:start + BWD_BLOCK_K] = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return (dq.mul_(scale).to(q.dtype), dk.mul_(scale).to(k.dtype), dv.to(v.dtype))
+
+
+def flash_attn_bwd_cuda(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
+                        sm_scale: float | None = None, kv_offset: int = 0):
+    """``(dq, dk, dv)`` on the card's backward kernels
+    (``csrc/flash_attn_bwd.cu``): CUDA tensors, bf16/fp16 with a head dim
+    ``_bwd_route`` sends to them (up to 128); anything else raises.
+
+    One call is one launch (``LAUNCHES["flash_attn_bwd"]``) of the C entry,
+    which queues the three kernels: the Δ pass, dK/dV and dQ.  q, k, v and
+    the ``out`` cotangent are read in place through their strides where the
+    kernels can (``_kernel_operand``); a head dim not of whole 16-byte rows
+    is zero-padded to them (zero columns change no product) and the
+    gradients sliced back.  A ``None`` ``out`` cotangent is read as zeros,
+    a ``None`` ``lse`` cotangent is skipped.  The gradients come
+    back contiguous in the inputs' type."""
+    _check_inputs(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    name, padded = _bwd_route(q.dtype, d)
+    if name != "flash_attn_bwd":
+        raise ValueError(f"the backward kernels take bf16/fp16 with a head dim up to "
+                         f"{BWD_HEAD_DIMS[-1]}, got {q.dtype} D={d}")
+    wants = ((lse, (b, sq, h)), (g_out, q.shape), (g_lse, (b, sq, h)))
+    if any(x is not None and (x.shape != shape or x.device != q.device)
+           for x, shape in wants):
+        raise ValueError("lse and the cotangents of out and lse must match q "
+                         f"{tuple(q.shape)} on {q.device}, got "
+                         + ", ".join(str(None if x is None else (tuple(x.shape), x.device))
+                                     for x, _ in wants))
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    g_out = torch.zeros_like(q) if g_out is None else g_out.to(q.dtype)
+    xs = (q, k, v, g_out)
+    if padded != d:
+        xs = tuple(torch.nn.functional.pad(x, (0, padded - d)) for x in xs)
+    q_, k_, v_, do_ = (_kernel_operand(x) for x in xs)
+    lse = lse.float().contiguous()
+    g_lse = None if g_lse is None else g_lse.float().contiguous()
+    dq = torch.empty((b, sq, h, padded), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, padded), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, padded), dtype=q.dtype, device=q.device)
+    # Δ and lse·log2(e), f32 [B, H, Sq] each
+    scratch = torch.empty(2 * b * h * sq, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 21)(
+        *(s for x in (q_, k_, v_, do_, dq, dk, dv) for s in x.stride()[:3]))
+    _run(name, q.device, q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
+         do_.data_ptr(), lse.data_ptr(), None if g_lse is None else g_lse.data_ptr(),
+         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+         b, sq, sk, h, padded, ctypes.cast(strides, ctypes.c_void_p),
+         int(bool(causal)), int(kv_offset), float(scale), _DTYPE_CODES[q.dtype])
+    if padded != d:
+        return tuple(x[..., :d].contiguous() for x in (dq, dk, dv))
+    return dq, dk, dv
+
+
+BWD_OP_NAME = "tos::flash_attn_bwd"
+
+
+@torch.library.custom_op(
+    BWD_OP_NAME, mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor? g_out, Tensor? g_lse, "
+           "bool causal, float? sm_scale, int kv_offset) -> (Tensor, Tensor, Tensor)")
+def flash_attn_bwd_op(q, k, v, lse, g_out, g_lse, causal, sm_scale, kv_offset):
+    """``(dq, dk, dv)`` of attention as one operator, from the forward's
+    ``lse`` and the cotangents of ``out`` and ``lse`` (either may be
+    None).  On a
+    CPU tensor it is the plain version (``flash_attn_bwd_reference``); on
+    a CUDA tensor it launches the backward kernels
+    (``flash_attn_bwd_cuda``) or raises.  Its fake implementation gives
+    the shapes without running anything.  Every implementation returns
+    contiguous gradients in the inputs' types."""
+    return flash_attn_bwd_reference(q, k, v, lse, g_out, g_lse, causal=causal,
+                                    sm_scale=sm_scale, kv_offset=kv_offset)
+
+
+@flash_attn_bwd_op.register_kernel("cuda")
+def _flash_attn_bwd_op_cuda(q, k, v, lse, g_out, g_lse, causal, sm_scale, kv_offset):
+    return flash_attn_bwd_cuda(q, k, v, lse, g_out, g_lse, causal=causal,
+                               sm_scale=sm_scale, kv_offset=kv_offset)
+
+
+@flash_attn_bwd_op.register_fake
+def _flash_attn_bwd_op_fake(q, k, v, lse, g_out, g_lse, causal, sm_scale, kv_offset):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+# ---------------------------------------------------------------------------
+# Public entry.
+# ---------------------------------------------------------------------------
 
 
 def _forward(q, k, v, causal, sm_scale, kv_offset, impl):
@@ -454,42 +659,58 @@ def _forward(q, k, v, causal, sm_scale, kv_offset, impl):
 
 
 class FlashAttention(torch.autograd.Function):
-    """``(out, lse)`` of the forward, with a recompute backward — the
-    counterpart of ``_flash_attention_tpu`` and its rules
+    """``(out, lse)`` of the forward, with its backward — the counterpart
+    of ``_flash_attention_tpu`` and its rules
     (``tensorflowonspark_tpu/ops/attention.py:283-312``).
 
     Forward: ``tos::flash_attn_fwd``, the kernel for a CUDA tensor,
-    ``chunk_attention`` for a CPU tensor; it saves only ``q, k, v``.  Backward: the VJP of
-    ``blockwise_attention`` (``block_k=BWD_BLOCK_K``, the same ``causal``,
-    ``sm_scale`` and ``kv_offset``, each block checkpointed, so its memory
-    is O(Sq·block_k)) through ``out`` and through ``lse`` — ring attention
-    merges chunks by their ``lse``, and ``d lse / d logits`` is the row's
-    softmax.  A cotangent nobody produced (``lse`` unused, the usual
-    case) costs nothing."""
+    ``chunk_attention`` for a CPU tensor; it saves ``q, k, v`` and ``lse``.
+    Backward, through ``out`` and through ``lse`` (ring attention merges
+    chunks by their ``lse``, and ``d lse / d logits`` is the row's
+    softmax): ``tos::flash_attn_bwd`` where ``_bwd_route`` gives the
+    kernels (bf16/fp16 up to D=128) or the tensors lie on the CPU (its
+    plain version); otherwise, on the card, the JAX package's own
+    backward, the VJP of ``blockwise_attention`` (``block_k=BWD_BLOCK_K``,
+    the same ``causal``, ``sm_scale`` and ``kv_offset``, each block
+    checkpointed, so its memory is O(Sq·block_k)).  With no cotangent at
+    all it returns no gradients and launches nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, kv_offset, impl):
         out, lse = _forward(q, k, v, causal, sm_scale, kv_offset, impl)
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.args = (causal, sm_scale, kv_offset)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
+        if g_out is None and g_lse is None:
+            return None, None, None, None, None, None, None
         causal, sm_scale, kv_offset = ctx.args
-        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
-        with torch.enable_grad():
-            out, lse = blockwise_attention(q, k, v, causal=causal,
-                                           sm_scale=sm_scale, block_k=BWD_BLOCK_K,
-                                           kv_offset=kv_offset, return_lse=True)
-            pairs = [(t, g) for t, g in ((out, g_out), (lse, g_lse)) if g is not None]
-            if not pairs:
-                return None, None, None, None, None, None, None
-            # v is unused when only lse has a cotangent
-            dq, dk, dv = torch.autograd.grad([t for t, _ in pairs], (q, k, v),
-                                             [g for _, g in pairs], allow_unused=True)
+        q, k, v, lse = ctx.saved_tensors
+        if q.is_cuda and _bwd_route(q.dtype, q.shape[-1])[0] == "recompute":
+            dq, dk, dv = _recompute_bwd(q, k, v, g_out, g_lse, causal, sm_scale,
+                                        kv_offset)
+        else:
+            dq, dk, dv = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, g_lse,
+                                                      causal, sm_scale, kv_offset)
         return dq, dk, dv, None, None, None, None
+
+
+def _recompute_bwd(q, k, v, g_out, g_lse, causal, sm_scale, kv_offset):
+    """The VJP of ``blockwise_attention`` through ``out`` and ``lse`` (the
+    JAX package's ``_flash_bwd_rule``): f32, and heads above the backward
+    kernels' widest, on the card."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        out, lse = blockwise_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                       block_k=BWD_BLOCK_K, kv_offset=kv_offset,
+                                       return_lse=True)
+        pairs = [(t, g) for t, g in ((out, g_out), (lse, g_lse)) if g is not None]
+        # v is unused when only lse has a cotangent
+        return torch.autograd.grad([t for t, _ in pairs], (q, k, v),
+                                   [g for _, g in pairs], allow_unused=True)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,

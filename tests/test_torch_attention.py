@@ -761,7 +761,12 @@ def test_attention_grads_match_jax_pallas_interpret(case):
 def test_attention_function_forward_saves_only_qkv_and_inference_skips_it():
     q, k, v = (x.requires_grad_() for x in _t(*make_qkv(b=1, s=24, h=2, d=8)))
     out, lse = ta.flash_attention_fwd(q, k, v, causal=True)
-    assert len(out.grad_fn.saved_tensors) == 3
+    # q, k, v and the forward's own lse: the FA2 backward
+    # (tos::flash_attn_bwd) recomputes P from lse
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 4
+    for got, want in zip(saved, (q, k, v, lse)):
+        assert torch.equal(got, want)
     # lse carries its gradient too (ring attention merges chunks by it),
     # through the same node of the graph
     assert lse.requires_grad and lse.grad_fn is out.grad_fn

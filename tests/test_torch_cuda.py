@@ -2,7 +2,10 @@
 tiles of 32 to 256 columns and above 256 on its wide route, the 3xTF32
 ``wgmma`` kernel for f32 on its tiles of 32 to 128 columns and above 128 on
 its wide route; every route at the real head dim, split-KV on small grids)
-against their plain PyTorch version, on the card.  No JAX here, so the file runs on the machine with the card:
+against their plain PyTorch version, on the card, and the backward kernels
+(``csrc/flash_attn_bwd.cu``, bf16/fp16 up to D=128, behind
+``tos::flash_attn_bwd``) against theirs (``flash_attn_bwd_reference``).
+No JAX here, so the file runs on the machine with the card:
 
     python -m pytest tests/test_torch_cuda.py
 
@@ -253,8 +256,14 @@ GRAD_CASES = {
 
 @pytest.mark.parametrize("case", sorted(GRAD_CASES))
 def test_cuda_attention_grads_kernel_forward_vs_plain_forward(case):
-    """FlashAttention (kernel forward, recompute backward) against autograd
-    through the plain blockwise forward, bf16 on the card."""
+    """FlashAttention (kernel forward, backward kernels) on bf16 inputs
+    against autograd through the plain blockwise forward on the same
+    inputs in f32 (TF32 off: the exact gradient of those inputs), on the
+    card.  The plain side runs in f32 because the two sides no longer
+    share a backward: each rounds dS to bf16 at its own place (the
+    kernels as a product operand, a bf16 plain forward in its logits'
+    einsum backward), and two such roundings of a large term on a short
+    causal row differ by about 1e-2 in rare elements."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     b, s, sk, h, d, causal, off = GRAD_CASES[case]
@@ -262,19 +271,29 @@ def test_cuda_attention_grads_kernel_forward_vs_plain_forward(case):
     q, k, v = make_inputs(b, s, sk, h, d, torch.bfloat16, False, g)
     cot = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
     grads, outs = [], []
-    for attend in (ta.flash_attention, ta.blockwise_attention):
-        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        before = ta.LAUNCHES["flash_attn_fwd"]
-        out = attend(*leaves, causal=causal, kv_offset=off)
-        launched = ta.LAUNCHES["flash_attn_fwd"] - before
-        assert launched == (1 if attend is ta.flash_attention else 0)
-        out.backward(cot)
-        assert ta.LAUNCHES["flash_attn_fwd"] - before == launched  # none in backward
-        outs.append(out.float())
-        grads.append([x.grad.float() for x in leaves])
-    torch.cuda.synchronize()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for attend in (ta.flash_attention, ta.blockwise_attention):
+            kernel = attend is ta.flash_attention
+            leaves = [(x if kernel else x.float()).detach().clone().requires_grad_()
+                      for x in (q, k, v)]
+            before = dict(ta.LAUNCHES)
+            out = attend(*leaves, causal=causal, kv_offset=off)
+            assert ta.LAUNCHES["flash_attn_fwd"] - before["flash_attn_fwd"] == int(kernel)
+            out.backward(cot if kernel else cot.float())
+            # the backward kernel once, and no forward launch in the backward
+            assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
+                "flash_attn_fwd": int(kernel), "flash_attn_fwd_tf32": 0,
+                "flash_attn_bwd": int(kernel)}
+            outs.append(out.float())
+            grads.append([x.grad.float() for x in leaves])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.testing.assert_close(outs[0], outs[1], atol=2e-2, rtol=2e-2)
-    # both backwards are the same recompute of the same q, k, v and cotangent
+    # the backward kernels (P and dS rounded to bf16 as product operands,
+    # the gradients stored in bf16) against the f32 gradients
     for got, want in zip(*grads):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
@@ -296,11 +315,14 @@ def test_cuda_train_step_launches_per_layer(remat):
     opt = dp.adamw(model.parameters(), 1e-3)
     step = dp.make_train_step(tfm.make_loss_fn(model), opt)
     ids = torch.randint(0, 512, (2, 256), device="cuda")
-    before = ta.LAUNCHES["flash_attn_fwd"]
+    before = dict(ta.LAUNCHES)
     _, metrics = step(dp.TrainState.create(model, opt), {"input_ids": ids})
     torch.cuda.synchronize()
     assert torch.isfinite(metrics["loss"])
-    assert ta.LAUNCHES["flash_attn_fwd"] - before == 3 * (2 if remat else 1)
+    # the backward kernel once per layer, remat or not
+    assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
+        "flash_attn_fwd": 3 * (2 if remat else 1), "flash_attn_fwd_tf32": 0,
+        "flash_attn_bwd": 3}
 
 
 def _bn_step(device, weights, batch, config):
@@ -503,12 +525,152 @@ def test_cuda_lse_gradient_matches_plain_version(off):
     for fn in (ta.flash_attention_fwd, ta.chunk_attention):
         xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         o, lse = fn(*xs, causal=True, kv_offset=off)
+        before = ta.LAUNCHES["flash_attn_bwd"]
         ((o.float() * g_o.float()).sum() + (lse.clamp(min=-1e4) * g_l).sum()).backward()
+        launched = ta.LAUNCHES["flash_attn_bwd"] - before
+        assert launched == int(fn is ta.flash_attention_fwd)
         grads.append([x.grad.float() for x in xs])
-    # the kernel's forward rounds P and O to bf16 where the plain one
-    # keeps f32; both backwards are the same recompute: 2% relative L2
+    # the kernel's forward rounds P and O to bf16 where the plain one keeps
+    # f32, and its backward rounds P and dS to bf16 as product operands:
+    # 2% relative L2
     for a, b in zip(*grads):
         assert (a - b).norm().item() <= 2e-2 * b.norm().item() + 1e-6
+
+
+# (b, sq, sk, h, d, causal, kv_offset, dtype, packed, cotangents): the
+# backward kernels' cases (chip_smoke.py's BWD_CASES): every tile (32, 64,
+# 96, 128) and a head dim between two (80), a head dim of part 16-byte rows
+# (36, padded to 40) at a ragged non-causal shape, masked rows at a
+# kv_offset, a negative offset, a cotangent on lse alone and on out alone,
+# packed q/k/v views read in place, fp16
+BWD_CASES = {
+    "d32": (2, 300, 300, 4, 32, True, 0, torch.bfloat16, False, "out+lse"),
+    "d64": (2, 300, 300, 4, 64, True, 0, torch.bfloat16, False, "out+lse"),
+    "d96": (2, 300, 300, 4, 96, True, 0, torch.bfloat16, False, "out+lse"),
+    "d128": (2, 300, 300, 4, 128, True, 0, torch.bfloat16, False, "out+lse"),
+    "d80_between_tiles": (2, 200, 200, 4, 80, True, 0, torch.bfloat16, False, "out"),
+    "d36_ragged_20_52_noncausal": (2, 20, 52, 4, 36, False, 0, torch.bfloat16, False, "out"),
+    "kv_offset_37_masked_rows": (1, 100, 70, 4, 128, True, 37, torch.bfloat16, False,
+                                 "out+lse"),
+    "kv_offset_negative": (1, 64, 192, 4, 128, True, -64, torch.bfloat16, False, "out"),
+    "lse_cotangent_only": (2, 130, 170, 4, 64, True, 5, torch.bfloat16, False, "lse"),
+    "out_cotangent_only": (2, 130, 170, 4, 128, False, 0, torch.bfloat16, False, "out"),
+    "packed_qkv_view": (2, 300, 300, 4, 128, True, 0, torch.bfloat16, True, "out"),
+    "fp16_d64": (2, 200, 330, 4, 64, True, 37, torch.float16, False, "out+lse"),
+}
+# per gradient, relative L2 against the plain version on the same inputs:
+# the kernels round P and dS to the input type as product operands and
+# store the gradients in it (2^-9 relative in bf16), the plain version
+# keeps f32 throughout
+BWD_REL_TOL = 2e-2
+
+
+def bwd_inputs(b, sq, sk, h, d, causal, off, dtype, packed, cotangents, gen):
+    """q, k, v, the kernel forward's lse, and the cotangents."""
+    q, k, v = make_inputs(b, sq, sk, h, d, dtype, packed, gen)
+    _, lse = ta.flash_attn_fwd_cuda(q, k, v, causal=causal, kv_offset=off)
+    g_out = (torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+             if "out" in cotangents else None)
+    g_lse = (torch.randn(lse.shape, generator=gen, device="cuda")
+             if "lse" in cotangents else None)
+    return q, k, v, lse, g_out, g_lse
+
+
+def rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_cuda_bwd_kernel_matches_plain_version(case):
+    """``tos::flash_attn_bwd`` on CUDA tensors launches the backward
+    kernels once (no forward kernel) and equals ``flash_attn_bwd_reference``
+    on the same q, k, v, lse and cotangents within ``BWD_REL_TOL`` per
+    gradient; a fully masked row's dq is exactly 0, every gradient finite,
+    contiguous, in the input type."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, sq, sk, h, d, causal, off, dtype, packed, cot = BWD_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, lse, g_out, g_lse = bwd_inputs(b, sq, sk, h, d, causal, off, dtype, packed,
+                                            cot, g)
+    if packed:
+        assert ta._kernel_operand(q) is q
+    assert ta._bwd_route(dtype, d)[0] == "flash_attn_bwd"
+    before = dict(ta.LAUNCHES)
+    got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, g_lse, causal, None, off)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
+        "flash_attn_fwd": 0, "flash_attn_fwd_tf32": 0, "flash_attn_bwd": 1}
+    want = ta.flash_attn_bwd_reference(q, k, v, lse, g_out, g_lse, causal=causal,
+                                       kv_offset=off)
+    for name, x, y, ref in zip("qkv", got, want, (q, k, v)):
+        assert x.shape == ref.shape and x.dtype == dtype and x.is_contiguous(), name
+        assert torch.isfinite(x).all(), name
+        assert rel_l2(x, y) <= BWD_REL_TOL, (name, rel_l2(x, y))
+    masked = lse <= ta.NEG_INF / 2
+    assert (got[0][masked] == 0).all()
+    if case == "kv_offset_37_masked_rows":
+        assert masked.any()
+
+
+def test_cuda_bwd_kernel_is_deterministic():
+    """dQ has a kernel of its own (no atomics): two calls on the same inputs
+    give the same gradients bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    args = bwd_inputs(2, 512, 512, 4, 128, True, 0, torch.bfloat16, False, "out+lse", g)
+    first = torch.ops.tos.flash_attn_bwd(*args, True, None, 0)
+    second = torch.ops.tos.flash_attn_bwd(*args, True, None, 0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_cuda_bwd_kernel_dq_exact_when_keys_share_a_large_component():
+    """Keys and values sharing a large common component (as a trained LM's
+    do): the kernels' Δ is the f32 sum of P ∘ dP, so dq does not see the
+    component, within ``BWD_REL_TOL`` of the f32 gradient of the same bf16
+    inputs (FA2's Δ from the bf16 O would be off by about 13%)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    common = 4 * torch.randn((1, 1, 4, 128), generator=g, device="cuda")
+    q, k, v, g_out = ((torch.randn((2, 512, 4, 128), generator=g, device="cuda") + c)
+                      .bfloat16() for c in (0, common, common, 0))
+    _, lse = ta.flash_attn_fwd_cuda(q, k, v, causal=True)
+    got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, None, True, None, 0)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ta.blockwise_attention(*leaves, causal=True).backward(g_out.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for x, want in zip(got, leaves):
+        assert rel_l2(x, want.grad) <= BWD_REL_TOL
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 192),
+                                     (torch.float16, 256)])
+def test_cuda_bwd_route_sends_f32_and_wide_heads_to_the_recompute(dtype, d):
+    """f32, and bf16/fp16 above 128, take the recompute VJP through
+    ``blockwise_attention`` by ``_bwd_route`` alone: a FlashAttention
+    backward launches no backward kernel, and the kernel wrapper itself
+    refuses them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (x.requires_grad_() for x in make_inputs(1, 70, 70, 2, d, dtype, False, g))
+    assert ta._bwd_route(dtype, d) == ("recompute", d)
+    out = ta.flash_attention(q, k, v, causal=True)
+    before = ta.LAUNCHES["flash_attn_bwd"]
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES["flash_attn_bwd"] == before
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+    with pytest.raises(ValueError, match="backward kernels"):
+        ta.flash_attn_bwd_cuda(q.detach(), k.detach(), v.detach(),
+                               torch.zeros(out.shape[:3], device="cuda"), None, None)
 
 
 def test_cuda_pp_one_process_1f1b_matches_plain_attention():
