@@ -19,8 +19,10 @@ Phases (any failure propagates and the script exits non-zero):
    failing if either is missing, a spill shows, or ptxas serialises a
    kernel's wgmma; and the registers and spills of the 3xTF32
    kernel's K/V pre-pass, the wide route's V transpose and the split-KV
-   combine kernels, and of the backward's kernels (the Δ pass, dK/dV
-   and dQ on the tiles of D 32/64/96/128 x bf16/fp16);
+   combine kernels; the backward's kernels (the Δ pass, dK/dV and dQ on
+   the tiles of D 32/64/96/128 x bf16/fp16) are held to the same design
+   checks as the ``wgmma`` instantiations (HGMMA and UTMALDG in the SASS,
+   no spill, no serialised wgmma);
 3. kernel — holds every route (``ops.attention._route``) against the plain
    PyTorch version (``chunk_attention``) on the card, O and lse, at the
    serving shape and at edge shapes (ragged tails, one query row,
@@ -82,7 +84,10 @@ Phases (any failure propagates and the script exits non-zero):
    timed; the backward kernels (``tos::flash_attn_bwd``) held against their
    plain version (``flash_attn_bwd_reference``: dq, dk, dv each within
    ``BWD_REL_TOL`` relative L2) and timed beside their bound, the plain
-   version, the library's backward and, once, the recompute VJP through
+   version, the library's backward (SDPA under autograd, its backend
+   named) and their three kernels apart (``torch.profiler``), there, at
+   the example LM's shape (``BWD_SHAPES``: B=8 S=1024 H=8 D=32) and at
+   D=64 (B=4 S=2048 H=16), and, once, the recompute VJP through
    ``blockwise_attention`` that they replace on this route; then
    ``BWD_CASES`` (every tile, a head dim between tiles, a padded one,
    masked rows, offsets, a cotangent on lse or out alone, packed views,
@@ -480,7 +485,6 @@ ORBAX_FORBIDDEN = ("jax", "jaxlib", "orbax", "tensorstore", "zstandard", "ml_dty
                    "tensorflowonspark_tpu")
 # SASS instructions that show the design: wgmma and TMA loads
 DESIGN_SASS = ("HGMMA", "UTMALDG")
-BWD_SASS = ("HMMA",)  # the backward kernels' mma.sync on the tensor cores
 # ResNet-50 training, the JAX bench's setup (bench.py:49-110)
 RESNET_CONFIG = {"model": "resnet50", "num_classes": 1000, "bf16": True}
 RESNET_BATCH, RESNET_SIZE = 256, 224
@@ -828,8 +832,8 @@ COMBINE_KINDS = {"0": ("flash_attn_fwd", "bfloat16"), "1": ("flash_attn_fwd", "f
 OTHER_INSTANCES = (("flash_attn_fwd_tf32", "split_kv", "float32"),
                    ("flash_attn_fwd_tf32", "transpose_v", "float32"),
                    *((lib, "combine", dt) for lib, dt in COMBINE_KINDS.values()))
-# the backward's mma.sync kernels (reported by ptxas): the Δ pass, dK/dV
-# and dQ on each tile, x bf16/fp16
+# the backward's wgmma kernels: the Δ pass, dK/dV and dQ on each tile, x
+# bf16/fp16
 BWD_INSTANCES = tuple(("flash_attn_bwd", f"{kind}{d}", dt)
                       for dt in ("bfloat16", "float16")
                       for kind in ("delta", "dkdv", "dq") for d in (32, 64, 96, 128))
@@ -884,9 +888,8 @@ def ptxas_report(log_text: str) -> dict:
 
 
 def sass_counts(lib_path) -> dict:
-    """``{kernel_key: {instruction: count}}`` for ``DESIGN_SASS`` (the
-    backward's: ``BWD_SASS``) in each instantiation's SASS, from
-    ``cuobjdump -sass`` of the library."""
+    """``{kernel_key: {instruction: count}}`` for ``DESIGN_SASS`` in each
+    instantiation's SASS, from ``cuobjdump -sass`` of the library."""
     import subprocess
     from pathlib import Path
 
@@ -900,8 +903,7 @@ def sass_counts(lib_path) -> dict:
         if "Function :" in line:
             key = kernel_key(line)
             cur = None if key is None else counts.setdefault(
-                key, dict.fromkeys(BWD_SASS if key[0] == "flash_attn_bwd"
-                                   else DESIGN_SASS, 0))
+                key, dict.fromkeys(DESIGN_SASS, 0))
         elif cur is not None:
             for ins in cur:
                 cur[ins] += ins in line
@@ -911,12 +913,9 @@ def sass_counts(lib_path) -> dict:
 def phase_build() -> dict:
     """Build the three kernel libraries from the checkout (one nvcc each,
     in parallel); print and return what ptxas and the SASS say about each
-    ``wgmma`` instantiation (failing on a spill, a missing HGMMA/UTMALDG or
-    wgmma that ptxas serialises), what ptxas says about the 3xTF32
-    kernel's pre-passes and the combine kernels, and about the backward's
-    kernels (failing where one of them has no HMMA: its products
-    left the tensor cores; a spill is reported, not failed: the backward
-    is a first, unpipelined design)."""
+    ``wgmma`` instantiation, the backward's included (failing on a spill, a
+    missing HGMMA/UTMALDG or wgmma that ptxas serialises), and what ptxas
+    says about the 3xTF32 kernel's pre-passes and the combine kernels."""
     from tensorflowonspark_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -952,15 +951,13 @@ def phase_build() -> dict:
             f"{regs.get('spill_loads')} B spill loads, {smem} B dynamic shared "
             f"memory" + ("; SASS " + ", ".join(f"{k} x{v}" for k, v in ins.items())
                          if ins else ""))
-        if key in WGMMA_INSTANCES:
+        if key in WGMMA_INSTANCES or key in BWD_INSTANCES:
             if not (ins and all(ins.values())):
                 raise AssertionError(f"{key}: SASS lacks one of {DESIGN_SASS}")
             if regs.get("spill_stores") or regs.get("spill_loads"):
                 raise AssertionError(f"{key}: ptxas reports spills")
             if regs.get("wgmma_serialized"):
                 raise AssertionError(f"{key}: ptxas serialises its wgmma")
-        if key in BWD_INSTANCES and not (ins and all(ins.values())):
-            raise AssertionError(f"{key}: SASS lacks {BWD_SASS}")
     return info
 
 
@@ -1034,8 +1031,12 @@ def call_census(q, k, v, causal, off, route, name) -> dict:
 
     from tensorflowonspark_torch.ops import attention as att
 
-    # the profiler now and then hands back a session without its device
-    # records (CUPTI's buffer not flushed): such a session is taken again
+    # the profiler now and then hands back a session without some or all of
+    # its device records (CUPTI's buffer not flushed; seen dropping an f32
+    # call's first kernel, its pre-pass): a session that lacks the attention
+    # kernel, or on the f32 route the pre-pass, is taken again.  The checks
+    # below hold the last session whole; the call's output is held against
+    # the plain version before the census
     for _ in range(3):
         before = dict(att.LAUNCHES)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1043,7 +1044,9 @@ def call_census(q, k, v, causal, off, route, name) -> dict:
             torch.cuda.synchronize()
         launched = {n: c - before[n] for n, c in att.LAUNCHES.items()}
         kernels = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
-        if kernels:
+        if (any("flash_fwd" in n for n in kernels)
+                and (route != "flash_attn_fwd_tf32"
+                     or any("transpose_v" in n or "split_kv" in n for n in kernels))):
             break
     host_ops = sorted({e.name for e in prof.events() if e.name.startswith("aten::")})
     attention = sum("flash_fwd" in n for n in kernels)
@@ -1723,10 +1726,101 @@ def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
         f"({out.numel() * out.element_size() / 1e9:.2f} GB) ({smi})")
 
 
+# the backward kernels timed beside the training shape (name, B, S, H, D;
+# causal bf16): the example LM's attention (EXAMPLE_LM_CONFIG at its batch
+# and sequence) and head dim 64 at the training tokens
+BWD_SHAPES = (("example_lm_d32", 8, 1024, 8, 32), ("d64", 4, 2048, 16, 64))
+
+
+def bwd_timing(q, k, v, lse, cot, smi: str, label: str) -> dict:
+    """The backward kernels on causal ``q, k, v`` with the forward's
+    ``lse`` and the ``out`` cotangent ``cot``: held against the plain
+    version (one launch, dq, dk, dv finite and within ``BWD_REL_TOL``
+    relative L2) and timed beside the function's bound, the design's (nine
+    products), the plain version, the library's backward (SDPA under
+    autograd, the backend named) and, from ``torch.profiler``, the Δ,
+    dK/dV and dQ kernels apart; host ms to queue a call."""
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_torch.ops import attention as att
+
+    b, s, h, d = q.shape
+    args = (q, k, v, lse, cot, None, True, None, 0)
+    reset_launches()
+    got = torch.ops.tos.flash_attn_bwd(*args)
+    torch.cuda.synchronize()
+    launched = dict(att.LAUNCHES)
+    if launched != {n: int(n == "flash_attn_bwd") for n in att.LAUNCHES}:
+        raise AssertionError(f"[attn-train] {label}: one backward call launched {launched}")
+    want = att.flash_attn_bwd_reference(q, k, v, lse, cot, None, causal=True)
+    rel = {n: rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+    shape = f"B={b} S={s} H={h} D={d} causal bfloat16"
+    log(f"[attn-train] backward kernels vs flash_attn_bwd_reference, {label} ({shape}): "
+        f"rel L2 " + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+        + f" (limit {BWD_REL_TOL} each: P and dS rounded to bf16 as product operands), "
+        f"max_abs_err {err:.3e}")
+    if max(rel.values()) > BWD_REL_TOL or not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError(f"[attn-train] {label}: the backward kernels disagree with "
+                             "the plain version")
+    del got, want
+    ms, host_ms = time_ms(lambda: torch.ops.tos.flash_attn_bwd(*args))
+    plain_ms = time_ms(lambda: att.flash_attn_bwd_reference(
+        q, k, v, lse, cot, None, causal=True), reps=3, windows=3, warmup=1)[0]
+    # each kernel's mean device time over the launches the profiler recorded
+    # (a session may drop some of a window's records)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            torch.ops.tos.flash_attn_bwd(*args)
+        torch.cuda.synchronize()
+    launches: dict = {}
+    for e in prof.events():
+        m = re.search(r"flash_bwd_(delta|dkdv|dq)_kernel", e.name)
+        if m and str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0)
+            launches.setdefault(f"{m.group(1)}_ms", []).append(us / 1e3)
+    split = {n: statistics.mean(v) for n, v in launches.items()}
+    # the function: S = QK^T again, dP = dO V^T, dV = P^T dO, dQ = dS K,
+    # dK = dS^T Q, five products over the live pairs; q, k, v, dO and lse
+    # read, dq, dk, dv written.  The design: the Δ, dK/dV and dQ walks
+    # each compute S and dP, nine products
+    t_ops = 10 * d * b * h * live_pairs(s, s, True, 0) / PEAK_BF16_FLOPS
+    t_bytes = (7 * b * s * h * d * 2 + b * s * h * 4) / PEAK_BYTES
+    bound, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    design = max(t_ops * 9 / 5, t_bytes) * 1e3
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    cot_t = cot.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), cot_t, retain_graph=True), reps=5, windows=3)[0]
+    library = sdpa_choice(qt, kt, vt)
+    del qt, kt, vt, lib_out, cot_t
+    log(f"[attn-train] backward kernels (tos::flash_attn_bwd: Δ, dK/dV, dQ; no atomics), "
+        f"{label}: {ms:.4f} ms, host {host_ms:.4f} ms per call (bound {bound:.5f} ms, "
+        f"{by}, the function's five products, share {bound / ms:.4f}; the design's nine "
+        f"{design:.5f} ms, share {design / ms:.4f}); kernels "
+        + ", ".join(f"{n} {v:.4f}" for n, v in split.items())
+        + f" ms; plain version {plain_ms:.4f} ms; library backward {library_ms:.4f} ms "
+        f"({library}; the kernels take {ms / library_ms:.2f}x its time) ({smi})")
+    return {"shape": shape, "max_abs_err": err, "rel_l2": rel, "rel_l2_limit": BWD_REL_TOL,
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by,
+            "bound_basis": "the function's five products over the live pairs at 989 "
+                           "TFLOP/s, or q, k, v, dO, lse, dq, dk, dv at 3.35 TB/s",
+            "bound_share": bound / ms, "bound_design_ms": design,
+            "bound_design_basis": "nine products (the Δ, dK/dV and dQ walks each "
+                                  "compute S and dP)",
+            "kernels_ms": split, "library_ms": library_ms, "library_backend": library}
+
+
 def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict]:
     """The kernel's forward and the backward kernels at the training shape,
     each held against its plain version and timed beside its bound, the
-    plain version and the library call; the recompute VJP the backward
+    plain version and the library call, and the backward kernels so at
+    ``BWD_SHAPES`` too (``bwd_timing``); the recompute VJP the backward
     kernels replace timed once.  Returns the forward's numbers and the
     backward's ``kernels`` record."""
     import torch
@@ -1739,7 +1833,6 @@ def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict]:
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     q, k, v = kernel_inputs(b, s, s, h, d, torch.bfloat16, False, gen)
     cot = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
-    pairs = live_pairs(s, s, True, 0)
     o, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
     po, plse = att.chunk_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -1757,50 +1850,14 @@ def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict]:
                   for x in (q, k, v))
     fwd_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt.detach(), kt.detach(), vt.detach(), is_causal=True))[0]
+    del qt, kt, vt
     log(f"[attn-train] {shape}: kernel vs plain ok, max_abs_err {err:.3e} "
         f"(tolerance O {O_TOL}, lse {LSE_TOL}); kernel forward {fwd_ms:.4f} ms (bound "
         f"{fwd_bound:.5f} ms, {fwd_by}, share {fwd_bound / fwd_ms:.3f}); plain "
         f"{plain_ms:.4f} ms; F.scaled_dot_product_attention {fwd_library_ms:.4f} ms "
         f"({smi})")
 
-    # the backward kernels against their plain version on the same inputs
-    args = (q, k, v, lse, cot, None, True, None, 0)
-    reset_launches()
-    got = torch.ops.tos.flash_attn_bwd(*args)
-    torch.cuda.synchronize()
-    launched = dict(att.LAUNCHES)
-    if launched != {n: int(n == "flash_attn_bwd") for n in att.LAUNCHES}:
-        raise AssertionError(f"[attn-train] one backward call launched {launched}")
-    want = att.flash_attn_bwd_reference(q, k, v, lse, cot, None, causal=True)
-    rel = {n: rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
-    bwd_err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
-    log(f"[attn-train] backward kernels vs flash_attn_bwd_reference: rel L2 "
-        + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
-        + f" (limit {BWD_REL_TOL} each: P and dS rounded to bf16 as product operands), "
-        f"max_abs_err {bwd_err:.3e}")
-    if max(rel.values()) > BWD_REL_TOL or not all(torch.isfinite(x).all() for x in got):
-        raise AssertionError("[attn-train] the backward kernels disagree with the plain "
-                             "version")
-    del got, want
-    bwd_ms, bwd_host_ms = time_ms(lambda: torch.ops.tos.flash_attn_bwd(*args))
-    bwd_plain_ms = time_ms(lambda: att.flash_attn_bwd_reference(
-        q, k, v, lse, cot, None, causal=True), reps=3, windows=3, warmup=1)[0]
-    # the function: S = QK^T again, dP = dO V^T, dV = P^T dO, dQ = dS K,
-    # dK = dS^T Q, five products over the live pairs; q, k, v, dO and lse
-    # read, dq, dk, dv written.  The design: the Δ, dK/dV and dQ passes
-    # each compute S and dP, nine products
-    bwd_flops = 10 * d * b * h * pairs
-    t_ops = bwd_flops / PEAK_BF16_FLOPS
-    t_bytes = (7 * b * s * h * d * 2 + b * s * h * 4) / PEAK_BYTES
-    bwd_bound, bwd_by = max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
-    bwd_design = max(t_ops * 9 / 5, t_bytes) * 1e3
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    cot_t = cot.transpose(1, 2).contiguous()
-    bwd_library_ms = time_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), cot_t, retain_graph=True), reps=5, windows=3)[0]
-    library = sdpa_choice(qt, kt, vt)
-    del qt, kt, vt, lib_out, cot_t
+    bwd = bwd_timing(q, k, v, lse, cot, smi, "training shape")
     # what the kernels replace on this route: the recompute VJP through
     # blockwise_attention (f32 and heads above 128 still take it), once
     recompute_ms = time_ms(lambda: att._recompute_bwd(q, k, v, cot, None, True, None, 0),
@@ -1810,14 +1867,9 @@ def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict]:
     out = att.flash_attention(*qkv, causal=True)
     autograd_ms = time_ms(lambda: torch.autograd.grad(out, qkv, cot, retain_graph=True),
                           reps=10, windows=3)[0]
-    log(f"[attn-train] backward kernels (tos::flash_attn_bwd: Δ, dK/dV, dQ; no atomics): "
-        f"{bwd_ms:.4f} ms per layer, host {bwd_host_ms:.4f} ms per call (bound "
-        f"{bwd_bound:.5f} ms, {bwd_by}, the function's five products, share "
-        f"{bwd_bound / bwd_ms:.4f}; the design's nine {bwd_design:.5f} ms, share "
-        f"{bwd_design / bwd_ms:.4f}); under autograd {autograd_ms:.4f} ms; plain "
-        f"version {bwd_plain_ms:.4f} ms; library backward {bwd_library_ms:.4f} ms "
-        f"({library}); the recompute VJP through blockwise_attention (block_k "
-        f"{att.BWD_BLOCK_K}) it replaces {recompute_ms:.4f} ms ({smi})")
+    log(f"[attn-train] backward under autograd {autograd_ms:.4f} ms; the recompute VJP "
+        f"through blockwise_attention (block_k {att.BWD_BLOCK_K}) the kernels replace "
+        f"{recompute_ms:.4f} ms ({smi})")
     del out, qkv
     fwd = {"shape": shape, "max_abs_err": err, "ms": fwd_ms,
            "bound_ms": fwd_bound, "bound_by": fwd_by,
@@ -1825,16 +1877,16 @@ def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict]:
     bwd = {"name": "flash_attn_bwd", "ok": True, "route": "cuda",
            "source": "tensorflowonspark_torch/csrc/flash_attn_bwd.cu",
            "replaces": "tensorflowonspark_tpu/ops/attention.py:299",
-           "launches": None, "shape": shape, "max_abs_err": bwd_err, "rel_l2": rel,
-           "rel_l2_limit": BWD_REL_TOL, "ms": bwd_ms, "host_ms": bwd_host_ms,
-           "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
-           "bound_basis": "the function's five products over the live pairs at 989 "
-                          "TFLOP/s, or q, k, v, dO, lse, dq, dk, dv at 3.35 TB/s",
-           "bound_share": bwd_bound / bwd_ms, "bound_design_ms": bwd_design,
-           "bound_design_basis": "nine products (the Δ, dK/dV and dQ passes each "
-                                 "compute S and dP)",
-           "library_ms": bwd_library_ms, "library_backend": library,
-           "autograd_ms": autograd_ms, "recompute_ms": recompute_ms}
+           "launches": None, **bwd, "autograd_ms": autograd_ms, "recompute_ms": recompute_ms}
+    # the other head dims of the main paths: the example LM's (4 launches a
+    # bf16 step) and 64
+    for name, b, s, h, d in BWD_SHAPES:
+        del q, k, v, cot, lse
+        torch.cuda.empty_cache()
+        q, k, v = kernel_inputs(b, s, s, h, d, torch.bfloat16, False, gen)
+        cot = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+        _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
+        bwd[name] = bwd_timing(q, k, v, lse, cot, smi, name)
     return fwd, bwd
 
 
@@ -4841,6 +4893,7 @@ def main() -> int:
         example = phase_example_lm(args.seed, smi)
         record["example_lm_launches"] = example["flash_attn_fwd"].pop("launches")
         record["example_lm_bf16"] = example["flash_attn_fwd"]
+        bwd["example_lm_launches"] = example["flash_attn_fwd"].pop("bwd_launches")
         tf32["example_lm_launches"] = example["flash_attn_fwd_tf32"].pop("launches")
         tf32["example_lm_f32"] = example["flash_attn_fwd_tf32"]
         log(f"[lm] the slice, cluster, orbax and LM phases took "

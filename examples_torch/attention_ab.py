@@ -15,11 +15,15 @@ on the card:
   (``chunk_attention``) at ``chip_smoke.py``'s gates and beside
   ``F.scaled_dot_product_attention`` on the same inputs (the yardstick,
   with the backend that answered), and reports the registers and spills
-  (ptxas) and HGMMA/UTMALDG counts (SASS) of its ``wgmma``
-  instantiations, bf16/fp16 and 3xTF32; where the checkout's ``_launch``
-  takes ``wide``, it also times the wide route on the cases of
-  ``WIDE_ONE_SLICE`` (bf16 D=256, f32 D=128), held against the plain
-  version, beside the dedicated configuration of that head dim;
+  (ptxas) and HGMMA/UTMALDG counts (SASS) of its kernel instantiations
+  (the forward's bf16/fp16 and 3xTF32, and the backward's); where the
+  checkout's ``_launch`` takes ``wide``, it also times the wide route on
+  the cases of ``WIDE_ONE_SLICE`` (bf16 D=256, f32 D=128), held against
+  the plain version, beside the dedicated configuration of that head dim;
+  and it times the backward kernels (``tos::flash_attn_bwd``) at
+  ``BWD_CASES`` the same way, each held against their plain version
+  (``flash_attn_bwd_reference``) at ``chip_smoke.BWD_REL_TOL`` and
+  beside the library's backward (SDPA under autograd) on the same inputs;
 - unless ``--steps 0``, one runs that checkout's
   ``examples_torch/llm/train_lm.py`` in f32 at the LM width of
   ``chip_smoke.py`` (vocab 32000, d_model 1024, 8 layers of 8 heads, B=2,
@@ -72,6 +76,11 @@ CASES = (("serving_shape", 4, 2048, 2048, 8, 128, True, 0, "bfloat16"),
          ("bf16_d80", 4, 2048, 2048, 8, 80, True, 0, "bfloat16"),
          ("bf16_d160", 4, 2048, 2048, 4, 160, True, 0, "bfloat16"),
          ("bf16_d224", 4, 2048, 2048, 4, 224, True, 0, "bfloat16"))
+# the backward kernels' cases (name, B, S, H, D; causal bf16): the LM's
+# training shape, the LM examples' attention (head dim 32) and head dim 64
+BWD_CASES = (("bwd_train_shape", 8, 2048, 8, 128),
+             ("bwd_example_lm_d32", 8, 1024, 8, 32),
+             ("bwd_d64", 4, 2048, 16, 64))
 # cases also run on the wide route at one slice: whether it could take over
 # from the dedicated configuration of the same head dim
 WIDE_ONE_SLICE = ("bf16_d256", "f32_serving_shape")
@@ -91,9 +100,9 @@ def _chip_smoke():
 
 
 def time_kernels(tree: str, names: set[str] | None = None) -> dict:
-    """In this process: ``tree``'s kernels timed at ``CASES`` (those in
-    ``names`` where it is given), and what ptxas and the SASS say of its
-    ``wgmma`` instantiations."""
+    """In this process: ``tree``'s kernels timed at ``CASES`` and its
+    backward kernels at ``BWD_CASES`` (those in ``names`` where it is
+    given), and what ptxas and the SASS say of its kernel instantiations."""
     sys.path.insert(0, tree)
     import inspect
 
@@ -149,8 +158,12 @@ def time_kernels(tree: str, names: set[str] | None = None) -> dict:
                 "lse_max_abs_err": (lse - plse).abs().max().item()}
             del o, lse, po, plse
         del q, k, v
+    for name, b, s, h, d in BWD_CASES:
+        if names and name not in names:
+            continue
+        out[name] = time_backward(smoke, att, b, s, h, d, gen)
     report, sass = {}, {}
-    for lib in ("flash_attn_fwd", "flash_attn_fwd_tf32"):
+    for lib in ("flash_attn_fwd", "flash_attn_fwd_tf32", "flash_attn_bwd"):
         if not cuda_build.library_path(lib).exists():  # no case of its route ran
             continue
         report.update(smoke.ptxas_report(cuda_build.build_log(lib)))
@@ -158,6 +171,38 @@ def time_kernels(tree: str, names: set[str] | None = None) -> dict:
     out["build"] = {f"{lib}_D{d}_{dt}": {**regs, **sass.get((lib, d, dt), {})}
                     for (lib, d, dt), regs in sorted(report.items(), key=str)}
     return out
+
+
+def time_backward(smoke, att, b, s, h, d, gen) -> dict:
+    """The backward kernels of ``att`` (one checkout's
+    ``ops.attention``) at one causal bf16 shape: held against their plain
+    version and timed beside the library's backward on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    cot = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
+    args = (q, k, v, lse, cot, None, True, None, 0)
+    got = torch.ops.tos.flash_attn_bwd(*args)
+    want = att.flash_attn_bwd_reference(q, k, v, lse, cot, None, causal=True)
+    rel = {n: smoke.rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+    if max(rel.values()) > smoke.BWD_REL_TOL:
+        raise AssertionError(f"backward B={b} S={s} H={h} D={d}: rel L2 {rel}")
+    del got, want
+    ms, host_ms = smoke.time_ms(lambda: torch.ops.tos.flash_attn_bwd(*args))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    cot_t = cot.transpose(1, 2).contiguous()
+    library_ms = smoke.time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), cot_t, retain_graph=True), reps=10, windows=3)[0]
+    t_ops = 10 * d * b * h * smoke.live_pairs(s, s, True, 0) / smoke.PEAK_BF16_FLOPS
+    t_bytes = (7 * b * s * h * d * 2 + b * s * h * 4) / smoke.PEAK_BYTES
+    return {"ms": ms, "host_ms": host_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": max(t_ops, t_bytes) * 1e3 / ms, "rel_l2": rel,
+            "library_ms": library_ms, "library_backend": smoke.sdpa_choice(qt, kt, vt)}
 
 
 def time_train_step(tree: str, steps: int) -> float:
@@ -183,8 +228,9 @@ def main() -> int:
     ap.add_argument("--kernels-of", help=argparse.SUPPRESS)  # the child's mode
     args = ap.parse_args()
     names = set(args.cases.split(",")) if args.cases else None
-    if names and not names <= {c[0] for c in CASES}:
-        ap.error(f"unknown cases: {sorted(names - {c[0] for c in CASES})}")
+    known = {c[0] for c in CASES + BWD_CASES}
+    if names and not names <= known:
+        ap.error(f"unknown cases: {sorted(names - known)}")
     if args.kernels_of:
         print(json.dumps(time_kernels(os.path.abspath(args.kernels_of), names)))
         return 0

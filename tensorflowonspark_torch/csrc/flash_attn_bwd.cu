@@ -20,506 +20,677 @@
 //   Delta_i = sum_j P_ij dP_ij - g_lse_i     (d lse / d s = P: the lse
 //                                             cotangent folds in here)
 //   dS = P o (dP - Delta);  dV = P^T dO;  dK = scale * dS^T Q;  dQ = scale * dS K
-// with every product on the tensor cores (mma.sync m16n8k16, 16-bit
-// operands, f32 accumulators) and P and dS rounded to the input type only
-// as the A operand of the products that consume them.  Delta is the f32
-// sum of P o dP, not FA2's rowsum(dO o O) over the stored O: O is stored in
-// bf16, and that rounding (2^-9 of |dO||O|) breaks sum_j dS_ij = 0, which
-// dQ needs where the keys share a large common component, as in a trained
-// LM's layers (PERF.md, the attention backward's findings).
-//
-// Three kernels, queued by one call of tos_flash_attn_bwd:
-// - flash_bwd_delta_kernel: one CTA per (query tile of 64 rows,
-//   batch*head), four warps of 16 query rows; it walks the key tiles up to
-//   the last one its rows may see, recomputes S, P (from the saved lse) and
-//   dP, and writes Delta and lse * log2(e) (+inf on a fully masked row, so
-//   that exp2 gives P = 0 there), f32 [B*H, Sq] each, into the caller's
-//   scratch.
-// - flash_bwd_dkdv_kernel: one CTA per (key tile of 64 rows, batch*head),
-//   four warps of 16 key rows.  K and V stay in shared memory; the CTA walks
-//   the query tiles (kInner rows) from the first one the causal mask and
-//   kv_offset let see its keys, recomputes S^T = K Q^T and P^T, and
-//   accumulates dV and dK in registers.  A key tile no query sees writes
-//   zeros.
-// - flash_bwd_dq_kernel: the delta kernel's walk again, accumulating dQ in
-//   registers.  dQ is computed apart, not by f32 atomics from the dK/dV
-//   kernel: no f32 scratch of dQ, no cast pass and no zeroing, and every
-//   gradient is the same bit for bit from run to run.
-// So S and dP are computed three times: nine products over the live pairs
-// where the function needs five.
+// with every product on wgmma (16-bit operands, f32 accumulators) and P and
+// dS rounded to the input type only as the A operand of the products that
+// consume them.  Delta is the f32 sum of P o dP, not FA2's rowsum(dO o O)
+// over the stored O: O is stored in bf16, and that rounding (2^-9 of
+// |dO||O|) breaks sum_j dS_ij = 0, which dQ needs where the keys share a
+// large common component, as in a trained LM's layers (PERF.md, the
+// attention backward's findings).
 //
 // Bound at the LM's training shape (B=8, S=2048, H=8, D=128, causal, bf16):
 // the function's five products over the live pairs are 10*B*H*D*S(S+1)/2 =
 // 172 GFLOP, 0.174 ms at 989 TFLOP/s, against about 235 MB of q, k, v, dO,
-// lse, dq, dk, dv (0.07 ms at 3.35 TB/s): bound by the tensor cores.
-// This design runs nine products at mma.sync's rate (below wgmma's), reads
-// every query tile once per key tile and every key tile once per query tile
-// from device memory (L2 serves most), and overlaps loads with products only
-// across the CTAs resident on an SM: a right kernel first, its speed (wgmma,
-// a TMA ring, warp specialisation, Delta folded into a pass) is later work.
+// lse, dq, dk, dv (0.07 ms at 3.35 TB/s): bound by the tensor cores.  This
+// design runs nine products (S and dP in each of its three walks), 0.313 ms
+// at the peak rate.
+//
+// Design: three warp-specialised kernels of the forward's shape (a producer
+// warpgroup whose one thread issues every TMA load after setmaxnreg.dec to
+// 24 registers; two consumer warpgroups at 240 registers, each owning 64
+// rows of the CTA's 128; a ring of kBwdStages shared-memory stages, each
+// guarded by a "full" mbarrier (TMA transaction bytes) and an "empty" one
+// (one arrival per consumer warp); every product a wgmma; 384 threads, one
+// CTA an SM), queued by one call of tos_flash_attn_bwd:
+// - flash_bwd_delta_kernel: one CTA per (batch*head, 128 query rows), Q and
+//   dO resident; the producer streams the K and V tiles of 64 keys up to the
+//   last key the CTA's rows may see.  Per tile each consumer runs S = Q K^T
+//   and dP = dO V^T (SS: both operands K-major) and sums P o dP in f32; it
+//   writes Delta and lse * log2(e) (+inf on a fully masked row or past Sq,
+//   so that exp2 gives P = 0 there) into the caller's scratch, f32
+//   [B*H, Sq rounded up to 128] each.
+// - flash_bwd_dkdv_kernel: one CTA per (batch*head, 128 keys), K and V
+//   resident; the producer streams, per query tile of 64 rows from the
+//   first one the causal mask and kv_offset let see the CTA's keys, Q, dO
+//   and the tile's Delta and lse * log2(e) (one TMA box of both).  Per tile
+//   each consumer runs S^T = K Q^T and dP^T = V dO^T (SS), P^T and
+//   dS^T = P^T o (dP^T - Delta) in registers, then dV += P^T dO and
+//   dK += dS^T Q (RS: P^T and dS^T go from the accumulators, rounded to 16
+//   bits, straight into the A registers, and Q and dO are the B operands
+//   read MN-major, as the forward's P V reads V).  dK and dV stay in
+//   registers until the epilogue.  A tile that holds no live pair of a
+//   consumer's keys (the diagonal's first tile for the second consumer) is
+//   released unread by it; a key block no query sees walks nothing and
+//   writes zeros.
+// - flash_bwd_dq_kernel: the delta kernel's walk again with dS = P o
+//   (dP - Delta) and dQ += dS K (RS, K read MN-major).  dQ is computed apart,
+//   not by f32 atomics from the dK/dV kernel: no f32 scratch of dQ, no cast
+//   pass and no zeroing, and every gradient is the same bit for bit from run
+//   to run.
+// Delta keeps its own walk: a row's Delta needs all of its keys before any
+// of its dS, and the dK/dV kernel needs every row's Delta before its first
+// tile, so folding it into the dQ walk would save one launch and one load
+// of Q and dO per query block, not a product.
+// The causal mask is applied only on tiles that straddle the diagonal (and,
+// on the query side, the Sk tail); under it the longest CTAs go first: the
+// dK/dV kernel's early keys (blockIdx order) and the query kernels' late
+// rows (blockIdx reversed).  In each walk a consumer runs its two SS
+// products as two wgmma groups and computes P while the second (dP) runs;
+// the dK/dV kernel's dV product runs while dS is computed; the two
+// consumers overlap each other's register work besides.
 //
 // Tiles: a head dim d (a multiple of 8) runs on the narrowest tile of
-// DT = 32, 64, 96 or 128 columns that holds it; the columns past d are
-// zero in shared memory (they change no product) and never stored.  Rows
-// past Sq or Sk load as zeros and are masked out of P.  Shared-memory rows
-// are DT + 8 elements apart, so the 8 rows an ldmatrix reads fall in 8
-// different 16-byte bank groups.  Loads are 16-byte vectors through the
-// caller's batch, sequence and head strides (16-byte aligned rows,
+// DT = 32, 64, 96 or 128 columns that holds it; the tensor maps are encoded
+// at d, so TMA zero-fills the columns past d (they change no product) and
+// rows past Sq or Sk, and the epilogues store only d columns of rows below
+// Sq or Sk.  Tiles of 64 and 128 columns take boxes of 64 columns with the
+// 128-byte swizzle, tiles of 32 and 96 boxes of 32 columns with the 64-byte
+// one: wgmma reads an MN-major operand (dO, Q, K in the RS products, N = DT)
+// in whole swizzle atoms.  The operands are read in place through the
+// caller's batch, sequence and head strides (16-byte rows and bases,
 // checked by the wrapper, ops/attention.py:_kernel_operand).  The kernels
 // allocate nothing.
+//
+// The mbarrier, TMA and wgmma helpers are in hopper_pipeline.cuh, the
+// 16-bit wgmma products and the operand tensor maps in wgmma16.cuh.
 
 #include "hopper_pipeline.cuh"
+#include "wgmma16.cuh"
 
 namespace {
 
-constexpr int kBwdThreads = 128;  // four warps
-constexpr int kBwdRows = 64;      // the rows a CTA holds: 16 a warp
+constexpr int kBwdThreads = 384;    // producer + two consumer warpgroups
+constexpr int kBwdWgRows = 64;      // rows a consumer warpgroup owns
+constexpr int kBwdCtaRows = 128;    // rows a CTA holds (ops/attention.py:BWD_CTA_ROWS)
+constexpr int kBwdStages = 4;       // ring depth
+constexpr int kBwdEmptyArrivals = 8;  // one per consumer warp
+constexpr int kBwdProducerRegs = 24;  // setmaxnreg: 128 * 24 + 256 * 240
+constexpr int kBwdConsumerRegs = 240; //   = 64,512 <= 65,536 registers
+constexpr int kBwdLaunchRegs = kBwdProducerRegs * 128 + kBwdConsumerRegs * 256;
 
-// The loop tile at DT columns: query rows a step of the dK/dV kernel, key
-// rows a step of the delta and dQ kernels (ops/attention.py:bwd_inner_rows).  32 at
-// the wide tiles keeps a thread's dK and dV (2 x DT/2 f32) beside S and dP.
+// The tile of DT columns.
 template <int DT>
 struct BwdTile {
-  static constexpr int kInner = DT <= 64 ? 64 : 32;
-  static constexpr int kPitch = DT + 8;  // shared-memory row, elements
-  static constexpr int kSmemBytes = 2 * (kBwdRows + kInner) * kPitch * 2 + 2 * kInner * 4;
+  static_assert(DT == 32 || DT == 64 || DT == 96 || DT == 128, "the backward's tiles");
+  // The loop tile: query rows a step of the dK/dV kernel, key rows a step of
+  // the delta and dQ kernels (ops/attention.py:bwd_inner_rows).
+  static constexpr int kInner = 64;
+  static_assert(kInner == kBwdWgRows, "the walks' products are m64n64 of four k16 steps");
+  static constexpr bool kNarrowBox = DT == 32 || DT == 96;
+  static constexpr int kBoxCols = kNarrowBox ? 32 : 64;
+  static constexpr int kRowBytes = 2 * kBoxCols;            // a box row
+  static constexpr int kSteps = kBoxCols / 16;              // k-steps per box
+  static constexpr uint32_t kLayout = kNarrowBox ? kSwizzle64 : kSwizzle128;
+  static constexpr int kGroupBytes = 8 * kRowBytes;         // 8 rows: SBO
+  static constexpr int kDSteps = DT / 16;                   // k-steps over D
+  static constexpr int kBoxes = DT / kBoxCols;
+  static constexpr int kCtaBoxBytes = kBwdCtaRows * kRowBytes;   // a resident box
+  static constexpr int kInnerBoxBytes = kInner * kRowBytes;      // a ring box
+  static constexpr int kCtaTileBytes = kBoxes * kCtaBoxBytes;
+  static constexpr int kInnerTileBytes = kBoxes * kInnerBoxBytes;
+  static constexpr int kStatBytes = 2 * kInner * 4;  // a query tile's Delta, lse2
+  // the two resident tiles, the ring (two tiles a stage), the dK/dV
+  // kernel's Delta/lse2 boxes, 1024 bytes to align the base for the
+  // swizzle, the mbarriers
+  static constexpr int kRingOffset = 2 * kCtaTileBytes;
+  static constexpr int kStatOffset = kRingOffset + kBwdStages * 2 * kInnerTileBytes;
+  static constexpr int kBarOffset = kStatOffset + kBwdStages * kStatBytes;
+  static constexpr int kSmemBytes = kBarOffset + 1024 + 8 * (2 * kBwdStages + 1);
+  static_assert(kSmemBytes <= 232448, "a CTA has 227 KB of shared memory");
 };
 
-struct BwdParams {
-  const uint16_t* q;
-  const uint16_t* k;
-  const uint16_t* v;
-  const uint16_t* dout;
-  const float* lse;
-  const float* g_lse;  // may be null
+// Rows of the scratch's Delta and lse2 per batch*head: Sq rounded up to the
+// query kernels' CTA, so that the delta kernel writes every row the dK/dV
+// kernel's query tiles read (ops/attention.py:bwd_scratch_rows).
+inline int scratch_rows(int Sq) {
+  const int s = Sq > 0 ? Sq : 1;
+  return (s + kBwdCtaRows - 1) / kBwdCtaRows * kBwdCtaRows;
+}
+
+struct BwdArgs {
+  const float* lse;    // [B, Sq, H]
+  const float* g_lse;  // [B, Sq, H], may be null
   uint16_t* dq;
   uint16_t* dk;
   uint16_t* dv;
-  float* delta;  // [B*H, Sq]
-  float* lse2;   // [B*H, Sq], lse * log2(e) or +inf
-  int B, Sq, Sk, H, D;
-  // batch, sequence and head strides (elements) of q, k, v, dout, dq, dk, dv
-  int64_t st[21];
+  float* delta;  // [B*H, sq_rows]
+  float* lse2;   // [B*H, sq_rows], lse * log2(e) or +inf
+  int H, Sq, Sk, d, sq_rows;
+  int64_t st[9];  // batch, sequence and head strides (elements) of dq, dk, dv
   int causal, kv_offset;
   float scale, scale_log2;
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a b: a 16x16 (row-major fragment), b 16x8 (column-major), c 16x8 f32.
-template <bool kBf16>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (kBf16) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// Two f32 rounded to the input type, `lo` in the low half.
-template <bool kBf16>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (kBf16) {
-    __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&x);
-  } else {
-    __half2 x = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&x);
-  }
-}
-
-// Fragments out of shared memory (row-major, `pitch` bytes a row), for a
-// lane = 4g + t of the warp:
-// the A fragment of the 16x16 block at (row r0, column c0);
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t base, int pitch, int r0,
-                                       int c0, int lane) {
-  const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int c = c0 + (lane >> 4) * 8;
-  ldsm_x4(a, base + r * pitch + c * 2);
-}
-// the B fragments of two n-tiles (n0, n0 + 8) over the k-slice k0..k0+15
-// of a matrix stored with n along the rows (B^T row-major: K for Q K^T):
-// b[0], b[1] of tile n0, b[2], b[3] of tile n0 + 8;
-__device__ __forceinline__ void load_b_nrows(uint32_t (&b)[4], uint32_t base, int pitch,
-                                             int n0, int k0, int lane) {
-  const int n = n0 + (lane & 7) + (lane >> 4) * 8;
-  const int c = k0 + ((lane >> 3) & 1) * 8;
-  ldsm_x4(b, base + n * pitch + c * 2);
-}
-// the same two n-tiles of a matrix stored with k along the rows (B
-// row-major: dO for P^T dO), through ldmatrix's transpose.
-__device__ __forceinline__ void load_b_krows(uint32_t (&b)[4], uint32_t base, int pitch,
-                                             int k0, int n0, int lane) {
-  const int r = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int c = n0 + (lane >> 4) * 8;
-  ldsm_x4_trans(b, base + r * pitch + c * 2);
-}
-
-// acc[N/8][4] (16 rows x N) += A (16 x K, rows r0.. of sA) * B where B^T is
-// the N rows of sB (n along the rows): S = Q K^T and dP = dO V^T.
-template <bool kBf16, int K, int N>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], uint32_t sA, int r0,
-                                        uint32_t sB, int pitch, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, sA, pitch, r0, kk * 16, lane);
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      uint32_t b[4];
-      load_b_nrows(b, sB, pitch, n * 16, kk * 16, lane);
-      mma16816<kBf16>(acc[2 * n], a, b[0], b[1]);
-      mma16816<kBf16>(acc[2 * n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[N/8][4] (16 rows x N) += X * B, X the 16 x K matrix of the
-// accumulator-layout registers x[K/8][4] rounded to the input type (P or
-// dS, as the A operand), B the K rows of sB (k along the rows): dV = P^T dO,
-// dK = dS^T Q, dQ = dS K.
-template <bool kBf16, int K, int N>
-__device__ __forceinline__ void mma_xb(float (&acc)[N / 8][4], const float (&x)[K / 8][4],
-                                       uint32_t sB, int pitch, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    // the accumulator's n-tiles 2kk and 2kk+1 are the A fragment of k-slice kk
-    uint32_t a[4];
-    a[0] = pack2<kBf16>(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack2<kBf16>(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack2<kBf16>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack2<kBf16>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      uint32_t b[4];
-      load_b_krows(b, sB, pitch, kk * 16, n * 16, lane);
-      mma16816<kBf16>(acc[2 * n], a, b[0], b[1]);
-      mma16816<kBf16>(acc[2 * n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Rows r0 .. r0+ROWS-1 of one head's [S, D] slice (row stride `rs`
-// elements) into shared memory rows of DT + 8 elements: zero past S and
-// past D.
-template <int ROWS, int DT>
-__device__ __forceinline__ void load_rows(uint16_t* dst, const uint16_t* src, int64_t rs,
-                                          int r0, int S, int D) {
-  constexpr int kChunks = DT / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kBwdThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S && c < D)
-      x = *reinterpret_cast<const uint4*>(src + static_cast<int64_t>(r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * (DT + 8) + c) = x;
-  }
-}
-
-// The 16 x DT accumulator acc (rows r0.. of the warp) times `mul`, stored
-// in the input type to rows below S of one head's slice (row stride rs),
-// its columns below D only.
-template <bool kBf16, int DT>
-__device__ __forceinline__ void store_rows(uint16_t* dst, int64_t rs, const float (&acc)[DT / 8][4],
-                                           float mul, int r0, int S, int D, int lane) {
+// The accumulator of a consumer (wgmma layout: d[4n + e] holds row
+// 16 * warp + g + 8 * (e >> 1), column 8n + 2t + (e & 1)) times `mul`, in
+// the input type, to the rows below S of its 64 from r0 of one head's slice
+// (row stride rs), its columns below d only.
+template <bool kBf16, int N>
+__device__ __forceinline__ void store_rows(uint16_t* dst, int64_t rs, const float (&acc)[N / 2],
+                                           float mul, int r0, int S, int d, int warp, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < DT / 8; ++n) {
+  for (int n = 0; n < N / 8; ++n) {
     const int c = n * 8 + 2 * t;
-    if (c >= D) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = r0 + g + 8 * half;
-      if (r < S)
+      const int r = r0 + 16 * warp + g + 8 * half;
+      if (r < S && c < d)
         *reinterpret_cast<uint32_t*>(dst + static_cast<int64_t>(r) * rs + c) =
-            pack2<kBf16>(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
+            pack2<kBf16>(acc[4 * n + 2 * half] * mul, acc[4 * n + 2 * half + 1] * mul);
     }
   }
 }
 
+// The A registers of the k16 steps of a 64 x 64 accumulator, rounded to the
+// input type: columns 16kk..16kk+15 are x[8kk .. 8kk+7] in pairs.
+template <bool kBf16>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack2<kBf16>(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// x (64 x 64) = A B^T over the tile's D/16 k-steps, both K-major: A the
+// consumer's 64 rows of a resident tile (a, boxes kCtaBoxBytes apart), B a
+// ring tile (boxes kInnerBoxBytes apart).  Issues the wgmma only: the
+// caller fences, commits and waits.
+template <int DT, bool kBf16>
+__device__ __forceinline__ void ss_steps(float (&x)[32], uint32_t a, uint32_t b) {
+  using C = BwdTile<DT>;
+#pragma unroll
+  for (int kk = 0; kk < C::kDSteps; ++kk) {
+    const uint32_t at = (kk / C::kSteps) * C::kCtaBoxBytes + (kk % C::kSteps) * 32;
+    const uint32_t bt = (kk / C::kSteps) * C::kInnerBoxBytes + (kk % C::kSteps) * 32;
+    wgmma_ss<64, kBf16>(x, smem_desc(a + at, 16, C::kGroupBytes, C::kLayout),
+                        smem_desc(b + bt, 16, C::kGroupBytes, C::kLayout), kk > 0);
+  }
+}
+
+// acc (64 x DT) += A B over 64 rows of B: A in registers (pack_a), B a ring
+// tile read MN-major (its DT columns along N, boxes kInnerBoxBytes apart).
+template <int DT, bool kBf16>
+__device__ __forceinline__ void rs_steps(float (&acc)[DT / 2], const uint32_t (&a)[4][4],
+                                         uint32_t b) {
+  using C = BwdTile<DT>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<DT, kBf16>(acc, a[kk],
+                        smem_desc(b + kk * 16 * C::kRowBytes, C::kInnerBoxBytes,
+                                  C::kGroupBytes, C::kLayout));
+}
+
 // ---------------------------------------------------------------------------
-// dK and dV: one CTA per (64 key rows, batch*head).
+// dK and dV: one CTA per (batch*head, 128 keys).
 // ---------------------------------------------------------------------------
 template <int DT, bool kBf16>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(const BwdParams p) {
-  using Tile = BwdTile<DT>;
-  constexpr int BQ = Tile::kInner, P = Tile::kPitch;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* sK = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* sV = sK + kBwdRows * P;
-  uint16_t* sQ = sV + kBwdRows * P;
-  uint16_t* sdO = sQ + BQ * P;
-  float* sLse2 = reinterpret_cast<float*>(sdO + BQ * P);
-  float* sDelta = sLse2 + BQ;
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_stat, const BwdArgs p) {
+  using C = BwdTile<DT>;
+  constexpr int S = kBwdStages;
+  constexpr int BQ = C::kInner;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms 1024-aligned
+  const float* const stat = reinterpret_cast<const float*>(smem_raw + (base - raw) +
+                                                           C::kStatOffset);
+  const uint32_t ks = base, vs = base + C::kCtaTileBytes;
+  const uint32_t ring = base + C::kRingOffset;  // stage s: Q, then dO
+  const uint32_t bars = base + C::kBarOffset;   // full[S], empty[S], kv
+  const uint32_t kvbar = bars + 16 * S;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int j0 = blockIdx.x * kBwdRows;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int64_t* st = p.st;
-  load_rows<kBwdRows, DT>(sK, p.k + b * st[3] + h * st[5], st[4], j0, p.Sk, p.D);
-  load_rows<kBwdRows, DT>(sV, p.v + b * st[6] + h * st[8], st[7], j0, p.Sk, p.D);
-  const uint16_t* q = p.q + b * st[0] + h * st[2];
-  const uint16_t* dout = p.dout + b * st[9] + h * st[11];
-  const float* lse2 = p.lse2 + static_cast<int64_t>(bh) * p.Sq;
-  const float* delta = p.delta + static_cast<int64_t>(bh) * p.Sq;
-
-  float dk[DT / 8][4], dv[DT / 8][4];
-#pragma unroll
-  for (int n = 0; n < DT / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  // the first query row that sees key j0 (causal: kv_offset + j0 <= i); a
-  // tile no query sees walks nothing and writes zeros
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int j0 = blockIdx.y * kBwdCtaRows;  // early keys first: the longest walks
+  // the first query row that sees key j0 (causal: kv_offset + j0 <= i), its
+  // tile, and the tiles from there to Sq; none: the block writes zeros
   const int first = p.causal ? max(0, p.kv_offset + j0) : 0;
-  const int stop = first < p.Sq ? p.Sq : 0;
-  const int kr0 = warp * 16;  // the warp's key rows in the tile
-  const uint32_t aK = smem_u32(sK), aV = smem_u32(sV), aQ = smem_u32(sQ),
-                 adO = smem_u32(sdO);
-  for (int i0 = first / BQ * BQ; i0 < stop; i0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<BQ, DT>(sQ, q, st[1], i0, p.Sq, p.D);
-    load_rows<BQ, DT>(sdO, dout, st[10], i0, p.Sq, p.D);
-    for (int r = threadIdx.x; r < BQ; r += kBwdThreads) {
-      const bool in = i0 + r < p.Sq;
-      sLse2[r] = in ? lse2[i0 + r] : __int_as_float(0x7f800000);
-      sDelta[r] = in ? delta[i0 + r] : 0.f;
-    }
-    __syncthreads();
+  const int i_begin = first / BQ * BQ;
+  const int ntiles = first < p.Sq ? (p.Sq - i_begin + BQ - 1) / BQ : 0;
 
-    // S^T = K Q^T (the warp's 16 keys x BQ queries), then P^T in place
-    float s[BQ / 8][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (S + s), kBwdEmptyArrivals);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, broadcast from lane 0 so that ptxas knows the consumers'
+  // branches around wgmma are uniform
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // ---------------- producer: one thread loads K, V and fills the ring ---
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdProducerRegs) : "memory");
+    if (threadIdx.x == 0 && ntiles > 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_do);
+      prefetch_map(&tm_stat);
+      mbar_expect_tx(kvbar, 2 * C::kCtaTileBytes);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    mma_abt<kBf16, DT, BQ>(s, aK, kr0, aQ, P * 2, lane);
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_load(ks + x * C::kCtaBoxBytes, &tm_k, kvbar, x * C::kBoxCols, j0, h, b);
+        tma_load(vs + x * C::kCtaBoxBytes, &tm_v, kvbar, x * C::kBoxCols, j0, h, b);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % S;
+        const int i0 = i_begin + it * BQ;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (S + s), ((it / S) & 1) ^ 1);  // stage released
+        mbar_expect_tx(full, 2 * C::kInnerTileBytes + C::kStatBytes);
+        const uint32_t qs = ring + s * 2 * C::kInnerTileBytes;
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + kr0 + g + 8 * (e >> 1);
-        const int il = n * 8 + 2 * t + (e & 1);
-        const int i = i0 + il;
-        const bool keep = j < p.Sk && i < p.Sq && (!p.causal || p.kv_offset + j <= i);
-        // a fully masked row has lse2 = +inf: exp2(-inf) = 0
-        s[n][e] = keep ? ex2(fmaf(s[n][e], p.scale_log2, -sLse2[il])) : 0.f;
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load(qs + x * C::kInnerBoxBytes, &tm_q, full, x * C::kBoxCols, i0, h, b);
+          tma_load(qs + C::kInnerTileBytes + x * C::kInnerBoxBytes, &tm_do, full,
+                   x * C::kBoxCols, i0, h, b);
+        }
+        tma_load(base + C::kStatOffset + s * C::kStatBytes, &tm_stat, full, i0, bh, 0, 0);
       }
     }
-    // dP^T = V dO^T
-    float dp[BQ / 8][4];
+  } else {
+    // ---------------- consumers: 64 keys each -----------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdConsumerRegs) : "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int jw0 = j0 + kBwdWgRows * cw;  // this consumer's first key
+    const int jr = jw0 + 16 * warp + g;    // this thread's keys: jr, jr + 8
+    const uint32_t k_rows = ks + cw * kBwdWgRows * C::kRowBytes;  // its rows of each box
+    const uint32_t v_rows = vs + cw * kBwdWgRows * C::kRowBytes;
+    const bool has_keys = jw0 < p.Sk;
+
+    float dk[DT / 2], dv[DT / 2];
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
+    for (int i = 0; i < DT / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    if (ntiles > 0) mbar_wait(kvbar, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % S;
+      const int i0 = i_begin + it * BQ;
+      mbar_wait(bars + 8 * s, (it / S) & 1);
+      // a tile with a live pair of this consumer's keys (causal: its first
+      // key seen by the tile's last row)
+      if (has_keys && (!p.causal || p.kv_offset + jw0 <= min(i0 + BQ, p.Sq) - 1)) {
+        const uint32_t qs = ring + s * 2 * C::kInnerTileBytes;
+        const uint32_t dos = qs + C::kInnerTileBytes;
+        const float* const ld = stat + s * (C::kStatBytes / 4);  // Delta[64], lse2[64]
+
+        // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries each), two
+        // wgmma groups: P^T is computed while dP^T runs
+        float sc[32], dp[32];
+        pin(sc);
+        pin(dp);
+        wgmma_fence();
+        ss_steps<DT, kBf16>(sc, k_rows, qs);
+        wgmma_commit();
+        ss_steps<DT, kBf16>(dp, v_rows, dos);
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin(sc);
+
+        // P^T (masked only on tiles that straddle the diagonal; a query row
+        // past Sq or fully masked has lse2 = +inf, so P = 0), then dV +=
+        // P^T dO, run while dS^T is computed
+        const bool edge = p.causal && p.kv_offset + jw0 + kBwdWgRows - 1 > i0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
-    mma_abt<kBf16, DT, BQ>(dp, aV, kr0, adO, P * 2, lane);
-    // dV += P^T dO
-    mma_xb<kBf16, BQ, DT>(dv, s, adO, P * 2, lane);
-    // dS^T = P^T o (dP^T - Delta), then dK += dS^T Q
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ld + BQ + 8 * n + 2 * t);
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
+          for (int e = 0; e < 4; ++e) {
+            float pe = ex2(fmaf(sc[4 * n + e], p.scale_log2, -((e & 1) ? l2.y : l2.x)));
+            if (edge && p.kv_offset + jr + 8 * (e >> 1) > i0 + 8 * n + 2 * t + (e & 1))
+              pe = 0.f;
+            sc[4 * n + e] = pe;
+          }
+        }
+        uint32_t pa[4][4];
+        pack_a<kBf16>(pa, sc);
+        pin(dv);
+        wgmma_fence();
+        rs_steps<DT, kBf16>(dv, pa, dos);
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T
+        pin(dp);
+
+        // dS^T = P^T o (dP^T - Delta), then dK += dS^T Q
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - sDelta[n * 8 + 2 * t + (e & 1)];
-    mma_xb<kBf16, BQ, DT>(dk, s, aQ, P * 2, lane);
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float2 dl = *reinterpret_cast<const float2*>(ld + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * n + e] = sc[4 * n + e] * (dp[4 * n + e] - ((e & 1) ? dl.y : dl.x));
+        }
+        uint32_t da[4][4];
+        pack_a<kBf16>(da, dp);
+        pin(dk);
+        wgmma_fence();
+        rs_steps<DT, kBf16>(dk, da, qs);
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(dv);
+        pin(dk);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (S + s));  // release the stage
+    }
+    if (has_keys) {
+      const int64_t* st = p.st;
+      store_rows<kBf16, DT>(p.dk + b * st[3] + h * st[5], st[4], dk, p.scale, jw0, p.Sk, p.d,
+                            warp, lane);
+      store_rows<kBf16, DT>(p.dv + b * st[6] + h * st[8], st[7], dv, 1.f, jw0, p.Sk, p.d, warp,
+                            lane);
+    }
   }
-  store_rows<kBf16, DT>(p.dk + b * st[15] + h * st[17], st[16], dk, p.scale, j0 + kr0, p.Sk,
-                        p.D, lane);
-  store_rows<kBf16, DT>(p.dv + b * st[18] + h * st[20], st[19], dv, 1.f, j0 + kr0, p.Sk, p.D,
-                        lane);
 }
 
 // ---------------------------------------------------------------------------
-// The query-side pass, one CTA per (64 query rows, batch*head): it walks the
-// key tiles up to the last key its rows may see and recomputes S, P and dP.
-// kDelta: the Delta pass, Delta = sum_j P o dP - g_lse and lse * log2(e)
-// into the scratch; else the dQ pass, dQ = scale * sum_j P o (dP - Delta) K.
+// The query-side walk, one CTA per (batch*head, 128 query rows), the longest
+// causal rows first: the K and V tiles up to the last key its rows may see,
+// S = Q K^T and dP = dO V^T on each.  kDelta: the delta pass, Delta =
+// sum_j P o dP - g_lse and lse * log2(e) into the scratch; else the dQ
+// pass, dQ = scale * sum_j P o (dP - Delta) K.
 // ---------------------------------------------------------------------------
 template <int DT, bool kBf16, bool kDelta>
-__device__ __forceinline__ void query_pass(const BwdParams& p) {
-  using Tile = BwdTile<DT>;
-  constexpr int BK = Tile::kInner, P = Tile::kPitch;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* sdO = sQ + kBwdRows * P;
-  uint16_t* sK = sdO + kBwdRows * P;
-  uint16_t* sV = sK + BK * P;
+__device__ __forceinline__ void query_pass(const CUtensorMap& tm_q, const CUtensorMap& tm_do,
+                                           const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                                           const BwdArgs& p) {
+  using C = BwdTile<DT>;
+  constexpr int S = kBwdStages;
+  constexpr int BK = C::kInner;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms 1024-aligned
+  const uint32_t qs = base, dos = base + C::kCtaTileBytes;
+  const uint32_t ring = base + C::kRingOffset;  // stage s: K, then V
+  const uint32_t bars = base + C::kBarOffset;   // full[S], empty[S], q
+  const uint32_t qbar = bars + 16 * S;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int i0 = blockIdx.x * kBwdRows;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int64_t* st = p.st;
-  load_rows<kBwdRows, DT>(sQ, p.q + b * st[0] + h * st[2], st[1], i0, p.Sq, p.D);
-  load_rows<kBwdRows, DT>(sdO, p.dout + b * st[9] + h * st[11], st[10], i0, p.Sq, p.D);
-  const uint16_t* k = p.k + b * st[3] + h * st[5];
-  const uint16_t* v = p.v + b * st[6] + h * st[8];
-
-  const int wr0 = warp * 16;  // the warp's query rows in the tile
-  // the thread's two rows, wr0 + g and wr0 + g + 8: lse * log2(e) (+inf on
-  // a fully masked row or past Sq) and Delta
-  float lse2[2], delta[2] = {0.f, 0.f};
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int i = i0 + wr0 + g + 8 * half;
-    if constexpr (kDelta) {
-      const float l = i < p.Sq ? p.lse[(static_cast<int64_t>(b) * p.Sq + i) * p.H + h] : kNegInf;
-      lse2[half] = l > kHalfNegInf ? l * kLog2e : __int_as_float(0x7f800000);
-    } else {
-      const int64_t at = static_cast<int64_t>(bh) * p.Sq + i;
-      lse2[half] = i < p.Sq ? p.lse2[at] : __int_as_float(0x7f800000);
-      delta[half] = i < p.Sq ? p.delta[at] : 0.f;
-    }
-  }
-  float dq[kDelta ? 1 : DT / 8][4];
-#pragma unroll
-  for (int n = 0; n < (kDelta ? 1 : DT / 8); ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kBwdCtaRows;  // longest first
   // the keys the CTA's last row may see (causal: kv_offset + j <= i)
   int keys = p.Sk;
-  if (p.causal) keys = max(0, min(p.Sk, min(i0 + kBwdRows, p.Sq) - p.kv_offset));
-  const uint32_t aQ = smem_u32(sQ), adO = smem_u32(sdO), aK = smem_u32(sK),
-                 aV = smem_u32(sV);
-  for (int j0 = 0; j0 < keys; j0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and Q, dO loaded)
-    load_rows<BK, DT>(sK, k, st[4], j0, p.Sk, p.D);
-    load_rows<BK, DT>(sV, v, st[7], j0, p.Sk, p.D);
-    __syncthreads();
+  if (p.causal) keys = max(0, min(p.Sk, min(i0 + kBwdCtaRows, p.Sq) - p.kv_offset));
+  const int nkb = (keys + BK - 1) / BK;
 
-    // S = Q K^T (the warp's 16 queries x BK keys), then P in place
-    float s[BK / 8][4];
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    mma_abt<kBf16, DT, BK>(s, aQ, wr0, aK, P * 2, lane);
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + wr0 + g + 8 * (e >> 1);
-        const int j = j0 + n * 8 + 2 * t + (e & 1);
-        const bool keep = j < p.Sk && i < p.Sq && (!p.causal || p.kv_offset + j <= i);
-        s[n][e] = keep ? ex2(fmaf(s[n][e], p.scale_log2, -lse2[e >> 1])) : 0.f;
-      }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (S + s), kBwdEmptyArrivals);
     }
-    // dP = dO V^T
-    float dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
-    mma_abt<kBf16, DT, BK>(dp, adO, wr0, aV, P * 2, lane);
-    if constexpr (kDelta) {
-      // this thread's share of the rows' sum_j P o dP, in f32
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) delta[e >> 1] = fmaf(s[n][e], dp[n][e], delta[e >> 1]);
-    } else {
-      // dS = P o (dP - Delta); dQ += dS K
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - delta[e >> 1];
-      mma_xb<kBf16, BK, DT>(dq, s, aK, P * 2, lane);
-    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if constexpr (kDelta) {
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // ---------------- producer: one thread loads Q, dO and fills the ring --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdProducerRegs) : "memory");
+    if (threadIdx.x == 0 && nkb > 0) {
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      mbar_expect_tx(qbar, 2 * C::kCtaTileBytes);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      // the four threads of a row group hold the row's columns
-      float sum = delta[half];
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const int i = i0 + wr0 + g + 8 * half;
-      if (t == 0 && i < p.Sq) {
-        const int64_t at = static_cast<int64_t>(bh) * p.Sq + i;
-        const int64_t row = (static_cast<int64_t>(b) * p.Sq + i) * p.H + h;
-        p.delta[at] = sum - (p.g_lse != nullptr ? p.g_lse[row] : 0.f);
-        p.lse2[at] = lse2[half];
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_load(qs + x * C::kCtaBoxBytes, &tm_q, qbar, x * C::kBoxCols, i0, h, b);
+        tma_load(dos + x * C::kCtaBoxBytes, &tm_do, qbar, x * C::kBoxCols, i0, h, b);
+      }
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % S;
+        const uint32_t full = bars + 8 * s;
+        mbar_wait(bars + 8 * (S + s), ((kb / S) & 1) ^ 1);  // stage released
+        mbar_expect_tx(full, 2 * C::kInnerTileBytes);
+        const uint32_t kt = ring + s * 2 * C::kInnerTileBytes;
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load(kt + x * C::kInnerBoxBytes, &tm_k, full, x * C::kBoxCols, kb * BK, h, b);
+          tma_load(kt + C::kInnerTileBytes + x * C::kInnerBoxBytes, &tm_v, full,
+                   x * C::kBoxCols, kb * BK, h, b);
+        }
       }
     }
   } else {
-    store_rows<kBf16, DT>(p.dq + b * st[12] + h * st[14], st[13], dq, p.scale, i0 + wr0, p.Sq,
-                          p.D, lane);
+    // ---------------- consumers: 64 query rows each -----------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdConsumerRegs) : "memory");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int qw0 = i0 + kBwdWgRows * cw;  // this consumer's first row
+    const int r0 = qw0 + 16 * warp + g;    // this thread's rows: r0, r0 + 8
+    const uint32_t q_rows = qs + cw * kBwdWgRows * C::kRowBytes;  // its rows of each box
+    const uint32_t do_rows = dos + cw * kBwdWgRows * C::kRowBytes;
+    // the keys this consumer's last row may see
+    int my_keys = qw0 < p.Sq ? p.Sk : 0;
+    if (p.causal) my_keys = max(0, min(my_keys, min(qw0 + kBwdWgRows, p.Sq) - p.kv_offset));
+
+    // the thread's two rows: lse * log2(e) (+inf on a fully masked row or
+    // past Sq) and Delta
+    float lse2[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = r0 + 8 * half;
+      if constexpr (kDelta) {
+        const float l = i < p.Sq ? p.lse[(static_cast<int64_t>(b) * p.Sq + i) * p.H + h] : kNegInf;
+        lse2[half] = l > kHalfNegInf ? l * kLog2e : __int_as_float(0x7f800000);
+      } else {
+        const int64_t at = static_cast<int64_t>(bh) * p.sq_rows + i;
+        lse2[half] = p.lse2[at];
+        delta[half] = p.delta[at];
+      }
+    }
+    // kDelta: the thread's share of its two rows' sum of P o dP; else dQ
+    float acc[kDelta ? 2 : DT / 2];
+#pragma unroll
+    for (int i = 0; i < (kDelta ? 2 : DT / 2); ++i) acc[i] = 0.f;
+
+    if (nkb > 0) mbar_wait(qbar, 0);
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int s = kb % S;
+      const int k0 = kb * BK;
+      mbar_wait(bars + 8 * s, (kb / S) & 1);
+      if (k0 < my_keys) {
+        const uint32_t kt = ring + s * 2 * C::kInnerTileBytes;
+        const uint32_t vt = kt + C::kInnerTileBytes;
+
+        // S = Q K^T and dP = dO V^T (64 queries x 64 keys each), two wgmma
+        // groups: P is computed while dP runs
+        float sc[32], dp[32];
+        pin(sc);
+        pin(dp);
+        wgmma_fence();
+        ss_steps<DT, kBf16>(sc, q_rows, kt);
+        wgmma_commit();
+        ss_steps<DT, kBf16>(dp, do_rows, vt);
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin(sc);
+
+        // P (masked only on tiles that straddle the diagonal or the Sk tail)
+        const bool edge =
+            k0 + BK > p.Sk || (p.causal && p.kv_offset + k0 + BK - 1 > qw0);
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pe = ex2(fmaf(sc[4 * n + e], p.scale_log2, -lse2[e >> 1]));
+            if (edge) {
+              const int j = k0 + 8 * n + 2 * t + (e & 1);
+              if (!(j < p.Sk && (!p.causal || p.kv_offset + j <= r0 + 8 * (e >> 1)))) pe = 0.f;
+            }
+            sc[4 * n + e] = pe;
+          }
+        }
+        wgmma_wait<0>();  // dP
+        pin(dp);
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (kDelta) {
+              acc[e >> 1] = fmaf(sc[4 * n + e], dp[4 * n + e], acc[e >> 1]);
+            } else {
+              sc[4 * n + e] *= dp[4 * n + e] - delta[e >> 1];  // dS
+            }
+          }
+        }
+        if constexpr (!kDelta) {
+          // dQ += dS K
+          uint32_t da[4][4];
+          pack_a<kBf16>(da, sc);
+          pin(acc);
+          wgmma_fence();
+          rs_steps<DT, kBf16>(acc, da, kt);
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(acc);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (S + s));  // release the stage
+    }
+    if constexpr (kDelta) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // the four threads of a row group hold the row's columns
+        float sum = acc[half];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const int i = r0 + 8 * half;
+        if (t == 0) {  // every row below sq_rows: the dK/dV kernel reads them
+          const int64_t at = static_cast<int64_t>(bh) * p.sq_rows + i;
+          const float gl =
+              i < p.Sq && p.g_lse != nullptr
+                  ? p.g_lse[(static_cast<int64_t>(b) * p.Sq + i) * p.H + h]
+                  : 0.f;
+          p.delta[at] = sum - gl;
+          p.lse2[at] = lse2[half];
+        }
+      }
+    } else {
+      const int64_t* st = p.st;
+      store_rows<kBf16, DT>(p.dq + b * st[0] + h * st[2], st[1], acc, p.scale, qw0, p.Sq, p.d,
+                            warp, lane);
+    }
   }
 }
 
 template <int DT, bool kBf16>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_delta_kernel(const BwdParams p) {
-  query_pass<DT, kBf16, true>(p);
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_delta_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const BwdArgs p) {
+  query_pass<DT, kBf16, true>(tm_q, tm_do, tm_k, tm_v, p);
 }
 
 template <int DT, bool kBf16>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(const BwdParams p) {
-  query_pass<DT, kBf16, false>(p);
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const BwdArgs p) {
+  query_pass<DT, kBf16, false>(tm_q, tm_do, tm_k, tm_v, p);
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+
+// The scratch's Delta and lse2 as one rank-4 f32 map: dims (sq_rows, B*H,
+// 2, 1), box (`rows`, 1, both, 1), so one TMA box brings a query tile's
+// Delta and lse2.
+bool encode_stat_map(CUtensorMap* map, float* scratch, int BH, int sq_rows, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(sq_rows), static_cast<cuuint64_t>(BH),
+                              2, 1};
+  const cuuint64_t plane = static_cast<cuuint64_t>(BH) * sq_rows * 4;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sq_rows) * 4, plane, 2 * plane};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(rows), 1, 2, 1};
+  return encode_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scratch, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <int DT, bool kBf16>
-cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  constexpr int smem = BwdTile<DT>::kSmemBytes;
-  const void* kernels[3] = {reinterpret_cast<const void*>(&flash_bwd_delta_kernel<DT, kBf16>),
-                            reinterpret_cast<const void*>(&flash_bwd_dkdv_kernel<DT, kBf16>),
-                            reinterpret_cast<const void*>(&flash_bwd_dq_kernel<DT, kBf16>)};
+cudaError_t launch_bwd(const BwdArgs& p, int B, const void* q, const void* k, const void* v,
+                       const void* dout, const int64_t* st, cudaStream_t stream) {
+  using C = BwdTile<DT>;
+  const int BH = B * p.H;
+  // the resident tiles' maps (128 rows a box) and the ring's (64)
+  CUtensorMap q_cta, do_cta, k_cta, v_cta, q_in, do_in, k_in, v_in, stat;
+  const int cols = C::kBoxCols;
+  if (!encode_map(&q_cta, q, kBf16, B, p.Sq, p.H, p.d, st, kBwdCtaRows, cols) ||
+      !encode_map(&do_cta, dout, kBf16, B, p.Sq, p.H, p.d, st + 9, kBwdCtaRows, cols) ||
+      !encode_map(&k_cta, k, kBf16, B, p.Sk, p.H, p.d, st + 3, kBwdCtaRows, cols) ||
+      !encode_map(&v_cta, v, kBf16, B, p.Sk, p.H, p.d, st + 6, kBwdCtaRows, cols) ||
+      !encode_map(&q_in, q, kBf16, B, p.Sq, p.H, p.d, st, C::kInner, cols) ||
+      !encode_map(&do_in, dout, kBf16, B, p.Sq, p.H, p.d, st + 9, C::kInner, cols) ||
+      !encode_map(&k_in, k, kBf16, B, p.Sk, p.H, p.d, st + 3, C::kInner, cols) ||
+      !encode_map(&v_in, v, kBf16, B, p.Sk, p.H, p.d, st + 6, C::kInner, cols) ||
+      !encode_stat_map(&stat, p.delta, BH, p.sq_rows, C::kInner))
+    return cudaErrorInvalidValue;
+  auto* delta_kernel = flash_bwd_delta_kernel<DT, kBf16>;
+  auto* dkdv_kernel = flash_bwd_dkdv_kernel<DT, kBf16>;
+  auto* dq_kernel = flash_bwd_dq_kernel<DT, kBf16>;
+  constexpr int smem = C::kSmemBytes;
+  const void* kernels[3] = {reinterpret_cast<const void*>(delta_kernel),
+                            reinterpret_cast<const void*>(dkdv_kernel),
+                            reinterpret_cast<const void*>(dq_kernel)};
   for (const void* kernel : kernels) {
-    const cudaError_t err = configure_once(kernel, smem, 0, kBwdThreads);
+    const cudaError_t err = configure_once(kernel, smem, kBwdLaunchRegs, kBwdThreads);
     if (err != cudaSuccess) return err;
   }
-  const unsigned bh = static_cast<unsigned>(p.B * p.H);
-  const dim3 query_grid((p.Sq + kBwdRows - 1) / kBwdRows, bh);
+  const dim3 query_grid(BH, (p.Sq + kBwdCtaRows - 1) / kBwdCtaRows);
   cudaError_t err = cudaSuccess;
   if (p.Sq > 0) {
-    flash_bwd_delta_kernel<DT, kBf16><<<query_grid, kBwdThreads, smem, stream>>>(p);
+    delta_kernel<<<query_grid, kBwdThreads, smem, stream>>>(q_cta, do_cta, k_in, v_in, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (p.Sk > 0) {
-    flash_bwd_dkdv_kernel<DT, kBf16>
-        <<<dim3((p.Sk + kBwdRows - 1) / kBwdRows, bh), kBwdThreads, smem, stream>>>(p);
+    dkdv_kernel<<<dim3(BH, (p.Sk + kBwdCtaRows - 1) / kBwdCtaRows), kBwdThreads, smem,
+                  stream>>>(k_cta, v_cta, q_in, do_in, stat, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (p.Sq > 0) {
-    flash_bwd_dq_kernel<DT, kBf16><<<query_grid, kBwdThreads, smem, stream>>>(p);
+    dq_kernel<<<query_grid, kBwdThreads, smem, stream>>>(q_cta, do_cta, k_in, v_in, p);
     err = cudaGetLastError();
   }
   return err;
 }
 
 template <bool kBf16>
-cudaError_t launch_bwd_tile(const BwdParams& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch_bwd<32, kBf16>(p, stream);
-  if (p.D <= 64) return launch_bwd<64, kBf16>(p, stream);
-  if (p.D <= 96) return launch_bwd<96, kBf16>(p, stream);
-  return launch_bwd<128, kBf16>(p, stream);
+cudaError_t launch_bwd_tile(const BwdArgs& p, int B, const void* q, const void* k,
+                            const void* v, const void* dout, const int64_t* st,
+                            cudaStream_t s) {
+  if (p.d <= 32) return launch_bwd<32, kBf16>(p, B, q, k, v, dout, st, s);
+  if (p.d <= 64) return launch_bwd<64, kBf16>(p, B, q, k, v, dout, st, s);
+  if (p.d <= 96) return launch_bwd<96, kBf16>(p, B, q, k, v, dout, st, s);
+  return launch_bwd<128, kBf16>(p, B, q, k, v, dout, st, s);
 }
 
 }  // namespace
 
 // dq, dk, dv of attention (see the top of this file).  `strides` holds the
 // batch, sequence and head strides (elements) of q, k, v, dout, dq, dk and
-// dv, 21 in all; every head dim stride is 1.  lse and g_lse (may be null)
-// are contiguous [B, Sq, H].  `scratch` holds 2*B*H*Sq floats.  dtype: 0
-// bf16, 1 fp16.  Returns cudaGetLastError() of the launches (0 on success).
+// dv, 21 in all; every head dim stride is 1, every other stride a multiple
+// of 8 and every base 16-byte aligned.  lse and g_lse (may be null) are
+// contiguous [B, Sq, H].  `scratch` holds 2 * B * H * scratch_rows(Sq)
+// floats (Delta and lse2), 16-byte aligned.  dtype: 0 bf16, 1 fp16.  Returns
+// cudaGetLastError() of the launches (0 on success), or
+// cudaErrorInvalidValue for an input it does not take or a tensor map
+// cuTensorMapEncodeTiled refuses.  Launches on `stream`, does not
+// synchronise, and allocates nothing.
 extern "C" int tos_flash_attn_bwd(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* g_lse,
                                   void* dq, void* dk, void* dv, void* scratch, int B,
@@ -530,30 +701,27 @@ extern "C" int tos_flash_attn_bwd(const void* q, const void* k, const void* v,
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (D < 1 || D > 128 || D % 8 != 0 || Sq < 0 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdParams p;
-  p.q = static_cast<const uint16_t*>(q);
-  p.k = static_cast<const uint16_t*>(k);
-  p.v = static_cast<const uint16_t*>(v);
-  p.dout = static_cast<const uint16_t*>(dout);
+  BwdArgs p;
   p.lse = static_cast<const float*>(lse);
   p.g_lse = static_cast<const float*>(g_lse);
   p.dq = static_cast<uint16_t*>(dq);
   p.dk = static_cast<uint16_t*>(dk);
   p.dv = static_cast<uint16_t*>(dv);
+  p.sq_rows = scratch_rows(Sq);
   p.delta = static_cast<float*>(scratch);
-  p.lse2 = p.delta + static_cast<int64_t>(B) * H * Sq;
-  p.B = B;
+  p.lse2 = p.delta + static_cast<int64_t>(B) * H * p.sq_rows;
+  p.H = H;
   p.Sq = Sq;
   p.Sk = Sk;
-  p.H = H;
-  p.D = D;
-  for (int i = 0; i < 21; ++i) p.st[i] = strides[i];
+  p.d = D;
+  for (int i = 0; i < 9; ++i) p.st[i] = strides[12 + i];
   p.causal = causal;
   p.kv_offset = kv_offset;
   p.scale = sm_scale;
   p.scale_log2 = sm_scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? launch_bwd_tile<true>(p, s) : launch_bwd_tile<false>(p, s);
+  const cudaError_t err = dtype == 0 ? launch_bwd_tile<true>(p, B, q, k, v, dout, strides, s)
+                                     : launch_bwd_tile<false>(p, B, q, k, v, dout, strides, s);
   return static_cast<int>(err);
 }
 

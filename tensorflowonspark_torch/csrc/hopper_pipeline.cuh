@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// flash_attn_fwd.cu (bf16/fp16 on wgmma) and flash_attn_fwd_tf32.cu (f32 as
-// 3xTF32 on wgmma): mbarriers, TMA tile loads, wgmma descriptors, fences and
+// flash_attn_fwd.cu (bf16/fp16 on wgmma), flash_attn_fwd_tf32.cu (f32 as
+// 3xTF32 on wgmma) and flash_attn_bwd.cu (the gradient, bf16/fp16 on
+// wgmma): mbarriers, TMA tile loads, wgmma descriptors, fences and
 // accumulator operand lists, the pipelined wgmma wait of the wide routes,
 // the masked online-softmax step of a key block, the wide routes' split-KV
 // combine kernel, and on the host the tensor-map encoder
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the libraries
-// do not link libcuda) and the once-per-instantiation launch setup.
+// do not link libcuda, on the calling thread's bound context) and the
+// once-per-instantiation launch setup.
 
 #pragma once
 
@@ -401,6 +403,23 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Makes the current device's primary context current on the calling
+// thread, once per thread and device.  cuTensorMapEncodeTiled is a driver
+// call and fails without a current context, and a thread that has so far
+// made only runtime calls that need none (a fresh thread, such as
+// autograd's device thread, whose tensors come from the caching allocator)
+// has none: cudaSetDevice binds it.
+inline bool bind_context() {
+  thread_local int bound = -1;  // the device whose context this thread bound
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  if (dev != bound) {
+    if (cudaSetDevice(dev) != cudaSuccess) return false;
+    bound = dev;
+  }
+  return true;
+}
+
 // Rank-4 map with a 128-byte (or `swizzle`) swizzle, elements out of bounds
 // zero-filled.  `dims` innermost first, `strides` the byte strides of dims
 // 1..3 (a dimension of size 1 is never stepped over: pass any legal
@@ -410,6 +429,7 @@ inline bool encode_map_4d(CUtensorMap* map, CUtensorMapDataType type,
                           const cuuint64_t (&strides)[3],
                           const cuuint32_t (&box)[4],
                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  if (!bind_context()) return false;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[4] = {1, 1, 1, 1};

@@ -470,17 +470,27 @@ BWD_BLOCK_K = 512  # key block of the plain backward and of the recompute VJP (t
 # the backward kernels' tiles: a head dim runs on the narrowest that holds
 # it, its columns past D zero (csrc/flash_attn_bwd.cu, launch_bwd_tile)
 BWD_HEAD_DIMS = (32, 64, 96, 128)
-# the rows a CTA of the backward kernels holds (their kBwdRows): the dK/dV
-# kernel's 64 key rows walk the query rows in tiles of bwd_inner_rows; the
-# Δ and dQ kernels' 64 query rows walk the keys in tiles of as many rows
-BWD_CTA_ROWS = 64
+# the rows a CTA of the backward kernels holds (their kBwdCtaRows), two
+# consumer warpgroups of BWD_WG_ROWS (kBwdWgRows) each: the dK/dV kernel's
+# 128 key rows walk the query rows in tiles of bwd_inner_rows; the Δ and dQ
+# kernels' 128 query rows walk the keys in tiles of as many rows
+BWD_CTA_ROWS = 128
+BWD_WG_ROWS = 64
 
 
 def bwd_inner_rows(tile: int) -> int:
     """Rows of the loop tile of the backward kernels at tile width ``tile``
     (``BwdTile<DT>::kInner``: the dK/dV kernel's query tile, the Δ and dQ
-    kernels' key tile)."""
-    return 64 if tile <= 64 else 32
+    kernels' key tile): 64 on every tile."""
+    return 64
+
+
+def bwd_scratch_rows(sq: int) -> int:
+    """Rows of the backward's Δ and lse·log2(e) scratch per batch*head
+    (``scratch_rows`` in ``csrc/flash_attn_bwd.cu``): ``sq`` rounded up to
+    whole CTAs of the Δ kernel, which writes every row the dK/dV kernel's
+    query tiles read."""
+    return -(-max(sq, 1) // BWD_CTA_ROWS) * BWD_CTA_ROWS
 
 
 def _bwd_route(dtype: torch.dtype, d: int) -> tuple[str, int]:
@@ -602,8 +612,9 @@ def flash_attn_bwd_cuda(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
     dq = torch.empty((b, sq, h, padded), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, padded), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, h, padded), dtype=q.dtype, device=q.device)
-    # Δ and lse·log2(e), f32 [B, H, Sq] each
-    scratch = torch.empty(2 * b * h * sq, dtype=torch.float32, device=q.device)
+    # Δ and lse·log2(e), f32 [B*H, bwd_scratch_rows(Sq)] each
+    scratch = torch.empty(2 * b * h * bwd_scratch_rows(sq), dtype=torch.float32,
+                          device=q.device)
     strides = (ctypes.c_int64 * 21)(
         *(s for x in (q_, k_, v_, do_, dq, dk, dv) for s in x.stride()[:3]))
     _run(name, q.device, q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),

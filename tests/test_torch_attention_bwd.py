@@ -253,36 +253,72 @@ def test_bwd_kernel_wrapper_refuses_cpu_tensors():
 
 # -- the kernels' schedule and rounding, emulated ------------------------------
 
+def _query_ctas(sq, sk, causal, kv_offset, inner):
+    """The Δ and dQ kernels' CTAs in launch order (the last rows first), each
+    ``[(query row, key row) tile origins of its first consumer, ... of its
+    second]``: a CTA of ``BWD_CTA_ROWS`` query rows walks the key tiles of
+    ``inner`` rows up to the last key its last row may see, and a consumer
+    of ``BWD_WG_ROWS`` rows computes on a tile only below the keys its own
+    last row may see."""
+    rows, wg = ta.BWD_CTA_ROWS, ta.BWD_WG_ROWS
+    ctas = []
+    for i0 in reversed(range(0, sq, rows)):
+        keys = sk if not causal else max(0, min(sk, min(i0 + rows, sq) - kv_offset))
+        consumers = []
+        for qw0 in range(i0, i0 + rows, wg):
+            mine = sk if qw0 < sq else 0
+            if causal:
+                mine = max(0, min(mine, min(qw0 + wg, sq) - kv_offset))
+            consumers.append([(qw0, j0) for j0 in range(0, keys, inner) if j0 < mine])
+        ctas.append(consumers)
+    return ctas
+
+
+def _kv_ctas(sq, sk, causal, kv_offset, inner):
+    """The dK/dV kernel's CTAs in launch order (the first keys first), each
+    ``[(key row, query row) tile origins of its first consumer, ... of its
+    second]``: a CTA of ``BWD_CTA_ROWS`` keys walks the query tiles of
+    ``inner`` rows from the tile of the first query the mask lets see its
+    first key to ``sq``, and a consumer of ``BWD_WG_ROWS`` keys computes on
+    a tile only where the tile's last row sees its first key."""
+    rows, wg = ta.BWD_CTA_ROWS, ta.BWD_WG_ROWS
+    ctas = []
+    for j0 in range(0, sk, rows):
+        first = max(0, kv_offset + j0) if causal else 0
+        tiles = range(first // inner * inner, sq if first < sq else 0, inner)
+        ctas.append([[(jw0, i0) for i0 in tiles
+                      if jw0 < sk and (not causal or kv_offset + jw0 <= min(i0 + inner, sq) - 1)]
+                     for jw0 in range(j0, j0 + rows, wg)])
+    return ctas
+
+
 def _emulated_bwd(q, k, v, lse, g_out, g_lse, *, causal, kv_offset, round_to=None):
-    """``(dq, dk, dv, kv_visits, q_visits)`` as ``csrc/flash_attn_bwd.cu``
-    computes them: the delta and dQ kernels' CTA holds ``BWD_CTA_ROWS``
-    query rows and walks key tiles of ``bwd_inner_rows(tile)`` rows up to
-    the last key its last row may see (the delta kernel summing P ∘ dP in
-    f32 into Δ, less ``g_lse``); the dK/dV kernel's CTA holds
-    ``BWD_CTA_ROWS`` key rows and walks query tiles of that many rows from
-    the tile of the first query the mask lets see its first key; rows past
+    """``(dq, dk, dv, kv_visits, q_visits, kv_ctas, q_ctas)`` as
+    ``csrc/flash_attn_bwd.cu`` computes them, on the tile schedule of
+    ``_query_ctas`` (the Δ kernel summing P ∘ dP in f32 into Δ, less
+    ``g_lse``; the dQ kernel) and ``_kv_ctas`` (the dK/dV kernel); rows past
     S are zeros, P comes from ``lse`` and is 0 where masked or on a fully
     masked row.  With ``round_to`` the inputs are taken in that type and P
     and dS are rounded to it as product operands, the gradients stored in
-    it.  The visits are ``(key row, query row)`` tile origins."""
+    it.  The visits are the consumers' ``(key row, query row)`` tile origins
+    (``BWD_WG_ROWS`` keys by ``inner`` queries on the dK/dV side, ``inner``
+    keys by ``BWD_WG_ROWS`` queries on the query side); the CTAs are the
+    schedules themselves."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     name, padded = ta._bwd_route(torch.bfloat16, d)
     assert name == "flash_attn_bwd"
     tile = next(t for t in ta.BWD_HEAD_DIMS if t >= padded)
-    inner, rows = ta.bwd_inner_rows(tile), ta.BWD_CTA_ROWS
+    inner, wg = ta.bwd_inner_rows(tile), ta.BWD_WG_ROWS
     scale = 1.0 / math.sqrt(d)
     rd = (lambda x: x.to(round_to).float()) if round_to else (lambda x: x)
     qf, kf, vf = (rd(x.float()) for x in (q, k, v))
     dof = rd(g_out.float()) if g_out is not None else torch.zeros_like(qf)
     live = lse > ta.NEG_INF / 2
-
-    def query_tiles():
-        """The (query row, key row) tile origins the delta and dQ kernels walk."""
-        for i0 in range(0, sq, rows):
-            keys = sk if not causal else max(0, min(sk, min(i0 + rows, sq) - kv_offset))
-            for j0 in range(0, keys, inner):
-                yield i0, min(i0 + rows, sq), j0, min(j0 + inner, sk)
+    q_ctas = _query_ctas(sq, sk, causal, kv_offset, inner)
+    kv_ctas = _kv_ctas(sq, sk, causal, kv_offset, inner)
+    q_visits = [(j0, qw0) for cta in q_ctas for c in cta for qw0, j0 in c]
+    kv_visits = [v_ for cta in kv_ctas for c in cta for v_ in c]
 
     def tile_p(i0, i1, j0, j1):
         s = torch.einsum("bqhd,bkhd->bhqk", qf[:, i0:i1], kf[:, j0:j1]) * scale
@@ -296,9 +332,9 @@ def _emulated_bwd(q, k, v, lse, g_out, g_lse, *, causal, kv_offset, round_to=Non
         return p, torch.einsum("bqhd,bkhd->bhqk", dof[:, i0:i1], vf[:, j0:j1])
 
     delta = torch.zeros((b, sq, h))
-    for i0, i1, j0, j1 in query_tiles():
-        p, dp = tile_p(i0, i1, j0, j1)
-        delta[:, i0:i1] += (p * dp).sum(-1).transpose(1, 2)
+    for j0, i0 in q_visits:
+        p, dp = tile_p(i0, min(i0 + wg, sq), j0, min(j0 + inner, sk))
+        delta[:, i0:i0 + wg] += (p * dp).sum(-1).transpose(1, 2)
     if g_lse is not None:
         delta -= g_lse
 
@@ -309,28 +345,27 @@ def _emulated_bwd(q, k, v, lse, g_out, g_lse, *, causal, kv_offset, round_to=Non
     dq = torch.zeros((b, sq, h, d))
     dk = torch.zeros((b, sk, h, d))
     dv = torch.zeros((b, sk, h, d))
-    kv_visits, q_visits = [], []
-    for j0 in range(0, sk, rows):
-        j1 = min(j0 + rows, sk)
-        first = max(0, kv_offset + j0) if causal else 0
-        for i0 in range(first // inner * inner, sq if first < sq else 0, inner):
-            i1 = min(i0 + inner, sq)
-            kv_visits.append((j0, i0))
-            p, ds = tile_ps(i0, i1, j0, j1)
-            dv[:, j0:j1] += torch.einsum("bhqk,bqhd->bkhd", rd(p), dof[:, i0:i1])
-            dk[:, j0:j1] += torch.einsum("bhqk,bqhd->bkhd", rd(ds), qf[:, i0:i1])
-    for i0, i1, j0, j1 in query_tiles():
-        q_visits.append((j0, i0))
+    for j0, i0 in kv_visits:
+        j1, i1 = min(j0 + wg, sk), min(i0 + inner, sq)
+        p, ds = tile_ps(i0, i1, j0, j1)
+        dv[:, j0:j1] += torch.einsum("bhqk,bqhd->bkhd", rd(p), dof[:, i0:i1])
+        dk[:, j0:j1] += torch.einsum("bhqk,bqhd->bkhd", rd(ds), qf[:, i0:i1])
+    for j0, i0 in q_visits:
+        i1, j1 = min(i0 + wg, sq), min(j0 + inner, sk)
         _, ds = tile_ps(i0, i1, j0, j1)
         dq[:, i0:i1] += torch.einsum("bhqk,bkhd->bqhd", rd(ds), kf[:, j0:j1])
     out_type = round_to or torch.float32
     return (rd((dq * scale).to(out_type)), rd((dk * scale).to(out_type)),
-            rd(dv.to(out_type)), kv_visits, q_visits)
+            rd(dv.to(out_type)), kv_visits, q_visits, kv_ctas, q_ctas)
 
 
-# (b, sq, sk, h, d, causal, kv_offset): query and key tiles of 64 and of 32
-# rows (D 32 and 96), ragged ends, a causal offset that masks the first rows,
-# a negative one, one past every query (nothing visited), non-causal
+# (b, sq, sk, h, d, causal, kv_offset): CTAs of 128 rows in consumers of 64
+# and loop tiles of 64 (D 32 and 96 on the narrow boxes), ragged ends, a
+# causal offset that masks the first rows, negative ones, one past every
+# query (nothing visited), non-causal; three CTAs on each side with the
+# second consumer's first diagonal tile skipped, a key block that straddles
+# the diagonal at a negative offset, a last CTA whose second consumer has
+# no rows, a key block whose second consumer has no keys
 SCHEDULE_CASES = {
     "causal_d32": (1, 200, 200, 2, 32, True, 0),
     "causal_d96_ragged": (1, 150, 170, 2, 96, True, 0),
@@ -339,6 +374,10 @@ SCHEDULE_CASES = {
     "kv_offset_past_every_query_d32": (1, 40, 100, 2, 32, True, 60),
     "noncausal_d96_20_52": (2, 20, 52, 2, 96, False, 0),
     "causal_d36_cross": (1, 130, 90, 2, 36, True, 5),
+    "causal_d128_three_ctas": (1, 300, 300, 2, 128, True, 0),
+    "key_block_straddles_diagonal_negative_offset_d64": (1, 100, 260, 2, 64, True, -100),
+    "last_cta_second_consumer_no_rows_d32": (1, 130, 130, 2, 32, True, 0),
+    "second_consumer_few_keys_d96": (1, 90, 70, 2, 96, True, 20),
 }
 
 
@@ -354,16 +393,16 @@ def test_emulated_bwd_schedule_visits_every_live_pair_once(case):
     g_o, g_l = _cotangents(q, 23)
     tq, tk, tv = _t(q, k, v)
     _, lse = _forward(tq, tk, tv, causal, off)
-    dq, dk, dv, kv_visits, q_visits = _emulated_bwd(
+    dq, dk, dv, kv_visits, q_visits, kv_ctas, q_ctas = _emulated_bwd(
         tq, tk, tv, lse, torch.from_numpy(g_o), torch.from_numpy(g_l), causal=causal,
         kv_offset=off)
     tile = next(t for t in ta.BWD_HEAD_DIMS if t >= ta._bwd_route(torch.bfloat16, d)[1])
-    inner, rows = ta.bwd_inner_rows(tile), ta.BWD_CTA_ROWS
+    inner, wg = ta.bwd_inner_rows(tile), ta.BWD_WG_ROWS
     i = torch.arange(sq)[:, None]
     j = torch.arange(sk)[None, :]
     live = (off + j <= i) if causal else torch.ones((sq, sk), dtype=torch.bool)
-    for visits, (key_rows, query_rows) in ((kv_visits, (rows, inner)),
-                                           (q_visits, (inner, rows))):
+    for visits, (key_rows, query_rows) in ((kv_visits, (wg, inner)),
+                                           (q_visits, (inner, wg))):
         cover = torch.zeros((sq, sk), dtype=torch.int32)
         for j0, i0 in visits:
             cover[i0:i0 + query_rows, j0:j0 + key_rows] += 1
@@ -371,6 +410,12 @@ def test_emulated_bwd_schedule_visits_every_live_pair_once(case):
         assert (cover[live] == 1).all()
     if not live.any():
         assert kv_visits == [] and q_visits == []
+    # the longest walks first: each side's CTAs in launch order walk no
+    # more tiles than the one before
+    for ctas in (kv_ctas, q_ctas):
+        walks = [max(map(len, cta)) for cta in ctas]
+        assert walks == sorted(walks, reverse=True), walks
+        assert all(len(cta) == ta.BWD_CTA_ROWS // wg for cta in ctas)
     want = ta.flash_attn_bwd_reference(tq, tk, tv, lse, torch.from_numpy(g_o),
                                        torch.from_numpy(g_l), causal=causal, kv_offset=off)
     _, vjp = jax.vjp(lambda *a: ja.chunk_attention(*a, causal=causal, kv_offset=off),
@@ -394,7 +439,7 @@ def test_emulated_bwd_bf16_rounding_matches_jax_f32(d):
                for x in make_qkv(b=1, s=130, h=2, d=d, sk=150, seed=24))
     g_o, g_l = _cotangents(q, 25)
     _, lse = _forward(q, k, v, True, 3)
-    dq, dk, dv, _, _ = _emulated_bwd(q, k, v, lse, torch.from_numpy(g_o).bfloat16(),
+    dq, dk, dv, *_ = _emulated_bwd(q, k, v, lse, torch.from_numpy(g_o).bfloat16(),
                                      torch.from_numpy(g_l), causal=True, kv_offset=3,
                                      round_to=torch.bfloat16)
     _, vjp = jax.vjp(lambda *a: ja.chunk_attention(*a, causal=True, kv_offset=3),
@@ -404,3 +449,31 @@ def test_emulated_bwd_bf16_rounding_matches_jax_f32(d):
     for got, jgrad in zip((dq, dk, dv), jgrads):
         want = torch.from_numpy(np.asarray(jgrad))
         assert ((got - want).norm() / want.norm()).item() <= BWD_REL_TOL
+
+
+def test_bwd_tile_constants_match_the_kernels():
+    """The Python mirrors of the backward kernels' tiling, read from
+    ``csrc/flash_attn_bwd.cu`` itself: the rows a CTA holds
+    (``kBwdCtaRows``) and a consumer owns (``kBwdWgRows``), the loop tile
+    (``BwdTile<DT>::kInner``, ``bwd_inner_rows``), the tiles the launch
+    picks from (``BWD_HEAD_DIMS``), and the scratch's rows (Sq rounded up
+    to whole CTAs, ``bwd_scratch_rows``), which the wrapper sizes and the
+    kernels index."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ta.__file__).resolve().parent.parent / "csrc" / "flash_attn_bwd.cu").read_text()
+
+    def const(name):
+        (value,) = re.findall(rf"constexpr int {name} = (\d+);", src)
+        return int(value)
+
+    assert const("kBwdCtaRows") == ta.BWD_CTA_ROWS
+    assert const("kBwdWgRows") == ta.BWD_WG_ROWS
+    assert ta.BWD_CTA_ROWS == 2 * ta.BWD_WG_ROWS  # two consumer warpgroups
+    assert all(ta.bwd_inner_rows(t) == const("kInner") for t in ta.BWD_HEAD_DIMS)
+    tiles = [int(x) for x in re.findall(r"return launch_bwd<(\d+), kBf16>", src)]
+    assert tuple(tiles) == ta.BWD_HEAD_DIMS
+    assert "return (s + kBwdCtaRows - 1) / kBwdCtaRows * kBwdCtaRows;" in src
+    for sq, rows in ((0, 128), (1, 128), (128, 128), (129, 256), (2048, 2048), (2049, 2176)):
+        assert ta.bwd_scratch_rows(sq) == rows

@@ -650,6 +650,42 @@ def test_cuda_bwd_kernel_dq_exact_when_keys_share_a_large_component():
         assert rel_l2(x, want.grad) <= BWD_REL_TOL
 
 
+def test_cuda_kernels_launch_from_a_fresh_thread():
+    """The forward and the backward kernels called first on a thread that
+    has made no CUDA call of its own (autograd's device thread runs the
+    backward so): the tensor maps' driver call needs the device's context
+    current on that thread, and the kernels bind it; the results equal
+    those of the same calls on this thread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import threading
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, lse, g_out, _ = bwd_inputs(1, 200, 150, 2, 128, True, 37, torch.bfloat16,
+                                        False, "out", g)
+    got, errors = {}, []
+
+    def run():
+        try:
+            got["fwd"] = ta.flash_attn_fwd_cuda(q, k, v, causal=True, kv_offset=37)
+            got["bwd"] = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, None, True, None,
+                                                      37)
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised on the test's thread
+            errors.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    if errors:
+        raise errors[0]
+    want_fwd = ta.flash_attn_fwd_cuda(q, k, v, causal=True, kv_offset=37)
+    want_bwd = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, None, True, None, 37)
+    for x, y in zip((*got["fwd"], *got["bwd"]), (*want_fwd, *want_bwd)):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 192),
                                      (torch.float16, 256)])
 def test_cuda_bwd_route_sends_f32_and_wide_heads_to_the_recompute(dtype, d):
