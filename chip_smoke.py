@@ -8,7 +8,8 @@ Phases (any failure propagates and the script exits non-zero):
 1. device — the card's name and power limit (``nvidia-smi``) and
    ``torch.cuda.get_device_name``;
 2. build — builds ``tensorflowonspark_torch/csrc/flash_attn_fwd.cu``,
-   ``flash_attn_fwd_tf32.cu`` and ``flash_attn_bwd.cu`` from the checkout
+   ``flash_attn_fwd_tf32.cu``, ``flash_attn_bwd.cu`` and
+   ``flash_attn_bwd_tf32.cu`` from the checkout
    (one ``nvcc`` each, in parallel) and prints, per instantiation of the two ``wgmma`` kernels (the
    tiles of D 32/64/96/128/192/256 and the wide route's 192 and 256 columns
    a consumer x bf16/fp16; f32 as 3xTF32 on the tiles of D 32/64/96/128 and
@@ -22,7 +23,9 @@ Phases (any failure propagates and the script exits non-zero):
    combine kernels; the backward's kernels (the Δ pass, dK/dV and dQ on
    the tiles of D 32/64/96/128 x bf16/fp16) are held to the same design
    checks as the ``wgmma`` instantiations (HGMMA and UTMALDG in the SASS,
-   no spill, no serialised wgmma);
+   no spill, no serialised wgmma), and the f32 backward's ``mma.sync``
+   kernels (the Δ pass, dK/dV and dQ on the same tiles) to no spill and
+   HMMA in the SASS;
 3. kernel — holds every route (``ops.attention._route``) against the plain
    PyTorch version (``chunk_attention``) on the card, O and lse, at the
    serving shape and at edge shapes (ragged tails, one query row,
@@ -88,11 +91,15 @@ Phases (any failure propagates and the script exits non-zero):
    named) and their three kernels apart (``torch.profiler``), there, at
    the example LM's shape (``BWD_SHAPES``: B=8 S=1024 H=8 D=32) and at
    D=64 (B=4 S=2048 H=16), and, once, the recompute VJP through
-   ``blockwise_attention`` that they replace on this route; then
+   ``blockwise_attention`` that they replace on this route; the f32
+   backward kernels (3xTF32, within ``BWD_F32_REL_TOL``) the same way at
+   ``BWD_F32_SHAPES`` (the f32 LM step's B=2 S=2048 H=8 D=128 and the
+   example LM's), each beside the recompute VJP it replaces; then
    ``BWD_CASES`` (every tile, a head dim between tiles, a padded one,
    masked rows, offsets, a cotangent on lse or out alone, packed views,
-   fp16) against the plain version, and keys sharing a large common
-   component against the f32 gradient, untimed;
+   fp16; the same in f32) against the plain version, two runs bit-equal,
+   and keys sharing a large common component against the f32 gradient
+   (bf16 and f32 inputs), untimed;
 6. train — the LM at the same width, B=8, S=2048, bf16 compute with f32
    master weights, AdamW as ``optax.adamw(3e-4)``, random weights from the
    seed: 3 warm-up and 10 timed steps through ``make_batch_iterator`` over a
@@ -110,9 +117,10 @@ Phases (any failure propagates and the script exits non-zero):
    prompt, 64 new tokens): cached logits against a full forward at the same
    positions, the EOS stop, ms per generated token;
 9. f32 train step — one AdamW step of the f32 model configuration at the
-   same width (B=2, S=2048) through the 3xTF32 kernel: a finite loss,
-   n_layers launches of it and none of the other kernels, and the
-   gradients against plain attention;
+   same width (B=2, S=2048) through the 3xTF32 kernels: a finite loss,
+   n_layers launches of the forward and of the f32 backward kernels, none
+   of the other kernels and no recompute VJP, and the gradients against
+   plain attention;
 10. head dim 256 — the same step for the LM with 4 heads of 256 (depth cut
    to ``D256_LAYERS``), in bf16 (the ``wgmma`` kernel at D=256) and in f32
    (the 3xTF32 kernel's wide route): n_layers launches of the route's
@@ -125,7 +133,8 @@ Phases (any failure propagates and the script exits non-zero):
    (the examples' default: the 3xTF32 kernel's 32-column tile) and in bf16
    (``--bf16``: the wgmma kernel's): the first step's loss and gradients
    against plain attention on the same weights, ``EXAMPLE_STEPS`` AdamW
-   steps (finite, falling losses, n_layers launches a step, step ms), then
+   steps (finite, falling losses, n_layers launches of the forward and of
+   the type's backward kernels a step, no recompute VJP, step ms), then
    one batch served through ``export_bundle`` → ``build_apply``: its logits
    against plain attention's, n_layers launches of the route's kernel, and
    a ``torch.profiler`` census of the forward (n_layers attention kernels,
@@ -207,7 +216,8 @@ Phases (any failure propagates and the script exits non-zero):
    2·n_layers·m), the same pipeline with plain attention (``attn_impl:
    xla``), then AdamW steps timed (ms a step, tokens/s, the GPipe bubble
    share, peak memory); and an f32 pipeline at 2 layers of the same width
-   (through the 3xTF32 kernel) against its sequential step within 1e-4;
+   (through the 3xTF32 kernels, forward and backward, no recompute VJP)
+   against its sequential step within 1e-4;
 25. sharded scoring — ``TorchModel.transform(scoring="sharded")`` on a
    one-node ``torch_distributed`` cluster: the full-width LM bundle
    (``inference.sharded_bundle_inference_loop``) scores 16 rows of 2048
@@ -243,7 +253,7 @@ Phases (any failure propagates and the script exits non-zero):
    against the undispatched implementation.
 
 The line before the last is the ``kernels`` JSON record (the forward's two
-kernels and the backward's); the last line is
+kernels and the backward's two); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 with 1 and prints no result.
 """
@@ -254,6 +264,7 @@ import argparse
 import collections
 import contextlib
 import functools
+import glob
 import json
 import math
 import os
@@ -418,7 +429,8 @@ REFERENCE_TIMED = ("serving_shape", "head_dim_64", "f32_serving_shape", "bf16_d2
 # every tile (32, 64, 96, 128) and a head dim between two (80), a head dim
 # of part 16-byte rows (36, padded to 40) at a ragged non-causal shape,
 # masked rows at kv_offset 37, a negative offset, a cotangent on lse alone
-# and on out alone, packed q/k/v views read in place, fp16
+# and on out alone, packed q/k/v views read in place, fp16; the same for
+# f32 (the 3xTF32 kernels), its head dim of part rows 34 (padded to 36)
 BWD_CASES = [
     ("bwd_d32", 2, 512, 512, 8, 32, True, 0, "bfloat16", False, "out"),
     ("bwd_d64", 2, 512, 512, 8, 64, True, 0, "bfloat16", False, "out"),
@@ -436,6 +448,20 @@ BWD_CASES = [
     ("bwd_packed_qkv_view", 2, 512, 512, 8, 128, True, 0, "bfloat16", True, "out+lse"),
     ("bwd_fp16_d64", 2, 300, 300, 8, 64, True, 0, "float16", False, "out+lse"),
     ("bwd_fp16_d128_ragged", 2, 200, 330, 8, 128, False, 0, "float16", False, "out"),
+    ("bwd_f32_d32", 2, 512, 512, 8, 32, True, 0, "float32", False, "out"),
+    ("bwd_f32_d64", 2, 512, 512, 8, 64, True, 0, "float32", False, "out"),
+    ("bwd_f32_d96", 2, 300, 300, 8, 96, True, 0, "float32", False, "out"),
+    ("bwd_f32_d128", 2, 512, 512, 8, 128, True, 0, "float32", False, "out"),
+    ("bwd_f32_d80_between_tiles", 2, 300, 300, 8, 80, True, 0, "float32", False, "out"),
+    ("bwd_f32_d34_ragged_20_52_noncausal", 2, 20, 52, 8, 34, False, 0, "float32", False,
+     "out"),
+    ("bwd_f32_kv_offset_37_masked_rows", 1, 100, 70, 8, 128, True, 37, "float32", False,
+     "out+lse"),
+    ("bwd_f32_kv_offset_negative", 1, 64, 192, 4, 128, True, -64, "float32", False,
+     "out+lse"),
+    ("bwd_f32_lse_cotangent_only", 2, 200, 330, 8, 128, True, 5, "float32", False, "lse"),
+    ("bwd_f32_out_cotangent_only", 2, 200, 330, 8, 64, False, 0, "float32", False, "out"),
+    ("bwd_f32_packed_qkv_view", 2, 512, 512, 8, 128, True, 0, "float32", True, "out+lse"),
 ]
 # dq, dk, dv of the backward kernels against the plain version, relative L2
 # each: the kernels round P and dS to bf16/fp16 as the A operands of their
@@ -443,6 +469,11 @@ BWD_CASES = [
 # version keeps f32 throughout; a wrong mask, tile or fragment gives errors
 # of order 1
 BWD_REL_TOL = 2e-2
+# the same for the f32 kernels (csrc/flash_attn_bwd_tf32.cu): every product
+# is 3xTF32, good to about 2^-20 relative (x = hi + lo, the lo·lo term
+# dropped), and the plain version's f32 einsums sum in another order; one
+# TF32 pass (about 2^-11 a product) misses it
+BWD_F32_REL_TOL = 1e-4
 
 TRAIN_BATCH = 8
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
@@ -461,7 +492,7 @@ LOSS_REL_TOL = 1e-2
 # instead of at each use; held to bf16's rounding (2^-8) of the largest logit
 SERVE_LOGIT_REL_TOL = 2.0 ** -8
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 64
-F32_TRAIN_BATCH = 2  # the f32 step: f32 products and an f32 recompute backward
+F32_TRAIN_BATCH = 2  # the f32 step: f32 products, forward and backward 3xTF32
 D256_HEADS, D256_LAYERS = 4, 2  # head dim 256 at the LM's width, depth cut
 D512_HEADS, D512_LAYERS = 2, 2  # head dim 512 at the LM's width, depth cut
 # the LM examples' defaults (examples/llm/train_lm.py:49-51,
@@ -817,7 +848,8 @@ def phase_device():
     return smi[0]
 
 
-KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32", "flash_attn_bwd")
+KERNEL_LIBS = ("flash_attn_fwd", "flash_attn_fwd_tf32", "flash_attn_bwd",
+               "flash_attn_bwd_tf32")
 # the wgmma instantiations: (library, D, dtype name); D "wideW" is the wide
 # route's kernel with W columns of O per consumer warpgroup
 WGMMA_INSTANCES = ([("flash_attn_fwd", d, dt)
@@ -831,12 +863,18 @@ COMBINE_KINDS = {"0": ("flash_attn_fwd", "bfloat16"), "1": ("flash_attn_fwd", "f
                  "2": ("flash_attn_fwd_tf32", "float32")}
 OTHER_INSTANCES = (("flash_attn_fwd_tf32", "split_kv", "float32"),
                    ("flash_attn_fwd_tf32", "transpose_v", "float32"),
-                   *((lib, "combine", dt) for lib, dt in COMBINE_KINDS.values()))
+                   *((lib, "combine", dt) for lib, dt in COMBINE_KINDS.values()),
+                   ("flash_attn_bwd_tf32", "center", "float32"))
 # the backward's wgmma kernels: the Δ pass, dK/dV and dQ on each tile, x
 # bf16/fp16
 BWD_INSTANCES = tuple(("flash_attn_bwd", f"{kind}{d}", dt)
                       for dt in ("bfloat16", "float16")
                       for kind in ("delta", "dkdv", "dq") for d in (32, 64, 96, 128))
+# the f32 backward's mma.sync kernels (3xTF32): the Δ pass, dK/dV and dQ on
+# each tile; held to no spill and to tensor-core instructions (MMA_SASS)
+BWD_TF32_INSTANCES = tuple(("flash_attn_bwd_tf32", f"{kind}{d}", "float32")
+                           for kind in ("delta", "dkdv", "dq") for d in (32, 64, 96, 128))
+MMA_SASS = ("HMMA",)  # mma.sync
 
 
 def kernel_key(text: str):
@@ -862,6 +900,11 @@ def kernel_key(text: str):
     if m:
         return ("flash_attn_bwd", f"{m.group(1)}{m.group(2)}",
                 "bfloat16" if m.group(3) == "1" else "float16")
+    m = re.search(r"flash_bwd_tf32_(delta|dkdv|dq)_kernelILi(\d+)E", text)
+    if m:
+        return ("flash_attn_bwd_tf32", f"{m.group(1)}{m.group(2)}", "float32")
+    if "flash_bwd_tf32_center_kernel" in text:
+        return OTHER_INSTANCES[-1]
     return None
 
 
@@ -875,8 +918,9 @@ def ptxas_report(log_text: str) -> dict:
         key = kernel_key(line)
         if key and "wgmma.mma_async instructions are serialized" in line:
             report.setdefault(key, {})["wgmma_serialized"] = True  # C7510-C7520
-        elif key and ("Compiling entry" in line or "Function properties" in line):
-            cur = report.setdefault(key, {})
+        elif "Compiling entry" in line or "Function properties" in line:
+            # an entry of no instantiation this script knows reports nowhere
+            cur = report.setdefault(key, {}) if key else None
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
@@ -887,8 +931,8 @@ def ptxas_report(log_text: str) -> dict:
     return report
 
 
-def sass_counts(lib_path) -> dict:
-    """``{kernel_key: {instruction: count}}`` for ``DESIGN_SASS`` in each
+def sass_counts(lib_path, instructions=DESIGN_SASS) -> dict:
+    """``{kernel_key: {instruction: count}}`` for ``instructions`` in each
     instantiation's SASS, from ``cuobjdump -sass`` of the library."""
     import subprocess
     from pathlib import Path
@@ -903,7 +947,7 @@ def sass_counts(lib_path) -> dict:
         if "Function :" in line:
             key = kernel_key(line)
             cur = None if key is None else counts.setdefault(
-                key, dict.fromkeys(DESIGN_SASS, 0))
+                key, dict.fromkeys(instructions, 0))
         elif cur is not None:
             for ins in cur:
                 cur[ins] += ins in line
@@ -911,11 +955,13 @@ def sass_counts(lib_path) -> dict:
 
 
 def phase_build() -> dict:
-    """Build the three kernel libraries from the checkout (one nvcc each,
+    """Build the four kernel libraries from the checkout (one nvcc each,
     in parallel); print and return what ptxas and the SASS say about each
     ``wgmma`` instantiation, the backward's included (failing on a spill, a
-    missing HGMMA/UTMALDG or wgmma that ptxas serialises), and what ptxas
-    says about the 3xTF32 kernel's pre-passes and the combine kernels."""
+    missing HGMMA/UTMALDG or wgmma that ptxas serialises), about the f32
+    backward's ``mma.sync`` instantiations (failing on a spill or a
+    missing HMMA), and what ptxas says about the 3xTF32 kernel's pre-passes
+    and the combine kernels."""
     from tensorflowonspark_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -928,23 +974,26 @@ def phase_build() -> dict:
             if "error" in line or "warning" in line:
                 log(f"[build] nvcc {name}: {line.strip()}")
         ptxas.update(ptxas_report(text))
-        sass.update(sass_counts(cuda_build.library_path(name)))
+        sass.update(sass_counts(cuda_build.library_path(name),
+                                MMA_SASS if name == "flash_attn_bwd_tf32" else DESIGN_SASS))
     info = {}
-    for key in WGMMA_INSTANCES + list(OTHER_INSTANCES) + list(BWD_INSTANCES):
+    for key in (WGMMA_INSTANCES + list(OTHER_INSTANCES) + list(BWD_INSTANCES)
+                + list(BWD_TF32_INSTANCES)):
         lib_name, d, dt = key
         regs, ins = ptxas.get(key), sass.get(key, {})
         if not regs:
             raise AssertionError(f"no ptxas report for {key}")
         label = f"D={d}" if isinstance(d, int) else d
         wide = isinstance(d, str)
-        if key in BWD_INSTANCES:
-            smem = libs[lib_name].tos_flash_attn_bwd_smem_bytes(int(re.sub(r"\D", "", d)))
+        if key in BWD_INSTANCES or key in BWD_TF32_INSTANCES:
+            smem = getattr(libs[lib_name], f"tos_{lib_name}_smem_bytes")(
+                int(re.sub(r"\D", "", d)))
         else:
             smem = 0 if key in OTHER_INSTANCES else getattr(
                 libs[lib_name], f"tos_{lib_name}_smem_bytes")(
                     int(d[4:]) if wide else d, int(wide))
         tag = {"flash_attn_fwd": "", "flash_attn_fwd_tf32": "tf32_",
-               "flash_attn_bwd": "bwd_"}[lib_name]
+               "flash_attn_bwd": "bwd_", "flash_attn_bwd_tf32": "bwd_tf32_"}[lib_name]
         info[f"{tag}{label.replace('=', '')}_{dt}"] = {**regs, "smem_bytes": smem, **ins}
         log(f"[build] {lib_name} {label} {dt}: {regs.get('registers')} registers, "
             f"{regs.get('spill_stores')} B spill stores, "
@@ -958,6 +1007,11 @@ def phase_build() -> dict:
                 raise AssertionError(f"{key}: ptxas reports spills")
             if regs.get("wgmma_serialized"):
                 raise AssertionError(f"{key}: ptxas serialises its wgmma")
+        if key in BWD_TF32_INSTANCES and not (ins and all(ins.values())):
+            raise AssertionError(f"{key}: SASS lacks one of {MMA_SASS}")
+        if lib_name == "flash_attn_bwd_tf32" and (regs.get("spill_stores")
+                                                  or regs.get("spill_loads")):
+            raise AssertionError(f"{key}: ptxas reports spills")
     return info
 
 
@@ -1730,38 +1784,50 @@ def log_breakdown(export: str, rows: list, device: str, smi: str) -> None:
 # causal bf16): the example LM's attention (EXAMPLE_LM_CONFIG at its batch
 # and sequence) and head dim 64 at the training tokens
 BWD_SHAPES = (("example_lm_d32", 8, 1024, 8, 32), ("d64", 4, 2048, 16, 64))
+# the f32 backward's shapes (causal): the f32 LM step's (F32_TRAIN_BATCH x
+# SEQ_LEN, 8 heads of 128) and the example LM's (EXAMPLE_BATCH x
+# EXAMPLE_SEQ, 8 heads of 32)
+BWD_F32_SHAPES = (("f32_train_shape", 2, 2048, 8, 128), ("example_lm_d32", 8, 1024, 8, 32))
 
 
-def bwd_timing(q, k, v, lse, cot, smi: str, label: str) -> dict:
-    """The backward kernels on causal ``q, k, v`` with the forward's
-    ``lse`` and the ``out`` cotangent ``cot``: held against the plain
-    version (one launch, dq, dk, dv finite and within ``BWD_REL_TOL``
-    relative L2) and timed beside the function's bound, the design's (nine
-    products), the plain version, the library's backward (SDPA under
-    autograd, the backend named) and, from ``torch.profiler``, the Δ,
-    dK/dV and dQ kernels apart; host ms to queue a call."""
+def bwd_timing(q, k, v, lse, cot, smi: str, label: str, recompute: bool = False) -> dict:
+    """The backward kernels of ``q``'s type (``_bwd_route``) on causal
+    ``q, k, v`` with the forward's ``lse`` and the ``out`` cotangent
+    ``cot``: held against the plain version (one launch, dq, dk, dv finite
+    and within ``BWD_REL_TOL`` relative L2, f32 ``BWD_F32_REL_TOL``) and
+    timed beside the function's bound (at its type's tensor-core rate),
+    the design's (nine products, f32 each as three TF32 products), the
+    plain version, the library's backward (SDPA under autograd, the
+    backend named) and, from ``torch.profiler``, the Δ, dK/dV and dQ
+    kernels apart (and the f32 kernels' centring pre-pass); host ms to
+    queue a call; with ``recompute`` also the
+    recompute VJP through ``blockwise_attention`` on the same inputs."""
     import torch
     import torch.nn.functional as F
 
     from tensorflowonspark_torch.ops import attention as att
 
     b, s, h, d = q.shape
+    f32 = q.dtype == torch.float32
+    route = att._bwd_route(q.dtype, d)[0]
+    tol = BWD_F32_REL_TOL if f32 else BWD_REL_TOL
     args = (q, k, v, lse, cot, None, True, None, 0)
     reset_launches()
     got = torch.ops.tos.flash_attn_bwd(*args)
     torch.cuda.synchronize()
     launched = dict(att.LAUNCHES)
-    if launched != {n: int(n == "flash_attn_bwd") for n in att.LAUNCHES}:
+    if launched != {n: int(n == route) for n in att.LAUNCHES}:
         raise AssertionError(f"[attn-train] {label}: one backward call launched {launched}")
     want = att.flash_attn_bwd_reference(q, k, v, lse, cot, None, causal=True)
     rel = {n: rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
     err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
-    shape = f"B={b} S={s} H={h} D={d} causal bfloat16"
-    log(f"[attn-train] backward kernels vs flash_attn_bwd_reference, {label} ({shape}): "
-        f"rel L2 " + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
-        + f" (limit {BWD_REL_TOL} each: P and dS rounded to bf16 as product operands), "
-        f"max_abs_err {err:.3e}")
-    if max(rel.values()) > BWD_REL_TOL or not all(torch.isfinite(x).all() for x in got):
+    shape = f"B={b} S={s} H={h} D={d} causal {str(q.dtype).removeprefix('torch.')}"
+    why = ("every product 3xTF32" if f32
+           else "P and dS rounded to bf16 as product operands")
+    log(f"[attn-train] backward kernels ({route}) vs flash_attn_bwd_reference, {label} "
+        f"({shape}): rel L2 " + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+        + f" (limit {tol} each: {why}), max_abs_err {err:.3e}")
+    if max(rel.values()) > tol or not all(torch.isfinite(x).all() for x in got):
         raise AssertionError(f"[attn-train] {label}: the backward kernels disagree with "
                              "the plain version")
     del got, want
@@ -1778,19 +1844,22 @@ def bwd_timing(q, k, v, lse, cot, smi: str, label: str) -> dict:
         torch.cuda.synchronize()
     launches: dict = {}
     for e in prof.events():
-        m = re.search(r"flash_bwd_(delta|dkdv|dq)_kernel", e.name)
+        m = re.search(r"flash_bwd_(?:tf32_)?(center|delta|dkdv|dq)_kernel", e.name)
         if m and str(e.device_type).endswith("CUDA"):
             us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0)
             launches.setdefault(f"{m.group(1)}_ms", []).append(us / 1e3)
     split = {n: statistics.mean(v) for n, v in launches.items()}
     # the function: S = QK^T again, dP = dO V^T, dV = P^T dO, dQ = dS K,
-    # dK = dS^T Q, five products over the live pairs; q, k, v, dO and lse
-    # read, dq, dk, dv written.  The design: the Δ, dK/dV and dQ walks
-    # each compute S and dP, nine products
-    t_ops = 10 * d * b * h * live_pairs(s, s, True, 0) / PEAK_BF16_FLOPS
-    t_bytes = (7 * b * s * h * d * 2 + b * s * h * 4) / PEAK_BYTES
+    # dK = dS^T Q, five products over the live pairs at the type's
+    # tensor-core rate (f32 at TF32's); q, k, v, dO and lse read, dq, dk, dv
+    # written.  The design: the Δ, dK/dV and dQ walks each compute S and
+    # dP, nine products, f32 each as three TF32 products
+    peak = PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS
+    t_ops = 10 * d * b * h * live_pairs(s, s, True, 0) / peak
+    t_bytes = (7 * b * s * h * d * q.element_size() + b * s * h * 4) / PEAK_BYTES
     bound, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-    design = max(t_ops * 9 / 5, t_bytes) * 1e3
+    products = 27 if f32 else 9
+    design = max(t_ops * products / 5, t_bytes) * 1e3
     qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     cot_t = cot.transpose(1, 2).contiguous()
@@ -1798,31 +1867,45 @@ def bwd_timing(q, k, v, lse, cot, smi: str, label: str) -> dict:
         lib_out, (qt, kt, vt), cot_t, retain_graph=True), reps=5, windows=3)[0]
     library = sdpa_choice(qt, kt, vt)
     del qt, kt, vt, lib_out, cot_t
-    log(f"[attn-train] backward kernels (tos::flash_attn_bwd: Δ, dK/dV, dQ; no atomics), "
-        f"{label}: {ms:.4f} ms, host {host_ms:.4f} ms per call (bound {bound:.5f} ms, "
-        f"{by}, the function's five products, share {bound / ms:.4f}; the design's nine "
-        f"{design:.5f} ms, share {design / ms:.4f}); kernels "
+    nine = "nine, each three TF32 products," if f32 else "nine"
+    log(f"[attn-train] backward kernels (tos::flash_attn_bwd -> {route}: Δ, dK/dV, dQ; "
+        f"no atomics), {label}: {ms:.4f} ms, host {host_ms:.4f} ms per call (bound "
+        f"{bound:.5f} ms, {by}, the function's five products, share {bound / ms:.4f}; the "
+        f"design's {nine} {design:.5f} ms, share {design / ms:.4f}); kernels "
         + ", ".join(f"{n} {v:.4f}" for n, v in split.items())
         + f" ms; plain version {plain_ms:.4f} ms; library backward {library_ms:.4f} ms "
         f"({library}; the kernels take {ms / library_ms:.2f}x its time) ({smi})")
-    return {"shape": shape, "max_abs_err": err, "rel_l2": rel, "rel_l2_limit": BWD_REL_TOL,
-            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by,
-            "bound_basis": "the function's five products over the live pairs at 989 "
-                           "TFLOP/s, or q, k, v, dO, lse, dq, dk, dv at 3.35 TB/s",
-            "bound_share": bound / ms, "bound_design_ms": design,
-            "bound_design_basis": "nine products (the Δ, dK/dV and dQ walks each "
-                                  "compute S and dP)",
-            "kernels_ms": split, "library_ms": library_ms, "library_backend": library}
+    out = {"shape": shape, "max_abs_err": err, "rel_l2": rel, "rel_l2_limit": tol,
+           "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by,
+           "bound_basis": "the function's five products over the live pairs at "
+                          + ("495 TFLOP/s (TF32)" if f32 else "989 TFLOP/s")
+                          + ", or q, k, v, dO, lse, dq, dk, dv at 3.35 TB/s",
+           "bound_share": bound / ms, "bound_design_ms": design,
+           "bound_design_basis": "nine products (the Δ, dK/dV and dQ walks each "
+                                 "compute S and dP)"
+                                 + (", each as three TF32 products" if f32 else ""),
+           "kernels_ms": split, "library_ms": library_ms, "library_backend": library}
+    if recompute:
+        # what the kernels replace on this route: the recompute VJP
+        out["recompute_ms"] = time_ms(
+            lambda: att._recompute_bwd(q, k, v, cot, None, True, None, 0),
+            reps=3, windows=3, warmup=1)[0]
+        log(f"[attn-train] {label}: the recompute VJP through blockwise_attention "
+            f"(block_k {att.BWD_BLOCK_K}) the kernels replace {out['recompute_ms']:.4f} ms, "
+            f"{out['recompute_ms'] / ms:.1f}x the kernels ({smi})")
+    return out
 
 
-def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict]:
+def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict, dict]:
     """The kernel's forward and the backward kernels at the training shape,
     each held against its plain version and timed beside its bound, the
     plain version and the library call, and the backward kernels so at
     ``BWD_SHAPES`` too (``bwd_timing``); the recompute VJP the backward
-    kernels replace timed once.  Returns the forward's numbers and the
-    backward's ``kernels`` record."""
+    kernels replace timed once; then the f32 backward kernels so at
+    ``BWD_F32_SHAPES``, each beside the recompute VJP they replace.
+    Returns the forward's numbers and the two backwards' ``kernels``
+    records."""
     import torch
     import torch.nn.functional as F
 
@@ -1887,17 +1970,34 @@ def phase_attention_train_shape(seed: int, smi: str) -> tuple[dict, dict]:
         cot = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
         _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
         bwd[name] = bwd_timing(q, k, v, lse, cot, smi, name)
-    return fwd, bwd
+    # the f32 backward (3xTF32): the f32 LM step's shape first, the record's
+    # own numbers, then the example LM's
+    bwd_tf32 = {"name": "flash_attn_bwd_tf32", "ok": True, "route": "cuda",
+                "source": "tensorflowonspark_torch/csrc/flash_attn_bwd_tf32.cu",
+                "replaces": "tensorflowonspark_tpu/ops/attention.py:299", "launches": None}
+    for name, b, s, h, d in BWD_F32_SHAPES:
+        del q, k, v, cot, lse
+        torch.cuda.empty_cache()
+        q, k, v = kernel_inputs(b, s, s, h, d, torch.float32, False, gen)
+        cot = torch.randn(q.shape, generator=gen, device="cuda")
+        _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
+        timing = bwd_timing(q, k, v, lse, cot, smi, name, recompute=True)
+        if name == BWD_F32_SHAPES[0][0]:
+            bwd_tf32.update(timing)
+        else:
+            bwd_tf32[name] = timing
+    return fwd, bwd, bwd_tf32
 
 
 def phase_attention_bwd(seed: int, smi: str) -> list:
     """``BWD_CASES`` through ``tos::flash_attn_bwd`` on the card, each held
     against ``flash_attn_bwd_reference`` on the same q, k, v, the kernel
-    forward's lse, and the cotangents: one launch of the backward
-    kernels and none of the forward's, dq, dk, dv finite and within
-    ``BWD_REL_TOL`` relative L2, a fully masked row's dq exactly 0, packed
-    views read in place; then keys sharing a large common component against
-    the f32 gradient of the same inputs.  Untimed."""
+    forward's lse, and the cotangents: one launch of the route's backward
+    kernels and none of the others', dq, dk, dv finite and within
+    ``BWD_REL_TOL`` relative L2 (f32: ``BWD_F32_REL_TOL``), a second call
+    bit-equal to the first, a fully masked row's dq exactly 0, packed views
+    read in place; then keys sharing a large common component against the
+    f32 gradient of the same inputs, in bf16 and in f32.  Untimed."""
     import torch
 
     from tensorflowonspark_torch.ops import attention as att
@@ -1914,48 +2014,58 @@ def phase_attention_bwd(seed: int, smi: str) -> list:
                  if "out" in cot else None)
         g_lse = (torch.randn(lse.shape, generator=gen, device="cuda")
                  if "lse" in cot else None)
+        route = att._bwd_route(dtype, d)[0]
+        tol = BWD_F32_REL_TOL if dtype == torch.float32 else BWD_REL_TOL
         reset_launches()
         got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, g_lse, causal, None, off)
         torch.cuda.synchronize()
         launched = dict(att.LAUNCHES)
-        if launched != {n: int(n == "flash_attn_bwd") for n in att.LAUNCHES}:
+        if launched != {n: int(n == route) for n in att.LAUNCHES}:
             raise AssertionError(f"{name}: launches {launched}")
+        again = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, g_lse, causal, None, off)
+        bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
         want = att.flash_attn_bwd_reference(q, k, v, lse, g_out, g_lse, causal=causal,
                                             kv_offset=off)
         rel = {n: rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
         masked = lse <= att.NEG_INF / 2
-        ok = (max(rel.values()) <= BWD_REL_TOL
+        ok = (max(rel.values()) <= tol and bit_equal
               and all(torch.isfinite(x).all() and x.shape == y.shape
                       and x.dtype == dtype for x, y in zip(got, (q, k, v)))
               and (got[0][masked] == 0).all())
         mask = f"causal kv_offset {off}" if causal else "non-causal"
-        log(f"[attn-bwd] {name} (B={b} Sq={sq} Sk={sk} H={h} D={d} -> "
+        log(f"[attn-bwd] {name} ({route}, B={b} Sq={sq} Sk={sk} H={h} D={d} -> "
             f"{att._bwd_route(dtype, d)[1]}, {mask}, {dtype_name}, cotangent on {cot}): rel L2 "
             + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
-            + f" (limit {BWD_REL_TOL}), masked rows {int(masked.sum())}: "
-            + ("ok" if ok else "FAILED"))
+            + f" (limit {tol}), two runs bit-equal {bit_equal}, masked rows "
+            f"{int(masked.sum())}: " + ("ok" if ok else "FAILED"))
         if not ok:
             raise AssertionError(f"{name}: the backward kernels disagree with the plain "
                                  "version")
-        results.append({"case": name, "rel_l2": rel, "masked_rows": int(masked.sum())})
+        results.append({"case": name, "rel_l2": rel, "masked_rows": int(masked.sum()),
+                        "bit_equal": bit_equal})
     # keys and values sharing a large common component (as a trained LM's
-    # do): dq must not see it; against the f32 gradient of the same inputs
+    # do): dq must not see it; against the f32 gradient of the same inputs,
+    # bf16 and f32 inputs
     b, s, h, d = 2, 512, 8, 128
-    common = 4 * torch.randn((1, 1, h, d), generator=gen, device="cuda")
-    q, k, v, g_out = (
-        (torch.randn((b, s, h, d), generator=gen, device="cuda") + c).bfloat16()
-        for c in (0, common, common, 0))
-    _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
-    got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, None, True, None, 0)
-    leaves = [x.float().requires_grad_() for x in (q, k, v)]
-    att.blockwise_attention(*leaves, causal=True).backward(g_out.float())
-    rel = {n: rel_l2(x, y.grad) for n, x, y in zip(("dq", "dk", "dv"), got, leaves)}
-    log(f"[attn-bwd] keys sharing a large component (B={b} S={s} H={h} D={d} causal): "
-        f"against the f32 gradient of the same inputs rel L2 "
-        + ", ".join(f"{n} {e:.3e}" for n, e in rel.items()) + f" (limit {BWD_REL_TOL})")
-    if max(rel.values()) > BWD_REL_TOL:
-        raise AssertionError("the backward kernels' dq sees a common key component")
-    results.append({"case": "common_key_component_vs_f32", "rel_l2": rel})
+    for dtype, tol in ((torch.bfloat16, BWD_REL_TOL), (torch.float32, BWD_F32_REL_TOL)):
+        common = 4 * torch.randn((1, 1, h, d), generator=gen, device="cuda")
+        q, k, v, g_out = (
+            (torch.randn((b, s, h, d), generator=gen, device="cuda") + c).to(dtype)
+            for c in (0, common, common, 0))
+        _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
+        got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, None, True, None, 0)
+        leaves = [x.float().requires_grad_() for x in (q, k, v)]
+        att.blockwise_attention(*leaves, causal=True).backward(g_out.float())
+        rel = {n: rel_l2(x, y.grad) for n, x, y in zip(("dq", "dk", "dv"), got, leaves)}
+        type_name = str(dtype).removeprefix("torch.")
+        log(f"[attn-bwd] keys sharing a large component (B={b} S={s} H={h} D={d} causal "
+            f"{type_name}): against the f32 gradient of the same inputs rel L2 "
+            + ", ".join(f"{n} {e:.3e}" for n, e in rel.items()) + f" (limit {tol})")
+        if max(rel.values()) > tol:
+            raise AssertionError(f"the {type_name} backward kernels' dq sees a common key "
+                                 "component")
+        results.append({"case": "common_key_component_vs_f32"
+                        + ("" if dtype == torch.bfloat16 else f"_{type_name}"), "rel_l2": rel})
     log(f"[attn-bwd] {len(results)} cases ok ({smi})")
     return results
 
@@ -1995,8 +2105,8 @@ def grad_disagreement(got: dict, want: dict) -> tuple[float, str]:
 @contextlib.contextmanager
 def count_recompute():
     """Counts, while the block runs, the calls of the recompute VJP
-    (``ops.attention._recompute_bwd``: the backward f32 and heads above 128
-    take on the card); yields a one-item list holding the count."""
+    (``ops.attention._recompute_bwd``: the backward heads above 128 take on
+    the card); yields a one-item list holding the count."""
     from tensorflowonspark_torch.ops import attention as att
 
     calls, inner = [0], att._recompute_bwd
@@ -2012,23 +2122,39 @@ def count_recompute():
         att._recompute_bwd = inner
 
 
-def step_launches(cfg: dict, route: str, cuda: bool, forwards: int = 1) -> dict:
-    """The launches one training pass of ``cfg`` makes, by kernel: per layer
-    ``forwards`` of ``route`` (2 where the block's forward runs again in
-    the backward) and one of the backward kernels where ``_bwd_route``
-    sends its type and head dim there (bf16/fp16 up to 128); none on the
-    CPU, which has no kernel."""
+def bwd_route(cfg: dict) -> str:
+    """The backward ``_bwd_route`` gives ``cfg``'s type and head dim: a
+    backward kernel's name, or "recompute"."""
     import torch
 
     from tensorflowonspark_torch.ops import attention as att
 
+    dtype = torch.bfloat16 if cfg["bf16"] else torch.float32
+    return att._bwd_route(dtype, cfg["d_model"] // cfg["n_heads"])[0]
+
+
+def step_launches(cfg: dict, route: str, cuda: bool, forwards: int = 1) -> dict:
+    """The launches one training pass of ``cfg`` makes, by kernel: per layer
+    ``forwards`` of ``route`` (2 where the block's forward runs again in
+    the backward) and one of the backward kernels where ``_bwd_route``
+    sends its type and head dim (up to 128: bf16/fp16 to
+    ``flash_attn_bwd``, f32 to ``flash_attn_bwd_tf32``); none on the CPU,
+    which has no kernel."""
+    from tensorflowonspark_torch.ops import attention as att
+
     want = dict.fromkeys(att.LAUNCHES, 0)
     if cuda:
-        dtype = torch.bfloat16 if cfg["bf16"] else torch.float32
         want[route] = forwards * cfg["n_layers"]
-        if att._bwd_route(dtype, cfg["d_model"] // cfg["n_heads"])[0] == "flash_attn_bwd":
-            want["flash_attn_bwd"] = cfg["n_layers"]
+        if bwd_route(cfg) != "recompute":
+            want[bwd_route(cfg)] = cfg["n_layers"]
     return want
+
+
+def step_recomputes(cfg: dict, cuda: bool) -> int:
+    """The recompute VJPs one training pass of ``cfg`` runs: one a layer on
+    the card where ``_bwd_route`` gives no kernel, else none (the CPU runs
+    the operator's plain version)."""
+    return cfg["n_layers"] if cuda and bwd_route(cfg) == "recompute" else 0
 
 
 def phase_train(seed: int, smi: str, device: str = "cuda"):
@@ -2344,8 +2470,10 @@ def step_against_plain(cfg: dict, seed: int, rows: int, route: str, tag: str,
     """One AdamW step of ``cfg`` at S=SEQ_LEN: the loss and gradients with
     the kernels against plain attention (``attn_impl: xla``), every
     wrapper's count set to 0 just before the kernel step and read just
-    after; on the card exactly n_layers launches of ``route`` and none of
-    the other kernels."""
+    after; on the card exactly n_layers launches of ``route`` and of the
+    backward kernels ``_bwd_route`` gives (``step_launches``) and none of
+    the others, and a recompute VJP only where it gives none
+    (``step_recomputes``)."""
     import torch
 
     from examples_torch.llm.train_lm import synthetic_ids
@@ -2368,12 +2496,16 @@ def step_against_plain(cfg: dict, seed: int, rows: int, route: str, tag: str,
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss, grads = loss_and_grads(model, loss_fn, batch)
+    with count_recompute() as recomputes:
+        loss, grads = loss_and_grads(model, loss_fn, batch)
     step_s = time.perf_counter() - t0
     launched = dict(att.LAUNCHES)
     want = step_launches(cfg, route, cuda)
-    if launched != want:
-        raise AssertionError(f"{tag} step: launches {launched}, expected {want}")
+    backward = bwd_route(cfg)
+    if launched != want or recomputes[0] != step_recomputes(cfg, cuda):
+        raise AssertionError(f"{tag} step: launches {launched}, expected {want}; "
+                             f"{recomputes[0]} recompute VJPs, expected "
+                             f"{step_recomputes(cfg, cuda)}")
     if not math.isfinite(loss):
         raise AssertionError(f"{tag} step: loss {loss}")
     loss_err = abs(plain_loss - loss) / abs(loss)
@@ -2388,20 +2520,23 @@ def step_against_plain(cfg: dict, seed: int, rows: int, route: str, tag: str,
         f"S={SEQ_LEN}: loss {loss:.5f} (plain attention {plain_loss:.5f}, rel "
         f"{loss_err:.2e}, limit {LOSS_REL_TOL}); worst gradient rel L2 error "
         f"{grad_err:.3e} at {worst} (limit {GRAD_REL_TOL}); "
-        f"{launched[route]} launches of {route}; forward + backward "
+        f"{launched[route]} launches of {route}, {launched.get(backward, 0)} of "
+        f"{backward}, {recomputes[0]} recompute VJPs; forward + backward "
         f"{step_s * 1e3:.1f} ms host clock ({smi})")
     if loss_err > LOSS_REL_TOL or grad_err > GRAD_REL_TOL:
         raise AssertionError(f"the {tag} step disagrees with plain attention")
-    return {"launches": launched[route], "bwd_launches": launched["flash_attn_bwd"],
-            "loss": loss, "grad_rel_err": grad_err, "fwd_bwd_ms": step_s * 1e3}
+    return {"launches": launched[route], "bwd_launches": launched.get(backward, 0),
+            "recomputes": recomputes[0], "loss": loss, "grad_rel_err": grad_err,
+            "fwd_bwd_ms": step_s * 1e3}
 
 
 def phase_train_f32(seed: int, smi: str, device: str = "cuda") -> dict:
     """One AdamW step of the f32 model configuration (``bf16: false``) at
-    the LM width through the 3xTF32 kernel: a finite loss, n_layers
-    launches of it and none of the others, and the step's gradients
-    against plain attention.  Its step time against another checkout's is
-    measured by ``examples_torch/attention_ab.py``, not here."""
+    the LM width through the 3xTF32 kernels: a finite loss, n_layers
+    launches of the forward and of the f32 backward kernels, none of the
+    others and no recompute VJP, and the step's gradients against plain
+    attention.  Its step time against another checkout's is measured by
+    ``examples_torch/attention_ab.py``, not here."""
     return step_against_plain({**LM_CONFIG, "bf16": False}, seed + 11,
                               F32_TRAIN_BATCH, "flash_attn_fwd_tf32", "train-f32",
                               smi, device)
@@ -2531,13 +2666,14 @@ def example_lm_run(cfg: dict, seed: int, route: str, tag: str, smi: str,
         end = torch.cuda.Event(enable_timing=True)
     losses, per = [], []
     reset_launches()
-    for i in range(EXAMPLE_STEPS):
-        if i == 1 and cuda:  # the steps after the first, timed
-            start.record()
-        before = dict(att.LAUNCHES)
-        state, metrics = step(state, batch)
-        per.append({n: c - before[n] for n, c in att.LAUNCHES.items()})
-        losses.append(metrics["loss"])
+    with count_recompute() as recomputes:
+        for i in range(EXAMPLE_STEPS):
+            if i == 1 and cuda:  # the steps after the first, timed
+                start.record()
+            before = dict(att.LAUNCHES)
+            state, metrics = step(state, batch)
+            per.append({n: c - before[n] for n, c in att.LAUNCHES.items()})
+            losses.append(metrics["loss"])
     if cuda:
         end.record()
         end.synchronize()
@@ -2547,17 +2683,21 @@ def example_lm_run(cfg: dict, seed: int, route: str, tag: str, smi: str,
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: losses {losses} not finite or not falling")
     want = step_launches(cfg, route, cuda)
-    if any(p != want for p in per):
-        raise AssertionError(f"{tag}: launches per step {per}, expected {want}")
-    out = {"launches": launched[route], "bwd_launches": launched["flash_attn_bwd"],
-           "loss": loss, "plain_loss": plain_loss, "grad_rel_err": grad_err,
-           "losses": losses}
+    backward = bwd_route(cfg)
+    if (any(p != want for p in per)
+            or recomputes[0] != EXAMPLE_STEPS * step_recomputes(cfg, cuda)):
+        raise AssertionError(f"{tag}: launches per step {per}, expected {want}; "
+                             f"{recomputes[0]} recompute VJPs")
+    out = {"launches": launched[route], "bwd_launches": launched.get(backward, 0),
+           "recomputes": recomputes[0], "loss": loss, "plain_loss": plain_loss,
+           "grad_rel_err": grad_err, "losses": losses}
     if cuda:
         step_ms = start.elapsed_time(end) / (EXAMPLE_STEPS - 1)
         out.update(step_ms=step_ms, tokens_per_s=EXAMPLE_BATCH * EXAMPLE_SEQ / step_ms * 1e3)
         log(f"[{tag}] {EXAMPLE_STEPS} AdamW steps, {launched[route]} launches of {route} "
-            f"({per_step} a step) and {launched['flash_attn_bwd']} of the backward "
-            f"kernels ({want['flash_attn_bwd']} a step); {step_ms:.2f} ms a step over the "
+            f"({per_step} a step) and {out['bwd_launches']} of the backward kernels "
+            f"{backward} ({want.get(backward, 0)} a step), {recomputes[0]} recompute "
+            f"VJPs; {step_ms:.2f} ms a step over the "
             f"last {EXAMPLE_STEPS - 1} (CUDA events), {out['tokens_per_s']:.0f} tokens/s "
             f"({smi})")
 
@@ -3150,24 +3290,26 @@ def pp_against_sequential(cfg: dict, seed: int, rows: int, stages: int, micro: i
     lm = PipelinedLM(model, make_mesh(device), stages, micro, lr=TRAIN_LR)
     reset_launches()
     t0 = time.perf_counter()
-    loss, grads = lm.loss_and_grads(ids)
+    with count_recompute() as recomputes:
+        loss, grads = lm.loss_and_grads(ids)
     if device == "cuda":
         torch.cuda.synchronize()
     pass_s = time.perf_counter() - t0
     launched = dict(att.LAUNCHES)
     want = {n: c * micro for n, c in
             step_launches(cfg, route, device == "cuda", forwards=2).items()}
-    if launched != want:
+    if launched != want or recomputes[0] != micro * step_recomputes(cfg, device == "cuda"):
         raise AssertionError(f"pp pass: launches {launched}, expected {want} (a forward "
                              "and a recompute of the forward per block per microbatch, "
-                             "and a backward where the backward kernels take the head)")
+                             "and a backward where the backward kernels take the head); "
+                             f"{recomputes[0]} recompute VJPs")
     loss = loss.item()
     if not math.isfinite(loss):
         raise AssertionError(f"pp pass: loss {loss}")
     named = pp_named_grads(grads, cfg["n_layers"] // stages)
     if set(named) != set(seq_grads):
         raise AssertionError(f"pp gradients name {sorted(set(named) ^ set(seq_grads))}")
-    out = {"launches": launched[route], "bwd_launches": launched["flash_attn_bwd"],
+    out = {"launches": launched[route], "bwd_launches": launched.get(bwd_route(cfg), 0),
            "loss": loss, "seq_loss": seq_loss,
            "loss_rel_err": abs(loss - seq_loss) / abs(seq_loss),
            "grad_rel_err": group_rel_l2(named, seq_grads),
@@ -3280,7 +3422,9 @@ def phase_pp(seed: int, smi: str, device: str = "cuda") -> dict:
     for key in ("model", "lm", "ids"):
         f32.pop(key)
     log(f"[pp-f32] {PP_F32_LAYERS} stages of 1 block, B={PP_F32_BATCH} in {PP_F32_MICRO} "
-        f"microbatches: {f32['launches']} launches of flash_attn_fwd_tf32; loss rel "
+        f"microbatches: {f32['launches']} launches of flash_attn_fwd_tf32 and "
+        f"{f32['bwd_launches']} of flash_attn_bwd_tf32 ({PP_F32_LAYERS} x {PP_F32_MICRO}), "
+        f"no recompute VJP; loss rel "
         f"{f32['loss_rel_err']:.2e}, gradients rel L2 "
         + ", ".join(f"{k} {v:.3e}" for k, v in f32["grad_rel_err"].items())
         + f" (limit {PP_F32_TOL}) ({smi})")
@@ -4049,6 +4193,14 @@ def import_test_mapfuns():
     return torch_mapfuns
 
 
+def log_node_tails(log_dir: str, tag: str, lines: int = 40) -> None:
+    """Print the last ``lines`` lines of each node log in ``log_dir``."""
+    for path in sorted(glob.glob(os.path.join(log_dir, "node_*.log"))):
+        with open(path, errors="replace") as f:
+            tail = f.read().splitlines()[-lines:]
+        log(f"{tag}: {os.path.basename(path)}, last {len(tail)} lines:\n" + "\n".join(tail))
+
+
 def ingest_window(result: dict, first: int, last: int, batch: int) -> dict:
     """Step ms, images/s and the host wait per step over steps
     ``first..last-1`` of an ingest-fed run (``ingest_resnet_trainer``'s
@@ -4183,9 +4335,14 @@ def phase_ingest_resnet50(seed: int, smi: str, resident_images_s: float | None,
                           log_dir=os.path.join(out_dir, "logs"),
                           reservation_timeout=300, **extra)
         try:
-            cluster.train(shard_dir, num_epochs=epochs)
-        finally:
-            cluster.shutdown(timeout=300)
+            try:
+                cluster.train(shard_dir, num_epochs=epochs)
+            finally:
+                cluster.shutdown(timeout=300)
+        except Exception:
+            # the nodes' own account of a failed run (WORK_DIR goes at exit)
+            log_node_tails(os.path.join(out_dir, "logs"), f"[ingest] run {tag}")
+            raise
         wall_s = time.perf_counter() - t0
         result = json.load(open(os.path.join(out_dir, "ingest_result_0.json")))
         seen = collections.Counter(i for b in result["ids"] for i in b)
@@ -4865,7 +5022,7 @@ def main() -> int:
         tf32["orbax_bundle_launches"] = orbax.pop("launches")
         tf32["orbax_bundle"] = orbax
         torch.cuda.empty_cache()
-        record["train_shape"], bwd = phase_attention_train_shape(args.seed, smi)
+        record["train_shape"], bwd, bwd_tf32 = phase_attention_train_shape(args.seed, smi)
         bwd["cases"] = phase_attention_bwd(args.seed, smi)
         torch.cuda.empty_cache()
         model, train = phase_train(args.seed, smi)
@@ -4881,6 +5038,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_f32 = phase_train_f32(args.seed, smi)
         tf32["launches"] = train_f32.pop("launches")
+        # the f32 backward kernels' main path: the f32 LM training step
+        bwd_tf32["launches"] = train_f32.pop("bwd_launches")
         tf32["train_f32"] = train_f32
         for dim, phase in ((256, phase_train_d256), (512, phase_train_d512)):
             steps = phase(args.seed, smi)
@@ -4895,6 +5054,7 @@ def main() -> int:
         record["example_lm_bf16"] = example["flash_attn_fwd"]
         bwd["example_lm_launches"] = example["flash_attn_fwd"].pop("bwd_launches")
         tf32["example_lm_launches"] = example["flash_attn_fwd_tf32"].pop("launches")
+        bwd_tf32["example_lm_launches"] = example["flash_attn_fwd_tf32"].pop("bwd_launches")
         tf32["example_lm_f32"] = example["flash_attn_fwd_tf32"]
         log(f"[lm] the slice, cluster, orbax and LM phases took "
             f"{time.perf_counter() - t_lm:.1f} s (host clock; {smi})")
@@ -4922,6 +5082,7 @@ def main() -> int:
         record["pp_launches"] = pp.pop("launches")
         record["pp"] = pp
         tf32["pp_f32_launches"] = f32_pp.pop("launches")
+        bwd_tf32["pp_f32_launches"] = f32_pp.pop("bwd_launches")
         tf32["pp_f32"] = f32_pp
         torch.cuda.empty_cache()
         scoring = phase_sharded_scoring(args.seed, smi)
@@ -4974,7 +5135,7 @@ def main() -> int:
             f"(host clock; {smi}); summary {json.dumps(pod)}")
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
-    print(json.dumps({"kernels": [record, tf32, bwd]}))
+    print(json.dumps({"kernels": [record, tf32, bwd, bwd_tf32]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

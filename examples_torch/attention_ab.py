@@ -20,15 +20,20 @@ on the card:
   checkout's ``_launch`` takes ``wide``, it also times the wide route on
   the cases of ``WIDE_ONE_SLICE`` (bf16 D=256, f32 D=128), held against
   the plain version, beside the dedicated configuration of that head dim;
-  and it times the backward kernels (``tos::flash_attn_bwd``) at
-  ``BWD_CASES`` the same way, each held against their plain version
-  (``flash_attn_bwd_reference``) at ``chip_smoke.BWD_REL_TOL`` and
-  beside the library's backward (SDPA under autograd) on the same inputs;
+  and it times the backward at ``BWD_CASES`` the same way: what
+  ``FlashAttention.backward`` runs on the card in that checkout
+  (``_bwd_route``: the backward kernels, ``tos::flash_attn_bwd``, or the
+  recompute VJP where that checkout has no kernel for the type), held
+  against the plain version (``flash_attn_bwd_reference``) at
+  ``chip_smoke.BWD_REL_TOL`` (f32 ``BWD_F32_REL_TOL``) and beside the
+  library's backward (SDPA under autograd) on the same inputs;
 - unless ``--steps 0``, one runs that checkout's
   ``examples_torch/llm/train_lm.py`` in f32 at the LM width of
   ``chip_smoke.py`` (vocab 32000, d_model 1024, 8 layers of 8 heads, B=2,
   S=2048) for ``--steps`` steps after one warm-up step, and reports ms per
-  step from its tokens/s (host clock over the steps).
+  step from its tokens/s (host clock over the steps); then the same with
+  its defaults (the example LM, f32: vocab 4096, d_model 256, 4 layers of
+  8 heads of 32, B=8, S=1024).
 
 Each directory's result is one line ``AB <dir> {json}``.  Needs one CUDA
 card; exits non-zero if any child fails.
@@ -76,15 +81,19 @@ CASES = (("serving_shape", 4, 2048, 2048, 8, 128, True, 0, "bfloat16"),
          ("bf16_d80", 4, 2048, 2048, 8, 80, True, 0, "bfloat16"),
          ("bf16_d160", 4, 2048, 2048, 4, 160, True, 0, "bfloat16"),
          ("bf16_d224", 4, 2048, 2048, 4, 224, True, 0, "bfloat16"))
-# the backward kernels' cases (name, B, S, H, D; causal bf16): the LM's
+# the backward's cases (name, B, S, H, D, dtype name; causal): the LM's
 # training shape, the LM examples' attention (head dim 32) and head dim 64
-BWD_CASES = (("bwd_train_shape", 8, 2048, 8, 128),
-             ("bwd_example_lm_d32", 8, 1024, 8, 32),
-             ("bwd_d64", 4, 2048, 16, 64))
+# in bf16; the f32 LM step's shape and the example LM's in f32
+BWD_CASES = (("bwd_train_shape", 8, 2048, 8, 128, "bfloat16"),
+             ("bwd_example_lm_d32", 8, 1024, 8, 32, "bfloat16"),
+             ("bwd_d64", 4, 2048, 16, 64, "bfloat16"),
+             ("bwd_f32_train_shape", 2, 2048, 8, 128, "float32"),
+             ("bwd_f32_example_lm_d32", 8, 1024, 8, 32, "float32"))
 # cases also run on the wide route at one slice: whether it could take over
 # from the dedicated configuration of the same head dim
 WIDE_ONE_SLICE = ("bf16_d256", "f32_serving_shape")
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+EXAMPLE_BATCH, EXAMPLE_SEQ = 8, 1024  # train_lm.py's defaults
 TRAIN_ARGS = ("--vocab-size", "32000", "--d-model", "1024", "--n-layers", "8",
               "--n-heads", "8", "--seq-len", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH))
 
@@ -158,58 +167,74 @@ def time_kernels(tree: str, names: set[str] | None = None) -> dict:
                 "lse_max_abs_err": (lse - plse).abs().max().item()}
             del o, lse, po, plse
         del q, k, v
-    for name, b, s, h, d in BWD_CASES:
+    for name, b, s, h, d, dtype_name in BWD_CASES:
         if names and name not in names:
             continue
-        out[name] = time_backward(smoke, att, b, s, h, d, gen)
+        out[name] = time_backward(smoke, att, b, s, h, d, getattr(torch, dtype_name), gen)
     report, sass = {}, {}
-    for lib in ("flash_attn_fwd", "flash_attn_fwd_tf32", "flash_attn_bwd"):
+    for lib in ("flash_attn_fwd", "flash_attn_fwd_tf32", "flash_attn_bwd",
+                "flash_attn_bwd_tf32"):
         if not cuda_build.library_path(lib).exists():  # no case of its route ran
             continue
         report.update(smoke.ptxas_report(cuda_build.build_log(lib)))
-        sass.update(smoke.sass_counts(cuda_build.library_path(lib)))
+        sass.update(smoke.sass_counts(
+            cuda_build.library_path(lib),
+            smoke.MMA_SASS if lib == "flash_attn_bwd_tf32" else smoke.DESIGN_SASS))
     out["build"] = {f"{lib}_D{d}_{dt}": {**regs, **sass.get((lib, d, dt), {})}
                     for (lib, d, dt), regs in sorted(report.items(), key=str)}
     return out
 
 
-def time_backward(smoke, att, b, s, h, d, gen) -> dict:
-    """The backward kernels of ``att`` (one checkout's
-    ``ops.attention``) at one causal bf16 shape: held against their plain
-    version and timed beside the library's backward on the same inputs."""
+def time_backward(smoke, att, b, s, h, d, dtype, gen) -> dict:
+    """The backward of ``att`` (one checkout's ``ops.attention``) at one
+    causal shape of ``dtype``, as its ``FlashAttention.backward`` runs it on
+    the card (``_bwd_route``: the backward kernels, or the recompute VJP):
+    held against the plain version and timed beside the library's backward
+    on the same inputs."""
     import torch
     import torch.nn.functional as F
 
-    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
                for _ in range(3))
-    cot = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    cot = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     _, lse = att.flash_attn_fwd_cuda(q, k, v, causal=True)
-    args = (q, k, v, lse, cot, None, True, None, 0)
-    got = torch.ops.tos.flash_attn_bwd(*args)
+    route = att._bwd_route(dtype, d)[0]
+    if route == "recompute":
+        def backward():
+            return att._recompute_bwd(q, k, v, cot, None, True, None, 0)
+    else:
+        def backward():
+            return torch.ops.tos.flash_attn_bwd(q, k, v, lse, cot, None, True, None, 0)
+    got = backward()
     want = att.flash_attn_bwd_reference(q, k, v, lse, cot, None, causal=True)
     rel = {n: smoke.rel_l2(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, want)}
-    if max(rel.values()) > smoke.BWD_REL_TOL:
-        raise AssertionError(f"backward B={b} S={s} H={h} D={d}: rel L2 {rel}")
+    f32 = dtype == torch.float32
+    if max(rel.values()) > (smoke.BWD_F32_REL_TOL if f32 else smoke.BWD_REL_TOL):
+        raise AssertionError(f"backward B={b} S={s} H={h} D={d} {dtype}: rel L2 {rel}")
     del got, want
-    ms, host_ms = smoke.time_ms(lambda: torch.ops.tos.flash_attn_bwd(*args))
+    ms, host_ms = smoke.time_ms(backward, **({"reps": 5, "windows": 3}
+                                             if route == "recompute" else {}))
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     cot_t = cot.transpose(1, 2).contiguous()
     library_ms = smoke.time_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), cot_t, retain_graph=True), reps=10, windows=3)[0]
-    t_ops = 10 * d * b * h * smoke.live_pairs(s, s, True, 0) / smoke.PEAK_BF16_FLOPS
-    t_bytes = (7 * b * s * h * d * 2 + b * s * h * 4) / smoke.PEAK_BYTES
-    return {"ms": ms, "host_ms": host_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+    peak = smoke.PEAK_TF32_FLOPS if f32 else smoke.PEAK_BF16_FLOPS
+    t_ops = 10 * d * b * h * smoke.live_pairs(s, s, True, 0) / peak
+    t_bytes = (7 * b * s * h * d * q.element_size() + b * s * h * 4) / smoke.PEAK_BYTES
+    return {"route": route, "ms": ms, "host_ms": host_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_share": max(t_ops, t_bytes) * 1e3 / ms, "rel_l2": rel,
             "library_ms": library_ms, "library_backend": smoke.sdpa_choice(qt, kt, vt)}
 
 
-def time_train_step(tree: str, steps: int) -> float:
-    """ms per f32 train step of ``tree``'s ``train_lm.py`` (from its
-    tokens/s over ``steps`` steps)."""
+def time_train_step(tree: str, steps: int, args=TRAIN_ARGS,
+                    tokens=TRAIN_BATCH * TRAIN_SEQ) -> float:
+    """ms per f32 train step of ``tree``'s ``train_lm.py`` with ``args``
+    (``tokens`` a step; from its tokens/s over ``steps`` steps)."""
     script = os.path.join(tree, "examples_torch", "llm", "train_lm.py")
-    res = subprocess.run([sys.executable, script, *TRAIN_ARGS, "--steps", str(steps)],
+    res = subprocess.run([sys.executable, script, *args, "--steps", str(steps)],
                          capture_output=True, text=True, timeout=600, cwd=tree)
     if res.returncode != 0:
         raise RuntimeError(f"{script} failed:\n{res.stderr[-3000:]}")
@@ -217,7 +242,7 @@ def time_train_step(tree: str, steps: int) -> float:
     if not m:
         raise RuntimeError(f"no tokens/sec in {script}'s output:\n{res.stdout[-2000:]}")
     tokens_per_s = float(m.group(1).replace(",", ""))
-    return TRAIN_BATCH * TRAIN_SEQ / tokens_per_s * 1e3
+    return tokens / tokens_per_s * 1e3
 
 
 def main() -> int:
@@ -248,6 +273,8 @@ def main() -> int:
         result = json.loads(res.stdout.strip().splitlines()[-1])
         if args.steps:
             result["f32_train_step_ms"] = time_train_step(tree, args.steps)
+            result["example_lm_f32_train_step_ms"] = time_train_step(
+                tree, args.steps, (), EXAMPLE_BATCH * EXAMPLE_SEQ)
         print(f"AB {tree} {json.dumps(result)}", flush=True)
     return 0
 

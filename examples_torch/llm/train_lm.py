@@ -3,11 +3,12 @@
 
 A decoder-only transformer trains on a synthetic Zipf token stream with
 AdamW, then (``--generate N``) greedily decodes N tokens through the KV
-cache.  On the card, attention runs a hand-written kernel forward with its
-recompute backward: the Hopper ``wgmma`` kernel for ``--bf16``, and for
-f32 (the default) the 3xTF32 ``wgmma`` kernel, each at any head dim
-(d_model / n_heads; above 256, or 128 in f32, on the kernel's wide
-route)::
+cache.  On the card, attention runs hand-written kernels: the forward on
+the Hopper ``wgmma`` kernel for ``--bf16``, and for f32 (the default) the
+3xTF32 ``wgmma`` kernel, each at any head dim (d_model / n_heads; above
+256, or 128 in f32, on the kernel's wide route); the backward up to a head
+dim of 128 on the backward kernels (bf16, or 3xTF32 for f32), above it as
+the recompute VJP through ``blockwise_attention``::
 
   # on the CPU, tiny:
   python examples_torch/llm/train_lm.py --device cpu --vocab-size 256 \\

@@ -2187,7 +2187,15 @@ class CoordinatorClient:
         """Poll QUERY until all nodes registered, then fetch cluster info (QINFO)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
-            if self._check(self._call({"op": "query"}, retry=True))["complete"]:
+            resp = self._check(self._call({"op": "query"}, retry=True))
+            if resp.get("fenced"):
+                # a fenced sender's query is answered without ``complete``
+                raise CoordinatorFenced(
+                    f"executor {self._executor_id} (incarnation "
+                    f"{self._incarnation}) was declared dead before the "
+                    "cluster formed: its heartbeat was silent past the "
+                    "driver's dead-node window")
+            if resp["complete"]:
                 return self._check(self._call({"op": "cluster_info"}, retry=True))["nodes"]
             if deadline is not None and time.monotonic() > deadline:
                 raise TimeoutError("cluster did not complete in time")

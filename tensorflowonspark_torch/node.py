@@ -550,29 +550,20 @@ def node_main(config: NodeConfig) -> int:
     # tier even though role assignment is registration-order
     faultinject.set_identity(executor_id, incarnation,
                              role=ident["job_name"])
-    if config.ingest_tier and not config.torch_distributed:
-        if ident["job_name"] == "ingest":
-            # before anything in this process initialises CUDA: the worker
-            # decodes on host cores and must not hold a context on the card
-            os.environ["CUDA_VISIBLE_DEVICES"] = ""
-        client.update_meta(executor_id, {"device": gpu_info.device_summary()})
-    if config.log_dir:
-        # chaos-kill postmortem: a `kill` fault dumps this process's flight
-        # recorder (recent spans + events) next to the job logs before the
-        # SIGKILL — the one record of the node's last seconds that survives
-        faultinject.set_flight_dump(
-            os.path.join(config.log_dir, f"flight_node{executor_id}.json"),
-            node=f"node{executor_id}")
-    cluster_info = client.await_cluster(timeout=config.reservation_timeout)
-
-    # Heartbeats must start IMMEDIATELY after registration — before
-    # torch.distributed.init_process_group and before map_fun's first kernel
-    # builds (nvcc, seconds to minutes on a fresh machine): the driver's dead-node monitor flags any node
-    # silent past its window, and a healthy-but-compiling node must never
-    # look dead.  Own connection: the main client's socket can be tied up
-    # for minutes inside a blocking barrier/reduce, which would starve
-    # liveness pings and block the driver's stop signal.
+    # Heartbeats must start IMMEDIATELY after registration — before the
+    # ingest tier's device probe (torch's import and CUDA's start-up,
+    # seconds on a card's host), before torch.distributed.init_process_group
+    # and before map_fun's first kernel builds (nvcc, seconds to minutes on a
+    # fresh machine): the driver's dead-node monitor flags any node silent
+    # past its window from its registration on, and a healthy-but-starting
+    # node must never look dead.  Own connection: the main client's socket
+    # can be tied up for minutes inside a blocking barrier/reduce, which
+    # would starve liveness pings and block the driver's stop signal.
     stop_requested = threading.Event()
+    # set by the first heartbeat round-trip: a step that may hold the GIL
+    # for seconds (CUDA's start-up) waits for it, so its silence is counted
+    # from a fresh beat and not from the registration
+    first_beat = threading.Event()
 
     def _heartbeat_loop() -> None:
         nonlocal incarnation
@@ -646,6 +637,7 @@ def node_main(config: NodeConfig) -> int:
                                       hb_client.last_rtt)
                 ever_ok = True
                 last_ok = time.monotonic()
+                first_beat.set()
                 if hb_client.incarnation != incarnation:
                     # READMITTED after a gray-failure eviction: the
                     # coordinator handed this channel the slot's bumped
@@ -766,6 +758,22 @@ def node_main(config: NodeConfig) -> int:
 
     hb = threading.Thread(target=_heartbeat_loop, daemon=True, name="heartbeat")
     hb.start()
+    if config.ingest_tier and not config.torch_distributed:
+        if ident["job_name"] == "ingest":
+            # before anything in this process initialises CUDA: the worker
+            # decodes on host cores and must not hold a context on the card
+            os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        first_beat.wait(config.heartbeat_interval + 5.0)
+        client.update_meta(executor_id, {"device": gpu_info.device_summary()})
+    if config.log_dir:
+        # chaos-kill postmortem: a `kill` fault dumps this process's flight
+        # recorder (recent spans + events) next to the job logs before the
+        # SIGKILL — the one record of the node's last seconds that survives
+        faultinject.set_flight_dump(
+            os.path.join(config.log_dir, f"flight_node{executor_id}.json"),
+            node=f"node{executor_id}")
+    cluster_info = client.await_cluster(timeout=config.reservation_timeout)
+
 
     tb_proc = None
     # The chief is always executor 0 whatever its role is named (master_node

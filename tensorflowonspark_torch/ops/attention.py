@@ -37,12 +37,12 @@ Counterpart of ``tensorflowonspark_tpu/ops/attention.py``, same layout
   the same forward, and a backward through ``out`` and ``lse`` both.  The
   backward is the operator ``tos::flash_attn_bwd`` (the FA2 gradient from
   the saved ``q, k, v`` and ``lse``, with Δ summed from P and dP in f32):
-  on a CUDA tensor the hand-written
-  kernels of ``csrc/flash_attn_bwd.cu`` (bf16/fp16 up to D=128,
-  ``_bwd_route``), on a CPU tensor their plain version
-  (``flash_attn_bwd_reference``).  f32, and bf16/fp16 above 128, take the
-  JAX package's own backward on the card: the VJP of
-  ``blockwise_attention``, recomputed from ``q, k, v``.
+  on a CUDA tensor the hand-written kernels ``_bwd_route`` picks up to
+  D=128 (bf16/fp16 ``csrc/flash_attn_bwd.cu``, f32 as 3xTF32
+  ``csrc/flash_attn_bwd_tf32.cu``), on a CPU tensor their plain version
+  (``flash_attn_bwd_reference``).  Heads above 128 take the JAX package's
+  own backward on the card: the VJP of ``blockwise_attention``,
+  recomputed from ``q, k, v``.
 
 All softmax accumulation is float32 whatever the input type.
 """
@@ -202,18 +202,22 @@ _SHAPE_ARGS = ([ctypes.c_int] * 5
                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                   ctypes.c_int, ctypes.c_int])
 # tos_flash_attn_bwd(q, k, v, dout, lse, g_lse, dq, dk, dv, scratch, B, Sq,
-# Sk, H, D, strides, causal, kv_offset, sm_scale, dtype, stream)
+# Sk, H, D, strides, causal, kv_offset, sm_scale, [dtype,] stream): the
+# bf16/fp16 backward takes a dtype code, the f32 one none
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float])
 _ARGTYPES = {
     "flash_attn_fwd": ([ctypes.c_void_p] * 6 + _SHAPE_ARGS
                        + [ctypes.c_int, ctypes.c_void_p]),
     "flash_attn_fwd_tf32": [ctypes.c_void_p] * 6 + _SHAPE_ARGS + [ctypes.c_void_p],
-    "flash_attn_bwd": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_int, ctypes.c_void_p]),
+    "flash_attn_bwd": _BWD_ARGS + [ctypes.c_int, ctypes.c_void_p],
+    "flash_attn_bwd_tf32": _BWD_ARGS + [ctypes.c_void_p],
 }
+# the backward kernels, by their name in _bwd_route
+BWD_KERNELS = ("flash_attn_bwd", "flash_attn_bwd_tf32")
 # each kernel's launches, by its name in _route / _bwd_route; bumped only
 # where _run has launched it (once a call: the wide routes' combine step and
-# the backward's three kernels included)
+# the backward's kernels included)
 LAUNCHES = dict.fromkeys(_ARGTYPES, 0)
 
 # The wide routes' split-KV rule (both kernels take the count as an
@@ -382,8 +386,9 @@ def _run(name, device, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
     # every kernel's launches, as node processes report them to
-    # cluster.metrics(): the forward's two kernels on one counter
-    telemetry.counter("attn.flash_bwd_launches" if name == "flash_attn_bwd"
+    # cluster.metrics(): the forward's kernels on one counter, the
+    # backward's on another
+    telemetry.counter("attn.flash_bwd_launches" if name in BWD_KERNELS
                       else "attn.flash_fwd_launches").inc()
 
 
@@ -462,13 +467,14 @@ def _flash_attn_fwd_op_fake(q, k, v, causal, sm_scale, kv_offset):
 
 # ---------------------------------------------------------------------------
 # The backward: tos::flash_attn_bwd, the FA2 gradient from the saved lse —
-# csrc/flash_attn_bwd.cu on a CUDA tensor (bf16/fp16 up to D=128),
-# flash_attn_bwd_reference on a CPU tensor.
+# on a CUDA tensor up to D=128 csrc/flash_attn_bwd.cu (bf16/fp16) or
+# csrc/flash_attn_bwd_tf32.cu (f32, 3xTF32), flash_attn_bwd_reference on a
+# CPU tensor.
 # ---------------------------------------------------------------------------
 
 BWD_BLOCK_K = 512  # key block of the plain backward and of the recompute VJP (the JAX default)
-# the backward kernels' tiles: a head dim runs on the narrowest that holds
-# it, its columns past D zero (csrc/flash_attn_bwd.cu, launch_bwd_tile)
+# the backward kernels' tiles (both kernels'): a head dim runs on the
+# narrowest that holds it, its columns past D zero (launch_bwd_tile)
 BWD_HEAD_DIMS = (32, 64, 96, 128)
 # the rows a CTA of the backward kernels holds (their kBwdCtaRows), two
 # consumer warpgroups of BWD_WG_ROWS (kBwdWgRows) each: the dK/dV kernel's
@@ -485,27 +491,47 @@ def bwd_inner_rows(tile: int) -> int:
     return 64
 
 
+# the f32 kernels (csrc/flash_attn_bwd_tf32.cu, mma.sync): a CTA of
+# BWD_TF32_CTA_ROWS rows (kCtaRows), four warps of BWD_TF32_WARP_ROWS
+# (kWarpRows) each
+BWD_TF32_CTA_ROWS = 64
+BWD_TF32_WARP_ROWS = 16
+
+
+def bwd_tiling(name: str, tile: int) -> tuple[int, int, int]:
+    """``(CTA rows, rows a consumer owns, loop tile rows)`` of backward
+    kernel ``name`` on its tile of ``tile`` columns: the bf16/fp16 kernels'
+    two warpgroups of 64 rows and 64-row loop tiles; the f32 kernels' four
+    warps of 16 rows and loop tiles of 64 rows up to 64 columns, 32 above
+    (``Tf32BwdTile<DT>::kInner``)."""
+    if name == "flash_attn_bwd":
+        return BWD_CTA_ROWS, BWD_WG_ROWS, bwd_inner_rows(tile)
+    return BWD_TF32_CTA_ROWS, BWD_TF32_WARP_ROWS, 64 if tile <= 64 else 32
+
+
 def bwd_scratch_rows(sq: int) -> int:
     """Rows of the backward's Δ and lse·log2(e) scratch per batch*head
-    (``scratch_rows`` in ``csrc/flash_attn_bwd.cu``): ``sq`` rounded up to
-    whole CTAs of the Δ kernel, which writes every row the dK/dV kernel's
-    query tiles read."""
+    (``scratch_rows`` in ``csrc/flash_attn_bwd.cu`` and
+    ``csrc/flash_attn_bwd_tf32.cu``): ``sq`` rounded up to whole CTAs of the
+    bf16/fp16 Δ kernel, which writes every row the dK/dV kernel's query
+    tiles read."""
     return -(-max(sq, 1) // BWD_CTA_ROWS) * BWD_CTA_ROWS
 
 
 def _bwd_route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     """``(backward, head_dim it runs at)`` for inputs of ``dtype`` with
-    head_dim ``d``, by type and head dim alone: bf16/fp16 whose head dim,
-    rounded up to whole ``TMA_ROW_BYTES`` rows as ``_route`` rounds it, is
-    at most ``BWD_HEAD_DIMS``' widest go to the kernels
-    (``"flash_attn_bwd"``); f32, and wider heads, to the recompute VJP
-    through ``blockwise_attention`` (``"recompute"``, at ``d`` itself),
-    the JAX package's own backward."""
-    if dtype in (torch.bfloat16, torch.float16) and d >= 1:
+    head_dim ``d``, by type and head dim alone: a head dim that, rounded up
+    to whole ``TMA_ROW_BYTES`` rows as ``_route`` rounds it, is at most
+    ``BWD_HEAD_DIMS``' widest goes to the kernels, bf16/fp16 to
+    ``"flash_attn_bwd"``, f32 to ``"flash_attn_bwd_tf32"``; wider heads to
+    the recompute VJP through ``blockwise_attention`` (``"recompute"``, at
+    ``d`` itself), the JAX package's own backward."""
+    if dtype in (torch.bfloat16, torch.float16, torch.float32) and d >= 1:
         row = TMA_ROW_BYTES // dtype.itemsize
         padded = -(-d // row) * row
         if padded <= BWD_HEAD_DIMS[-1]:
-            return "flash_attn_bwd", padded
+            return ("flash_attn_bwd_tf32" if dtype == torch.float32
+                    else "flash_attn_bwd"), padded
     return "recompute", d
 
 
@@ -515,7 +541,7 @@ def flash_attn_bwd_reference(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
     the cotangents of ``out`` and ``lse``: the FA2 backward in plain
     PyTorch, in f32 over key blocks of ``BWD_BLOCK_K`` (memory
     O(Sq·block)), cast to the inputs' types — the plain version of
-    ``csrc/flash_attn_bwd.cu``.
+    ``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_bwd_tf32.cu``.
 
     Per block ``P = exp(S·scale − lse)``, 0 where the mask drops a key or
     the row is fully masked (``lse ≤ NEG_INF/2``, so such a row gets zero
@@ -575,12 +601,14 @@ def flash_attn_bwd_reference(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
 
 def flash_attn_bwd_cuda(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
                         sm_scale: float | None = None, kv_offset: int = 0):
-    """``(dq, dk, dv)`` on the card's backward kernels
-    (``csrc/flash_attn_bwd.cu``): CUDA tensors, bf16/fp16 with a head dim
-    ``_bwd_route`` sends to them (up to 128); anything else raises.
+    """``(dq, dk, dv)`` on the card's backward kernels: CUDA tensors with a
+    head dim ``_bwd_route`` sends to them (up to 128), bf16/fp16 on
+    ``csrc/flash_attn_bwd.cu``, f32 on ``csrc/flash_attn_bwd_tf32.cu``
+    (3xTF32); anything else raises.
 
-    One call is one launch (``LAUNCHES["flash_attn_bwd"]``) of the C entry,
-    which queues the three kernels: the Δ pass, dK/dV and dQ.  q, k, v and
+    One call is one launch (``LAUNCHES`` of the route's kernel) of the C
+    entry, which queues its kernels: the Δ pass, dK/dV and dQ (f32: after a
+    pre-pass of each head's mean key and value).  q, k, v and
     the ``out`` cotangent are read in place through their strides where the
     kernels can (``_kernel_operand``); a head dim not of whole 16-byte rows
     is zero-padded to them (zero columns change no product) and the
@@ -591,9 +619,9 @@ def flash_attn_bwd_cuda(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
     b, sq, h, d = q.shape
     sk = k.shape[1]
     name, padded = _bwd_route(q.dtype, d)
-    if name != "flash_attn_bwd":
-        raise ValueError(f"the backward kernels take bf16/fp16 with a head dim up to "
-                         f"{BWD_HEAD_DIMS[-1]}, got {q.dtype} D={d}")
+    if name not in BWD_KERNELS:
+        raise ValueError(f"the backward kernels take bf16/fp16/f32 with a head dim up "
+                         f"to {BWD_HEAD_DIMS[-1]}, got {q.dtype} D={d}")
     wants = ((lse, (b, sq, h)), (g_out, q.shape), (g_lse, (b, sq, h)))
     if any(x is not None and (x.shape != shape or x.device != q.device)
            for x, shape in wants):
@@ -612,16 +640,19 @@ def flash_attn_bwd_cuda(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
     dq = torch.empty((b, sq, h, padded), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, padded), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, h, padded), dtype=q.dtype, device=q.device)
-    # Δ and lse·log2(e), f32 [B*H, bwd_scratch_rows(Sq)] each
-    scratch = torch.empty(2 * b * h * bwd_scratch_rows(sq), dtype=torch.float32,
+    # Δ and lse·log2(e), f32 [B*H, bwd_scratch_rows(Sq)] each; the f32
+    # kernels' heads' mean keys and values after them, f32 [B*H, 2, D]
+    means = 2 * b * h * padded if name == "flash_attn_bwd_tf32" else 0
+    scratch = torch.empty(2 * b * h * bwd_scratch_rows(sq) + means, dtype=torch.float32,
                           device=q.device)
     strides = (ctypes.c_int64 * 21)(
         *(s for x in (q_, k_, v_, do_, dq, dk, dv) for s in x.stride()[:3]))
+    dtype_code = (_DTYPE_CODES[q.dtype],) if name == "flash_attn_bwd" else ()
     _run(name, q.device, q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
          do_.data_ptr(), lse.data_ptr(), None if g_lse is None else g_lse.data_ptr(),
          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
          b, sq, sk, h, padded, ctypes.cast(strides, ctypes.c_void_p),
-         int(bool(causal)), int(kv_offset), float(scale), _DTYPE_CODES[q.dtype])
+         int(bool(causal)), int(kv_offset), float(scale), *dtype_code)
     if padded != d:
         return tuple(x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
@@ -679,8 +710,8 @@ class FlashAttention(torch.autograd.Function):
     Backward, through ``out`` and through ``lse`` (ring attention merges
     chunks by their ``lse``, and ``d lse / d logits`` is the row's
     softmax): ``tos::flash_attn_bwd`` where ``_bwd_route`` gives the
-    kernels (bf16/fp16 up to D=128) or the tensors lie on the CPU (its
-    plain version); otherwise, on the card, the JAX package's own
+    kernels (bf16/fp16 and f32 up to D=128) or the tensors lie on the CPU
+    (its plain version); otherwise, on the card, the JAX package's own
     backward, the VJP of ``blockwise_attention`` (``block_k=BWD_BLOCK_K``,
     the same ``causal``, ``sm_scale`` and ``kv_offset``, each block
     checkpointed, so its memory is O(Sq·block_k)).  With no cotangent at
@@ -711,8 +742,8 @@ class FlashAttention(torch.autograd.Function):
 
 def _recompute_bwd(q, k, v, g_out, g_lse, causal, sm_scale, kv_offset):
     """The VJP of ``blockwise_attention`` through ``out`` and ``lse`` (the
-    JAX package's ``_flash_bwd_rule``): f32, and heads above the backward
-    kernels' widest, on the card."""
+    JAX package's ``_flash_bwd_rule``): heads above the backward kernels'
+    widest, on the card."""
     q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
     with torch.enable_grad():
         out, lse = blockwise_attention(q, k, v, causal=causal, sm_scale=sm_scale,

@@ -3,7 +3,8 @@ tiles of 32 to 256 columns and above 256 on its wide route, the 3xTF32
 ``wgmma`` kernel for f32 on its tiles of 32 to 128 columns and above 128 on
 its wide route; every route at the real head dim, split-KV on small grids)
 against their plain PyTorch version, on the card, and the backward kernels
-(``csrc/flash_attn_bwd.cu``, bf16/fp16 up to D=128, behind
+(``csrc/flash_attn_bwd.cu``, bf16/fp16 up to D=128, and
+``csrc/flash_attn_bwd_tf32.cu``, f32 as 3xTF32 up to D=128, behind
 ``tos::flash_attn_bwd``) against theirs (``flash_attn_bwd_reference``).
 No JAX here, so the file runs on the machine with the card:
 
@@ -285,7 +286,7 @@ def test_cuda_attention_grads_kernel_forward_vs_plain_forward(case):
             # the backward kernel once, and no forward launch in the backward
             assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
                 "flash_attn_fwd": int(kernel), "flash_attn_fwd_tf32": 0,
-                "flash_attn_bwd": int(kernel)}
+                "flash_attn_bwd": int(kernel), "flash_attn_bwd_tf32": 0}
             outs.append(out.float())
             grads.append([x.grad.float() for x in leaves])
         torch.cuda.synchronize()
@@ -322,7 +323,7 @@ def test_cuda_train_step_launches_per_layer(remat):
     # the backward kernel once per layer, remat or not
     assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
         "flash_attn_fwd": 3 * (2 if remat else 1), "flash_attn_fwd_tf32": 0,
-        "flash_attn_bwd": 3}
+        "flash_attn_bwd": 3, "flash_attn_bwd_tf32": 0}
 
 
 def _bn_step(device, weights, batch, config):
@@ -542,7 +543,8 @@ def test_cuda_lse_gradient_matches_plain_version(off):
 # 96, 128) and a head dim between two (80), a head dim of part 16-byte rows
 # (36, padded to 40) at a ragged non-causal shape, masked rows at a
 # kv_offset, a negative offset, a cotangent on lse alone and on out alone,
-# packed q/k/v views read in place, fp16
+# packed q/k/v views read in place, fp16; and the same for f32 (the 3xTF32
+# kernels; D 34 padded to 36)
 BWD_CASES = {
     "d32": (2, 300, 300, 4, 32, True, 0, torch.bfloat16, False, "out+lse"),
     "d64": (2, 300, 300, 4, 64, True, 0, torch.bfloat16, False, "out+lse"),
@@ -557,12 +559,29 @@ BWD_CASES = {
     "out_cotangent_only": (2, 130, 170, 4, 128, False, 0, torch.bfloat16, False, "out"),
     "packed_qkv_view": (2, 300, 300, 4, 128, True, 0, torch.bfloat16, True, "out"),
     "fp16_d64": (2, 200, 330, 4, 64, True, 37, torch.float16, False, "out+lse"),
+    "f32_d32": (2, 300, 300, 4, 32, True, 0, torch.float32, False, "out+lse"),
+    "f32_d64": (2, 300, 300, 4, 64, True, 0, torch.float32, False, "out+lse"),
+    "f32_d96": (2, 300, 300, 4, 96, True, 0, torch.float32, False, "out+lse"),
+    "f32_d128": (2, 300, 300, 4, 128, True, 0, torch.float32, False, "out+lse"),
+    "f32_d80_between_tiles": (2, 200, 200, 4, 80, True, 0, torch.float32, False, "out"),
+    "f32_d34_ragged_20_52_noncausal": (2, 20, 52, 4, 34, False, 0, torch.float32, False,
+                                       "out"),
+    "f32_kv_offset_37_masked_rows": (1, 100, 70, 4, 128, True, 37, torch.float32, False,
+                                     "out+lse"),
+    "f32_kv_offset_negative": (1, 64, 192, 4, 128, True, -64, torch.float32, False, "out"),
+    "f32_lse_cotangent_only": (2, 130, 170, 4, 64, True, 5, torch.float32, False, "lse"),
+    "f32_out_cotangent_only": (2, 130, 170, 4, 128, False, 0, torch.float32, False, "out"),
+    "f32_packed_qkv_view": (2, 300, 300, 4, 128, True, 0, torch.float32, True, "out"),
 }
 # per gradient, relative L2 against the plain version on the same inputs:
 # the kernels round P and dS to the input type as product operands and
 # store the gradients in it (2^-9 relative in bf16), the plain version
 # keeps f32 throughout
 BWD_REL_TOL = 2e-2
+# f32: the 3xTF32 products are good to about 2^-20 relative (x = hi + lo,
+# the lo·lo term dropped), the plain version's einsums are f32 summed in
+# another order; one TF32 pass (2^-11) would miss it
+BWD_F32_REL_TOL = 1e-4
 
 
 def bwd_inputs(b, sq, sk, h, d, causal, off, dtype, packed, cotangents, gen):
@@ -583,10 +602,11 @@ def rel_l2(got, want):
 @pytest.mark.parametrize("case", sorted(BWD_CASES))
 def test_cuda_bwd_kernel_matches_plain_version(case):
     """``tos::flash_attn_bwd`` on CUDA tensors launches the backward
-    kernels once (no forward kernel) and equals ``flash_attn_bwd_reference``
-    on the same q, k, v, lse and cotangents within ``BWD_REL_TOL`` per
-    gradient; a fully masked row's dq is exactly 0, every gradient finite,
-    contiguous, in the input type."""
+    kernels of its route once (no forward kernel) and equals
+    ``flash_attn_bwd_reference`` on the same q, k, v, lse and cotangents
+    within ``BWD_REL_TOL`` per gradient (f32: ``BWD_F32_REL_TOL``); a fully
+    masked row's dq is exactly 0, every gradient finite, contiguous, in the
+    input type."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     b, sq, sk, h, d, causal, off, dtype, packed, cot = BWD_CASES[case]
@@ -595,21 +615,23 @@ def test_cuda_bwd_kernel_matches_plain_version(case):
                                             cot, g)
     if packed:
         assert ta._kernel_operand(q) is q
-    assert ta._bwd_route(dtype, d)[0] == "flash_attn_bwd"
+    route = "flash_attn_bwd_tf32" if dtype == torch.float32 else "flash_attn_bwd"
+    assert ta._bwd_route(dtype, d)[0] == route
+    tol = BWD_F32_REL_TOL if dtype == torch.float32 else BWD_REL_TOL
     before = dict(ta.LAUNCHES)
     got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, g_lse, causal, None, off)
     torch.cuda.synchronize()
     assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
-        "flash_attn_fwd": 0, "flash_attn_fwd_tf32": 0, "flash_attn_bwd": 1}
+        n: int(n == route) for n in ta.LAUNCHES}
     want = ta.flash_attn_bwd_reference(q, k, v, lse, g_out, g_lse, causal=causal,
                                        kv_offset=off)
     for name, x, y, ref in zip("qkv", got, want, (q, k, v)):
         assert x.shape == ref.shape and x.dtype == dtype and x.is_contiguous(), name
         assert torch.isfinite(x).all(), name
-        assert rel_l2(x, y) <= BWD_REL_TOL, (name, rel_l2(x, y))
+        assert rel_l2(x, y) <= tol, (name, rel_l2(x, y))
     masked = lse <= ta.NEG_INF / 2
     assert (got[0][masked] == 0).all()
-    if case == "kv_offset_37_masked_rows":
+    if case.endswith("kv_offset_37_masked_rows"):
         assert masked.any()
 
 
@@ -650,6 +672,75 @@ def test_cuda_bwd_kernel_dq_exact_when_keys_share_a_large_component():
         assert rel_l2(x, want.grad) <= BWD_REL_TOL
 
 
+def test_cuda_bwd_tf32_kernel_is_deterministic():
+    """The f32 kernels too (dQ apart, no atomics): two calls on the same
+    inputs give the same gradients bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    args = bwd_inputs(2, 512, 512, 4, 128, True, 0, torch.float32, False, "out+lse", g)
+    first = torch.ops.tos.flash_attn_bwd(*args, True, None, 0)
+    second = torch.ops.tos.flash_attn_bwd(*args, True, None, 0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_cuda_bwd_tf32_kernel_dq_exact_when_keys_share_a_large_component():
+    """The f32 twin of the test above: keys and values sharing a large
+    common component, f32 inputs; the 3xTF32 kernels' exact Δ keeps dq
+    (and dk, dv) within ``BWD_F32_REL_TOL`` of the f32 gradient (TF32 off)
+    of the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    common = 4 * torch.randn((1, 1, 4, 128), generator=g, device="cuda")
+    q, k, v, g_out = (torch.randn((2, 512, 4, 128), generator=g, device="cuda") + c
+                      for c in (0, common, common, 0))
+    _, lse = ta.flash_attn_fwd_cuda(q, k, v, causal=True)
+    before = ta.LAUNCHES["flash_attn_bwd_tf32"]
+    got = torch.ops.tos.flash_attn_bwd(q, k, v, lse, g_out, None, True, None, 0)
+    assert ta.LAUNCHES["flash_attn_bwd_tf32"] == before + 1
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ta.blockwise_attention(*leaves, causal=True).backward(g_out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for x, want in zip(got, leaves):
+        assert rel_l2(x, want.grad) <= BWD_F32_REL_TOL
+
+
+def test_cuda_bwd_tf32_kernel_first_call_from_a_fresh_thread():
+    """The f32 backward called first on a thread that has made no CUDA call
+    of its own (autograd's device thread runs the backward so): the same
+    gradients, bit for bit, as the same call on this thread."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import threading
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    args = bwd_inputs(1, 200, 150, 2, 128, True, 37, torch.float32, False, "out", g)
+    got, errors = {}, []
+
+    def run():
+        try:
+            got["bwd"] = torch.ops.tos.flash_attn_bwd(*args, True, None, 37)
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised on the test's thread
+            errors.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    if errors:
+        raise errors[0]
+    want = torch.ops.tos.flash_attn_bwd(*args, True, None, 37)
+    for x, y in zip(got["bwd"], want):
+        assert torch.equal(x, y)
+
+
 def test_cuda_kernels_launch_from_a_fresh_thread():
     """The forward and the backward kernels called first on a thread that
     has made no CUDA call of its own (autograd's device thread runs the
@@ -686,10 +777,10 @@ def test_cuda_kernels_launch_from_a_fresh_thread():
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 192),
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 160), (torch.bfloat16, 192),
                                      (torch.float16, 256)])
 def test_cuda_bwd_route_sends_f32_and_wide_heads_to_the_recompute(dtype, d):
-    """f32, and bf16/fp16 above 128, take the recompute VJP through
+    """Heads above 128, f32 or bf16/fp16, take the recompute VJP through
     ``blockwise_attention`` by ``_bwd_route`` alone: a FlashAttention
     backward launches no backward kernel, and the kernel wrapper itself
     refuses them."""
@@ -699,10 +790,10 @@ def test_cuda_bwd_route_sends_f32_and_wide_heads_to_the_recompute(dtype, d):
     q, k, v = (x.requires_grad_() for x in make_inputs(1, 70, 70, 2, d, dtype, False, g))
     assert ta._bwd_route(dtype, d) == ("recompute", d)
     out = ta.flash_attention(q, k, v, causal=True)
-    before = ta.LAUNCHES["flash_attn_bwd"]
+    before = {n: ta.LAUNCHES[n] for n in ta.BWD_KERNELS}
     out.float().sum().backward()
     torch.cuda.synchronize()
-    assert ta.LAUNCHES["flash_attn_bwd"] == before
+    assert {n: ta.LAUNCHES[n] for n in ta.BWD_KERNELS} == before
     assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
     with pytest.raises(ValueError, match="backward kernels"):
         ta.flash_attn_bwd_cuda(q.detach(), k.detach(), v.detach(),

@@ -473,6 +473,78 @@ def test_cluster_with_ingest_tier_exact_coverage(tmp_path):
     assert seen == expected
 
 
+def test_ingest_tier_node_heartbeats_through_a_slow_device_probe(tmp_path,
+                                                               monkeypatch):
+    """With an ingest tier every node registers first and reads its device
+    facts after (the role decides whether it may touch the card), which on
+    a card's host means importing torch and initialising CUDA: seconds.
+    The node must heartbeat through that probe, or the driver's dead-node
+    monitor declares a healthy trainer dead and fences it.  The probe here
+    is an ``nvidia-smi`` that takes longer than the dead-node window."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    probed = tmp_path / "probed"
+    smi = bin_dir / "nvidia-smi"
+    smi.write_text(f"#!/bin/sh\necho x >> {probed}\nsleep 4\n"
+                   "echo 'Slow Probe GPU, 700.00 W'\n")
+    smi.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setenv("TOS_DEAD_NODE_TIMEOUT", "2")
+    data_dir = str(tmp_path / "data")
+    _, expected = _write_shards(data_dir, num_shards=2, per_shard=20)
+    out_dir = str(tmp_path / "out")
+    os.makedirs(out_dir)
+    cluster = tcluster.run(
+        torch_mapfuns.direct_record_counter, {"out_dir": out_dir},
+        num_executors=1, input_mode=tcluster.InputMode.DIRECT,
+        ingest_workers=1, heartbeat_interval=0.5,
+        log_dir=str(tmp_path / "logs"))
+    try:
+        # both nodes registered before their probe and report its result
+        # after it: past the dead-node window, the monitor has looked
+        deadline = time.monotonic() + 30.0
+        while not cluster.coordinator.errors() and any(
+                m["device"].get("platform") == "pending_role"
+                for m in cluster.coordinator.cluster_info()):
+            assert time.monotonic() < deadline, "the device probe never ended"
+            time.sleep(0.2)
+        time.sleep(1.5)
+        assert cluster.coordinator.errors() == []
+        assert cluster.dead_nodes() == []
+        cluster.train(data_dir, num_epochs=1)
+    finally:
+        cluster.shutdown()
+    assert len(probed.read_text().split()) == 2
+    seen = set()
+    for f in glob.glob(os.path.join(out_dir, "seen_*.txt")):
+        seen.update(line for line in open(f).read().splitlines() if line)
+    assert seen == expected
+
+
+def test_await_cluster_raises_fenced_for_a_node_declared_dead_first():
+    """A node declared dead between its registration and the cluster's
+    formation gets a fenced reply to its ``query``, which has no
+    ``complete``: ``await_cluster`` says so instead of a ``KeyError``."""
+    from tensorflowonspark_torch.coordinator import (
+        CoordinatorClient,
+        CoordinatorFenced,
+        CoordinatorServer,
+    )
+
+    server = CoordinatorServer(expected=2)
+    addr = server.start()
+    try:
+        c = CoordinatorClient(addr)
+        ident = c.register({"host": "127.0.0.1", "data_port": 1000})
+        c.set_identity(ident["executor_id"], ident["incarnation"])
+        assert server.mark_dead([ident["executor_id"]]) == [0]
+        with pytest.raises(CoordinatorFenced, match="declared dead"):
+            c.await_cluster(timeout=5.0)
+        c.close()
+    finally:
+        server.stop()
+
+
 def test_run_rejects_ingest_workers_outside_direct():
     with pytest.raises(ValueError, match="InputMode.DIRECT"):
         tcluster.run(torch_mapfuns.noop, None, num_executors=1,
