@@ -21,11 +21,10 @@ Phases (any failure propagates and the script exits non-zero):
    kernel's wgmma; and the registers and spills of the 3xTF32
    kernel's K/V pre-pass, the wide route's V transpose and the split-KV
    combine kernels; the backward's kernels (the Δ pass, dK/dV and dQ on
-   the tiles of D 32/64/96/128 x bf16/fp16) are held to the same design
-   checks as the ``wgmma`` instantiations (HGMMA and UTMALDG in the SASS,
-   no spill, no serialised wgmma), and the f32 backward's ``mma.sync``
-   kernels (the Δ pass, dK/dV and dQ on the same tiles) to no spill and
-   HMMA in the SASS;
+   the tiles of D 32/64/96/128 x bf16/fp16, and in f32 as 3xTF32 on the
+   same tiles) are held to the same design checks as the ``wgmma``
+   instantiations (HGMMA and UTMALDG in the SASS, no spill, no serialised
+   wgmma), and the f32 backward's pre-passes to no spill;
 3. kernel — holds every route (``ops.attention._route``) against the plain
    PyTorch version (``chunk_attention``) on the card, O and lse, at the
    serving shape and at edge shapes (ragged tails, one query row,
@@ -864,17 +863,18 @@ COMBINE_KINDS = {"0": ("flash_attn_fwd", "bfloat16"), "1": ("flash_attn_fwd", "f
 OTHER_INSTANCES = (("flash_attn_fwd_tf32", "split_kv", "float32"),
                    ("flash_attn_fwd_tf32", "transpose_v", "float32"),
                    *((lib, "combine", dt) for lib, dt in COMBINE_KINDS.values()),
-                   ("flash_attn_bwd_tf32", "center", "float32"))
+                   ("flash_attn_bwd_tf32", "center", "float32"),
+                   ("flash_attn_bwd_tf32", "split", "float32"))
 # the backward's wgmma kernels: the Δ pass, dK/dV and dQ on each tile, x
 # bf16/fp16
 BWD_INSTANCES = tuple(("flash_attn_bwd", f"{kind}{d}", dt)
                       for dt in ("bfloat16", "float16")
                       for kind in ("delta", "dkdv", "dq") for d in (32, 64, 96, 128))
-# the f32 backward's mma.sync kernels (3xTF32): the Δ pass, dK/dV and dQ on
-# each tile; held to no spill and to tensor-core instructions (MMA_SASS)
+# the f32 backward's wgmma kernels (3xTF32): the Δ pass, dK/dV and dQ on
+# each tile; held as the other wgmma kernels are (DESIGN_SASS, no spill, no
+# serialised wgmma)
 BWD_TF32_INSTANCES = tuple(("flash_attn_bwd_tf32", f"{kind}{d}", "float32")
                            for kind in ("delta", "dkdv", "dq") for d in (32, 64, 96, 128))
-MMA_SASS = ("HMMA",)  # mma.sync
 
 
 def kernel_key(text: str):
@@ -904,6 +904,8 @@ def kernel_key(text: str):
     if m:
         return ("flash_attn_bwd_tf32", f"{m.group(1)}{m.group(2)}", "float32")
     if "flash_bwd_tf32_center_kernel" in text:
+        return OTHER_INSTANCES[-2]
+    if "flash_bwd_tf32_split_kernel" in text:
         return OTHER_INSTANCES[-1]
     return None
 
@@ -957,11 +959,10 @@ def sass_counts(lib_path, instructions=DESIGN_SASS) -> dict:
 def phase_build() -> dict:
     """Build the four kernel libraries from the checkout (one nvcc each,
     in parallel); print and return what ptxas and the SASS say about each
-    ``wgmma`` instantiation, the backward's included (failing on a spill, a
-    missing HGMMA/UTMALDG or wgmma that ptxas serialises), about the f32
-    backward's ``mma.sync`` instantiations (failing on a spill or a
-    missing HMMA), and what ptxas says about the 3xTF32 kernel's pre-passes
-    and the combine kernels."""
+    ``wgmma`` instantiation, both backwards' included (failing on a spill,
+    a missing HGMMA/UTMALDG or wgmma that ptxas serialises), and what ptxas
+    says about the 3xTF32 kernels' pre-passes (failing on a spill in the f32
+    backward's) and the combine kernels."""
     from tensorflowonspark_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -974,8 +975,7 @@ def phase_build() -> dict:
             if "error" in line or "warning" in line:
                 log(f"[build] nvcc {name}: {line.strip()}")
         ptxas.update(ptxas_report(text))
-        sass.update(sass_counts(cuda_build.library_path(name),
-                                MMA_SASS if name == "flash_attn_bwd_tf32" else DESIGN_SASS))
+        sass.update(sass_counts(cuda_build.library_path(name)))
     info = {}
     for key in (WGMMA_INSTANCES + list(OTHER_INSTANCES) + list(BWD_INSTANCES)
                 + list(BWD_TF32_INSTANCES)):
@@ -1000,15 +1000,13 @@ def phase_build() -> dict:
             f"{regs.get('spill_loads')} B spill loads, {smem} B dynamic shared "
             f"memory" + ("; SASS " + ", ".join(f"{k} x{v}" for k, v in ins.items())
                          if ins else ""))
-        if key in WGMMA_INSTANCES or key in BWD_INSTANCES:
+        if key in WGMMA_INSTANCES or key in BWD_INSTANCES or key in BWD_TF32_INSTANCES:
             if not (ins and all(ins.values())):
                 raise AssertionError(f"{key}: SASS lacks one of {DESIGN_SASS}")
             if regs.get("spill_stores") or regs.get("spill_loads"):
                 raise AssertionError(f"{key}: ptxas reports spills")
             if regs.get("wgmma_serialized"):
                 raise AssertionError(f"{key}: ptxas serialises its wgmma")
-        if key in BWD_TF32_INSTANCES and not (ins and all(ins.values())):
-            raise AssertionError(f"{key}: SASS lacks one of {MMA_SASS}")
         if lib_name == "flash_attn_bwd_tf32" and (regs.get("spill_stores")
                                                   or regs.get("spill_loads")):
             raise AssertionError(f"{key}: ptxas reports spills")
@@ -1799,7 +1797,8 @@ def bwd_timing(q, k, v, lse, cot, smi: str, label: str, recompute: bool = False)
     the design's (nine products, f32 each as three TF32 products), the
     plain version, the library's backward (SDPA under autograd, the
     backend named) and, from ``torch.profiler``, the Δ, dK/dV and dQ
-    kernels apart (and the f32 kernels' centring pre-pass); host ms to
+    kernels apart (and the f32 kernels' pre-passes: the means, then the
+    centred planes and lo parts); host ms to
     queue a call; with ``recompute`` also the
     recompute VJP through ``blockwise_attention`` on the same inputs."""
     import torch
@@ -1844,7 +1843,7 @@ def bwd_timing(q, k, v, lse, cot, smi: str, label: str, recompute: bool = False)
         torch.cuda.synchronize()
     launches: dict = {}
     for e in prof.events():
-        m = re.search(r"flash_bwd_(?:tf32_)?(center|delta|dkdv|dq)_kernel", e.name)
+        m = re.search(r"flash_bwd_(?:tf32_)?(center|split|delta|dkdv|dq)_kernel", e.name)
         if m and str(e.device_type).endswith("CUDA"):
             us = getattr(e, "device_time", 0) or getattr(e, "cuda_time", 0)
             launches.setdefault(f"{m.group(1)}_ms", []).append(us / 1e3)

@@ -177,9 +177,10 @@ def time_kernels(tree: str, names: set[str] | None = None) -> dict:
         if not cuda_build.library_path(lib).exists():  # no case of its route ran
             continue
         report.update(smoke.ptxas_report(cuda_build.build_log(lib)))
-        sass.update(smoke.sass_counts(
-            cuda_build.library_path(lib),
-            smoke.MMA_SASS if lib == "flash_attn_bwd_tf32" else smoke.DESIGN_SASS))
+        # HMMA beside the design's instructions: an mma.sync kernel (the f32
+        # backward before its wgmma redesign) shows as such
+        sass.update(smoke.sass_counts(cuda_build.library_path(lib),
+                                      (*smoke.DESIGN_SASS, "HMMA")))
     out["build"] = {f"{lib}_D{d}_{dt}": {**regs, **sass.get((lib, d, dt), {})}
                     for (lib, d, dt), regs in sorted(report.items(), key=str)}
     return out

@@ -86,10 +86,14 @@
 // transpose the only pre-pass, split-KV with a combine kernel on small
 // grids; see the section below.
 //
+// The TF32 split, the .tf32 wgmma products and the f32 tensor map are in
+// wgmma_tf32.cuh, shared with the f32 backward (flash_attn_bwd_tf32.cu).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tensorflowonspark_torch/ops/cuda_build.py does it).
 
 #include "hopper_pipeline.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -118,67 +122,6 @@ struct Cfg {
   static constexpr int kSmemBytes = kBarOffset + 1024 + 8 * (2 * kStages + 1);
   static_assert(kSmemBytes <= 232448, "a CTA has 227 KB of shared memory");
 };
-
-// x with its low 13 mantissa bits cleared: what a .tf32 operand reads.
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-// x rounded to TF32, to nearest (ties away from zero), as an f32 bit pattern.
-__device__ __forceinline__ float tf32_round(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
-__device__ __forceinline__ float tf32_lo(float x) {
-  return tf32_round(x - tf32_hi(x));
-}
-
-// S (64 x 32, f32) (+)= A (64 x 8, smem K-major) * B^T (32 x 8, smem
-// K-major), tf32; scale_d = 0 overwrites S.
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32"
-               " {" TOS_R16 "}, %16, %17, p, 1, 1;\n}\n"
-               : TOS_ACC16 : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O (64 x N, f32) += A (64 x 8, registers) * B (8 x N, smem K-major), tf32.
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 256,
-                "P V is m64n32, n64, n96, n128 or n256, k8");
-  if constexpr (N == 256) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32"
-                 " {" TOS_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
-                 : TOS_ACC128
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else if constexpr (N == 128) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32"
-                 " {" TOS_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-                 : TOS_ACC64
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else if constexpr (N == 96) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32"
-                 " {" TOS_R48 "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
-                 : TOS_ACC48
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else if constexpr (N == 64) {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32"
-                 " {" TOS_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-                 : TOS_ACC32
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else {
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32"
-                 " {" TOS_R16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-                 : TOS_ACC16
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Pre-pass: K_lo [B,H,Sk,D], and V transposed (keys contiguous, permuted in
@@ -537,18 +480,6 @@ struct WideCfg {
   static_assert(kSmemBytes <= 232448, "a CTA has 227 KB of shared memory");
 };
 
-// S (64 x 32, f32) (+)= A (64 x 8, registers) * B^T (32 x 8, smem
-// K-major), tf32; scale_d = 0 overwrites S.  O (64 x 64) += P (registers)
-// Vt is wgmma_rs<64>.
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32"
-               " {" TOS_R16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-               : TOS_ACC16
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
 __device__ __forceinline__ float4 tf32_lo4(float4 x) {
   return make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
 }
@@ -813,13 +744,13 @@ flash_fwd_tf32_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n32(sc, ql[kk], smem_desc(k_hi + kk * 32, 16, 1024), i > 0 || kk > 0);
+          wgmma_rs<32>(sc, ql[kk], smem_desc(k_hi + kk * 32, 16, 1024), i > 0 || kk > 0);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n32(sc, qh[kk], smem_desc(k_lo + kk * 32, 16, 1024), 1);
+          wgmma_rs<32>(sc, qh[kk], smem_desc(k_lo + kk * 32, 16, 1024), 1);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n32(sc, qh[kk], smem_desc(k_hi + kk * 32, 16, 1024), 1);
+          wgmma_rs<32>(sc, qh[kk], smem_desc(k_hi + kk * 32, 16, 1024), 1);
         wgmma_commit();
       }
     }
@@ -962,25 +893,6 @@ int64_t scratch_floats(int B, int Sq, int Sk, int H, int D, bool wide, int split
   const int64_t part_n =
       splits > 1 ? static_cast<int64_t>(splits) * B * Sq * H * (D + 1) : 0;
   return vt_n + part_n;
-}
-
-// Map of an f32 tensor with dims (d0, d1, d2, d3), innermost first, element
-// strides s1..s3, box (32, rows, 1, 1).  A dimension of size 1 is never
-// stepped over, so its stride is set to a legal 16 bytes; a zero-length one
-// is declared 1 (nothing is loaded from it).  Elements out of bounds are
-// zero-filled.
-bool encode_f32(CUtensorMap* map, const void* ptr, int64_t d0, int64_t d1,
-                int64_t d2, int64_t d3, int64_t s1, int64_t s2, int64_t s3,
-                int rows) {
-  auto bytes = [](int64_t stride, int64_t n) -> cuuint64_t {
-    return n <= 1 ? 16 : static_cast<cuuint64_t>(stride) * 4;
-  };
-  auto dim = [](int64_t n) -> cuuint64_t { return n > 0 ? n : 1; };
-  const cuuint64_t dims[4] = {dim(d0), dim(d1), dim(d2), dim(d3)};
-  const cuuint64_t strides[3] = {bytes(s1, d1), bytes(s2, d2), bytes(s3, d3)};
-  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
-  return encode_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, dims, strides,
-                       box);
 }
 
 // The pre-pass, then the tile of D columns at head dim d (d <= D, a

@@ -491,22 +491,34 @@ def bwd_inner_rows(tile: int) -> int:
     return 64
 
 
-# the f32 kernels (csrc/flash_attn_bwd_tf32.cu, mma.sync): a CTA of
-# BWD_TF32_CTA_ROWS rows (kCtaRows), four warps of BWD_TF32_WARP_ROWS
-# (kWarpRows) each
+# the f32 kernels (csrc/flash_attn_bwd_tf32.cu, 3xTF32 wgmma): a CTA of
+# BWD_TF32_CTA_ROWS rows (kCtaRows), each of its two consumer warpgroups
+# running its share of a tile's products over all of them
+# (BWD_TF32_WG_ROWS, kWgRows)
 BWD_TF32_CTA_ROWS = 64
-BWD_TF32_WARP_ROWS = 16
+BWD_TF32_WG_ROWS = 64
 
 
 def bwd_tiling(name: str, tile: int) -> tuple[int, int, int]:
     """``(CTA rows, rows a consumer owns, loop tile rows)`` of backward
     kernel ``name`` on its tile of ``tile`` columns: the bf16/fp16 kernels'
-    two warpgroups of 64 rows and 64-row loop tiles; the f32 kernels' four
-    warps of 16 rows and loop tiles of 64 rows up to 64 columns, 32 above
-    (``Tf32BwdTile<DT>::kInner``)."""
+    two warpgroups of 64 rows and 64-row loop tiles; the f32 kernels' CTA
+    of 64 rows that both consumers span, and loop tiles of 64 rows up to 64
+    columns, 32 above (``Tf32BwdTile<DT>::kInner``)."""
     if name == "flash_attn_bwd":
         return BWD_CTA_ROWS, BWD_WG_ROWS, bwd_inner_rows(tile)
-    return BWD_TF32_CTA_ROWS, BWD_TF32_WARP_ROWS, 64 if tile <= 64 else 32
+    return BWD_TF32_CTA_ROWS, BWD_TF32_WG_ROWS, 64 if tile <= 64 else 32
+
+
+def bwd_tf32_scratch_floats(b: int, sq: int, sk: int, h: int, d: int) -> int:
+    """Floats of scratch the f32 kernels need at head dim ``d`` (a multiple
+    of 4; the layout ``tos_flash_attn_bwd_tf32`` reads): Δ and lse·log2(e)
+    (``bwd_scratch_rows(sq)`` rows each), each head's mean key and value,
+    and the pre-pass's planes: K − m_k, V − m_v and their lo parts
+    (``sk`` rows each), the lo parts of q and the ``out`` cotangent
+    (``sq`` rows each)."""
+    bh = b * h
+    return 2 * bh * bwd_scratch_rows(sq) + 2 * bh * d + bh * d * (4 * sk + 2 * sq)
 
 
 def bwd_scratch_rows(sq: int) -> int:
@@ -607,8 +619,9 @@ def flash_attn_bwd_cuda(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
     (3xTF32); anything else raises.
 
     One call is one launch (``LAUNCHES`` of the route's kernel) of the C
-    entry, which queues its kernels: the Δ pass, dK/dV and dQ (f32: after a
-    pre-pass of each head's mean key and value).  q, k, v and
+    entry, which queues its kernels: the Δ pass, dK/dV and dQ (f32: after
+    pre-passes of each head's mean key and value, and of the centred keys
+    and values and the operands' lo parts, into the scratch).  q, k, v and
     the ``out`` cotangent are read in place through their strides where the
     kernels can (``_kernel_operand``); a head dim not of whole 16-byte rows
     is zero-padded to them (zero columns change no product) and the
@@ -641,10 +654,11 @@ def flash_attn_bwd_cuda(q, k, v, lse, g_out, g_lse, *, causal: bool = True,
     dk = torch.empty((b, sk, h, padded), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, h, padded), dtype=q.dtype, device=q.device)
     # Δ and lse·log2(e), f32 [B*H, bwd_scratch_rows(Sq)] each; the f32
-    # kernels' heads' mean keys and values after them, f32 [B*H, 2, D]
-    means = 2 * b * h * padded if name == "flash_attn_bwd_tf32" else 0
-    scratch = torch.empty(2 * b * h * bwd_scratch_rows(sq) + means, dtype=torch.float32,
-                          device=q.device)
+    # kernels' heads' mean keys and values and the pre-pass's planes after
+    # them (bwd_tf32_scratch_floats)
+    floats = (bwd_tf32_scratch_floats(b, sq, sk, h, padded) if name == "flash_attn_bwd_tf32"
+              else 2 * b * h * bwd_scratch_rows(sq))
+    scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 21)(
         *(s for x in (q_, k_, v_, do_, dq, dk, dv) for s in x.stride()[:3]))
     dtype_code = (_DTYPE_CODES[q.dtype],) if name == "flash_attn_bwd" else ()

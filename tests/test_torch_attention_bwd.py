@@ -621,13 +621,40 @@ def test_emulated_bwd_3xtf32_centring_keeps_dq_an_order_inside_the_gate():
     assert rel[True] <= BWD_F32_REL_TOL / 10 < rel[False], rel
 
 
+def _bwd_tf32_stages(tile):
+    """Ring stages of the f32 kernels on the tile of ``tile`` columns, as
+    ``Tf32BwdTile<DT>::kStages`` sets them: 4 on the narrowest, 2 on the
+    others."""
+    return 4 if tile == 32 else 2
+
+
+def _bwd_tf32_smem_bytes(tile):
+    """Dynamic shared memory of one CTA of each f32 walk on the tile of
+    ``tile`` columns, as ``Tf32BwdTile<DT>`` lays it out: the two resident
+    tiles of ``BWD_TF32_CTA_ROWS`` rows, the ring (four loop tiles a
+    stage), then the dQ walk's dS and its lo plane for each consumer (the
+    dK/dV walk's Pᵀ, dSᵀ and their lo planes, and each stage's Δ and
+    lse2), the mbarriers and 1024 bytes to align the base."""
+    inner, stages = ta.bwd_tiling("flash_attn_bwd_tf32", tile)[2], _bwd_tf32_stages(tile)
+    ring = 2 * ta.BWD_TF32_CTA_ROWS * tile * 4 + stages * 4 * inner * tile * 4
+    plane = ta.BWD_TF32_CTA_ROWS * inner * 4
+    bars = 8 * (2 * stages + 1) + 1024
+    return {"delta": ring + bars, "dq": ring + 4 * plane + bars,
+            "dkdv": ring + 4 * plane + stages * 2 * inner * 4 + bars}
+
+
 def test_bwd_tf32_tile_constants_match_the_kernel():
     """The Python mirrors of the f32 backward kernels' tiling, read from
     ``csrc/flash_attn_bwd_tf32.cu`` itself: the rows a CTA holds
-    (``kCtaRows``) and a warp owns (``kWarpRows``), the loop tile
-    (``Tf32BwdTile<DT>::kInner``, ``bwd_tiling``), the tiles the launch
-    picks from (``BWD_HEAD_DIMS``), and the scratch's rows, the same as the
-    bf16/fp16 kernels' (``bwd_scratch_rows``), which one wrapper sizes."""
+    (``kCtaRows``) and that each consumer warpgroup's products span
+    (``kWgRows``: both consumers span all of them and split the tile's
+    products), a producer and two consumer warpgroups, the loop tile
+    (``Tf32BwdTile<DT>::kInner``, ``bwd_tiling``), the ring's stages
+    (``kStages``), the tiles the launch picks from (``BWD_HEAD_DIMS``),
+    each walk's shared memory as ``Tf32BwdTile`` lays it out within a
+    CTA's 232,448 bytes, the scratch's rows, the same as the bf16/fp16
+    kernels' (``bwd_scratch_rows``), which one wrapper sizes, and the
+    scratch's layout, which ``bwd_tf32_scratch_floats`` sizes."""
     import re
     from pathlib import Path
 
@@ -639,13 +666,73 @@ def test_bwd_tf32_tile_constants_match_the_kernel():
         return int(value)
 
     assert const("kCtaRows") == ta.BWD_TF32_CTA_ROWS
-    assert const("kWarpRows") == ta.BWD_TF32_WARP_ROWS
-    assert ta.BWD_TF32_CTA_ROWS == 4 * ta.BWD_TF32_WARP_ROWS  # four warps
-    assert const("kThreads") == 32 * ta.BWD_TF32_CTA_ROWS // ta.BWD_TF32_WARP_ROWS
+    assert const("kWgRows") == ta.BWD_TF32_WG_ROWS == ta.BWD_TF32_CTA_ROWS
+    assert const("kThreads") == 3 * 128  # a producer and two consumer warpgroups
     assert "static constexpr int kInner = DT <= 64 ? 64 : 32;" in src
+    assert "static constexpr int kStages = DT == 32 ? 4 : 2;" in src
     assert [ta.bwd_tiling("flash_attn_bwd_tf32", t) for t in ta.BWD_HEAD_DIMS] == [
-        (64, 16, 64), (64, 16, 64), (64, 16, 32), (64, 16, 32)]
-    tiles = [int(x) for x in re.findall(r"return launch_bwd<(\d+)>\(p, BH, s\)", src)]
+        (64, 64, 64), (64, 64, 64), (64, 64, 32), (64, 64, 32)]
+    assert [_bwd_tf32_stages(t) for t in ta.BWD_HEAD_DIMS] == [4, 2, 2, 2]
+    tiles = [int(x) for x in re.findall(r"return launch_bwd<(\d+)>\(p, B, s\)", src)]
     assert tuple(tiles) == ta.BWD_HEAD_DIMS
+    # the layout the mirror computes: resident tiles, the ring, then each
+    # walk's own regions, the mbarriers and the base's alignment
+    for line in ("kStageBytes = 4 * kInnerTileBytes;",
+                 "kRingOffset = 2 * kCtaTileBytes;",
+                 "kPostRing = kRingOffset + kStages * kStageBytes;",
+                 "kDeltaSmem = kDsOffset + kBarBytes + 1024;",
+                 "kDsOffset = kPostRing;",
+                 "kDqSmem = kDsOffset + 4 * kBufBytes + kBarBytes + 1024;",
+                 "kStatOffset = kBufOffset + 4 * kBufBytes;",
+                 "kKvBarOffset = kStatOffset + kStages * kStatBytes;",
+                 "kKvSmem = kKvBarOffset + kBarBytes + 1024;"):
+        assert f"static constexpr int {line}" in src, line
+    smem = {t: _bwd_tf32_smem_bytes(t) for t in ta.BWD_HEAD_DIMS}
+    assert all(n <= 232448 for walks in smem.values() for n in walks.values()), smem
+    assert smem[128] == {"delta": 197672, "dq": 230440, "dkdv": 230952}
     assert const("kScratchAlign") == ta.BWD_CTA_ROWS
     assert "return (s + kScratchAlign - 1) / kScratchAlign * kScratchAlign;" in src
+    # Δ, lse2, the means, then four planes of Sk rows and two of Sq
+    for line in ("p.lse2 = p.delta + bh * p.sq_rows;", "p.mean = p.lse2 + bh * p.sq_rows;",
+                 "const int64_t kn = bh * Sk * D, qn = bh * Sq * D;",
+                 "p.kc = p.mean + bh * 2 * D;", "p.kc_lo = p.kc + kn;", "p.vc = p.kc_lo + kn;",
+                 "p.vc_lo = p.vc + kn;", "p.q_lo = p.vc_lo + kn;", "p.do_lo = p.q_lo + qn;"):
+        assert line in src, line
+    assert ta.bwd_tf32_scratch_floats(2, 130, 70, 3, 36) == (
+        2 * 6 * 256 + 2 * 6 * 36 + 6 * 36 * (4 * 70 + 2 * 130))
+
+
+def _einsum_3xtf32_transposed(eq, a, b):
+    """The f32 kernels' products in the orientation they issue them: those
+    over D (S, dP) as ``_einsum_3xtf32``; those over queries or keys (dV =
+    Pᵀ·dO, dK = dSᵀ·Q, dQ = dS·K′, P or dS first) transposed, dVᵀ = dOᵀ·P,
+    dKᵀ = Qᵀ·dS, dQᵀ = K′ᵀ·dSᵀ: the MN-major operand is the A side (its hi
+    the raw bits, its lo the rounded rest) and P or dS the B side, raw as
+    hi and its rounded lo, the small terms first."""
+    ins, out = eq.split("->")
+    x, y = ins.split(",")
+    if x == "bhqk":
+        return _einsum_3xtf32(f"{y},{x}->{out}", b, a)
+    return _einsum_3xtf32(eq, a, b)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_emulated_bwd_3xtf32_transposed_products_match_the_direct_ones(d):
+    """The f32 kernels compute the transposed gradients (dVᵀ = dOᵀ·P, dKᵀ =
+    Qᵀ·dS, dQᵀ = K′ᵀ·dSᵀ), P and dS the B operand: emulated so, on the
+    kernels' schedule, the gradients equal those of the products in their
+    direct orientation (P and dS the A operand) within
+    ``BWD_F32_REL_TOL``, and both are within it of ``jax.vjp`` of
+    ``chunk_attention``."""
+    transposed = _f32_emulation_and_jax(d, _einsum_3xtf32_transposed)
+    assert max(transposed.values()) <= BWD_F32_REL_TOL, transposed
+    q, k, v = make_qkv(b=1, s=130, h=2, d=d, sk=150, seed=27)
+    g_o, g_l = _cotangents(q, 28)
+    tq, tk, tv = _t(q, k, v)
+    _, lse = _forward(tq, tk, tv, True, 3)
+    grads = [_emulated_bwd(tq, tk, tv, lse, torch.from_numpy(g_o), torch.from_numpy(g_l),
+                           causal=True, kv_offset=3, kernel="flash_attn_bwd_tf32",
+                           einsum=einsum)[:3]
+             for einsum in (_einsum_3xtf32_transposed, _einsum_3xtf32)]
+    for x, y in zip(*grads):
+        assert ((x - y).norm() / y.norm()).item() <= BWD_F32_REL_TOL

@@ -572,6 +572,10 @@ BWD_CASES = {
     "f32_lse_cotangent_only": (2, 130, 170, 4, 64, True, 5, torch.float32, False, "lse"),
     "f32_out_cotangent_only": (2, 130, 170, 4, 128, False, 0, torch.float32, False, "out"),
     "f32_packed_qkv_view": (2, 300, 300, 4, 128, True, 0, torch.float32, True, "out"),
+    # the f32 walks' rings wrap more than once (7 loop tiles of 32 rows on
+    # 2 stages each side) and end on a partial tile
+    "f32_ragged_200_330_kv_offset_5": (2, 200, 330, 4, 128, True, 5, torch.float32, False,
+                                       "out+lse"),
 }
 # per gradient, relative L2 against the plain version on the same inputs:
 # the kernels round P and dS to the input type as product operands and
@@ -709,6 +713,25 @@ def test_cuda_bwd_tf32_kernel_dq_exact_when_keys_share_a_large_component():
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for x, want in zip(got, leaves):
         assert rel_l2(x, want.grad) <= BWD_F32_REL_TOL
+
+
+def test_cuda_bwd_tf32_kernel_at_the_f32_lm_step_shape():
+    """The f32 kernels at the f32 LM step's shape (B=2 S=2048 H=8 D=128,
+    causal): one launch, and dq, dk, dv within ``BWD_F32_REL_TOL`` of
+    ``flash_attn_bwd_reference`` on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    args = bwd_inputs(2, 2048, 2048, 8, 128, True, 0, torch.float32, False, "out", g)
+    before = dict(ta.LAUNCHES)
+    got = torch.ops.tos.flash_attn_bwd(*args, True, None, 0)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in ta.LAUNCHES.items()} == {
+        n: int(n == "flash_attn_bwd_tf32") for n in ta.LAUNCHES}
+    want = ta.flash_attn_bwd_reference(*args, causal=True)
+    for name, x, y in zip("qkv", got, want):
+        assert torch.isfinite(x).all(), name
+        assert rel_l2(x, y) <= BWD_F32_REL_TOL, (name, rel_l2(x, y))
 
 
 def test_cuda_bwd_tf32_kernel_first_call_from_a_fresh_thread():
